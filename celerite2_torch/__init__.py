@@ -1,0 +1,39 @@
+"""celerite2-torch: celerite-class Gaussian processes on PyTorch, with
+hand-written CUDA kernels for NVIDIA Hopper.
+
+The port of ``celerite2_tpu`` (JAX on a TPU), which stays beside it as
+the reference.  This package imports neither JAX nor ``celerite2_tpu``.
+"""
+
+from celerite2_torch import models, ops
+from celerite2_torch.config import Config, get_config, set_config
+from celerite2_torch.gp import gp_loglik
+from celerite2_torch.models import terms
+from celerite2_torch.models.terms import (
+    ComplexTerm,
+    Matern32Term,
+    RealTerm,
+    SHOTerm,
+    Term,
+    TermSum,
+)
+from celerite2_torch.utils import LinAlgError
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "terms",
+    "models",
+    "ops",
+    "Config",
+    "get_config",
+    "set_config",
+    "LinAlgError",
+    "Term",
+    "TermSum",
+    "RealTerm",
+    "ComplexTerm",
+    "SHOTerm",
+    "Matern32Term",
+    "gp_loglik",
+]

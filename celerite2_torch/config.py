@@ -1,0 +1,48 @@
+"""Runtime configuration for celerite2-torch.
+
+Counterpart of ``celerite2_tpu/config.py``.  Only the width contract
+and the dtype policy carry over: the JAX package's backend, engine,
+planes, Pallas and fused-slab knobs steer TPU code paths that this
+package does not have.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Literal
+
+# The reference caps the celerite width at 32 (terms.hpp:10-12).
+MAX_WIDTH = 32
+
+# Widths the kernels are specialised for are drawn from these buckets.
+J_BUCKETS = (1, 2, 4, 8, 16, 32)
+
+
+@dataclasses.dataclass(frozen=True)
+class Config:
+    """Global solver configuration.
+
+    Attributes:
+        core_dtype: ``"float64"`` runs ``gp_loglik`` in float64 whatever
+            the inputs' dtype (inputs and parameters are upcast with
+            ``.double()`` and the result is cast back), for stiff kernels
+            whose float32 cancellation corrupts gradients (the
+            eps-regularised ``Matern32Term``).  ``None`` computes in the
+            inputs' dtype.
+    """
+
+    core_dtype: Literal["float64"] | None = None
+
+
+_config = Config()
+
+
+def get_config() -> Config:
+    return _config
+
+
+def set_config(**kwargs) -> Config:
+    """Replace fields of the global config; returns the new config."""
+    global _config
+    _config = dataclasses.replace(_config, **kwargs)
+    return _config

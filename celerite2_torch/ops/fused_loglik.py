@@ -1,0 +1,483 @@
+"""The fused GP log-likelihood: value and gradient as three scan passes.
+
+Counterpart of ``celerite2_tpu/ops/fused_slab.py`` (``loglik_slab`` with
+its ``_forward`` and ``_backward``), on natural ``(C, N)`` layout with a
+leading chain axis.  The three sequential flows of the value+gradient
+
+  1. the Kalman-element forward (Cholesky factor + lower solve in one
+     pass),
+  2. the solve adjoint (suffix composition of J-affine maps),
+  3. the factor adjoint (suffix composition of J^2-affine maps),
+
+each run as a two-level scan over blocks of L rows:
+
+* within each block, one pass (a CUDA kernel on the card,
+  ``csrc/fused_loglik.cu``; its plain PyTorch version, below, on the
+  CPU) builds every row's element from the raw per-row data, composes
+  the elements in order and emits per-row prefixes and one map per
+  block;
+* the cross-block level composes the ``C x NB`` block maps with a
+  Hillis-Steele prefix (``ops/elements.py``), and the distribute
+  combines each row's prefix with its block's exclusive state.
+
+Everything outside the passes (cross-block level, distribute, and the
+glue that turns states into d, W, Z, the log-likelihood and the six
+cotangents) is shared by both routes.
+
+Fidelity to the JAX package: non-PD rows divide by 1 (``ainv``,
+``safe_dd``); ``ll`` is ``-inf`` per chain when the system is not
+positive definite, and the cotangents are then zero.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from celerite2_torch.ops import _build
+from celerite2_torch.ops import elements as el
+
+__all__ = [
+    "LAUNCHES",
+    "LoglikFused",
+    "default_block_len",
+    "loglik_fused",
+    "pass_inputs",
+    "kalman_fwd",
+    "kalman_fwd_plain",
+    "solve_rev",
+    "solve_rev_plain",
+    "factor_rev",
+    "factor_rev_plain",
+]
+
+LOG2PI = math.log(2.0 * math.pi)
+LAUNCHES = _build.LAUNCHES
+
+
+def default_block_len(N: int) -> int:
+    """Rows per block L (one kernel thread walks one block of one
+    chain).  Measured on an H100 at N = 1e5, C = 1: see PERF.md."""
+    return max(1, min(N, 256))
+
+
+# ================================================================ layout
+#
+# Per-row prefixes and block maps are flat on their last axis:
+#   Kalman  E = 3J^2 + 2J:  A, Q, R (row-major J x J), b (J), eta (J)
+#   affine  E = D^2 + D:    A (row-major D x D), b (D)
+
+
+def _kalman_unflat(x, J):
+    s = x.shape[:-1]
+    JJ = J * J
+    return (
+        x[..., :JJ].reshape(*s, J, J),
+        x[..., JJ : 2 * JJ].reshape(*s, J, J),
+        x[..., 2 * JJ : 3 * JJ].reshape(*s, J, J),
+        x[..., 3 * JJ : 3 * JJ + J].reshape(*s, J, 1),
+        x[..., 3 * JJ + J :].reshape(*s, J, 1),
+    )
+
+
+def _affine_unflat(x, D):
+    s = x.shape[:-1]
+    return x[..., : D * D].reshape(*s, D, D), x[..., D * D :].reshape(*s, D, 1)
+
+
+def _flat(element):
+    return torch.cat([m.flatten(-2) for m in element], -1)
+
+
+def _shift_bwd(x):
+    """Row n receives row n-1's value (row 0 gets 0), per chain."""
+    return torch.cat([torch.zeros_like(x[:, :1]), x[:, :-1]], 1)
+
+
+def _shift_fwd(x):
+    """Row n receives row n+1's value (row N-1 gets 0), per chain."""
+    return torch.cat([x[:, 1:], torch.zeros_like(x[:, :1])], 1)
+
+
+def _blocks(x, L, fill):
+    """(C, N, ...) -> (C, NB, L, ...), padding the ragged end with fill."""
+    C, N = x.shape[:2]
+    NB = -(-N // L)
+    pad = NB * L - N
+    if pad:
+        x = torch.cat([x, x.new_full((C, pad) + x.shape[2:], fill)], 1)
+    return x.reshape(C, NB, L, *x.shape[2:])
+
+
+def _row0_zeroed(U):
+    """U with row 0 of every chain zeroed: the reverse flows' step n
+    uses row n's own u, and step 0 does not exist (identity element)."""
+    return torch.cat([torch.zeros_like(U[:, :1]), U[:, 1:]], 1)
+
+
+def _plain_scan(steps, N, L, combine, identity, E, reverse):
+    """Within-block scan of the plain versions: ``steps(l)`` gives the
+    (C, NB)-batched element of step l; rows past N keep the running
+    value (as the kernels skip them)."""
+    NB = -(-N // L)
+    device = identity[0].device
+    valid = (torch.arange(NB * L, device=device) < N).reshape(NB, L)
+    acc = identity
+    pre = []
+    order = range(L - 1, -1, -1) if reverse else range(L)
+    for l in order:
+        new = combine(acc, steps(l))
+        acc = tuple(
+            torch.where(valid[:, l].reshape(NB, *[1] * (a.dim() - 2)), n, a)
+            for n, a in zip(new, acc)
+        )
+        pre.append(_flat(acc))
+    if reverse:
+        pre.reverse()
+    C = acc[0].shape[0]
+    rows = torch.stack(pre, 2).reshape(C, NB * L, E)[:, :N]
+    return rows.contiguous(), _flat(acc)
+
+
+# ===================================================== K1: forward pass
+
+
+def kalman_fwd_plain(p, U, V, ainv, y, L):
+    """Plain version of K1: for each row, the Kalman element built from
+    p = exp(-c dt) and the previous row's (u, v, 1/a, y), composed
+    forward within each block of L rows.  Returns per-row prefixes
+    ``(C, N, 3J^2+2J)`` and block maps ``(C, NB, 3J^2+2J)``."""
+    C, N, J = U.shape
+    pb = _blocks(p, L, 1.0)
+    upb = _blocks(_shift_bwd(U), L, 0.0)
+    vpb = _blocks(_shift_bwd(V), L, 0.0)
+    aib = _blocks(_shift_bwd(ainv), L, 0.0)
+    ypb = _blocks(_shift_bwd(y), L, 0.0)
+    eye = torch.eye(J, dtype=p.dtype, device=p.device)
+
+    def steps(l):  # fused_slab._build_kalman
+        pr, up, vp = pb[:, :, l], upb[:, :, l], vpb[:, :, l]
+        ai = aib[:, :, l][..., None, None]
+        yp = ypb[:, :, l][..., None, None]
+        A = pr[..., :, None] * (eye - vp[..., :, None] * up[..., None, :] * ai)
+        Q = (pr * vp)[..., :, None] * (vp * pr)[..., None, :] * ai
+        R = -up[..., :, None] * up[..., None, :] * ai
+        b = (pr * vp)[..., :, None] * yp * ai
+        eta = -up[..., :, None] * yp * ai
+        return (A, Q, R, b, eta)
+
+    NB = pb.shape[1]
+    ident = el.kalman_identity((C, NB), J, dtype=p.dtype, device=p.device)
+    return _plain_scan(
+        steps, N, L, el.kalman_combine, ident, 3 * J * J + 2 * J, False
+    )
+
+
+def kalman_fwd(p, U, V, ainv, y, L):
+    """K1: the CUDA kernel for CUDA tensors, the plain version on CPU."""
+    if p.device.type == "cpu":
+        return kalman_fwd_plain(p, U, V, ainv, y, L)
+    return _build.kalman_fwd_cuda(p, U, V, ainv, y, L)
+
+
+# =============================================== K2: solve adjoint pass
+
+
+def solve_rev_plain(p, U, W, bz, L):
+    """Plain version of K2: the affine maps A = diag(p)(I - u w^T),
+    b = -p u bZ (u = 0 at row 0 of every chain), composed as suffixes
+    within each block.  Returns per-row maps ``(C, N, J^2+J)`` and block
+    maps ``(C, NB, J^2+J)``."""
+    C, N, J = U.shape
+    pb = _blocks(p, L, 1.0)
+    ub = _blocks(_row0_zeroed(U), L, 0.0)
+    wb = _blocks(W, L, 0.0)
+    zb = _blocks(bz, L, 0.0)
+    eye = torch.eye(J, dtype=p.dtype, device=p.device)
+
+    def steps(l):  # fused_slab._build_solve_rev
+        pr, u, w = pb[:, :, l], ub[:, :, l], wb[:, :, l]
+        A = pr[..., :, None] * (eye - u[..., :, None] * w[..., None, :])
+        b = (-pr * u * zb[:, :, l][..., None])[..., None]
+        return (A, b)
+
+    NB = pb.shape[1]
+    ident = el.affine_identity((C, NB), J, dtype=p.dtype, device=p.device)
+    return _plain_scan(steps, N, L, el.affine_combine, ident, J * J + J, True)
+
+
+def solve_rev(p, U, W, bz, L):
+    """K2: the CUDA kernel for CUDA tensors, the plain version on CPU."""
+    if p.device.type == "cpu":
+        return solve_rev_plain(p, U, W, bz, L)
+    return _build.solve_rev_cuda(p, U, W, bz, L)
+
+
+# ============================================== K3: factor adjoint pass
+
+
+def _factor_rev_element(p, u, w, bv0, bdp):
+    """The dense J^2-affine reverse-factor step (fused_slab.
+    _build_factor_rev): linear part dM'[jk]/dM[lm] = p_j p_k [d_jl d_km
+    - u_j (d_kl w_m + d_km w_l) + u_j u_k w_l w_m], constant part the
+    step applied to M = 0.  Inputs (..., J) and bdp (...)."""
+    J = p.shape[-1]
+    eye = torch.eye(J, dtype=p.dtype, device=p.device)
+    # index order [j, k, l, m] on the trailing four axes
+    d_jl_km = eye[:, None, :, None] * eye[None, :, None, :]
+    d_kl_wm = eye[None, :, :, None] * w[..., None, None, None, :]
+    d_km_wl = eye[None, :, None, :] * w[..., None, None, :, None]
+    uj = u[..., :, None, None, None]
+    uk = u[..., None, :, None, None]
+    wl = w[..., None, None, :, None]
+    wm = w[..., None, None, None, :]
+    val = d_jl_km - uj * (d_kl_wm + d_km_wl) + uj * uk * wl * wm
+    pp = p[..., :, None] * p[..., None, :]
+    A = (pp[..., None, None] * val).reshape(*p.shape[:-1], J * J, J * J)
+    const = (
+        p[..., :, None]
+        * (-u[..., :, None] * bv0[..., None, :]
+           - bdp[..., None, None] * u[..., :, None] * u[..., None, :])
+        * p[..., None, :]
+    )
+    return A, const.reshape(*p.shape[:-1], J * J, 1)
+
+
+def factor_rev_plain(p, U, W, bv0, bdp, L):
+    """Plain version of K3: the dense J^2-affine reverse-factor steps
+    (u = 0 at row 0 of every chain), composed as suffixes within each
+    block.  Returns per-row maps ``(C, N, J^4+J^2)`` and block maps
+    ``(C, NB, J^4+J^2)``."""
+    C, N, J = U.shape
+    D = J * J
+    pb = _blocks(p, L, 1.0)
+    ub = _blocks(_row0_zeroed(U), L, 0.0)
+    wb = _blocks(W, L, 0.0)
+    gb = _blocks(bv0, L, 0.0)
+    db = _blocks(bdp, L, 0.0)
+
+    def steps(l):
+        return _factor_rev_element(
+            pb[:, :, l], ub[:, :, l], wb[:, :, l], gb[:, :, l], db[:, :, l]
+        )
+
+    NB = pb.shape[1]
+    ident = el.affine_identity((C, NB), D, dtype=p.dtype, device=p.device)
+    return _plain_scan(steps, N, L, el.affine_combine, ident, D * D + D, True)
+
+
+def factor_rev(p, U, W, bv0, bdp, L):
+    """K3: the CUDA kernel for CUDA tensors, the plain version on CPU."""
+    if p.device.type == "cpu":
+        return factor_rev_plain(p, U, W, bv0, bdp, L)
+    return _build.factor_rev_cuda(p, U, W, bv0, bdp, L)
+
+
+# ======================================= cross-block level + distribute
+
+
+# (unflatten, combine, distribute, identity) of each element family
+_KALMAN = (_kalman_unflat, el.kalman_combine, el.kalman_distribute,
+           el.kalman_identity)
+_AFFINE = (_affine_unflat, el.affine_combine, el.affine_distribute,
+           el.affine_identity)
+
+
+def _complete(pre, maps, family, width, L, reverse):
+    """Per-row full states from the per-row prefixes and block maps."""
+    unflat, combine, distribute, identity = family
+    C, N = pre.shape[:2]
+    NB = maps.shape[1]
+    ident = identity((C, NB), width, dtype=maps.dtype, device=maps.device)
+    excl = el.exclusive_block_states(
+        unflat(maps, width), combine, ident, reverse=reverse
+    )
+    block_of_row = torch.arange(N, device=pre.device) // L
+    excl_rows = tuple(e.index_select(1, block_of_row) for e in excl)
+    return distribute(excl_rows, unflat(pre, width))
+
+
+# ============================================================= pipeline
+
+
+def _forward(t, c, a, U, V, y, L, record=None):
+    """Forward: returns ``ll (C,)`` and what the backward needs.
+    ``record`` (a dict) receives the pass's inputs."""
+    C, N, J = U.shape
+    a, U, V, y = (x.contiguous() for x in (a, U, V, y))
+    dt = torch.diff(t, dim=-1, prepend=t[..., :1])  # dt = 0 at row 0
+    dt = dt.expand(C, N)
+    p = torch.exp(-c[:, None, :] * dt[..., None]).contiguous()
+    # non-PD rows divide by 1 (quiet failure)
+    ainv = 1.0 / torch.where(a > 0, a, torch.ones_like(a))
+
+    if record is not None:
+        record["kalman_fwd"] = (p, U, V, ainv, y)
+    pre, maps = kalman_fwd(p, U, V, ainv, y, L)
+    full = _complete(pre, maps, _KALMAN, J, L, reverse=False)
+    S = full[1]  # (C, N, J, J) carry covariance
+    F = full[3][..., 0]  # (C, N, J) solve state
+
+    Su = (S @ U[..., None])[..., 0]
+    dd = a - (U * Su).sum(-1)
+    ok = (dd > 0).all(-1)
+    safe_dd = torch.where(dd > 0, dd, torch.ones_like(dd))
+    W = (V - Su) / safe_dd[..., None]
+    Z = y - (U * F).sum(-1)
+
+    ll = -0.5 * (
+        torch.log(safe_dd).sum(-1) + (Z * Z / safe_dd).sum(-1) + N * LOG2PI
+    )
+    ll = torch.where(ok, ll, torch.full_like(ll, -math.inf))
+    return ll, (dt, p, U, W, S, F, dd, Z, ok)
+
+
+def _backward(c, saved, bll, L, record=None):
+    """Backward: the solve and factor adjoints as two reverse scans;
+    returns (bt, bc, ba, bU, bV, by) with bt per chain ``(C, N)``.
+    ``record`` (a dict) receives the passes' inputs."""
+    dt, p, U, W, S, F, dd, Z, ok = saved
+    C, N, J = U.shape
+    zero = torch.zeros((), dtype=dd.dtype, device=dd.device)
+    row0 = torch.arange(N, device=dd.device) == 0
+    smask = ~row0  # rows n >= 1 (every row of natural layout is valid)
+
+    okf = (ok.to(dd.dtype) * bll)[:, None]
+    safe_dd = torch.where(dd > 0, dd, torch.ones_like(dd))
+    dinv = 1.0 / safe_dd
+    bd = -0.5 * okf * (dinv - Z * Z * dinv * dinv)
+    bZt = -okf * Z * dinv
+
+    # ---------------- solve adjoint (K2) ------------------------------
+    if record is not None:
+        record["solve_rev"] = (p, U, W, bZt)
+    pre, maps = solve_rev(p, U, W, bZt, L)
+    Rst = _complete(pre, maps, _AFFINE, J, L, reverse=True)[1][..., 0]
+
+    W_prev = _shift_bwd(W)
+    Z_prev = _shift_bwd(Z)
+    F_pre = _shift_bwd(F) + W_prev * Z_prev[..., None]
+    bF_in = _shift_fwd(Rst)
+    bz_eff = bZt + (bF_in * W).sum(-1)
+    mid = bF_in - U * bz_eff[..., None]
+    post = p * mid
+    sm = smask[:, None]
+    bU1 = torch.where(sm, -p * F_pre * bz_eff[..., None], zero)
+    bp1 = torch.where(sm, F_pre * mid * p, zero)
+    dbR = (post * W_prev).sum(-1)
+    dbB = post * Z_prev[..., None]
+    bY = torch.where(row0, bZt + _shift_fwd(dbR), bz_eff)
+    bW_tot = _shift_fwd(dbB)
+
+    # ---------------- factor adjoint (K3) -----------------------------
+    bv0 = bW_tot * dinv[..., None]
+    bdp = bd - (W * bv0).sum(-1)
+    D = J * J
+    if record is not None:
+        record["factor_rev"] = (p, U, W, bv0, bdp)
+    pre, maps = factor_rev(p, U, W, bv0, bdp, L)
+    Mst = _complete(pre, maps, _AFFINE, D, L, reverse=True)[1][..., 0]
+    Mst = Mst.reshape(C, N, J, J)
+    # row n >= 1 uses the state ENTERING step n; row 0 the state after
+    # all the steps
+    MX = torch.where(row0[:, None, None], Mst, _shift_fwd(Mst))
+    bv = bv0 + ((MX + MX.mT) @ W[..., None])[..., 0]
+    ba = bdp - (W * (MX @ W[..., None])[..., 0]).sum(-1)
+    # S_half uses the previous row's d and W
+    dd_prev = _shift_bwd(dd)
+    S_half = p[..., :, None] * (
+        _shift_bwd(S)
+        + dd_prev[..., None, None] * W_prev[..., :, None] * W_prev[..., None, :]
+    )
+    bU2 = torch.where(
+        sm,
+        -(S_half @ (p * (bv + 2.0 * ba[..., None] * U))[..., None])[..., 0],
+        zero,
+    )
+    mid3 = (
+        MX
+        - U[..., :, None] * bv[..., None, :]
+        - ba[..., None, None] * U[..., :, None] * U[..., None, :]
+    )
+    bp2 = torch.where(
+        sm,
+        ((mid3 * S_half.mT).sum(-1) + (S_half * mid3).sum(-2)) * p,
+        zero,
+    )
+
+    # ---------------- assemble cotangents -----------------------------
+    bp = bp1 + bp2
+    ft = (bp * c[:, None, :]).sum(-1)
+    bt = -ft + _shift_fwd(ft)
+    bc = (bp * (-dt[..., None])).sum(1)
+    return bt, bc, ba, bU1 + bU2, bv, bY
+
+
+class LoglikFused(torch.autograd.Function):
+    """The fused log-likelihood with its hand-derived gradient: the
+    backward returns the six cotangents (bt, bc, ba, bU, bV, by)."""
+
+    @staticmethod
+    def forward(ctx, t, c, a, U, V, y, block_len):
+        ll, saved = _forward(t, c, a, U, V, y, block_len)
+        ctx.save_for_backward(c, *saved)
+        ctx.block_len = block_len
+        ctx.t_batched = t.dim() == 2
+        return ll
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, bll):
+        c, *saved = ctx.saved_tensors
+        bt, bc, ba, bU, bV, by = _backward(c, saved, bll, ctx.block_len)
+        if not ctx.t_batched:
+            bt = bt.sum(0)
+        return bt, bc, ba, bU, bV, by, None
+
+
+def pass_inputs(t, c, a, U, V, y, *, block_len=None):
+    """The inputs each of the three scan passes receives when
+    ``loglik_fused`` evaluates its value and gradient on this system
+    (with a unit cotangent), keyed by pass name; for holding a kernel
+    against its plain version at the main path's shapes."""
+    L = default_block_len(U.shape[1]) if block_len is None else int(block_len)
+    record = {}
+    with torch.no_grad():
+        ll, saved = _forward(t, c, a, U, V, y, L, record)
+        _backward(c, saved, torch.ones_like(ll), L, record)
+    return record
+
+
+def loglik_fused(t, c, a, U, V, y, *, block_len=None):
+    """Gaussian-process log-likelihood of C chains, with its gradient.
+
+    ``-0.5 (sum log d + z^T d^{-1} z + N log 2pi)`` per chain, where
+    ``d`` and ``z`` come from the Cholesky factor and lower solve of the
+    celerite system ``(t, c, a, U, V)`` applied to ``y``.  A chain whose
+    system is not positive definite gives ``-inf`` and zero gradients.
+
+    Shapes: ``t (N,)`` or ``(C, N)``, ``c (C, J)``, ``a, y (C, N)``,
+    ``U, V (C, N, J)``; J is 1 or 2.  Returns ``(C,)``.  ``block_len``
+    is the rows per scan block (default :func:`default_block_len`).
+    """
+    if U.dim() != 3:
+        raise ValueError(f"U must be (C, N, J), got {tuple(U.shape)}")
+    C, N, J = U.shape
+    if J not in (1, 2):
+        raise NotImplementedError(
+            f"the fused log-likelihood supports J in (1, 2), got J={J} "
+            "(ROADMAP.md items B4/B5 and A3/A8)"
+        )
+    for name, x, shape in (
+        ("c", c, (C, J)), ("a", a, (C, N)), ("V", V, (C, N, J)), ("y", y, (C, N))
+    ):
+        if tuple(x.shape) != shape:
+            raise ValueError(f"{name} must be {shape}, got {tuple(x.shape)}")
+    if t.shape[-1] != N or t.dim() > 2 or (t.dim() == 2 and t.shape[0] != C):
+        raise ValueError(f"t must be ({N},) or ({C}, {N}), got {tuple(t.shape)}")
+    tensors = (t, c, a, U, V, y)
+    if len({x.dtype for x in tensors}) != 1 or len({x.device for x in tensors}) != 1:
+        raise ValueError("t, c, a, U, V, y must share dtype and device")
+    L = default_block_len(N) if block_len is None else int(block_len)
+    return LoglikFused.apply(t, c, a, U, V, y, L)
