@@ -13,6 +13,7 @@ from celerite2_torch.models.terms import (
     ComplexTerm,
     Matern32Term,
     RealTerm,
+    RotationTerm,
     SHOTerm,
     Term,
     TermSum,
@@ -35,5 +36,6 @@ __all__ = [
     "ComplexTerm",
     "SHOTerm",
     "Matern32Term",
+    "RotationTerm",
     "gp_loglik",
 ]

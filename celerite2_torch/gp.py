@@ -69,11 +69,10 @@ def gp_loglik(kernel, t, y, *, yerr=None, diag=None, mean=0.0):
 def _loglik_core(kernel, t, resid, diag_v):
     c, a, U, V = kernel.get_celerite_matrices(t, diag_v)
     J = U.shape[-1]
-    if J not in (1, 2):
+    if not 1 <= J <= 4:
         raise NotImplementedError(
-            f"gp_loglik supports kernels of width J in (1, 2) so far, got "
-            f"J={J}: J = 3..4 waits for ROADMAP.md items B4/B5, wider "
-            "kernels for A3/A8"
+            f"gp_loglik supports kernels of width J = 1..4 so far, got "
+            f"J={J}: wider kernels wait for ROADMAP.md items A3/A8"
         )
     N = t.shape[-1]
     if resid.shape[-1] != N:

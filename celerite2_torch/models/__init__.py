@@ -3,6 +3,7 @@ from celerite2_torch.models.terms import (
     ComplexTerm,
     Matern32Term,
     RealTerm,
+    RotationTerm,
     SHOTerm,
     Term,
     TermSum,
@@ -15,5 +16,6 @@ __all__ = [
     "ComplexTerm",
     "SHOTerm",
     "Matern32Term",
+    "RotationTerm",
     "term_from_numpy",
 ]

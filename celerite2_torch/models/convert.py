@@ -27,6 +27,7 @@ _PRIMITIVES = {
     "ComplexTerm": _terms.ComplexTerm,
     "SHOTerm": _terms.SHOTerm,
     "Matern32Term": _terms.Matern32Term,
+    "RotationTerm": _terms.RotationTerm,
 }
 
 

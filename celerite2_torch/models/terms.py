@@ -38,6 +38,7 @@ __all__ = [
     "ComplexTerm",
     "SHOTerm",
     "Matern32Term",
+    "RotationTerm",
     "resolve_parameter_spec",
 ]
 
@@ -452,3 +453,65 @@ class Matern32Term(Term):
             w0[..., None],
             eps[..., None],
         )
+
+
+class RotationTerm(Term):
+    """Stellar-rotation model: an SHO at the period P plus one at P/2.
+
+    Both modes are underdamped by construction (Q >= 1/2 + Q0 > 1/2), so
+    the term is a sum of two complex pairs, width 4.
+    """
+
+    _params = ("sigma", "period", "Q0", "dQ", "f")
+
+    def __init__(self, *, sigma, period, Q0, dQ, f):
+        self.sigma = as_tensor(sigma)
+        self.period = as_tensor(period)
+        self.Q0 = as_tensor(Q0)
+        self.dQ = as_tensor(dQ)
+        self.f = as_tensor(f)
+
+    def _sho_terms(self):
+        amp = self.sigma**2 / (1 + self.f)
+
+        Q1 = 0.5 + self.Q0 + self.dQ
+        w1 = 4 * math.pi * Q1 / (self.period * torch.sqrt(4 * Q1**2 - 1))
+        S1 = amp / (w1 * Q1)
+
+        Q2 = 0.5 + self.Q0
+        w2 = 8 * math.pi * Q2 / (self.period * torch.sqrt(4 * Q2**2 - 1))
+        S2 = self.f * amp / (w2 * Q2)
+
+        return SHOTerm(S0=S1, w0=w1, Q=Q1), SHOTerm(S0=S2, w0=w2, Q=Q2)
+
+    @property
+    def terms(self):
+        return self._sho_terms()
+
+    @property
+    def width(self) -> int:
+        return 4
+
+    # The coefficients mix every parameter, so the parameters first take
+    # the input's dtype and device (as SHOTerm's do): a CUDA sigma with a
+    # float period would otherwise meet on two devices.
+    def get_celerite_matrices(self, x, diag):
+        x = atleast_1d(x)
+        return Term.get_celerite_matrices(self.to(x), x, diag)
+
+    def get_value(self, tau):
+        tau = atleast_1d(tau)
+        return Term.get_value(self.to(tau), tau)
+
+    def get_psd(self, omega):
+        omega = atleast_1d(omega)
+        return Term.get_psd(self.to(omega), omega)
+
+    def get_coefficients(self):
+        # the modes' own eps (a float default) follows sigma's device
+        modes = [
+            SHOTerm._underdamped(*torch.broadcast_tensors(*t._cast(self.sigma)))
+            for t in self._sho_terms()
+        ]
+        e = modes[0][0].new_zeros(modes[0][0].shape[:-1] + (0,))
+        return (e, e) + tuple(_cat_last(parts) for parts in zip(*modes))

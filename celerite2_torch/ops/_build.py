@@ -30,6 +30,8 @@ __all__ = [
     "kalman_fwd_cuda",
     "solve_rev_cuda",
     "factor_rev_cuda",
+    "frev_maps_cuda",
+    "frev_states_cuda",
 ]
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -47,7 +49,22 @@ NVCC_FLAGS = (
 
 # Launches of each kernel since the last reset (a plain count per
 # kernel, so a run can show that its main path went through them).
-LAUNCHES = {"kalman_fwd": 0, "solve_rev": 0, "factor_rev": 0}
+LAUNCHES = {
+    "kalman_fwd": 0,
+    "solve_rev": 0,
+    "factor_rev": 0,
+    "frev_maps": 0,
+    "frev_states": 0,
+}
+
+# The celerite widths J each kernel is built for (csrc/fused_loglik.cu).
+WIDTHS = {
+    "kalman_fwd": (1, 2, 3, 4),
+    "solve_rev": (1, 2, 3, 4),
+    "factor_rev": (1, 2),
+    "frev_maps": (1, 2, 3, 4),
+    "frev_states": (1, 2, 3, 4),
+}
 
 _lib = None
 
@@ -94,14 +111,16 @@ def _library():
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
         P, I = ctypes.c_void_p, ctypes.c_int
-        # (is_double, J, inputs..., pre, maps, C, N, L, stream)
-        for name, n_in in (
-            ("c2t_kalman_fwd", 5),
-            ("c2t_solve_rev", 4),
-            ("c2t_factor_rev", 5),
+        # (is_double, J, inputs..., outputs..., C, N, L, stream)
+        for name, n_arrays in (
+            ("c2t_kalman_fwd", 7),
+            ("c2t_solve_rev", 6),
+            ("c2t_factor_rev", 7),
+            ("c2t_frev_maps", 6),
+            ("c2t_frev_states", 7),
         ):
             fn = getattr(lib, name)
-            fn.argtypes = [I, I] + [P] * (n_in + 2) + [I, I, I, P]
+            fn.argtypes = [I, I] + [P] * n_arrays + [I, I, I, P]
             fn.restype = I
         _lib = lib
     return _lib
@@ -124,24 +143,30 @@ def _check(name, tensors, shapes):
             raise ValueError(f"{name}: tensors must be contiguous")
 
 
-def _launch(key, fn_name, inputs, E, C, N, J, L):
-    if J not in (1, 2):
-        raise NotImplementedError(f"{key}: J must be 1 or 2, got {J}")
+def _num_blocks(key, J, N, L):
+    """Blocks of L rows in N, after checking that the kernel is built for
+    width J and that L is a block length."""
+    if J not in WIDTHS[key]:
+        raise NotImplementedError(
+            f"{key}: J must be one of {WIDTHS[key]}, got {J}"
+        )
     if L < 1:
         raise ValueError(f"{key}: block length must be >= 1, got {L}")
-    NB = -(-N // L)
+    return -(-N // L)
+
+
+def _launch(key, inputs, out_shapes, C, N, J, L):
+    """Launch ``c2t_<key>`` on ``inputs`` into new outputs of
+    ``out_shapes``; returns the outputs."""
     x = inputs[0]
-    pre = torch.empty(C, N, E, dtype=x.dtype, device=x.device)
-    maps = torch.empty(C, NB, E, dtype=x.dtype, device=x.device)
+    outs = [torch.empty(s, dtype=x.dtype, device=x.device) for s in out_shapes]
     lib = _library()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = getattr(lib, fn_name)(
+        rc = getattr(lib, f"c2t_{key}")(
             int(x.dtype == torch.float64),
             J,
-            *(t.data_ptr() for t in inputs),
-            pre.data_ptr(),
-            maps.data_ptr(),
+            *(t.data_ptr() for t in (*inputs, *outs)),
             C,
             N,
             L,
@@ -150,21 +175,23 @@ def _launch(key, fn_name, inputs, E, C, N, J, L):
     if rc != 0:
         raise RuntimeError(f"{key}: kernel launch failed (CUDA error {rc})")
     LAUNCHES[key] += 1
-    return pre, maps
+    return outs
+
+
+def _row_shapes(C, N, J, n_vec, n_scalar):
+    return ((C, N, J),) * n_vec + ((C, N),) * n_scalar
 
 
 def kalman_fwd_cuda(p, U, V, ainv, y, L):
     """K1 on the card: per-row Kalman prefixes ``(C, N, 3J^2+2J)`` and
     block maps ``(C, ceil(N/L), 3J^2+2J)``."""
     C, N, J = U.shape
-    _check(
-        "kalman_fwd",
-        (p, U, V, ainv, y),
-        ((C, N, J), (C, N, J), (C, N, J), (C, N), (C, N)),
-    )
-    return _launch(
-        "kalman_fwd", "c2t_kalman_fwd", (p, U, V, ainv, y),
-        3 * J * J + 2 * J, C, N, J, L,
+    NB = _num_blocks("kalman_fwd", J, N, L)
+    inputs = (p, U, V, ainv, y)
+    _check("kalman_fwd", inputs, _row_shapes(C, N, J, 3, 2))
+    E = 3 * J * J + 2 * J
+    return tuple(
+        _launch("kalman_fwd", inputs, ((C, N, E), (C, NB, E)), C, N, J, L)
     )
 
 
@@ -172,11 +199,12 @@ def solve_rev_cuda(p, U, W, bz, L):
     """K2 on the card: per-row suffix maps ``(C, N, J^2+J)`` and block
     maps ``(C, ceil(N/L), J^2+J)``."""
     C, N, J = U.shape
-    _check(
-        "solve_rev", (p, U, W, bz), ((C, N, J), (C, N, J), (C, N, J), (C, N))
-    )
-    return _launch(
-        "solve_rev", "c2t_solve_rev", (p, U, W, bz), J * J + J, C, N, J, L
+    NB = _num_blocks("solve_rev", J, N, L)
+    inputs = (p, U, W, bz)
+    _check("solve_rev", inputs, _row_shapes(C, N, J, 3, 1))
+    E = J * J + J
+    return tuple(
+        _launch("solve_rev", inputs, ((C, N, E), (C, NB, E)), C, N, J, L)
     )
 
 
@@ -184,12 +212,34 @@ def factor_rev_cuda(p, U, W, bv0, bdp, L):
     """K3 on the card: per-row suffix maps ``(C, N, J^4+J^2)`` and block
     maps ``(C, ceil(N/L), J^4+J^2)``."""
     C, N, J = U.shape
-    _check(
-        "factor_rev",
-        (p, U, W, bv0, bdp),
-        ((C, N, J), (C, N, J), (C, N, J), (C, N, J), (C, N)),
+    NB = _num_blocks("factor_rev", J, N, L)
+    inputs = (p, U, W, bv0, bdp)
+    _check("factor_rev", inputs, _row_shapes(C, N, J, 4, 1))
+    E = J**4 + J * J
+    return tuple(
+        _launch("factor_rev", inputs, ((C, N, E), (C, NB, E)), C, N, J, L)
     )
-    return _launch(
-        "factor_rev", "c2t_factor_rev", (p, U, W, bv0, bdp),
-        J**4 + J * J, C, N, J, L,
-    )
+
+
+def frev_maps_cuda(p, U, W, bv0, bdp, L):
+    """K4 on the card: each block's composed reverse-factor map
+    ``(C, ceil(N/L), J^4+J^2)``, column k of its linear part at
+    ``[k J^2, (k+1) J^2)`` and its constant last."""
+    C, N, J = U.shape
+    NB = _num_blocks("frev_maps", J, N, L)
+    inputs = (p, U, W, bv0, bdp)
+    _check("frev_maps", inputs, _row_shapes(C, N, J, 4, 1))
+    (maps,) = _launch("frev_maps", inputs, ((C, NB, J**4 + J * J),), C, N, J, L)
+    return maps
+
+
+def frev_states_cuda(p, U, W, bv0, bdp, seeds, L):
+    """K5 on the card: the reverse-factor state entering every row,
+    ``(C, N, J^2)``, each block started from its seed in ``seeds``
+    ``(C, ceil(N/L), J^2)``."""
+    C, N, J = U.shape
+    NB = _num_blocks("frev_states", J, N, L)
+    inputs = (p, U, W, bv0, bdp, seeds)
+    _check("frev_states", inputs, _row_shapes(C, N, J, 4, 1) + ((C, NB, J * J),))
+    (out,) = _launch("frev_states", inputs, ((C, N, J * J),), C, N, J, L)
+    return out

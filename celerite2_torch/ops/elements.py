@@ -41,29 +41,46 @@ def sym(X):
 
 
 def inv_clamped(M):
-    """Closed-form inverse of ``(..., J, J)``, J <= 2, with the JAX
-    package's scale-aware determinant floor (``planes._det2_clamped``)."""
+    """Closed-form inverse of ``(..., J, J)``, mirroring ``planes.p_inv``:
+    1x1; 2x2 with the scale-aware determinant floor
+    (``planes._det2_clamped``); even sizes by the 2x2-block Schur
+    recursion, the clamped inverse applied to the leading block and to
+    the Schur complement; odd sizes bordered with an identity row and
+    column.  No pivoting: the clamp decides what a near-singular combine
+    returns, as in the JAX package."""
     J = M.shape[-1]
     if J == 1:
         return 1.0 / M
-    if J != 2:
-        raise NotImplementedError(
-            f"the fused log-likelihood supports J <= 2, got J={J} "
-            "(ROADMAP.md items B4/B5)"
+    if J == 2:
+        a, b = M[..., 0, 0], M[..., 0, 1]
+        c, d = M[..., 1, 0], M[..., 1, 1]
+        det = a * d - b * c
+        fin = torch.finfo(M.dtype)
+        floor = fin.eps * (torch.abs(a * d) + torch.abs(b * c)) + fin.tiny
+        det = torch.where(
+            torch.abs(det) >= floor, det, torch.where(det < 0, -floor, floor)
         )
-    a, b = M[..., 0, 0], M[..., 0, 1]
-    c, d = M[..., 1, 0], M[..., 1, 1]
-    det = a * d - b * c
-    fin = torch.finfo(M.dtype)
-    floor = fin.eps * (torch.abs(a * d) + torch.abs(b * c)) + fin.tiny
-    det = torch.where(
-        torch.abs(det) >= floor, det, torch.where(det < 0, -floor, floor)
-    )
-    r = 1.0 / det
-    return torch.stack(
-        [torch.stack([d * r, -b * r], -1), torch.stack([-c * r, a * r], -1)],
-        -2,
-    )
+        r = 1.0 / det
+        return torch.stack(
+            [torch.stack([d * r, -b * r], -1), torch.stack([-c * r, a * r], -1)],
+            -2,
+        )
+    if J % 2:
+        Mp = M.new_zeros(*M.shape[:-2], J + 1, J + 1)
+        Mp[..., :J, :J] = M
+        Mp[..., J, J] = 1.0
+        return inv_clamped(Mp)[..., :J, :J]
+    h = J // 2
+    A, B = M[..., :h, :h], M[..., :h, h:]
+    C, D = M[..., h:, :h], M[..., h:, h:]
+    Ai = inv_clamped(A)
+    AiB = Ai @ B
+    Si = inv_clamped(D - C @ AiB)
+    CAi = C @ Ai
+    AiBSi = AiB @ Si
+    top = torch.cat([Ai + AiBSi @ CAi, -AiBSi], -1)
+    bot = torch.cat([-(Si @ CAi), Si], -1)
+    return torch.cat([top, bot], -2)
 
 
 def _eye_like(X):

@@ -2,7 +2,8 @@
 
 Counterpart of ``celerite2_tpu/ops/fused_slab.py`` (``loglik_slab`` with
 its ``_forward`` and ``_backward``), on natural ``(C, N)`` layout with a
-leading chain axis.  The three sequential flows of the value+gradient
+leading chain axis, for J = 1..4.  The three sequential flows of the
+value+gradient
 
   1. the Kalman-element forward (Cholesky factor + lower solve in one
      pass),
@@ -20,9 +21,15 @@ each run as a two-level scan over blocks of L rows:
   Hillis-Steele prefix (``ops/elements.py``), and the distribute
   combines each row's prefix with its block's exclusive state.
 
-Everything outside the passes (cross-block level, distribute, and the
+At J = 3, 4 the factor adjoint instead takes the JAX package's
+structured route (``_factor_adjoint_structured``): a dense J^2-affine
+element per row is J^4 + J^2 values, so only per-block maps are
+densified (K4), composed across blocks in torch, and each block is re-run
+from its incoming state (K5).
+
+Everything outside the kernels (cross-block level, distribute, and the
 glue that turns states into d, W, Z, the log-likelihood and the six
-cotangents) is shared by both routes.
+cotangents) is shared by the CUDA and CPU routes.
 
 Fidelity to the JAX package: non-PD rows divide by 1 (``ainv``,
 ``safe_dd``); ``ll`` is ``-inf`` per chain when the system is not
@@ -50,6 +57,12 @@ __all__ = [
     "solve_rev_plain",
     "factor_rev",
     "factor_rev_plain",
+    "frev_maps",
+    "frev_maps_plain",
+    "frev_seeds",
+    "frev_states",
+    "frev_states_plain",
+    "factor_adjoint",
 ]
 
 LOG2PI = math.log(2.0 * math.pi)
@@ -57,8 +70,9 @@ LAUNCHES = _build.LAUNCHES
 
 
 def default_block_len(N: int) -> int:
-    """Rows per block L (one kernel thread walks one block of one
-    chain).  Measured on an H100 at N = 1e5, C = 1: see PERF.md."""
+    """Rows per block L (one kernel thread, or in K4 one warp, walks one
+    block of one chain).  Measured on an H100 at N = 1e5, C = 1: see
+    PERF.md."""
     return max(1, min(N, 256))
 
 
@@ -274,6 +288,132 @@ def factor_rev(p, U, W, bv0, bdp, L):
     return _build.factor_rev_cuda(p, U, W, bv0, bdp, L)
 
 
+# ============================= K4, K5: the structured factor adjoint
+#
+# fused_slab._factor_adjoint_structured: the reverse-factor step applied
+# to a J x J state in O(J^2) (no dense J^2 x J^2 element per row).
+#   K4 (phase A) densifies each block's composed map,
+#   phase B composes the block maps (torch matmul), giving each block's
+#     incoming state (its seed),
+#   K5 (phase C) re-runs each block from its seed and emits the state
+#     entering every row.
+
+
+def _structured_apply(M, par, affine):
+    """One reverse-factor step on states ``M (..., K, J, J)`` with the
+    row's parameters ``par`` (each ``(..., J)``, ``bdp (...)``), all K
+    states at once; ``affine`` (bool ``(K,)``) marks the states that take
+    the constant part (fused_slab._structured_apply):
+    ``bv = (M + M^T) w (+bv0)``, ``ba = -w^T M w (+bdp)``,
+    ``M' = p (.) [M - u (x) bv - ba u (x) u] (.) p``."""
+    p, u, w, bv0 = (x[..., None, :] for x in par[:4])
+    bdp = par[4][..., None]
+    Mw = (M * w[..., None, :]).sum(-1)
+    bv = Mw + (M * w[..., :, None]).sum(-2)
+    ba = -(w * Mw).sum(-1)
+    bv = torch.where(affine[:, None], bv + bv0, bv)
+    ba = torch.where(affine, ba + bdp, ba)
+    uu = u[..., :, None] * u[..., None, :]
+    return (
+        p[..., :, None]
+        * (M - u[..., :, None] * bv[..., None, :] - ba[..., None, None] * uu)
+        * p[..., None, :]
+    )
+
+
+def _frev_steps(p, U, W, bv0, bdp, L):
+    """The blocked per-row parameters of the reverse-factor steps (u = 0
+    at row 0 of every chain) and the validity of each blocked row."""
+    N = U.shape[1]
+    par = (
+        _blocks(p, L, 1.0),
+        _blocks(_row0_zeroed(U), L, 0.0),
+        _blocks(W, L, 0.0),
+        _blocks(bv0, L, 0.0),
+        _blocks(bdp, L, 0.0),
+    )
+    NB = par[0].shape[1]
+    valid = (torch.arange(NB * L, device=p.device) < N).reshape(NB, L)
+    return par, valid
+
+
+def frev_maps_plain(p, U, W, bv0, bdp, L):
+    """Plain version of K4: per (chain, block), the D = J^2 basis
+    matrices through the linear part of the block's steps and the zero
+    state through the affine steps, rows descending.  Returns the block
+    maps ``(C, NB, D^2+D)``: column k at ``[k D, (k+1) D)``, the constant
+    last."""
+    C, N, J = U.shape
+    D = J * J
+    par, valid = _frev_steps(p, U, W, bv0, bdp, L)
+    NB = valid.shape[0]
+    eye = torch.eye(D, dtype=p.dtype, device=p.device)
+    basis = torch.cat([eye, torch.zeros_like(eye[:1])]).reshape(D + 1, J, J)
+    M = basis.expand(C, NB, D + 1, J, J)
+    affine = torch.arange(D + 1, device=p.device) == D
+    for l in range(L - 1, -1, -1):
+        new = _structured_apply(M, tuple(x[:, :, l] for x in par), affine)
+        M = torch.where(valid[:, l, None, None, None], new, M)
+    return M.reshape(C, NB, (D + 1) * D).contiguous()
+
+
+def frev_maps(p, U, W, bv0, bdp, L):
+    """K4: the CUDA kernel for CUDA tensors, the plain version on CPU."""
+    if p.device.type == "cpu":
+        return frev_maps_plain(p, U, W, bv0, bdp, L)
+    return _build.frev_maps_cuda(p, U, W, bv0, bdp, L)
+
+
+def frev_seeds(maps, J):
+    """Phase B: each block's incoming state ``(C, NB, J^2)`` from the
+    block maps ``(C, NB, J^4+J^2)``.  The maps become augmented
+    ``(D+1, D+1)`` matrices, composed as suffix products
+    ``S[b] <- S[b] @ S[b+k]`` (identity past the end; Hillis-Steele
+    doubling); block b's seed is ``S[b+1]`` applied to the zero state,
+    and zero for the last block."""
+    C, NB = maps.shape[:2]
+    D = J * J
+    A = maps[..., : D * D].reshape(C, NB, D, D).mT  # A[..., i, k] = image_k[i]
+    aug = torch.zeros(C, NB, D + 1, D + 1, dtype=maps.dtype, device=maps.device)
+    aug[..., :D, :D] = A
+    aug[..., :D, D] = maps[..., D * D :]
+    aug[..., D, D] = 1.0
+    eye = torch.eye(D + 1, dtype=maps.dtype, device=maps.device).expand(
+        C, NB, D + 1, D + 1
+    )
+    S = aug
+    k = 1
+    while k < NB:
+        S = S @ torch.cat([S[:, k:], eye[:, :k]], 1)
+        k *= 2
+    return torch.cat([S[:, 1:, :D, D], maps.new_zeros(C, 1, D)], 1).contiguous()
+
+
+def frev_states_plain(p, U, W, bv0, bdp, seeds, L):
+    """Plain version of K5: per (chain, block), the affine steps from
+    the block's seed, rows descending, recording the state entering each
+    row.  Returns ``(C, N, J^2)``."""
+    C, N, J = U.shape
+    D = J * J
+    par, valid = _frev_steps(p, U, W, bv0, bdp, L)
+    NB = valid.shape[0]
+    M = seeds.reshape(C, NB, 1, J, J)
+    affine = torch.ones(1, dtype=torch.bool, device=p.device)
+    rows = [None] * L
+    for l in range(L - 1, -1, -1):
+        rows[l] = M.reshape(C, NB, D)
+        new = _structured_apply(M, tuple(x[:, :, l] for x in par), affine)
+        M = torch.where(valid[:, l, None, None, None], new, M)
+    return torch.stack(rows, 2).reshape(C, NB * L, D)[:, :N].contiguous()
+
+
+def frev_states(p, U, W, bv0, bdp, seeds, L):
+    """K5: the CUDA kernel for CUDA tensors, the plain version on CPU."""
+    if p.device.type == "cpu":
+        return frev_states_plain(p, U, W, bv0, bdp, seeds, L)
+    return _build.frev_states_cuda(p, U, W, bv0, bdp, seeds, L)
+
+
 # ======================================= cross-block level + distribute
 
 
@@ -333,10 +473,43 @@ def _forward(t, c, a, U, V, y, L, record=None):
     return ll, (dt, p, U, W, S, F, dd, Z, ok)
 
 
-def _backward(c, saved, bll, L, record=None):
-    """Backward: the solve and factor adjoints as two reverse scans;
-    returns (bt, bc, ba, bU, bV, by) with bt per chain ``(C, N)``.
-    ``record`` (a dict) receives the passes' inputs."""
+def factor_adjoint(p, U, W, bv0, bdp, L, *, structured=None, record=None):
+    """The reverse-factor state each row's formulas use, ``MX (C, N, J,
+    J)``: the state entering step n for rows n >= 1, and the state after
+    every step for row 0 (whose step is the identity).
+
+    ``structured`` picks the route: the dense J^2-affine scan K3 (the
+    default for J <= 2) or the structured K4 -> phase B -> K5 (the default
+    for J = 3, 4), as ``fused_slab._backward`` routes.  Both compute the
+    same affine recursion.  ``record`` (a dict) receives the kernels'
+    inputs."""
+    C, N, J = U.shape
+    if structured is None:
+        structured = J > 2
+    if structured:
+        if record is not None:
+            record["frev_maps"] = (p, U, W, bv0, bdp)
+        seeds = frev_seeds(frev_maps(p, U, W, bv0, bdp, L), J)
+        if record is not None:
+            record["frev_states"] = (p, U, W, bv0, bdp, seeds)
+        # K5 emits the state entering every row, row 0 included
+        return frev_states(p, U, W, bv0, bdp, seeds, L).reshape(C, N, J, J)
+    if record is not None:
+        record["factor_rev"] = (p, U, W, bv0, bdp)
+    pre, maps = factor_rev(p, U, W, bv0, bdp, L)
+    Mst = _complete(pre, maps, _AFFINE, J * J, L, reverse=True)[1][..., 0]
+    Mst = Mst.reshape(C, N, J, J)
+    # row n >= 1 uses the state ENTERING step n; row 0 the state after
+    # all the steps
+    row0 = torch.arange(N, device=U.device) == 0
+    return torch.where(row0[:, None, None], Mst, _shift_fwd(Mst))
+
+
+def _backward(c, saved, bll, L, record=None, structured=None):
+    """Backward: the solve and factor adjoints as reverse scans; returns
+    (bt, bc, ba, bU, bV, by) with bt per chain ``(C, N)``.  ``record`` (a
+    dict) receives the passes' inputs; ``structured`` picks the factor
+    adjoint's route (:func:`factor_adjoint`)."""
     dt, p, U, W, S, F, dd, Z, ok = saved
     C, N, J = U.shape
     zero = torch.zeros((), dtype=dd.dtype, device=dd.device)
@@ -370,18 +543,11 @@ def _backward(c, saved, bll, L, record=None):
     bY = torch.where(row0, bZt + _shift_fwd(dbR), bz_eff)
     bW_tot = _shift_fwd(dbB)
 
-    # ---------------- factor adjoint (K3) -----------------------------
+    # ---------------- factor adjoint (K3, or K4 + K5) -----------------
     bv0 = bW_tot * dinv[..., None]
     bdp = bd - (W * bv0).sum(-1)
-    D = J * J
-    if record is not None:
-        record["factor_rev"] = (p, U, W, bv0, bdp)
-    pre, maps = factor_rev(p, U, W, bv0, bdp, L)
-    Mst = _complete(pre, maps, _AFFINE, D, L, reverse=True)[1][..., 0]
-    Mst = Mst.reshape(C, N, J, J)
-    # row n >= 1 uses the state ENTERING step n; row 0 the state after
-    # all the steps
-    MX = torch.where(row0[:, None, None], Mst, _shift_fwd(Mst))
+    MX = factor_adjoint(p, U, W, bv0, bdp, L, structured=structured,
+                        record=record)
     bv = bv0 + ((MX + MX.mT) @ W[..., None])[..., 0]
     ba = bdp - (W * (MX @ W[..., None])[..., 0]).sum(-1)
     # S_half uses the previous row's d and W
@@ -436,16 +602,17 @@ class LoglikFused(torch.autograd.Function):
         return bt, bc, ba, bU, bV, by, None
 
 
-def pass_inputs(t, c, a, U, V, y, *, block_len=None):
-    """The inputs each of the three scan passes receives when
-    ``loglik_fused`` evaluates its value and gradient on this system
-    (with a unit cotangent), keyed by pass name; for holding a kernel
-    against its plain version at the main path's shapes."""
+def pass_inputs(t, c, a, U, V, y, *, block_len=None, structured=None):
+    """The inputs each kernel receives when ``loglik_fused`` evaluates
+    its value and gradient on this system (with a unit cotangent), keyed
+    by kernel name; for holding a kernel against its plain version at
+    the main path's shapes.  ``structured`` picks the factor adjoint's
+    route (:func:`factor_adjoint`)."""
     L = default_block_len(U.shape[1]) if block_len is None else int(block_len)
     record = {}
     with torch.no_grad():
         ll, saved = _forward(t, c, a, U, V, y, L, record)
-        _backward(c, saved, torch.ones_like(ll), L, record)
+        _backward(c, saved, torch.ones_like(ll), L, record, structured)
     return record
 
 
@@ -458,16 +625,16 @@ def loglik_fused(t, c, a, U, V, y, *, block_len=None):
     system is not positive definite gives ``-inf`` and zero gradients.
 
     Shapes: ``t (N,)`` or ``(C, N)``, ``c (C, J)``, ``a, y (C, N)``,
-    ``U, V (C, N, J)``; J is 1 or 2.  Returns ``(C,)``.  ``block_len``
+    ``U, V (C, N, J)``; J is 1 to 4.  Returns ``(C,)``.  ``block_len``
     is the rows per scan block (default :func:`default_block_len`).
     """
     if U.dim() != 3:
         raise ValueError(f"U must be (C, N, J), got {tuple(U.shape)}")
     C, N, J = U.shape
-    if J not in (1, 2):
+    if not 1 <= J <= 4:
         raise NotImplementedError(
-            f"the fused log-likelihood supports J in (1, 2), got J={J} "
-            "(ROADMAP.md items B4/B5 and A3/A8)"
+            f"the fused log-likelihood supports J = 1..4, got J={J} "
+            "(wider kernels: ROADMAP.md items A3/A8)"
         )
     for name, x, shape in (
         ("c", c, (C, J)), ("a", a, (C, N)), ("V", V, (C, N, J)), ("y", y, (C, N))

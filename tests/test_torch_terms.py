@@ -26,6 +26,11 @@ CASES = {
     "matern32": lambda: jt.Matern32Term(sigma=1.5, rho=2.345),
     "sum": lambda: jt.SHOTerm(sigma=1.3, rho=3.4, tau=2.9)
     + jt.RealTerm(a=0.4, c=1.7),
+    "rotation": lambda: jt.RotationTerm(
+        sigma=1.5, period=3.45, Q0=1.3, dQ=1.05, f=0.5
+    ),
+    "sho_mixture": lambda: jt.SHOTerm(sigma=1.0, rho=1.0, tau=1.0)
+    + jt.SHOTerm(sigma=1.0, rho=1.0, Q=0.3),
 }
 
 
@@ -68,7 +73,8 @@ def test_value_psd_dense(case):
     _close(term.to_dense(t64(x), t64(diag)), jterm.to_dense(x, diag))
 
 
-GRAD_CASES = ["real", "complex", "sho_over", "sho_under", "matern32"]
+GRAD_CASES = ["real", "complex", "sho_over", "sho_under", "matern32",
+              "rotation"]
 
 
 @pytest.mark.parametrize("case", GRAD_CASES)
@@ -125,3 +131,28 @@ def test_sho_clamp_keeps_gradients_finite():
     _, a, U, _ = term.get_celerite_matrices(t64(np.linspace(0, 3, 9)), 0.0)
     (g,) = torch.autograd.grad(U.sum() + a.sum(), [Q])
     assert torch.isfinite(g)
+
+
+def test_rotation_term_structure():
+    """RotationTerm is two underdamped SHOTerms (at P and P/2), width 4,
+    and takes a leading chain axis like every port term."""
+    term = ct.RotationTerm(sigma=1.5, period=3.45, Q0=1.3, dQ=1.05, f=0.5)
+    assert term.width == 4
+    sho1, sho2 = term.terms
+    assert isinstance(sho1, ct.SHOTerm) and isinstance(sho2, ct.SHOTerm)
+    assert float(sho1.Q) > 0.5 and float(sho2.Q) > 0.5
+    x, diag = _inputs(N=40)
+    summed = (sho1 + sho2).get_celerite_matrices(t64(x), t64(diag))
+    for g, w in zip(term.get_celerite_matrices(t64(x), t64(diag)), summed):
+        torch.testing.assert_close(g, w, rtol=1e-13, atol=1e-13)
+
+    period = np.array([2.0, 3.45, 7.1])
+    batched = ct.RotationTerm(sigma=1.5, period=t64(period), Q0=1.3, dQ=1.05,
+                              f=0.5)
+    mats = batched.get_celerite_matrices(t64(x), t64(diag))
+    assert tuple(mats[2].shape) == (3, 40, 4)
+    for i, P in enumerate(period):
+        one = ct.RotationTerm(sigma=1.5, period=float(P), Q0=1.3, dQ=1.05,
+                              f=0.5)
+        for g, w in zip(mats, one.get_celerite_matrices(t64(x), t64(diag))):
+            torch.testing.assert_close(g[i], w, rtol=1e-14, atol=1e-14)

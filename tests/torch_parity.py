@@ -1,10 +1,17 @@
 """Shared helpers for the tests that hold celerite2_torch against the JAX
 package (imported by tests/test_torch_*.py; not a test module)."""
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 import torch
 
+from celerite2_torch.ops.fused_loglik import loglik_fused
+from celerite2_tpu import ops as jops
+from celerite2_tpu import terms as jt
 from celerite2_tpu.config import get_config, set_config
+
+COTANGENTS = ["bt", "bc", "ba", "bU", "bV", "by"]
 
 
 def spec_from_jax(term):
@@ -45,3 +52,67 @@ class jax_config:
 
     def __exit__(self, *exc):
         set_config(**self.prior.__dict__)
+
+
+def fused_system(N, J=2, seed=0, nonpd=False, sigma=1.3):
+    """A celerite system ``(t, c, a, U, V, y)`` of width J as numpy
+    arrays: J = 1 RealTerm, 2 SHOTerm, 3 RealTerm + SHOTerm, 4 an SHO
+    mixture (underdamped + overdamped Q = 0.3).  ``nonpd`` makes the
+    diagonal negative enough that the system is not positive definite."""
+    rng = np.random.default_rng(seed)
+    t = np.sort(rng.uniform(0, 10, N))
+    sho = jt.SHOTerm(sigma=sigma, rho=3.4, tau=2.9)
+    kernel = {
+        1: lambda: jt.RealTerm(a=sigma - 0.2, c=0.7),
+        2: lambda: sho,
+        3: lambda: jt.RealTerm(a=0.4, c=1.7) + sho,
+        4: lambda: sho + jt.SHOTerm(sigma=0.6, rho=1.1, Q=0.3),
+    }[J]()
+    diag = np.full(N, -2.0 if nonpd else 0.04)
+    c, a, U, V = kernel.get_celerite_matrices(t, diag)
+    y = np.sin(t) + 0.2 * rng.normal(size=N)
+    return tuple(np.asarray(x) for x in (t, c, a, U, V, y))
+
+
+def ll_ref(t, c, a, U, V, y):
+    """The JAX package's log-likelihood through ``ops.factor_solve``
+    (tests/test_fused_slab.py's ``_ll_ref``)."""
+    d, _, z = jops.factor_solve(t, c, a, U, V, y[:, None])
+    ok = jnp.all(d > 0)
+    safe_d = jnp.where(d > 0, d, jnp.ones_like(d))
+    ll = -0.5 * (
+        jnp.sum(jnp.log(safe_d))
+        + jnp.sum(z[:, 0] ** 2 / safe_d)
+        + t.shape[0] * np.log(2 * np.pi)
+    )
+    return jnp.where(ok, ll, -jnp.inf)
+
+
+def jax_value_and_grads(fn, args):
+    """Value and the six cotangents of ``fn`` under the JAX package's
+    scan tier."""
+    with jax_config(backend="scan", fused_slab="off"):
+        jargs = tuple(jnp.asarray(x) for x in args)
+        value = fn(*jargs)
+        grads = jax.grad(fn, argnums=tuple(range(6)))(*jargs)
+    return float(value), [np.asarray(g) for g in grads]
+
+
+def torch_value_and_grads(args, block_len=None):
+    """The port on one chain: (t, c, a, U, V, y) gain the chain axis."""
+    t, *rest = (t64(x).requires_grad_(True) for x in args)
+    batched = [x[None] for x in rest]
+    ll = loglik_fused(t, *batched, block_len=block_len)
+    grads = torch.autograd.grad(ll.sum(), [t, *rest])
+    return ll[0].item(), [g.numpy() for g in grads]
+
+
+def check_parity(got, want):
+    """Value at rtol 1e-10 and each cotangent at scaled 1e-9
+    (test_fused_slab._check_parity's tolerances)."""
+    v0, g0 = got
+    v1, g1 = want
+    np.testing.assert_allclose(v0, v1, rtol=1e-10)
+    for name, x0, x1 in zip(COTANGENTS, g0, g1):
+        assert x0.shape == x1.shape, name
+        assert_scaled_close(x0, x1, 1e-9, name)
