@@ -7,7 +7,18 @@ the reference.  This package imports neither JAX nor ``celerite2_tpu``.
 
 from celerite2_torch import models, ops
 from celerite2_torch.config import Config, get_config, set_config
-from celerite2_torch.gp import gp_loglik
+from celerite2_torch.gp import (
+    ConditionalDistribution,
+    ConstantMean,
+    GaussianProcess,
+    GPState,
+    gp_apply_inverse,
+    gp_compute,
+    gp_dot_tril,
+    gp_log_likelihood,
+    gp_loglik,
+    gp_sample,
+)
 from celerite2_torch.models import terms
 from celerite2_torch.models.terms import (
     ComplexTerm,
@@ -37,5 +48,14 @@ __all__ = [
     "SHOTerm",
     "Matern32Term",
     "RotationTerm",
+    "ConstantMean",
+    "GPState",
+    "GaussianProcess",
+    "ConditionalDistribution",
+    "gp_compute",
+    "gp_apply_inverse",
+    "gp_dot_tril",
+    "gp_log_likelihood",
     "gp_loglik",
+    "gp_sample",
 ]

@@ -3,7 +3,8 @@
 Counterpart of ``celerite2_tpu/config.py``.  Only the width contract
 and the dtype policy carry over: the JAX package's backend, engine,
 planes, Pallas and fused-slab knobs steer TPU code paths that this
-package does not have.
+package does not have.  ``device`` is this package's own: PyTorch places
+each tensor explicitly, where JAX has one default backend.
 """
 
 from __future__ import annotations
@@ -18,6 +19,14 @@ MAX_WIDTH = 32
 J_BUCKETS = (1, 2, 4, 8, 16, 32)
 
 
+def pad_width(J: int) -> int:
+    """The bucket a width J <= MAX_WIDTH is padded to."""
+    for b in J_BUCKETS:
+        if J <= b:
+            return b
+    raise ValueError(f"celerite width J={J} exceeds MAX_WIDTH={MAX_WIDTH}")
+
+
 @dataclasses.dataclass(frozen=True)
 class Config:
     """Global solver configuration.
@@ -29,9 +38,16 @@ class Config:
             whose float32 cancellation corrupts gradients (the
             eps-regularised ``Matern32Term``).  ``None`` computes in the
             inputs' dtype.
+        device: where anything that is not yet a tensor (numbers, numpy
+            arrays, lists) is placed when an entry point turns it into
+            one.  The default is the card; with ``"cuda"`` and no GPU,
+            PyTorch's own error surfaces.  Tensors the caller passes keep
+            their device, and every entry point's ``device=`` argument
+            overrides this field for one call.
     """
 
     core_dtype: Literal["float64"] | None = None
+    device: str = "cuda"
 
 
 _config = Config()

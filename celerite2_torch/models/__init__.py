@@ -1,4 +1,4 @@
-from celerite2_torch.models.convert import term_from_numpy
+from celerite2_torch.models.convert import state_from_numpy, term_from_numpy
 from celerite2_torch.models.terms import (
     ComplexTerm,
     Matern32Term,
@@ -18,4 +18,5 @@ __all__ = [
     "Matern32Term",
     "RotationTerm",
     "term_from_numpy",
+    "state_from_numpy",
 ]

@@ -1,7 +1,9 @@
-"""Build the port's terms from a plain description of their parameters.
+"""Build the port's terms, and its factorized state, from plain numpy
+descriptions.
 
 No JAX counterpart: this carries a kernel across from
-``celerite2_tpu/models/terms.py`` without importing JAX.  The
+``celerite2_tpu/models/terms.py``, and a ``GPState`` across from
+``celerite2_tpu/gp.py``, without importing JAX.  The
 description names each class and its parameters exactly as the JAX
 classes' ``_params`` do::
 
@@ -19,8 +21,9 @@ import numpy as np
 import torch
 
 from celerite2_torch.models import terms as _terms
+from celerite2_torch.utils.misc import resolve_device
 
-__all__ = ["term_from_numpy"]
+__all__ = ["term_from_numpy", "state_from_numpy"]
 
 _PRIMITIVES = {
     "RealTerm": _terms.RealTerm,
@@ -33,7 +36,9 @@ _PRIMITIVES = {
 
 def term_from_numpy(spec, *, device=None, dtype=torch.float64):
     """The port's term for the description ``spec`` (see the module
-    docstring), with every parameter a tensor on ``device`` of ``dtype``."""
+    docstring), with every parameter a tensor of ``dtype`` on ``device``
+    (default: the package's ``Config.device``)."""
+    device = resolve_device(device)
     kind = spec["type"]
     if kind == "TermSum":
         return _terms.TermSum(
@@ -51,3 +56,25 @@ def term_from_numpy(spec, *, device=None, dtype=torch.float64):
         for name, value in spec["params"].items()
     }
     return _PRIMITIVES[kind](**params)
+
+
+def state_from_numpy(fields, *, device=None, dtype=torch.float64):
+    """The port's ``GPState`` from the fields of a JAX ``GPState`` given as
+    a mapping of numpy arrays (``{name: numpy.asarray(value) for name,
+    value in state._asdict().items()}``): a system factorized by one
+    package can be solved by the other.  Floating fields become ``dtype``
+    on ``device`` (default: the package's ``Config.device``); ``ok`` stays
+    boolean."""
+    from celerite2_torch.gp import GPState
+
+    device = resolve_device(device)
+    missing = set(GPState._fields) - set(fields)
+    if missing:
+        raise ValueError(f"state_from_numpy: missing fields {sorted(missing)}")
+    return GPState(**{
+        name: torch.as_tensor(
+            np.array(fields[name]), device=device,  # a writable copy
+            dtype=torch.bool if name == "ok" else dtype,
+        )
+        for name in GPState._fields
+    })

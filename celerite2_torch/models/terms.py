@@ -29,7 +29,7 @@ import math
 
 import torch
 
-from celerite2_torch.utils.misc import as_tensor, atleast_1d
+from celerite2_torch.utils.misc import as_tensor, atleast_1d, first_device
 
 __all__ = [
     "Term",
@@ -47,6 +47,13 @@ def _cat_last(parts):
     """Concatenate along the last axis, broadcasting the leading axes."""
     batch = torch.broadcast_shapes(*(p.shape[:-1] for p in parts))
     return torch.cat([p.expand(*batch, p.shape[-1]) for p in parts], -1)
+
+
+def _tensors(*values):
+    """Parameters as tensors: the numbers among them follow the first
+    tensor's device (else the package default)."""
+    device = first_device(*values)
+    return tuple(as_tensor(v, device=device) for v in values)
 
 
 def _lift(coef, ndim):
@@ -140,6 +147,27 @@ class Term:
         return _matrices_from_coefficients(
             x, as_tensor(diag, like=x), *self.get_coefficients()
         )
+
+    def dot(self, x, diag, y):
+        """Apply ``K @ y`` in O(N J nrhs) for one kernel: ``x (N,)``,
+        ``y (N,)`` or ``(N, nrhs)``."""
+        from celerite2_torch.ops import matmul_lower, matmul_upper
+
+        x = atleast_1d(x)
+        y = as_tensor(y, like=x)
+        if y.shape[0] != x.shape[0]:
+            raise ValueError("dimension mismatch")
+        is_vector = y.ndim == 1
+        if is_vector:
+            y = y[:, None]
+        if y.ndim != 2:
+            raise ValueError("'y' can only be a vector or matrix")
+
+        c, a, U, V = self.get_celerite_matrices(x, diag)
+        z = a[:, None] * y
+        z = z + matmul_lower(x, c, U, V, y)
+        z = z + matmul_upper(x, c, U, V, y)
+        return z[:, 0] if is_vector else z
 
 
 def _matrices_from_coefficients(x, diag, ar, cr, ac, bc, cc, dc):
@@ -248,8 +276,7 @@ class RealTerm(Term):
     _params = ("a", "c")
 
     def __init__(self, *, a, c):
-        self.a = as_tensor(a)
-        self.c = as_tensor(c)
+        self.a, self.c = _tensors(a, c)
 
     def get_coefficients(self):
         a, c = torch.broadcast_tensors(self.a, self.c)
@@ -263,10 +290,7 @@ class ComplexTerm(Term):
     _params = ("a", "b", "c", "d")
 
     def __init__(self, *, a, b, c, d):
-        self.a = as_tensor(a)
-        self.b = as_tensor(b)
-        self.c = as_tensor(c)
-        self.d = as_tensor(d)
+        self.a, self.b, self.c, self.d = _tensors(a, b, c, d)
 
     def get_coefficients(self):
         a, b, c, d = torch.broadcast_tensors(self.a, self.b, self.c, self.d)
@@ -286,6 +310,7 @@ def resolve_parameter_spec(spec, kwargs):
     the dict of primary values.
     """
     resolved = {}
+    device = first_device(*kwargs.values())
     for primary, alternatives in spec:
         spellings = (primary, *alternatives)
         present = [name for name in spellings if name in kwargs]
@@ -294,7 +319,7 @@ def resolve_parameter_spec(spec, kwargs):
                 f"exactly one of {sorted(spellings)} must be defined"
             )
         (name,) = present
-        value = as_tensor(kwargs.pop(name))
+        value = as_tensor(kwargs.pop(name), device=device)
         if name != primary:
             value = alternatives[name](resolved, value)
         resolved[primary] = value
@@ -328,7 +353,7 @@ class SHOTerm(Term):
             )
         for name, value in resolved.items():
             setattr(self, name, value)
-        self.eps = as_tensor(eps)
+        self.eps = as_tensor(eps, device=first_device(*resolved.values()))
 
     def _cast(self, like):
         return tuple(getattr(self, p).to(like) for p in self._params)
@@ -436,9 +461,7 @@ class Matern32Term(Term):
     _params = ("sigma", "rho", "eps")
 
     def __init__(self, *, sigma, rho, eps=0.01):
-        self.sigma = as_tensor(sigma)
-        self.rho = as_tensor(rho)
-        self.eps = as_tensor(eps)
+        self.sigma, self.rho, self.eps = _tensors(sigma, rho, eps)
 
     def get_coefficients(self):
         sigma, rho, eps = torch.broadcast_tensors(self.sigma, self.rho, self.eps)
@@ -465,11 +488,9 @@ class RotationTerm(Term):
     _params = ("sigma", "period", "Q0", "dQ", "f")
 
     def __init__(self, *, sigma, period, Q0, dQ, f):
-        self.sigma = as_tensor(sigma)
-        self.period = as_tensor(period)
-        self.Q0 = as_tensor(Q0)
-        self.dQ = as_tensor(dQ)
-        self.f = as_tensor(f)
+        self.sigma, self.period, self.Q0, self.dQ, self.f = _tensors(
+            sigma, period, Q0, dQ, f
+        )
 
     def _sho_terms(self):
         amp = self.sigma**2 / (1 + self.f)

@@ -24,6 +24,8 @@ from pathlib import Path
 
 import torch
 
+from celerite2_torch.config import J_BUCKETS
+
 __all__ = [
     "LAUNCHES",
     "build",
@@ -32,6 +34,9 @@ __all__ = [
     "factor_rev_cuda",
     "frev_maps_cuda",
     "frev_states_cuda",
+    "factor_fwd_cuda",
+    "sweep_fwd_cuda",
+    "affine_prefix_cuda",
 ]
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -42,7 +47,6 @@ NVCC_FLAGS = (
     "-std=c++17",
     "-O3",
     "-Xptxas=-v",
-    "-shared",
     "-Xcompiler",
     "-fPIC",
 )
@@ -55,15 +59,22 @@ LAUNCHES = {
     "factor_rev": 0,
     "frev_maps": 0,
     "frev_states": 0,
+    "factor_fwd": 0,
+    "sweep_fwd": 0,
+    "affine_prefix": 0,
 }
 
-# The celerite widths J each kernel is built for (csrc/fused_loglik.cu).
+# The celerite widths J each kernel is built for (csrc/fused_loglik.cu;
+# csrc/general_ops.cu at the buckets of config.J_BUCKETS).  The affine
+# prefix takes its width at run time and is not listed.
 WIDTHS = {
     "kalman_fwd": (1, 2, 3, 4),
     "solve_rev": (1, 2, 3, 4),
     "factor_rev": (1, 2),
     "frev_maps": (1, 2, 3, 4),
     "frev_states": (1, 2, 3, 4),
+    "factor_fwd": J_BUCKETS,
+    "sweep_fwd": J_BUCKETS,
 }
 
 _lib = None
@@ -79,7 +90,9 @@ def _nvcc() -> str:
 
 def build() -> Path:
     """Compile ``csrc/*.cu`` unless the library for these sources exists;
-    returns its path.  ``<library>.log`` keeps nvcc's output (ptxas
+    returns its path.  Each source is compiled by its own ``nvcc``
+    process, all started together, and the objects are linked into one
+    shared library.  ``<library>.log`` keeps nvcc's output (ptxas
     register and spill counts) and the build time."""
     sources = sorted(CSRC.glob("*.cu"))
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
@@ -89,18 +102,43 @@ def build() -> Path:
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    tag = f"{lib.stem}.{os.getpid()}"
+    objects = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in sources]
     tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
     start = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - start
-    if res.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed ({res.returncode}):\n{res.stdout}\n{res.stderr}"
+    procs = [
+        subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         )
+        for src, obj in zip(sources, objects)
+    ]
+    outputs = [proc.communicate()[0] for proc in procs]
+    try:
+        failed = [
+            f"{src.name} ({proc.returncode}):\n{out}"
+            for src, proc, out in zip(sources, procs, outputs)
+            if proc.returncode != 0
+        ]
+        if failed:
+            raise RuntimeError("nvcc failed: " + "\n".join(failed))
+        link = subprocess.run(
+            [nvcc, "-shared", "-o", str(tmp), *map(str, objects)],
+            capture_output=True, text=True,
+        )
+        if link.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(
+                f"nvcc link failed ({link.returncode}):\n{link.stdout}\n"
+                f"{link.stderr}"
+            )
+    finally:
+        for obj in objects:
+            obj.unlink(missing_ok=True)
+    seconds = time.perf_counter() - start
     lib.with_suffix(".log").write_text(
-        f"build_seconds {seconds:.3f}\n{res.stdout}{res.stderr}"
+        f"build_seconds {seconds:.3f}\n" + "".join(outputs)
     )
     os.replace(tmp, lib)
     return lib
@@ -122,6 +160,16 @@ def _library():
             fn = getattr(lib, name)
             fn.argtypes = [I, I] + [P] * n_arrays + [I, I, I, P]
             fn.restype = I
+        # (is_double, J, inputs..., outputs..., C, N, stream)
+        lib.c2t_factor_fwd.argtypes = [I, I] + [P] * 7 + [I, I, P]
+        lib.c2t_factor_fwd.restype = I
+        # (is_double, J, inputs..., outputs..., C, N, K, is_solve, upper, stream)
+        lib.c2t_sweep_fwd.argtypes = [I, I] + [P] * 6 + [I] * 5 + [P]
+        lib.c2t_sweep_fwd.restype = I
+        # (is_double, J, phi, G, carry, F, tot_a, tot_b, C, M, K, L, reverse,
+        #  stream)
+        lib.c2t_affine_prefix.argtypes = [I, I] + [P] * 6 + [I] * 5 + [P]
+        lib.c2t_affine_prefix.restype = I
         _lib = lib
     return _lib
 
@@ -243,3 +291,106 @@ def frev_states_cuda(p, U, W, bv0, bdp, seeds, L):
     _check("frev_states", inputs, _row_shapes(C, N, J, 4, 1) + ((C, NB, J * J),))
     (out,) = _launch("frev_states", inputs, ((C, N, J * J),), C, N, J, L)
     return out
+
+
+def _launch_general(key, J, inputs, outs, ints):
+    """Launch ``c2t_<key>`` (csrc/general_ops.cu) on ``inputs`` into
+    ``outs`` (None for an array that is not wanted: its pointer is null),
+    with the trailing integer arguments ``ints``."""
+    if J not in WIDTHS.get(key, (J,)):
+        raise NotImplementedError(
+            f"{key}: J must be one of {WIDTHS[key]}, got {J}"
+        )
+    x = inputs[0]
+    lib = _library()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = getattr(lib, f"c2t_{key}")(
+            int(x.dtype == torch.float64),
+            J,
+            *(t.data_ptr() for t in inputs),
+            *(None if t is None else t.data_ptr() for t in outs),
+            *ints,
+            stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"{key}: kernel launch failed (CUDA error {rc})")
+    LAUNCHES[key] += 1
+
+
+def _empty(like, *shape):
+    return torch.empty(shape, dtype=like.dtype, device=like.device)
+
+
+def factor_fwd_cuda(p, a, U, V, want_cache=False):
+    """The factor kernel on the card: ``d (C, N)``, ``W (C, N, J)`` and,
+    if ``want_cache``, ``S_half (C, N, J, J)`` (else None)."""
+    C, N, J = U.shape
+    inputs = (p, a, U, V)
+    _check("factor_fwd", inputs, ((C, N, J), (C, N), (C, N, J), (C, N, J)))
+    if min(C, N) < 1:
+        raise ValueError(f"factor_fwd: empty system (C={C}, N={N})")
+    outs = (
+        _empty(p, C, N),
+        _empty(p, C, N, J),
+        _empty(p, C, N, J, J) if want_cache else None,
+    )
+    _launch_general("factor_fwd", J, inputs, outs, (C, N))
+    return outs
+
+
+def sweep_fwd_cuda(p, A, B, Y, is_solve, upper, want_cache=False):
+    """The sweep kernel on the card: ``Z (C, N, K)`` and, if
+    ``want_cache``, ``F (C, N, J, K)`` (else None)."""
+    C, N, J = A.shape
+    K = Y.shape[-1]
+    inputs = (p, A, B, Y)
+    _check("sweep_fwd", inputs, ((C, N, J),) * 3 + ((C, N, K),))
+    if min(C, N, K) < 1:
+        raise ValueError(f"sweep_fwd: empty system (C={C}, N={N}, K={K})")
+    outs = (_empty(p, C, N, K), _empty(p, C, N, J, K) if want_cache else None)
+    _launch_general(
+        "sweep_fwd", J, inputs, outs, (C, N, K, int(is_solve), int(upper))
+    )
+    return outs
+
+
+def prefix_block_len(M):
+    """Rows per block of the affine prefix: the power of two at or above
+    sqrt(M) (at least 32), so that the blocks are at most as many as the
+    rows of one block and the recurrence over the blocks is one launch."""
+    L = 32
+    while L * L < M:
+        L *= 2
+    return L
+
+
+def affine_prefix_cuda(phi, G, reverse=False, block_len=None):
+    """The affine prefix on the card: ``F (C, M, J, K)`` with ``F[m] =
+    phi[m] F[m -+ 1] + G[m]`` over the rows (descending with ``reverse``).
+
+    Up to ``block_len`` rows (default :func:`prefix_block_len`) it is one
+    launch.  Above, three: the composed map of every block of ``block_len``
+    rows, this function on those maps for the value leaving every block,
+    and the rows of every block from the value entering it."""
+    C, M, J, K = G.shape
+    _check("affine_prefix", (phi, G), ((C, M, J), (C, M, J, K)))
+    if min(C, M, J, K) < 1:
+        raise ValueError(f"affine_prefix: empty system {tuple(G.shape)}")
+    L = prefix_block_len(M) if block_len is None else int(block_len)
+    if L < 1:
+        raise ValueError(f"affine_prefix: block length must be >= 1, got {L}")
+    def launch(carry, F, tot_a, tot_b, L):
+        _launch_general("affine_prefix", J, (phi, G), (carry, F, tot_a, tot_b),
+                        (C, M, K, L, int(reverse)))
+
+    F = torch.empty_like(G)
+    if M <= L:
+        launch(None, F, None, None, M)
+        return F
+    NB = -(-M // L)
+    totals = (_empty(G, C, NB, J), _empty(G, C, NB, J, K))
+    launch(None, None, *totals, L)
+    carry = affine_prefix_cuda(*totals, reverse, L)
+    launch(carry, F, None, None, L)
+    return F

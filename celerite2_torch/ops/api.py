@@ -1,0 +1,258 @@
+"""The public semiseparable ops, at any celerite width J <= 32.
+
+Counterpart of ``celerite2_tpu/ops/api.py``: ``factor``, the two solves,
+the two matmuls, the rectangular ``general_matmul_*`` and ``to_dense``.
+Every op takes one system, with the JAX package's shapes (``t (N,)``, ``c
+(J,)``, ``U (N, J)``, ``Y (N, K)``, ...), or C independent systems at once,
+with a leading chain axis on every argument.
+
+``factor`` and the four sweeps are ``torch.autograd.Function``s.  Their
+forward is the CUDA kernel of ``csrc/general_ops.cu`` for CUDA tensors and
+the plain loop of ``ops/scan.py`` for CPU tensors.  Their hand-derived
+adjoints (the JAX package's ``factor_rev`` and ``sweep_rev`` recursions)
+are not ported yet, so on either device ``backward`` raises
+``NotImplementedError``: nothing is detached silently, and autograd never
+differentiates through the row loop.  ``general_matmul_*`` accumulate with
+the affine prefix (the CUDA kernel for CUDA tensors, a doubling in plain
+PyTorch on the CPU), which carries its own adjoint, so like ``to_dense``
+they are differentiable on either device.
+
+Width bucketing: J is padded up to the next of ``config.J_BUCKETS`` before
+the recursions run, with c = 1 and zero columns of the (N, J) matrices, so
+the kernels exist for J in {1, 2, 4, 8, 16, 32} only.  The recursions are
+exactly invariant to zero columns (the padded carry entries stay zero), and
+the outputs are sliced back to J.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from celerite2_torch.config import MAX_WIDTH, pad_width
+from celerite2_torch.ops import scan as _scan
+from celerite2_torch.ops.spec import validate_call
+
+__all__ = [
+    "factor",
+    "solve_lower",
+    "solve_upper",
+    "matmul_lower",
+    "matmul_upper",
+    "general_matmul_lower",
+    "general_matmul_upper",
+    "to_dense",
+]
+
+
+def _bucketed(c, *mats):
+    """Pad ``c (C, J)`` and the ``(C, N, J)`` matrices to the J bucket.
+
+    Returns ``(c_p, mats_p, J)`` where ``J`` is the ORIGINAL width (what
+    callers slice outputs back to).  Widths above ``MAX_WIDTH`` are left
+    as they are: the plain loops take any width, the kernels refuse."""
+    J = c.shape[-1]
+    if J == 0 or J > MAX_WIDTH or pad_width(J) == J:
+        return c, mats, J
+    pad = pad_width(J) - J
+    c_p = torch.cat([c, c.new_ones(*c.shape[:-1], pad)], -1)
+    mats_p = tuple(torch.nn.functional.pad(m, (0, pad)) for m in mats)
+    return c_p, mats_p, J
+
+
+def _chains(batched, *args):
+    """The arguments with the leading chain axis, contiguous."""
+    return tuple((x if batched else x[None]).contiguous() for x in args)
+
+
+def _no_backward(op, item, adjoint):
+    raise NotImplementedError(
+        f"the gradient of {op} is not ported yet: its adjoint recursion "
+        f"({adjoint}) is ROADMAP.md item {item} (B9: factor, B10: sweeps)"
+    )
+
+
+# ============================================================== factor
+
+
+class _Factor(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, c, a, U, V):
+        batched = U.dim() == 3
+        t, c, a, U, V = _chains(batched, t, c, a, U, V)
+        c_p, (U_p, V_p), J = _bucketed(c, U, V)
+        d, W, _ = _scan.factor_fwd(_scan.transport(t, c_p), a, U_p, V_p)
+        W = W[..., :J]
+        return (d, W) if batched else (d[0], W[0])
+
+    @staticmethod
+    def backward(ctx, bd, bW):
+        _no_backward("factor", "B9", "factor_rev")
+
+
+def factor(t, c, a, U, V):
+    """LDL^T factorization: returns ``(d, W)``.
+
+    ``K = L diag(d) L^T`` with ``L = I + tril_strict(U W^T (x) transport)``.
+    A non-positive entry of ``d`` means the matrix is not positive
+    definite; the division by such a pivot is guarded, so the result is
+    finite and the caller checks ``(d > 0).all()``.
+    """
+    validate_call("factor", t, c, a, U, V)
+    return _Factor.apply(t, c, a, U, V)
+
+
+# =============================================================== sweeps
+
+# name -> (is_solve, upper, swap): the upper sweeps project with the
+# second factor and feed the carry with the first
+_SWEEPS = {
+    "solve_lower": (True, False, False),
+    "solve_upper": (True, True, True),
+    "matmul_lower": (False, False, False),
+    "matmul_upper": (False, True, True),
+}
+
+
+class _Sweep(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, name, t, c, M1, M2, Y):
+        ctx.name = name
+        is_solve, upper, swap = _SWEEPS[name]
+        batched = Y.dim() == 3
+        t, c, M1, M2, Y = _chains(batched, t, c, M1, M2, Y)
+        c_p, (M1_p, M2_p), _ = _bucketed(c, M1, M2)
+        A, B = (M2_p, M1_p) if swap else (M1_p, M2_p)
+        p = _scan.transport_up(t, c_p) if upper else _scan.transport(t, c_p)
+        Z, _ = _scan.sweep_fwd(p, A, B, Y, is_solve=is_solve, upper=upper)
+        return Z if batched else Z[0]
+
+    @staticmethod
+    def backward(ctx, bZ):
+        _no_backward(ctx.name, "B10", "sweep_rev")
+
+
+def _sweep_op(name, doc):
+    def op(t, c, M1, M2, Y):
+        validate_call(name, t, c, M1, M2, Y)
+        return _Sweep.apply(name, t, c, M1, M2, Y)
+
+    op.__name__ = op.__qualname__ = name
+    op.__doc__ = doc
+    return op
+
+
+solve_lower = _sweep_op(
+    "solve_lower", "Z = L^{-1} Y (unit lower-triangular semiseparable solve)."
+)
+solve_upper = _sweep_op("solve_upper", "Z = L^{-T} Y.")
+matmul_lower = _sweep_op(
+    "matmul_lower", "Z = tril_strict(U V^T (x) transport) @ Y."
+)
+matmul_upper = _sweep_op(
+    "matmul_upper", "Z = triu_strict(V U^T (x) transport) @ Y."
+)
+
+
+# ===================================================== general matmuls
+#
+# Rectangular cross-covariance products (prediction at new points).  The
+# merge over the two sorted time axes is a searchsorted + gather against
+# the scanned carry.
+
+
+class _AffinePrefix(torch.autograd.Function):
+    """``F_m = phi_m F_prev + G_m`` over the rows of ``G (C, M, J, K)``.
+
+    The adjoint of an affine prefix is the affine prefix walked the other
+    way, ``lam_m = bF_m + phi_next lam_next``, so ``backward`` runs the
+    same recursion (the same kernel on the card): ``bG = lam`` and
+    ``bphi_m = sum_k lam_m F_prev``."""
+
+    @staticmethod
+    def forward(ctx, phi, G, reverse):
+        F = _scan.affine_prefix(phi, G, reverse=reverse)
+        ctx.save_for_backward(phi, F)
+        ctx.reverse = reverse
+        return F
+
+    @staticmethod
+    def backward(ctx, bF):
+        phi, F = ctx.saved_tensors
+        zero = torch.zeros_like(phi[:, :1])
+        if ctx.reverse:
+            phi_next = torch.cat([zero, phi[:, :-1]], 1)
+            F_prev = torch.cat([F[:, 1:], torch.zeros_like(F[:, :1])], 1)
+        else:
+            phi_next = torch.cat([phi[:, 1:], zero], 1)
+            F_prev = torch.cat([torch.zeros_like(F[:, :1]), F[:, :-1]], 1)
+        lam = _scan.affine_prefix(
+            phi_next.contiguous(), bF.contiguous(), reverse=not ctx.reverse
+        )
+        return (lam * F_prev).sum(-1), lam, None
+
+
+def _transported_cumulative(phi, G, *, reverse=False):
+    """Inclusive transported cumulative ``F_m = phi_m * F_prev + G_m`` over
+    the rows of ``G (..., M, J, K)``, with ``phi (..., M, J)``.
+
+    On a TPU the JAX package runs this through its prefix engine
+    (``assoc._diag_affine_scan``); here it is the blocked prefix kernel of
+    ``csrc/general_ops.cu`` for CUDA tensors and a doubling in plain
+    PyTorch on the CPU (``ops/scan.py``)."""
+    batched = G.dim() == 4
+    phi, G = _chains(batched, phi, G)
+    F = _AffinePrefix.apply(phi, G, reverse)
+    return F if batched else F[0]
+
+
+def _gathered_product(t1, t2, c, U, F, idx, has_src, sign):
+    """``U[n] . diag(exp(-c |t1[n] - t2[idx[n]]|)) F[idx[n]]``, zero where
+    row n has no source point."""
+    idx_c = idx.clamp(0, t2.shape[-1] - 1)
+    t2_g = torch.take_along_dim(t2, idx_c, -1)
+    decay = torch.exp(-c[..., None, :] * (sign * (t1 - t2_g))[..., None])
+    Fg = torch.take_along_dim(F, idx_c[..., None, None], -3)  # (..., N, J, K)
+    Z = ((U * decay)[..., None] * Fg).sum(-2)
+    return torch.where(has_src[..., None], Z, torch.zeros_like(Z))
+
+
+def general_matmul_lower(t1, t2, c, U, V, Y):
+    """Z[n] = sum_{m: t2[m] <= t1[n]} U[n] . diag(e^{-c (t1[n]-t2[m])}) V[m] Y[m].
+
+    ``t1 (N,)`` target points, ``t2 (M,)`` source points (both sorted),
+    ``U (N, J)``, ``V (M, J)``, ``Y (M, K)`` -> ``Z (N, K)``.
+    """
+    validate_call("general_matmul_lower", t1, t2, c, U, V, Y)
+    # F[m] = sum_{l <= m} diag(e^{-c (t2[m]-t2[l])}) V[l]^T Y[l]
+    F = _transported_cumulative(
+        _scan.transport(t2, c), V[..., :, None] * Y[..., None, :]
+    )
+    # index of the last source point with t2[m] <= t1[n]
+    idx = torch.searchsorted(t2.contiguous(), t1.contiguous(), right=True) - 1
+    return _gathered_product(t1, t2, c, U, F, idx, idx >= 0, 1.0)
+
+
+def general_matmul_upper(t1, t2, c, U, V, Y):
+    """Z[n] = sum_{m: t2[m] > t1[n]} U[n] . diag(e^{-c (t2[m]-t1[n])}) V[m] Y[m]."""
+    validate_call("general_matmul_upper", t1, t2, c, U, V, Y)
+    # reverse-time cumulative: F[m] = sum_{l >= m} transported V^T Y
+    F = _transported_cumulative(
+        _scan.transport_up(t2, c), V[..., :, None] * Y[..., None, :],
+        reverse=True,
+    )
+    # first source point with t2[m] > t1[n]
+    idx = torch.searchsorted(t2.contiguous(), t1.contiguous(), right=True)
+    return _gathered_product(t1, t2, c, U, F, idx, idx < t2.shape[-1], -1.0)
+
+
+# ============================================================= to_dense
+
+
+def to_dense(t, c, a, U, V):
+    """Materialize the dense celerite matrix (O(N^2 J); oracle only)."""
+    validate_call("to_dense", t, c, a, U, V)
+    tau = (t[..., :, None] - t[..., None, :]).abs()
+    decay = torch.exp(-c[..., None, None, :] * tau[..., None])
+    K = (U[..., :, None, :] * V[..., None, :, :] * decay).sum(-1)
+    lower = torch.tril(K, diagonal=-1)
+    return lower + lower.mT + torch.diag_embed(a)

@@ -11,24 +11,46 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from celerite2_torch.config import get_config
 
-def as_tensor(x, *, like=None):
-    """A tensor for ``x``: tensors pass through untouched (autograd keeps
-    flowing); Python numbers become float64 and numpy arrays keep their
-    dtype.  ``like`` moves the result to that tensor's device and dtype."""
+
+def resolve_device(device=None):
+    """``device`` if given, else the package default (``Config.device``)."""
+    return torch.device(get_config().device if device is None else device)
+
+
+def as_tensor(x, *, like=None, device=None):
+    """A tensor for ``x``.
+
+    A tensor passes through untouched: it keeps its device, and autograd
+    keeps flowing.  Anything else (a Python number, which becomes float64;
+    a numpy array or a list, which keep their dtype) is placed on
+    ``like``'s device if ``like`` is given, else on ``device``, else on
+    the package default ``Config.device``.  ``like`` also moves a tensor
+    to that tensor's device and dtype."""
     if not isinstance(x, torch.Tensor):
+        target = like.device if like is not None else resolve_device(device)
         if isinstance(x, (int, float)):
-            x = torch.tensor(float(x), dtype=torch.float64)
+            x = torch.tensor(float(x), dtype=torch.float64, device=target)
         else:
-            x = torch.as_tensor(np.asarray(x))
+            x = torch.as_tensor(np.asarray(x)).to(target)
     if like is not None:
         x = x.to(device=like.device, dtype=like.dtype)
     return x
 
 
-def atleast_1d(x):
+def atleast_1d(x, *, device=None):
     """``as_tensor`` + promote scalars to rank 1."""
-    return torch.atleast_1d(as_tensor(x))
+    return torch.atleast_1d(as_tensor(x, device=device))
+
+
+def first_device(*values):
+    """The device of the first tensor among ``values``, else None: the
+    numbers given beside a tensor parameter follow that tensor."""
+    for v in values:
+        if isinstance(v, torch.Tensor):
+            return v.device
+    return None
 
 
 class LinAlgError(Exception):

@@ -1,7 +1,7 @@
 """Smoke test of celerite2_torch on one NVIDIA GPU.
 
 Builds the hand-written CUDA kernels from ``celerite2_torch/csrc``, holds
-each against its plain PyTorch version on the card, drives the two main
+each against its plain PyTorch version on the card, drives the three main
 paths through them and checks each against the plain route on the CPU in
 float64:
 
@@ -9,11 +9,16 @@ float64:
   N = 100,000 (kernels K1, K2 and the dense factor adjoint K3);
 * J = 4: the same for benchmarks/configs.py config5's SHO mixture and for
   a RotationTerm at N = 100,000 (K1, K2 and the structured factor adjoint
-  K4, K5).
+  K4, K5);
+* the forward ``GaussianProcess`` path (compute, log_likelihood,
+  apply_inverse, predict, sample) at N = 100,000 for a J = 8 model of four
+  SHOTerms and for the J = 4 SHO mixture (the general factor and sweep
+  kernels, ``factor_fwd`` and ``sweep_fwd``, and the blocked prefix of the
+  rectangular products, ``affine_prefix``).
 
-It then times chained sampler steps on both paths, config5's J = 4 model
-at its own size N = 1e6, and profiles the J = 4 path.  Run from the root
-of the repository:
+It then times chained sampler steps on the first two paths, config5's
+J = 4 model at its own size N = 1e6, and profiles the J = 4 path.  Run
+from the root of the repository:
 
     python3 chip_smoke.py            # the smoke test (a few minutes)
     python3 chip_smoke.py --sweep    # also time evals/s per block length
@@ -39,7 +44,9 @@ import torch
 import celerite2_torch as ct
 from celerite2_torch.ops import _build
 from celerite2_torch.ops import fused_loglik as fl
+from celerite2_torch.ops import scan
 
+# the kernels of the fused log-likelihood: (plain version, wrapper)
 KERNELS = {
     "kalman_fwd": (fl.kalman_fwd_plain, _build.kalman_fwd_cuda),
     "solve_rev": (fl.solve_rev_plain, _build.solve_rev_cuda),
@@ -53,8 +60,18 @@ TPU_KERNEL = {
     "factor_rev": "celerite2_tpu/ops/fused_slab.py:308",
     "frev_maps": "celerite2_tpu/ops/fused_slab.py:629",
     "frev_states": "celerite2_tpu/ops/fused_slab.py:697",
+    "factor_fwd": "celerite2_tpu/ops/pallas_kernels.py:139",
+    "sweep_fwd": "celerite2_tpu/ops/pallas_kernels.py:236",
+    "affine_prefix": "celerite2_tpu/ops/planes_engine.py:311",
 }
-SOURCE = "celerite2_torch/csrc/fused_loglik.cu"
+SOURCE = dict.fromkeys(KERNELS, "celerite2_torch/csrc/fused_loglik.cu")
+SOURCE.update(dict.fromkeys(("factor_fwd", "sweep_fwd", "affine_prefix"),
+                            "celerite2_torch/csrc/general_ops.cu"))
+# Peak rates of one H100 SXM for the bound of each kernel: 3.35 TB/s of
+# device memory; 67 TFLOP/s in float32 outside the tensor cores, and half
+# of that in float64 (NVIDIA's data sheet: 34 TFLOP/s).
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 33.5e12}
 # the width at which each kernel is timed and reported: J = 4 (config5's
 # SHO mixture), except the dense factor adjoint K3, which serves J <= 2
 REPORT_J = {"kalman_fwd": 4, "solve_rev": 4, "factor_rev": 2,
@@ -126,6 +143,37 @@ def cuda_ms(fn, reps, warmup=2):
     return start.elapsed_time(end) / reps
 
 
+def bound_ms(arrays, flops):
+    """The least time the card could take: each input read once and each
+    output written once at the peak memory rate, or ``flops`` operations
+    at the peak rate of the arrays' type, whichever is larger.  Returns
+    ``(milliseconds, "bytes" or "operations")``."""
+    nbytes = sum(x.numel() * x.element_size() for x in arrays)
+    by_bytes = 1e3 * nbytes / PEAK_BYTES_PER_S
+    by_ops = 1e3 * flops / PEAK_FLOPS[arrays[0].dtype]
+    return max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations"
+
+
+def kernel_flops(name, C, N, J, K=1):
+    """Operations of one launch, counted from the recursions: per row, the
+    element's build and one combine with the running value (K1-K3), one
+    structured step on J^2 + 1 states (K4) or on one (K5), the rank-one
+    update, transport and product of the factor, the transport, projection
+    and feed of a sweep, one multiply-add of the affine prefix."""
+    D = J * J
+    per_row = {
+        "kalman_fwd": 12 * J**3 + 10 * D,
+        "solve_rev": 2 * J**3 + 5 * D,
+        "factor_rev": 2 * D**3 + 12 * D * D,
+        "frev_maps": (D + 1) * 10 * D,
+        "frev_states": 10 * D,
+        "factor_fwd": 7 * D + 4 * J,
+        "sweep_fwd": 5 * J * K,
+        "affine_prefix": 2 * J * K,
+    }[name]
+    return C * N * per_row
+
+
 def reset_launches():
     for k in _build.LAUNCHES:
         _build.LAUNCHES[k] = 0
@@ -170,8 +218,9 @@ def phase_build():
     for line in lib.with_suffix(".log").read_text().splitlines():
         if line.startswith("build_seconds"):
             log("build", f"nvcc took {line.split()[1]} s")
-        elif m := re.search(r"([a-z]+_[a-z]+)_kernelI([fd])Li(\d)E", line):
-            name = f"{m[1]}<{'double' if m[2] == 'd' else 'float'}, J={m[3]}>"
+        elif m := re.search(r"([a-z]+_[a-z]+)_kernelI([fd])(?:Li(\d+))?E", line):
+            name = f"{m[1]}<{'double' if m[2] == 'd' else 'float'}" + (
+                f", J={m[3]}>" if m[3] else ">")
         elif "spill stores" in line:
             spills = line.split(",")[1].strip()
         elif m := re.search(r"Used (\d+) registers", line):
@@ -259,16 +308,405 @@ def phase_kernels(dev):
     for name, (plain, kernel) in KERNELS.items():
         inp = main_inputs[name]
         ms = cuda_ms(lambda: kernel(*inp, L), reps=20)
-        plain_ms = cuda_ms(lambda: plain(*inp, L), reps=3, warmup=1)
-        times[name] = (ms, plain_ms)
-        log("kernels", f"{name}: {ms:.4f} ms (plain {plain_ms:.2f} ms) at "
-            f"N = 1e5, J = {REPORT_J[name]}, L = {L}, float64")
+        plain_ms = cuda_ms(lambda: plain(*inp, L), reps=2, warmup=1)
+        out = kernel(*inp, L)
+        out = (out,) if isinstance(out, torch.Tensor) else out
+        J = REPORT_J[name]
+        bound, by = bound_ms((*inp, *out), kernel_flops(name, 1, N_MAIN, J))
+        times[name] = (ms, plain_ms, bound, by)
+        log("kernels", f"{name}: {ms:.4f} ms (plain {plain_ms:.2f} ms, bound "
+            f"{bound:.4f} ms by {by}) at N = 1e5, J = {J}, L = {L}, float64")
     # the J = 2 path's K1, K2 as PR 1 timed them
     j2 = fl.pass_inputs(*system("sho", N_MAIN, 1, dev, seed=N_MAIN + 2))
     for name in ("kalman_fwd", "solve_rev"):
         ms = cuda_ms(lambda: KERNELS[name][1](*j2[name], L), reps=20)
         log("kernels", f"{name}: {ms:.4f} ms at N = 1e5, J = 2, L = {L}, float64")
     return main_abs, times
+
+
+# ------------------------------------ the general factor and sweep kernels
+
+# Kernel against plain version at N = 1e5: the J = 8 model has an SHOTerm at
+# Q = 0.5, whose coefficients carry 1 / sqrt(eps) = 316, so the factor
+# recursion amplifies the last-digit differences between the two (fused
+# multiply-adds, the order of sums) some hundredfold over 1e5 rows
+LONG_RTOL = 1e-9
+
+MODES = {"solve_lower": (True, False), "solve_upper": (True, True),
+         "matmul_lower": (False, False), "matmul_upper": (False, True)}
+
+
+def wide_kernel(J, scale):
+    """A kernel of width J: bench's SHOTerm plus (J - 2) / 2 more SHOTerms
+    (benchmarks/probe_planes_tpu.py's wide model; J = 8 is its four
+    SHOTerms), a RealTerm alone at J = 1 and one more at odd J."""
+    if J == 1:
+        return ct.RealTerm(a=scale, c=0.3)
+    k = ct.SHOTerm(sigma=scale, rho=5.0, tau=3.0)
+    for j in range((J - 2) // 2):
+        k = k + ct.SHOTerm(sigma=scale * (0.5 + 0.2 * j), rho=5.0 * (1.7 + j),
+                           Q=0.3 + 0.1 * j)
+    if J % 2:
+        k = k + ct.RealTerm(a=0.5 * scale, c=0.3)
+    return k
+
+
+def wide_system(J, N, C, K, dev, seed=0):
+    """``(t (C, N), c, a, U, V, Y (C, N, K))`` of C chains of width J,
+    padded to its bucket as the ops pad it (c = 1, zero columns)."""
+    rng = np.random.default_rng(seed)
+    t = torch.tensor(np.sort(rng.uniform(0, N / 100.0, N)), device=dev)
+    scale = torch.tensor(rng.uniform(0.8, 1.2, C), device=dev)
+    c, a, U, V = wide_kernel(J, scale).get_celerite_matrices(t, 0.0625)
+    c, (U, V), _ = ct.ops.api._bucketed(c, U, V)
+    Y = torch.tensor(rng.normal(size=(C, N, K)), device=dev)
+    return tuple(x.contiguous() for x in (t.expand(C, N), c, a, U, V, Y))
+
+
+def sweep_args(mode, t, c, U, V, W):
+    """``(p, A, B)`` of a sweep mode: the solves take W, the matmuls V; the
+    upper sweeps project with the second matrix and feed with U."""
+    is_solve, upper = MODES[mode]
+    second = W if is_solve else V
+    A, B = (second, U) if upper else (U, second)
+    p = scan.transport_up(t, c) if upper else scan.transport(t, c)
+    return p, A, B
+
+
+def held_at_main_shape(name, got, want, what):
+    """A kernel's outputs against its plain version's at N = 1e5: the worst
+    relative error (held to LONG_RTOL) and the largest absolute one."""
+    err = max(scaled_err(g, w) for g, w in zip(got, want))
+    log("kernels", f"{name} {what}: relative error at N = 1e5: {err:.3e} "
+        f"(tol {LONG_RTOL:g})")
+    assert math.isfinite(err) and err < LONG_RTOL, (name, what, err)
+    return max((g - w).abs().max().item() for g, w in zip(got, want))
+
+
+def timed_plain(fn):
+    """One run of a plain version on the card: (result, milliseconds)."""
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, 1e3 * (time.perf_counter() - start)
+
+
+def phase_general_kernels(dev):
+    """factor_fwd and sweep_fwd (its four modes) against their plain
+    versions on the card, float64, caches included, to 1e-10 relative; then
+    their times at N = 1e5, J = 8, at C = 1 and C = 64, and each sweep shape
+    the GP path launches against the plain version at N = 1e5.  The times
+    and bounds reported are those of the call the GP path makes: without
+    the caches."""
+    worst = {"factor_fwd": 0.0, "sweep_fwd": 0.0}
+    for J in (1, 2, 3, 8, 16, 32):
+        for N in (130, 1040, 10_000):
+            for C in (1, 8):
+                t, c, a, U, V, Y5 = wide_system(J, N, C, 5, dev, seed=J + N)
+                p = scan.transport(t, c)
+                got = _build.factor_fwd_cuda(p, a, U, V, want_cache=True)
+                want = scan.factor_fwd_plain(p, a, U, V)
+                W = want[1]
+                pairs = [("factor_fwd", g, w) for g, w in zip(got, want)]
+                for mode, (is_solve, upper) in MODES.items():
+                    ps, A, B = sweep_args(mode, t, c, U, V, W)
+                    for Y in (Y5[..., :1].contiguous(), Y5):
+                        got = _build.sweep_fwd_cuda(ps, A, B, Y, is_solve, upper,
+                                                    want_cache=True)
+                        want = scan.sweep_fwd_plain(ps, A, B, Y, is_solve=is_solve,
+                                                    upper=upper)
+                        pairs += [("sweep_fwd", g, w) for g, w in zip(got, want)]
+                for name, g, w in pairs:
+                    assert g.shape == w.shape, (name, J, N, C)
+                    err = scaled_err(g, w)
+                    assert math.isfinite(err) and err < 1e-10, (name, J, N, C, err)
+                    worst[name] = max(worst[name], err)
+    for name, err in worst.items():
+        log("kernels", f"{name}: worst relative error {err:.3e} (J = 1, 2, "
+            "3 -> 4, 8, 16, 32; N = 130, 1040, 1e4; C = 1, 8; K = 1, 5; "
+            "caches included)")
+
+    # times at the gp path's shapes: N = 1e5, J = 8, K = 1, float64
+    main_abs, times = {}, {}
+    for C in (1, 64):
+        t, c, a, U, V, Y = wide_system(8, N_MAIN, C, 1, dev, seed=8)
+        p = scan.transport(t, c)
+        d, W, S = _build.factor_fwd_cuda(p, a, U, V, want_cache=True)
+        ms_c = cuda_ms(lambda: _build.factor_fwd_cuda(p, a, U, V, True),
+                       reps=5, warmup=1)
+        ms = cuda_ms(lambda: _build.factor_fwd_cuda(p, a, U, V), reps=5, warmup=1)
+        flops = kernel_flops("factor_fwd", C, N_MAIN, 8)
+        bound, by = bound_ms((p, a, U, V, d, W), flops)
+        bound_c, _ = bound_ms((p, a, U, V, d, W, S), flops)
+        log("kernels", f"factor_fwd: {ms:.4f} ms (bound {bound:.4f} ms by {by}); "
+            f"with the cache {ms_c:.4f} ms (bound {bound_c:.4f} ms) at N = 1e5, "
+            f"J = 8, C = {C}, float64")
+        if C == 1:
+            want, plain_ms = timed_plain(lambda: scan.factor_fwd_plain(p, a, U, V))
+            log("kernels", f"factor_fwd: plain version {plain_ms:.1f} ms (one run)")
+            main_abs["factor_fwd"] = held_at_main_shape(
+                "factor_fwd", (d, W, S), want, "d, W, S_half")
+            times["factor_fwd"] = (ms, plain_ms, bound, by)
+        for mode, (is_solve, upper) in MODES.items():
+            ps, A, B = sweep_args(mode, t, c, U, V, W)
+            Z, F = _build.sweep_fwd_cuda(ps, A, B, Y, is_solve, upper, True)
+            ms_c = cuda_ms(
+                lambda: _build.sweep_fwd_cuda(ps, A, B, Y, is_solve, upper, True),
+                reps=5, warmup=1)
+            ms = cuda_ms(lambda: _build.sweep_fwd_cuda(ps, A, B, Y, is_solve, upper),
+                         reps=5, warmup=1)
+            flops = kernel_flops("sweep_fwd", C, N_MAIN, 8)
+            bound, by = bound_ms((ps, A, B, Y, Z), flops)
+            bound_c, _ = bound_ms((ps, A, B, Y, Z, F), flops)
+            log("kernels", f"sweep_fwd {mode}: {ms:.4f} ms (bound {bound:.4f} ms by "
+                f"{by}); with the cache {ms_c:.4f} ms (bound {bound_c:.4f} ms) at "
+                f"N = 1e5, J = 8, K = 1, C = {C}, float64")
+            if C == 1 and mode in ("solve_lower", "solve_upper"):
+                want, plain_ms = timed_plain(lambda: scan.sweep_fwd_plain(
+                    ps, A, B, Y, is_solve=True, upper=upper))
+                log("kernels", f"sweep_fwd {mode}: plain version {plain_ms:.1f} ms "
+                    "(one run)")
+                err = held_at_main_shape("sweep_fwd", (Z, F), want, f"{mode} K = 1")
+                if mode == "solve_lower":
+                    main_abs["sweep_fwd"] = err
+                    times["sweep_fwd"] = (ms, plain_ms, bound, by)
+        if C == 1:
+            # the other shapes the GP path launches: sample's matmul_lower
+            # (K = 4) and the variance's solves on K = 500 columns (four
+            # blocks of right-hand sides per chain)
+            rng = np.random.default_rng(9)
+            for mode, K in (("matmul_lower", 4), ("solve_lower", 500),
+                            ("solve_upper", 500)):
+                is_solve, upper = MODES[mode]
+                ps, A, B = sweep_args(mode, t, c, U, V, W)
+                YK = torch.tensor(rng.normal(size=(1, N_MAIN, K)), device=dev)
+                Z, _ = _build.sweep_fwd_cuda(ps, A, B, YK, is_solve, upper)
+                ms = cuda_ms(
+                    lambda: _build.sweep_fwd_cuda(ps, A, B, YK, is_solve, upper),
+                    reps=3, warmup=1)
+                (want, _), plain_ms = timed_plain(lambda: scan.sweep_fwd_plain(
+                    ps, A, B, YK, is_solve=is_solve, upper=upper))
+                bound, by = bound_ms((ps, A, B, YK, Z),
+                                     kernel_flops("sweep_fwd", 1, N_MAIN, 8, K))
+                log("kernels", f"sweep_fwd {mode}, K = {K}: {ms:.4f} ms (bound "
+                    f"{bound:.4f} ms by {by}; plain version {plain_ms:.1f} ms) at "
+                    "N = 1e5, J = 8, C = 1, float64")
+                held_at_main_shape("sweep_fwd", (Z,), (want,), f"{mode} K = {K}")
+    return main_abs, times
+
+
+def prefix_rows(phi, G, reverse):
+    """The affine recurrence row by row (what the doubling and the kernel
+    both compute)."""
+    F, rows = torch.zeros_like(G[:, 0]), [None] * G.shape[1]
+    for m in range(G.shape[1] - 1, -1, -1) if reverse else range(G.shape[1]):
+        F = phi[:, m, :, None] * F + G[:, m]
+        rows[m] = F
+    return torch.stack(rows, 1)
+
+
+def phase_prefix_kernel(dev):
+    """affine_prefix against its plain version (the doubling) on the card,
+    float64, to 1e-10 relative, in both directions, and against the
+    row-by-row recurrence at M <= 1040; then its time at the shape the GP
+    path gives it: M = 1e5 source rows, J = 8, K = 1."""
+    worst = worst_rows = 0.0
+    for J in (1, 3, 8, 32):
+        for M in (1, 130, 1040, 10_000):
+            for C, K in ((1, 1), (8, 5)):
+                t, c, _, _, V, Y = wide_system(J, M, C, K, dev, seed=J + M)
+                G = (V[..., None] * Y[..., None, :]).contiguous()
+                for reverse in (False, True):
+                    phi = scan.transport_up(t, c) if reverse else scan.transport(t, c)
+                    got = _build.affine_prefix_cuda(phi, G, reverse)
+                    want = scan.affine_prefix_plain(phi, G, reverse=reverse)
+                    assert got.shape == want.shape, (J, M, C, K)
+                    err = scaled_err(got, want)
+                    assert math.isfinite(err) and err < 1e-10, (J, M, C, K, err)
+                    worst = max(worst, err)
+                    if M <= 1040:
+                        err = scaled_err(got, prefix_rows(phi, G, reverse))
+                        assert err < 1e-10, ("rows", J, M, C, K, err)
+                        worst_rows = max(worst_rows, err)
+    log("kernels", f"affine_prefix: worst relative error {worst:.3e} against "
+        f"the doubling, {worst_rows:.3e} against the row-by-row recurrence "
+        "(J = 1, 3 -> 4, 8, 32; M = 1, 130, 1040, 1e4; C, K = 1, 1 and 8, 5; "
+        "both directions)")
+    for C, K in ((1, 1), (64, 1), (1, 64)):
+        t, c, _, _, V, Y = wide_system(8, N_MAIN, C, K, dev, seed=8)
+        G = (V[..., None] * Y[..., None, :]).contiguous()
+        phi = scan.transport(t, c)
+        got = _build.affine_prefix_cuda(phi, G)
+        want = scan.affine_prefix_plain(phi, G)
+        err = scaled_err(got, want)
+        assert math.isfinite(err) and err < 1e-10, ("affine_prefix", C, K, err)
+        ms = cuda_ms(lambda: _build.affine_prefix_cuda(phi, G), reps=20)
+        plain_ms = cuda_ms(lambda: scan.affine_prefix_plain(phi, G), reps=5)
+        bound, by = bound_ms((phi, G, got),
+                             kernel_flops("affine_prefix", C, N_MAIN, 8, K))
+        log("kernels", f"affine_prefix: {ms:.4f} ms (plain {plain_ms:.4f} ms, "
+            f"bound {bound:.4f} ms by {by}; relative error {err:.3e}) at "
+            f"M = 1e5, J = 8, K = {K}, C = {C}, L = "
+            f"{_build.prefix_block_len(N_MAIN)}, 3 launches, float64")
+        if (C, K) == (1, 1):
+            main_abs = (got - want).abs().max().item()
+            times = (ms, plain_ms, bound, by)
+    return {"affine_prefix": main_abs}, {"affine_prefix": times}
+
+
+# ----------------------------------------- the forward GaussianProcess path
+
+
+@contextmanager
+def count_plain_versions():
+    """Count the calls of the plain versions of the general recursions
+    and of the affine prefix."""
+    counts = {"factor_fwd_plain": 0, "sweep_fwd_plain": 0,
+              "affine_prefix_plain": 0}
+    saved = {n: getattr(scan, n) for n in counts}
+
+    def counting(name):
+        def fn(*args, **kwargs):
+            counts[name] += 1
+            return saved[name](*args, **kwargs)
+        return fn
+
+    for n in counts:
+        setattr(scan, n, counting(n))
+    try:
+        yield counts
+    finally:
+        for n, f in saved.items():
+            setattr(scan, n, f)
+
+
+GP_MODELS = {
+    # four SHOTerms (benchmarks/probe_planes_tpu.py's J = 8 model at bench's
+    # theta) and config5's J = 4 SHO mixture at theta = 0
+    "J=8": lambda: wide_kernel(8, 1.0),
+    "J=4": lambda: ct.SHOTerm(sigma=1.0, rho=1.0, tau=1.0)
+    + ct.SHOTerm(sigma=1.0, rho=1.0, Q=0.3),
+}
+
+
+def gp_calls(gp, y, t_new, t_var, seed):
+    """The path a user who conditions and predicts runs, after compute:
+    name -> (result, seconds).  The prior draws use the same normals on
+    every device (a CPU generator)."""
+    out = {}
+
+    def timed(name, fn):
+        if y.is_cuda:
+            torch.cuda.synchronize()
+        start = time.perf_counter()
+        res = fn()
+        if y.is_cuda:
+            torch.cuda.synchronize()
+        out[name] = (res, time.perf_counter() - start)
+
+    timed("log_likelihood", lambda: gp.log_likelihood(y))
+    timed("apply_inverse", lambda: gp.apply_inverse(y))
+    timed("predict(y)", lambda: gp.predict(y))
+    timed("predict(y, t_new) M=1e4", lambda: gp.predict(y, t_new))
+    timed("predict(y, t_new, return_var) M=500",
+          lambda: torch.stack(gp.predict(y, t_var, return_var=True)))
+    timed("sample(size=4)",
+          lambda: gp.sample(torch.Generator().manual_seed(seed), size=4))
+    return out
+
+
+def phase_gp_path(dev, smi):
+    """GaussianProcess.compute, log_likelihood, apply_inverse, predict and
+    sample at N = 1e5, float64, through factor_fwd, sweep_fwd and
+    affine_prefix, against the same calls on the CPU's plain route to 1e-9
+    relative."""
+    rng = np.random.default_rng(42)
+    t = np.sort(rng.uniform(0, 1000.0, N_MAIN))
+    y = np.sin(0.7 * t) + 0.25 * rng.normal(size=N_MAIN)
+    t_new = np.linspace(-5.0, 1005.0, 10_000)
+    t_var = np.linspace(-5.0, 1005.0, 500)
+    launches = {}
+    for label, model in GP_MODELS.items():
+        ref_gp = ct.GaussianProcess(model(), t, yerr=0.25, mean=0.1, device="cpu")
+        ref = gp_calls(ref_gp, torch.tensor(y), t_new, t_var, seed=3)
+
+        reset_launches()
+        with count_plain_versions() as plain_calls:
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            gp = ct.GaussianProcess(model(), t, yerr=0.25, mean=0.1)
+            torch.cuda.synchronize()
+            compute_s = time.perf_counter() - start
+            assert all(x.is_cuda for x in gp.state), "the state is not on the card"
+            got = gp_calls(gp, gp.state.t.new_tensor(y), t_new, t_var, seed=3)
+        launches[label] = dict(_build.LAUNCHES)
+        assert not any(plain_calls.values()), plain_calls
+        # compute 1 factor; log_likelihood 1 sweep, apply_inverse 2,
+        # predict 2 + 2 + (2 + 2), sample 1; each predict at new points
+        # two rectangular products (its mean) of 3 prefix launches each
+        assert launches[label]["factor_fwd"] == 1, launches[label]
+        assert launches[label]["sweep_fwd"] == 12, launches[label]
+        assert launches[label]["affine_prefix"] == 12, launches[label]
+
+        log("gp_path", f"{label}, N = 1e5, float64 | {smi}")
+        log("gp_path", f"{label}: compute {1e3 * compute_s:.2f} ms; state d, W "
+            f"vs the CPU route: {scaled_err(gp.state.d, ref_gp.state.d):.2e}, "
+            f"{scaled_err(gp.state.W, ref_gp.state.W):.2e}")
+        assert scaled_err(gp.state.d, ref_gp.state.d) < 1e-9
+        assert scaled_err(gp.state.W, ref_gp.state.W) < 1e-9
+        shapes = {"log_likelihood": (), "apply_inverse": (N_MAIN,),
+                  "predict(y)": (N_MAIN,), "predict(y, t_new) M=1e4": (10_000,),
+                  "predict(y, t_new, return_var) M=500": (2, 500),
+                  "sample(size=4)": (4, N_MAIN)}
+        for name, (res, seconds) in got.items():
+            err = scaled_err(res, ref[name][0])
+            log("gp_path", f"{label}: {name}: {1e3 * seconds:.2f} ms on the card "
+                f"({ref[name][1]:.1f} s on the CPU's plain route), relative "
+                f"error {err:.2e}")
+            assert res.is_cuda and tuple(res.shape) == shapes[name], name
+            assert torch.isfinite(res).all() and err < 1e-9, (label, name, err)
+        var = got["predict(y, t_new, return_var) M=500"][0][1]
+        assert (var > 0).all(), "a predictive variance is not positive"
+        log("gp_path", f"{label}: launches {launches[label]}; plain versions "
+            f"called on the path: {plain_calls}")
+
+    # J = 4: the general route's log-likelihood against the fused path (K1)
+    gp = ct.GaussianProcess(GP_MODELS["J=4"](), t, yerr=0.25, mean=0.1)
+    with torch.no_grad():
+        fused = ct.gp_loglik(GP_MODELS["J=4"](), t, y, yerr=0.25, mean=0.1)
+    err = scaled_err(gp.log_likelihood(y), fused)
+    log("gp_path", f"J=4: gp.log_likelihood vs gp_loglik (fused path): {err:.2e}")
+    assert err < 1e-9
+
+    # a system that is not positive definite
+    try:
+        ct.GaussianProcess(wide_kernel(8, 1.0), t[:2000], diag=-5.0)
+    except ct.LinAlgError:
+        quiet = ct.GaussianProcess(wide_kernel(8, 1.0))
+        quiet.compute(t[:2000], diag=-5.0, quiet=True)
+        ll = quiet.log_likelihood(y[:2000]).item()
+        log("gp_path", f"non-PD J = 8: compute raises LinAlgError; quiet ll = {ll}")
+        assert ll == -math.inf
+    else:
+        raise AssertionError("a non-PD system did not raise LinAlgError")
+
+    # a dense yardstick at a size where it fits: torch.linalg.cholesky +
+    # cholesky_solve on the dense matrix (used nowhere in the package)
+    n = 4000
+    small = ct.GaussianProcess(wide_kernel(8, 1.0), t[:n], yerr=0.25)
+    ys = small.state.t.new_tensor(y[:n])
+    K = small.kernel.to_dense(small.state.t, small.state.diag)
+    dense = torch.cholesky_solve(ys[:, None], torch.linalg.cholesky(K))[:, 0]
+    err = scaled_err(small.apply_inverse(ys), dense)
+    ms = cuda_ms(lambda: small.apply_inverse(ys), reps=5)
+    ms_dense = cuda_ms(lambda: torch.cholesky_solve(
+        ys[:, None], torch.linalg.cholesky(K)), reps=5)
+    log("gp_path", f"apply_inverse at N = {n}, J = 8: {ms:.3f} ms; dense "
+        f"cholesky + cholesky_solve of the same matrix: {ms_dense:.3f} ms "
+        f"(relative difference {err:.2e})")
+    assert err < 1e-8
+    return launches["J=8"]
 
 
 def _check_path(label, results, refs, tols, nparam):
@@ -413,10 +851,10 @@ def phase_steps(dev):
     for dtype in (torch.float64, torch.float32):
         kernel = steps_per_s(dev, dtype)
         with plain_route():
-            plain = steps_per_s(dev, dtype)
-        log("steps", f"J = 2, {dtype}: kernel route {kernel:.2f} evals/s, "
-            f"plain route {plain:.3f} evals/s (20 chained steps, N = 1e5, "
-            f"SHOTerm, L = {L})")
+            plain = steps_per_s(dev, dtype, n_steps=3)
+        log("steps", f"J = 2, {dtype}: kernel route {kernel:.2f} evals/s "
+            f"(20 chained steps), plain route {plain:.3f} evals/s (3 steps); "
+            f"N = 1e5, SHOTerm, L = {L}")
     for dtype in (torch.float64, torch.float32):
         kernel = steps_per_s(dev, dtype, model=sho_mixture, theta0=THETA4)
         with plain_route():
@@ -429,11 +867,11 @@ def phase_steps(dev):
     N = 1_000_000
     data = bench_data(N, dev, torch.float64, seed=11, span=10_000.0)
     torch.cuda.reset_peak_memory_stats()
-    rate = steps_per_s(dev, torch.float64, n_steps=10, model=sho_mixture,
+    rate = steps_per_s(dev, torch.float64, n_steps=5, model=sho_mixture,
                        theta0=THETA4, data=data)
     peak = torch.cuda.max_memory_allocated() / 2**30
     log("steps", f"J = 4, torch.float64, N = 1e6 (config5 J4): kernel route "
-        f"{rate:.2f} evals/s (10 chained steps, L = "
+        f"{rate:.2f} evals/s (5 chained steps, L = "
         f"{fl.default_block_len(N)}), peak device memory {peak:.2f} GiB")
 
 
@@ -505,8 +943,13 @@ def main(argv=None):
     smi = phase_device()
     phase_build()
     main_abs, times = phase_kernels(dev)
+    for phase in (phase_general_kernels, phase_prefix_kernel):
+        phase_abs, phase_times = phase(dev)
+        main_abs.update(phase_abs)
+        times.update(phase_times)
     launches = phase_main_path(dev)
     launches4 = phase_main_path_j4(dev)
+    launches8 = phase_gp_path(dev, smi)
     phase_chains(dev)
     phase_quiet_failure(dev)
     phase_steps(dev)
@@ -514,14 +957,23 @@ def main(argv=None):
     if args.sweep:
         phase_sweep(dev)
     log("done", f"{time.perf_counter() - start:.1f} s")
+    # each kernel's launches on the path that runs it: K3 on the J = 2
+    # path, K1, K2, K4, K5 on the J = 4 path, the general kernels on the GP
+    # path
+    on_path = {name: (launches if REPORT_J[name] == 2 else launches4)
+               for name in KERNELS}
+    on_path.update(factor_fwd=launches8, sweep_fwd=launches8,
+                   affine_prefix=launches8)
     kernels = [
-        {"name": name, "route": "cuda", "source": SOURCE,
-         "replaces": TPU_KERNEL[name],
-         "launches": (launches if REPORT_J[name] == 2 else launches4)[name],
+        {"name": name, "route": "cuda", "source": SOURCE[name],
+         "replaces": TPU_KERNEL[name], "launches": on_path[name][name],
          "max_abs_err": main_abs[name], "ms": times[name][0],
-         "plain_ms": times[name][1]}
-        for name in KERNELS
+         "plain_ms": times[name][1], "bound_ms": times[name][2],
+         "bound_by": times[name][3], "library_ms": None}
+        for name in on_path
     ]
+    for k in kernels:
+        assert k["launches"] >= 1, f"{k['name']} was not launched on its path"
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -13,6 +13,7 @@ import torch
 import celerite2_torch as ct
 from celerite2_torch.ops import _build
 from celerite2_torch.ops import fused_loglik as fl
+from celerite2_torch.ops import scan
 
 pytestmark = pytest.mark.cuda
 
@@ -50,6 +51,7 @@ def _kernel(J, sigma):
 
 
 def _system(N, C, seed=0, J=2):
+    """A system of C chains on the CPU (the tests move it to the card)."""
     rng = np.random.default_rng(seed)
     t = torch.tensor(np.sort(rng.uniform(0, 10, N)), dtype=torch.float64)
     sigma = torch.tensor(rng.uniform(0.8, 1.5, C), dtype=torch.float64)
@@ -155,3 +157,234 @@ def test_rotation_term_mixed_device_parameters(cuda):
     for g, w in zip(got, want):
         assert g.is_cuda
         torch.testing.assert_close(g.cpu(), w, rtol=1e-12, atol=1e-12)
+
+
+# ------------------------------------------ the general factor and sweeps
+
+
+def _wide_kernel(J, sigma):
+    """A kernel of width J: J // 2 SHOTerms (one overdamped) and, for odd
+    J, a RealTerm."""
+    terms = [
+        ct.SHOTerm(sigma=sigma / (1 + i), rho=1.0 + 1.7 * i,
+                   **({"Q": 0.3} if i == 1 else {"tau": 2.0 + i}))
+        for i in range(J // 2)
+    ]
+    if J % 2:
+        terms.append(ct.RealTerm(a=0.4 * sigma, c=0.7))
+    return terms[0] if len(terms) == 1 else ct.TermSum(*terms)
+
+
+def _wide_system(N, C, J, K, device, seed=0):
+    """``(t (C, N), c, a, U, V, Y (C, N, K))`` of C chains on ``device``."""
+    rng = np.random.default_rng(seed)
+    t = torch.tensor(np.sort(rng.uniform(0, 10, N)), device=device)
+    sigma = torch.tensor(rng.uniform(0.8, 1.5, C), device=device)
+    c, a, U, V = _wide_kernel(J, sigma).get_celerite_matrices(t, 0.04)
+    Y = torch.tensor(rng.normal(size=(C, N, K)), device=device)
+    return tuple(x.contiguous() for x in (t.expand(C, N), c, a, U, V, Y))
+
+
+def _rel(got, want):
+    return ((got - want).abs().max() / want.abs().max()).item()
+
+
+@pytest.mark.parametrize("J", [1, 2, 4, 8, 16, 32])
+def test_factor_fwd_matches_plain(cuda, J):
+    """The factor kernel against the plain loop (d, W and the cache), at
+    N = 301, C = 3, float64, to 1e-10 relative."""
+    t, c, a, U, V, _ = _wide_system(301, 3, J, 1, cuda)
+    p = scan.transport(t, c)
+    before = _build.LAUNCHES["factor_fwd"]
+    got = _build.factor_fwd_cuda(p, a, U, V, want_cache=True)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["factor_fwd"] == before + 1
+    for g, w in zip(got, scan.factor_fwd_plain(p, a, U, V)):
+        assert g.shape == w.shape and _rel(g, w) < 1e-10
+    d, W, none = _build.factor_fwd_cuda(p, a, U, V)
+    assert none is None and torch.equal(d, got[0]) and torch.equal(W, got[1])
+
+
+@pytest.mark.parametrize("is_solve, upper",
+                         [(s, u) for s in (True, False) for u in (False, True)])
+@pytest.mark.parametrize("J, K", [(1, 1), (2, 4), (4, 1), (8, 5), (16, 1),
+                                  (32, 3), (8, 200)])
+def test_sweep_fwd_matches_plain(cuda, J, K, is_solve, upper):
+    """The sweep kernel in its four modes against the plain loop (Z and the
+    cache), at N = 301 (more than one tile at J >= 4), C = 3, float64, to
+    1e-10 relative."""
+    t, c, a, U, V, Y = _wide_system(301, 3, J, K, cuda)
+    d, W, _ = scan.factor_fwd_plain(scan.transport(t, c), a, U, V)
+    second = W if is_solve else V
+    A, B = (second, U) if upper else (U, second)
+    p = scan.transport_up(t, c) if upper else scan.transport(t, c)
+    before = _build.LAUNCHES["sweep_fwd"]
+    got = _build.sweep_fwd_cuda(p, A, B, Y, is_solve, upper, want_cache=True)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["sweep_fwd"] == before + 1
+    want = scan.sweep_fwd_plain(p, A, B, Y, is_solve=is_solve, upper=upper)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and _rel(g, w) < 1e-10
+    Z, none = _build.sweep_fwd_cuda(p, A, B, Y, is_solve, upper)
+    assert none is None and torch.equal(Z, got[0])
+
+
+def test_sweep_fwd_long_rows(cuda):
+    """Several tiles of rows (N = 5000 at J = 8: 40 tiles) in float32 and
+    float64 against the plain loop."""
+    for dtype, tol in ((torch.float64, 1e-10), (torch.float32, 1e-4)):
+        t, c, a, U, V, Y = (
+            x.to(dtype) for x in _wide_system(5000, 1, 8, 2, cuda, seed=4))
+        p = scan.transport(t, c)
+        d, W, S = _build.factor_fwd_cuda(p, a, U, V, want_cache=True)
+        for g, w in zip((d, W, S), scan.factor_fwd_plain(p, a, U, V)):
+            assert _rel(g, w) < tol
+        Z, F = _build.sweep_fwd_cuda(p, U, W, Y, True, False, want_cache=True)
+        for g, w in zip((Z, F), scan.sweep_fwd_plain(p, U, W, Y, is_solve=True,
+                                                     upper=False)):
+            assert _rel(g, w) < tol
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("M, J, K, block_len", [
+    (1, 1, 1, None), (31, 3, 2, None), (301, 8, 1, None), (5000, 8, 5, None),
+    (5000, 2, 130, None), (301, 5, 3, 4), (100_000, 8, 1, None)])
+def test_affine_prefix_matches_plain(cuda, M, J, K, block_len, reverse):
+    """The blocked affine prefix against the plain doubling and, at small
+    M, the row-by-row recurrence, C = 3 (C = 1 at M = 1e5), float64, to
+    1e-10 relative: one launch up to one block of rows, three above it,
+    and one more pair for each further level (block_len = 4 at M = 301
+    nests five levels)."""
+    C = 1 if M > 10_000 else 3
+    rng = np.random.default_rng(M + J)
+    phi = torch.tensor(rng.uniform(0.2, 1.0, (C, M, J)), device=cuda)
+    G = torch.tensor(rng.normal(size=(C, M, J, K)), device=cuda)
+    before = _build.LAUNCHES["affine_prefix"]
+    got = _build.affine_prefix_cuda(phi, G, reverse, block_len)
+    torch.cuda.synchronize()
+    L, levels, rows = block_len or _build.prefix_block_len(M), 0, M
+    while rows > L:
+        rows, levels = -(-rows // L), levels + 1
+    assert _build.LAUNCHES["affine_prefix"] == before + 2 * levels + 1
+    assert _rel(got, scan.affine_prefix_plain(phi, G, reverse=reverse)) < 1e-10
+    if M <= 5000:
+        F, want = torch.zeros_like(G[:, 0]), [None] * M
+        for m in (range(M - 1, -1, -1) if reverse else range(M)):
+            F = phi[:, m, :, None] * F + G[:, m]
+            want[m] = F
+        assert _rel(got, torch.stack(want, 1)) < 1e-10
+
+
+def test_affine_prefix_float32_and_dispatch(cuda):
+    rng = np.random.default_rng(0)
+    phi = torch.tensor(rng.uniform(0.2, 1.0, (2, 3000, 4)), device=cuda).float()
+    G = torch.tensor(rng.normal(size=(2, 3000, 4, 3)), device=cuda).float()
+    want = scan.affine_prefix_plain(phi.double(), G.double())
+    assert _rel(scan.affine_prefix(phi, G).double(), want) < 1e-5
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        _build.affine_prefix_cuda(phi.cpu(), G.cpu())
+    with pytest.raises(ValueError, match="expected shape"):
+        _build.affine_prefix_cuda(phi[:, :-1].contiguous(), G)
+
+
+@pytest.mark.parametrize("name", ["general_matmul_lower", "general_matmul_upper"])
+def test_general_matmul_cuda_matches_cpu_with_gradients(cuda, name):
+    """The rectangular products on the card (through the affine prefix
+    kernel, forward and backward) against the CPU route: value and the
+    gradients with respect to c, U, V and Y."""
+    from celerite2_torch import ops
+
+    rng = np.random.default_rng(3)
+    t2 = np.sort(rng.uniform(0, 10, 700))
+    t1 = np.sort(rng.uniform(-1, 11, 450))
+    cpu = [torch.tensor(x) for x in (
+        t1, t2, rng.uniform(0.1, 2.0, 5), rng.normal(size=(450, 5)),
+        rng.normal(size=(700, 5)), rng.normal(size=(700, 3)))]
+    results = []
+    for device in ("cpu", cuda):
+        args = [x.to(device) for x in cpu]
+        for x in args[2:]:
+            x.requires_grad_(True)
+        before = _build.LAUNCHES["affine_prefix"]
+        z = getattr(ops, name)(*args)
+        grads = torch.autograd.grad((z * z).sum(), args[2:])
+        if device != "cpu":
+            # 700 source rows are 22 blocks of 32: three launches forward
+            # and three for the adjoint
+            assert z.is_cuda and _build.LAUNCHES["affine_prefix"] == before + 6
+        results.append([z.detach().cpu()] + [g.cpu() for g in grads])
+    for got, want in zip(results[1], results[0]):
+        assert got.shape == want.shape and _rel(got, want) < 1e-10
+
+
+def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    t, c, a, U, V, Y = _wide_system(50, 1, 3, 1, cuda)
+    p = scan.transport(t, c)
+    with pytest.raises(NotImplementedError, match="J must be one of"):
+        _build.factor_fwd_cuda(p, a, U, V)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        _build.sweep_fwd_cuda(p.cpu(), U.cpu(), V.cpu(), Y.cpu(), True, False)
+
+
+@pytest.mark.parametrize("J", [3, 5, 8])
+def test_ops_cuda_match_cpu(cuda, J):
+    """The public ops (bucketed to 4, 8, 8) on the card against the CPU
+    route, one system and three chains."""
+    from celerite2_torch import ops
+
+    t, c, a, U, V, Y = _wide_system(400, 3, J, 2, "cpu", seed=J)
+    for sl in (slice(None), 0):
+        args = [x[sl] for x in (t, c, a, U, V, Y)]
+        dev = [x.to(cuda) for x in args]
+        d0, W0 = ops.factor(*args[:5])
+        d1, W1 = ops.factor(*dev[:5])
+        assert d1.is_cuda and W1.shape == W0.shape
+        assert _rel(d1.cpu(), d0) < 1e-10 and _rel(W1.cpu(), W0) < 1e-10
+        for name in ("solve_lower", "solve_upper", "matmul_lower", "matmul_upper"):
+            second = W0 if name.startswith("solve") else args[4]
+            z0 = getattr(ops, name)(args[0], args[1], args[3], second, args[5])
+            z1 = getattr(ops, name)(dev[0], dev[1], dev[3], second.to(cuda), dev[5])
+            assert _rel(z1.cpu(), z0) < 1e-10, name
+
+
+def test_gaussian_process_defaults_to_the_card(cuda):
+    """numpy inputs and no device: the state, and what the methods return,
+    are on the card; device="cpu" keeps everything on the CPU."""
+    assert ct.get_config().device == "cuda"
+    rng = np.random.default_rng(5)
+    t = np.sort(rng.uniform(0, 10, 300))
+    y = np.sin(t)
+    kernel = ct.SHOTerm(sigma=1.0, rho=3.0, tau=2.0) + ct.RealTerm(a=0.3, c=0.5)
+    assert kernel.terms[0].w0.is_cuda
+    gp = ct.GaussianProcess(kernel, t, yerr=0.1)
+    assert all(x.is_cuda for x in gp.state)
+    before = dict(_build.LAUNCHES)
+    ll = gp.log_likelihood(y)
+    mu, var = gp.predict(y, np.linspace(0, 10, 50), return_var=True)
+    assert ll.is_cuda and mu.is_cuda and var.is_cuda
+    assert _build.LAUNCHES["sweep_fwd"] > before["sweep_fwd"]
+    assert _build.LAUNCHES["affine_prefix"] > before["affine_prefix"]
+    assert ct.gp_compute(kernel, t, yerr=0.1).d.is_cuda
+    assert ct.gp_loglik(kernel, t, y, yerr=0.1).is_cuda
+    spec = {"type": "RealTerm", "params": {"a": 1.0, "c": 0.5}}
+    assert ct.models.term_from_numpy(spec).a.is_cuda
+
+    cpu = ct.GaussianProcess(kernel, t, yerr=0.1, device="cpu")
+    assert not any(x.is_cuda for x in cpu.state)
+    np.testing.assert_allclose(cpu.log_likelihood(y).item(), ll.item(),
+                               rtol=1e-10)
+    assert not ct.gp_loglik(kernel, t, y, yerr=0.1, device="cpu").is_cuda
+    assert not ct.models.term_from_numpy(spec, device="cpu").a.is_cuda
+
+
+def test_backward_raises_on_the_card(cuda):
+    from celerite2_torch import ops
+
+    t, c, a, U, V, Y = (x[0] for x in _wide_system(100, 1, 8, 1, cuda))
+    U = U.requires_grad_(True)
+    d, W = ops.factor(t, c, a, U, V)
+    with pytest.raises(NotImplementedError, match="B9"):
+        d.sum().backward()
+    z = ops.solve_lower(t, c, U, W.detach(), Y)
+    with pytest.raises(NotImplementedError, match="B10"):
+        z.sum().backward()

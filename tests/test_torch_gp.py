@@ -156,9 +156,18 @@ def test_argument_errors():
     kernel = ct.SHOTerm(sigma=1.0, rho=2.0, tau=3.0)
     with pytest.raises(ValueError, match="only one of"):
         ct.gp_loglik(kernel, t64(t), t64(y), yerr=0.1, diag=0.01)
-    with pytest.raises(NotImplementedError, match="A3/A8"):
-        ct.gp_loglik(kernel + kernel + kernel + kernel, t64(t), t64(y),
-                     yerr=0.1)
+    # J = 8: the value runs on the general factor and solve, the gradient
+    # waits for their adjoints
+    sigma = t64(1.0).requires_grad_(True)
+    wide = ct.SHOTerm(sigma=sigma, rho=2.0, tau=3.0) + kernel + kernel + kernel
+    with pytest.raises(NotImplementedError, match="B9/B10"):
+        ct.gp_loglik(wide, t64(t), t64(y), yerr=0.1)
+    with torch.no_grad():
+        got = ct.gp_loglik(wide, t64(t), t64(y), yerr=0.1)
+    jk = jt.SHOTerm(sigma=1.0, rho=2.0, tau=3.0)
+    with jax_config(backend="scan", fused_slab="off"):
+        want = float(jax_gp_loglik(jk + jk + jk + jk, t, y, yerr=0.1))
+    np.testing.assert_allclose(got.item(), want, rtol=1e-10)
 
 
 def test_float64_core_dtype():

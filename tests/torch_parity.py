@@ -6,10 +6,15 @@ import jax.numpy as jnp
 import numpy as np
 import torch
 
+import celerite2_torch
 from celerite2_torch.ops.fused_loglik import loglik_fused
 from celerite2_tpu import ops as jops
 from celerite2_tpu import terms as jt
 from celerite2_tpu.config import get_config, set_config
+
+# The port's entry points place what is not yet a tensor on the card unless
+# asked otherwise; the CPU tests ask for the CPU.
+celerite2_torch.set_config(device="cpu")
 
 COTANGENTS = ["bt", "bc", "ba", "bU", "bV", "by"]
 
@@ -116,3 +121,48 @@ def check_parity(got, want):
     for name, x0, x1 in zip(COTANGENTS, g0, g1):
         assert x0.shape == x1.shape, name
         assert_scaled_close(x0, x1, 1e-9, name)
+
+
+# ------------------------------------------- systems of any width J <= 32
+
+WIDTHS = [1, 2, 3, 5, 8, 16]
+
+
+def wide_kernel(mod, J, sigma=1.3):
+    """A kernel of width J from either package's term classes (``mod`` is
+    ``celerite2_tpu.terms`` or ``celerite2_torch``): J // 2 SHOTerms (the
+    second one overdamped) and, for odd J, a RealTerm."""
+    parts = [
+        mod.SHOTerm(sigma=sigma / (1 + i), rho=1.0 + 1.7 * i,
+                    **({"Q": 0.3} if i == 1 else {"tau": 2.0 + i}))
+        for i in range(J // 2)
+    ]
+    if J % 2:
+        parts.append(mod.RealTerm(a=0.4 * sigma, c=0.7))
+    return parts[0] if len(parts) == 1 else mod.TermSum(*parts)
+
+
+def wide_system(N, J, K, seed=0, sigma=1.3):
+    """``(t, c, a, U, V, Y)`` of one system of width J with K right-hand
+    sides, as numpy arrays, built by the JAX package's terms."""
+    rng = np.random.default_rng(seed)
+    t = np.sort(rng.uniform(0, 10, N))
+    diag = rng.uniform(0.05, 0.2, N)
+    c, a, U, V = wide_kernel(jt, J, sigma).get_celerite_matrices(t, diag)
+    Y = rng.normal(size=(N, K))
+    return tuple(np.asarray(x) for x in (t, c, a, U, V, Y))
+
+
+def chains(arrays):
+    """Float64 tensors with a leading chain axis of length 1."""
+    return tuple(t64(x)[None] for x in arrays)
+
+
+def assert_rel_close(got, want, rtol, name=""):
+    """max|got - want| <= rtol * max|want|, shapes equal."""
+    got = np.asarray(got, dtype=np.float64)
+    want = np.asarray(want, dtype=np.float64)
+    assert got.shape == want.shape, (name, got.shape, want.shape)
+    scale = np.max(np.abs(want)) + 1e-300
+    assert np.max(np.abs(got - want)) <= rtol * scale, (
+        name, np.max(np.abs(got - want)) / scale)
