@@ -20,6 +20,7 @@ from celerite2_torch.gp import (
     gp_sample,
 )
 from celerite2_torch.models import terms
+from celerite2_torch.ops import factor_solve
 from celerite2_torch.models.terms import (
     ComplexTerm,
     Matern32Term,
@@ -58,4 +59,5 @@ __all__ = [
     "gp_log_likelihood",
     "gp_loglik",
     "gp_sample",
+    "factor_solve",
 ]

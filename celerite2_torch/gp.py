@@ -21,12 +21,16 @@ N)`` and ``y (N,)`` or ``(C, N)`` give ``(C,)``.  A system that is not
 positive definite gives ``-inf`` (and zero gradients), never NaN; the
 shell's ``compute`` raises ``LinAlgError`` instead unless ``quiet``.
 
-Gradients: ``gp_loglik`` is differentiable for J <= 4 (the fused path).
-The state API runs on ``ops.factor`` and the sweeps, whose adjoints are
-not ported yet (ROADMAP.md items B9, B10): calling ``backward`` through
-them raises ``NotImplementedError``.  Not ported yet either (ROADMAP.md
-item A7): the pathwise conditional sampler, ``numpyro_dist`` and
-``citations``.  The JAX package's f64 island is a local ``.double()``
+Gradients: everything here is differentiable at any J <= 32, with respect
+to the kernel's parameters, ``t``, ``y``, ``yerr``/``diag`` and the mean.
+``gp_loglik`` runs the fused path at J <= 4 and ``ops.factor_solve`` above;
+the state API (``gp_compute``, ``log_likelihood``, ``apply_inverse``,
+``dot_tril``, ``predict``, ``sample``) runs on ``ops.factor``, the sweeps
+and the rectangular products, each with its hand-derived adjoint.  The
+general ops keep their caches (``S_half (N, J, J)`` per chain of the
+factor, ``F (N, J, K)`` per sweep) only when a gradient will be asked for.
+Not ported yet (ROADMAP.md item A7): the pathwise conditional sampler,
+``numpyro_dist`` and ``citations``.  The JAX package's f64 island is a local ``.double()``
 here; its batching guard has no counterpart.
 """
 
@@ -91,10 +95,11 @@ def _float64_core(t) -> bool:
 
 
 def gp_loglik(kernel, t, y, *, yerr=None, diag=None, mean=0.0, device=None):
-    """GP log-likelihood in one fused pass, differentiable with respect to
-    the kernel's parameters (and ``t``, ``y``, ``yerr``/``diag``, the mean)
-    for J <= 4.  Wider kernels give the value only (under
-    ``torch.no_grad()``, or with nothing that requires a gradient).
+    """GP log-likelihood, differentiable with respect to the kernel's
+    parameters (and ``t``, ``y``, ``yerr``/``diag``, the mean): the fused
+    pass at J <= 4, the factor and lower solve of ``ops.factor_solve``
+    (kernels ``factor_fwd``, ``sweep_fwd`` and, for the gradient,
+    ``sweep_bwd``, ``factor_bwd``) at any wider J <= 32.
 
     ``yerr`` adds ``yerr**2`` to the diagonal, ``diag`` adds itself;
     give at most one.  ``mean`` is a constant or a callable of ``t``.
@@ -131,21 +136,15 @@ def _loglik_core(kernel, t, resid, diag_v):
     if J <= 4:
         ll = loglik_fused(t if t.dim() == 1 else t.expand(C, N), *system)
         return ll.reshape(batch)
-    # J > 4: the general factor and lower solve, forward only
-    if torch.is_grad_enabled() and any(x.requires_grad for x in (t, *system)):
-        raise NotImplementedError(
-            f"the gradient of gp_loglik at J={J} > 4 is not ported yet: it "
-            "needs the adjoints of the general factor and sweeps (ROADMAP.md "
-            "items B9/B10); the value is available under torch.no_grad()"
-        )
+    # J > 4: the general factor and lower solve (celerite2_tpu/gp.py
+    # _loglik_core: ops.factor_solve)
     c, a, U, V, resid = system
-    tC = t.expand(C, N)
-    d, W = ops.factor(tC, c, a, U, V)
-    z = ops.solve_lower(tC, c, U, W, resid[..., None])[..., 0]
+    d, _, z = ops.factor_solve(t.expand(C, N), c, a, U, V, resid[..., None])
     ok = (d > 0).all(-1)
     safe_d = torch.where(d > 0, d, torch.ones_like(d))
     ll = -0.5 * (
-        torch.log(safe_d).sum(-1) + (z * z / safe_d).sum(-1) + N * LOG2PI
+        torch.log(safe_d).sum(-1) + (z[..., 0] ** 2 / safe_d).sum(-1)
+        + N * LOG2PI
     )
     ll = torch.where(ok, ll, torch.full_like(ll, -math.inf))
     return ll.reshape(batch)

@@ -1,5 +1,6 @@
 from celerite2_torch.ops.api import (
     factor,
+    factor_solve,
     general_matmul_lower,
     general_matmul_upper,
     matmul_lower,
@@ -15,6 +16,7 @@ __all__ = [
     "LoglikFused",
     "loglik_fused",
     "factor",
+    "factor_solve",
     "solve_lower",
     "solve_upper",
     "matmul_lower",

@@ -36,6 +36,8 @@ __all__ = [
     "frev_states_cuda",
     "factor_fwd_cuda",
     "sweep_fwd_cuda",
+    "factor_bwd_cuda",
+    "sweep_bwd_cuda",
     "affine_prefix_cuda",
 ]
 
@@ -61,6 +63,8 @@ LAUNCHES = {
     "frev_states": 0,
     "factor_fwd": 0,
     "sweep_fwd": 0,
+    "factor_bwd": 0,
+    "sweep_bwd": 0,
     "affine_prefix": 0,
 }
 
@@ -75,6 +79,8 @@ WIDTHS = {
     "frev_states": (1, 2, 3, 4),
     "factor_fwd": J_BUCKETS,
     "sweep_fwd": J_BUCKETS,
+    "factor_bwd": J_BUCKETS,
+    "sweep_bwd": J_BUCKETS,
 }
 
 _lib = None
@@ -166,6 +172,10 @@ def _library():
         # (is_double, J, inputs..., outputs..., C, N, K, is_solve, upper, stream)
         lib.c2t_sweep_fwd.argtypes = [I, I] + [P] * 6 + [I] * 5 + [P]
         lib.c2t_sweep_fwd.restype = I
+        lib.c2t_factor_bwd.argtypes = [I, I] + [P] * 11 + [I, I, P]
+        lib.c2t_factor_bwd.restype = I
+        lib.c2t_sweep_bwd.argtypes = [I, I] + [P] * 10 + [I] * 5 + [P]
+        lib.c2t_sweep_bwd.restype = I
         # (is_double, J, phi, G, carry, F, tot_a, tot_b, C, M, K, L, reverse,
         #  stream)
         lib.c2t_affine_prefix.argtypes = [I, I] + [P] * 6 + [I] * 5 + [P]
@@ -351,6 +361,45 @@ def sweep_fwd_cuda(p, A, B, Y, is_solve, upper, want_cache=False):
     outs = (_empty(p, C, N, K), _empty(p, C, N, J, K) if want_cache else None)
     _launch_general(
         "sweep_fwd", J, inputs, outs, (C, N, K, int(is_solve), int(upper))
+    )
+    return outs
+
+
+def factor_bwd_cuda(p, d, U, W, S_half, bd, bW):
+    """The factor adjoint kernel on the card: ``ba (C, N)``, ``bU``,
+    ``bV`` and ``bp (C, N, J)`` from the forward's ``d``, ``W`` and cache
+    ``S_half (C, N, J, J)`` and the cotangents ``bd (C, N)``, ``bW (C, N,
+    J)``."""
+    C, N, J = U.shape
+    inputs = (p, d, U, W, S_half, bd, bW)
+    _check("factor_bwd", inputs, ((C, N, J), (C, N), (C, N, J), (C, N, J),
+                                  (C, N, J, J), (C, N), (C, N, J)))
+    if min(C, N) < 1:
+        raise ValueError(f"factor_bwd: empty system (C={C}, N={N})")
+    outs = (_empty(p, C, N), _empty(p, C, N, J), _empty(p, C, N, J),
+            _empty(p, C, N, J))
+    _launch_general("factor_bwd", J, inputs, outs, (C, N))
+    return outs
+
+
+def sweep_bwd_cuda(p, A, B, R, F, bZ, is_solve, upper):
+    """The sweep adjoint kernel on the card: ``bA, bB, bp (C, N, J)`` and
+    ``bY (C, N, K)`` from the rows ``R (C, N, K)`` that fed the forward
+    carry (Z for a solve, Y for a matmul), its cache ``F (C, N, J, K)``
+    and the cotangent ``bZ``."""
+    C, N, J = A.shape
+    K = bZ.shape[-1]
+    inputs = (p, A, B, R, F, bZ)
+    _check("sweep_bwd", inputs,
+           ((C, N, J),) * 3 + ((C, N, K), (C, N, J, K), (C, N, K)))
+    if min(C, N, K) < 1:
+        raise ValueError(f"sweep_bwd: empty system (C={C}, N={N}, K={K})")
+    # with K > 1 the kernel adds each warp's sums over k into these
+    sums = [_empty(p, C, N, J) if K == 1 else p.new_zeros(C, N, J)
+            for _ in range(3)]
+    outs = (*sums, _empty(p, C, N, K))
+    _launch_general(
+        "sweep_bwd", J, inputs, outs, (C, N, K, int(is_solve), int(upper))
     )
     return outs
 

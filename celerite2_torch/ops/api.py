@@ -1,27 +1,30 @@
 """The public semiseparable ops, at any celerite width J <= 32.
 
-Counterpart of ``celerite2_tpu/ops/api.py``: ``factor``, the two solves,
-the two matmuls, the rectangular ``general_matmul_*`` and ``to_dense``.
-Every op takes one system, with the JAX package's shapes (``t (N,)``, ``c
-(J,)``, ``U (N, J)``, ``Y (N, K)``, ...), or C independent systems at once,
-with a leading chain axis on every argument.
+Counterpart of ``celerite2_tpu/ops/api.py``: ``factor``, ``factor_solve``,
+the two solves, the two matmuls, the rectangular ``general_matmul_*`` and
+``to_dense``.  Every op takes one system, with the JAX package's shapes
+(``t (N,)``, ``c (J,)``, ``U (N, J)``, ``Y (N, K)``, ...), or C
+independent systems at once, with a leading chain axis on every argument.
 
-``factor`` and the four sweeps are ``torch.autograd.Function``s.  Their
-forward is the CUDA kernel of ``csrc/general_ops.cu`` for CUDA tensors and
-the plain loop of ``ops/scan.py`` for CPU tensors.  Their hand-derived
-adjoints (the JAX package's ``factor_rev`` and ``sweep_rev`` recursions)
-are not ported yet, so on either device ``backward`` raises
-``NotImplementedError``: nothing is detached silently, and autograd never
-differentiates through the row loop.  ``general_matmul_*`` accumulate with
-the affine prefix (the CUDA kernel for CUDA tensors, a doubling in plain
-PyTorch on the CPU), which carries its own adjoint, so like ``to_dense``
-they are differentiable on either device.
+``factor``, ``factor_solve`` and the four sweeps are
+``torch.autograd.Function``s.  Their forward is the CUDA kernel of
+``csrc/general_ops.cu`` for CUDA tensors and the plain loop of
+``ops/scan.py`` for CPU tensors, and so is their backward: the
+hand-derived adjoint recursions (``factor_bwd``, ``sweep_bwd``; the JAX
+package's ``factor_rev`` and ``sweep_rev``), so autograd never
+differentiates through the row loop.  The adjoints read the forward's
+caches (``S_half (C, N, J, J)``, ``F (C, N, J, K)``), which the forward
+keeps only when a gradient will be asked for: under ``torch.no_grad()``,
+or with nothing that requires a gradient, the forward runs without them.
+``general_matmul_*`` accumulate with the affine prefix (the CUDA kernel for
+CUDA tensors, a doubling in plain PyTorch on the CPU), which carries its
+own adjoint, so like ``to_dense`` they are differentiable on either device.
 
 Width bucketing: J is padded up to the next of ``config.J_BUCKETS`` before
 the recursions run, with c = 1 and zero columns of the (N, J) matrices, so
 the kernels exist for J in {1, 2, 4, 8, 16, 32} only.  The recursions are
 exactly invariant to zero columns (the padded carry entries stay zero), and
-the outputs are sliced back to J.
+the outputs and the cotangents are sliced back to J.
 """
 
 from __future__ import annotations
@@ -34,6 +37,7 @@ from celerite2_torch.ops.spec import validate_call
 
 __all__ = [
     "factor",
+    "factor_solve",
     "solve_lower",
     "solve_upper",
     "matmul_lower",
@@ -64,11 +68,27 @@ def _chains(batched, *args):
     return tuple((x if batched else x[None]).contiguous() for x in args)
 
 
-def _no_backward(op, item, adjoint):
-    raise NotImplementedError(
-        f"the gradient of {op} is not ported yet: its adjoint recursion "
-        f"({adjoint}) is ROADMAP.md item {item} (B9: factor, B10: sweeps)"
-    )
+def _wants_cache(ctx, grad_enabled):
+    """Whether the forward keeps its caches: only when a gradient will be
+    asked for (``grad_enabled`` is the caller's grad mode; inside
+    ``forward`` it is always off)."""
+    return grad_enabled and any(ctx.needs_input_grad)
+
+
+def _cotangent(g, like, batched):
+    """A cotangent as the adjoint recursions take it: zeros for None, with
+    the chain axis, contiguous, and a width sliced from the bucket padded
+    back with zero columns to that of ``like``."""
+    if g is None:
+        return torch.zeros_like(like)
+    g = g if batched else g[None]
+    if g.shape != like.shape:
+        g = torch.nn.functional.pad(g, (0, like.shape[-1] - g.shape[-1]))
+    return g.contiguous()
+
+
+def _unchain(batched, *grads):
+    return grads if batched else tuple(g[0] for g in grads)
 
 
 # ============================================================== factor
@@ -76,17 +96,31 @@ def _no_backward(op, item, adjoint):
 
 class _Factor(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, t, c, a, U, V):
+    def forward(ctx, t, c, a, U, V, grad_enabled):
         batched = U.dim() == 3
         t, c, a, U, V = _chains(batched, t, c, a, U, V)
         c_p, (U_p, V_p), J = _bucketed(c, U, V)
-        d, W, _ = _scan.factor_fwd(_scan.transport(t, c_p), a, U_p, V_p)
-        W = W[..., :J]
+        d, W_p, S = _scan.factor_fwd(
+            _scan.transport(t, c_p), a, U_p, V_p,
+            want_cache=_wants_cache(ctx, grad_enabled),
+        )
+        if S is not None:
+            ctx.save_for_backward(t, c_p, U_p, d, W_p, S)
+        ctx.batched, ctx.J = batched, J
+        W = W_p[..., :J]
         return (d, W) if batched else (d[0], W[0])
 
     @staticmethod
     def backward(ctx, bd, bW):
-        _no_backward("factor", "B9", "factor_rev")
+        t, c_p, U_p, d, W_p, S = ctx.saved_tensors
+        batched, J = ctx.batched, ctx.J
+        ba, bU, bV, bp = _scan.factor_bwd(
+            _scan.transport(t, c_p), d, U_p, W_p, S,
+            _cotangent(bd, d, batched), _cotangent(bW, W_p, batched),
+        )
+        bt, bc = _scan.time_cotangents(t, c_p, bp)
+        grads = (bt, bc[..., :J], ba, bU[..., :J], bV[..., :J])
+        return (*_unchain(batched, *grads), None)
 
 
 def factor(t, c, a, U, V):
@@ -98,13 +132,63 @@ def factor(t, c, a, U, V):
     finite and the caller checks ``(d > 0).all()``.
     """
     validate_call("factor", t, c, a, U, V)
-    return _Factor.apply(t, c, a, U, V)
+    return _Factor.apply(t, c, a, U, V, torch.is_grad_enabled())
+
+
+# ==================================================== factor + solve
+
+
+class _FactorSolve(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, c, a, U, V, Y, grad_enabled):
+        batched = U.dim() == 3
+        t, c, a, U, V, Y = _chains(batched, t, c, a, U, V, Y)
+        c_p, (U_p, V_p), J = _bucketed(c, U, V)
+        d, W_p, Z, S, F = _scan.factor_solve(
+            _scan.transport(t, c_p), a, U_p, V_p, Y,
+            want_cache=_wants_cache(ctx, grad_enabled),
+        )
+        if S is not None:
+            ctx.save_for_backward(t, c_p, U_p, d, W_p, Z, S, F)
+        ctx.batched, ctx.J = batched, J
+        W = W_p[..., :J]
+        return (d, W, Z) if batched else (d[0], W[0], Z[0])
+
+    @staticmethod
+    def backward(ctx, bd, bW, bZ):
+        """The chained adjoint (``dispatch.factor_solve_rev_impl`` off its
+        assoc tier): the lower solve's, then the factor's with ``bW`` plus
+        what the solve gives W."""
+        t, c_p, U_p, d, W_p, Z, S, F = ctx.saved_tensors
+        batched, J = ctx.batched, ctx.J
+        p = _scan.transport(t, c_p)
+        bU1, bW1, bp1, bY = _scan.sweep_bwd(
+            p, U_p, W_p, Z, F, _cotangent(bZ, Z, batched),
+            is_solve=True, upper=False,
+        )
+        ba, bU2, bV, bp2 = _scan.factor_bwd(
+            p, d, U_p, W_p, S, _cotangent(bd, d, batched),
+            _cotangent(bW, W_p, batched) + bW1,
+        )
+        bt, bc = _scan.time_cotangents(t, c_p, bp1 + bp2)
+        grads = (bt, bc[..., :J], ba, (bU1 + bU2)[..., :J], bV[..., :J], bY)
+        return (*_unchain(batched, *grads), None)
+
+
+def factor_solve(t, c, a, U, V, Y):
+    """``factor`` and ``solve_lower`` in one op: returns ``(d, W, Z)`` with
+    ``Z = L^{-1} Y``, the log-likelihood's forward.  On the CPU one fused
+    plain loop; on the card the factor and sweep kernels.  Its gradient is
+    the lower solve's adjoint followed by the factor's."""
+    validate_call("factor_solve", t, c, a, U, V, Y)
+    return _FactorSolve.apply(t, c, a, U, V, Y, torch.is_grad_enabled())
 
 
 # =============================================================== sweeps
 
 # name -> (is_solve, upper, swap): the upper sweeps project with the
-# second factor and feed the carry with the first
+# second factor and feed the carry with the first, so their adjoint gives
+# (bB, bA) for (M1, M2)
 _SWEEPS = {
     "solve_lower": (True, False, False),
     "solve_upper": (True, True, True),
@@ -115,26 +199,41 @@ _SWEEPS = {
 
 class _Sweep(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, name, t, c, M1, M2, Y):
-        ctx.name = name
+    def forward(ctx, name, t, c, M1, M2, Y, grad_enabled):
         is_solve, upper, swap = _SWEEPS[name]
         batched = Y.dim() == 3
         t, c, M1, M2, Y = _chains(batched, t, c, M1, M2, Y)
-        c_p, (M1_p, M2_p), _ = _bucketed(c, M1, M2)
+        c_p, (M1_p, M2_p), J = _bucketed(c, M1, M2)
         A, B = (M2_p, M1_p) if swap else (M1_p, M2_p)
         p = _scan.transport_up(t, c_p) if upper else _scan.transport(t, c_p)
-        Z, _ = _scan.sweep_fwd(p, A, B, Y, is_solve=is_solve, upper=upper)
+        Z, F = _scan.sweep_fwd(p, A, B, Y, is_solve=is_solve, upper=upper,
+                               want_cache=_wants_cache(ctx, grad_enabled))
+        if F is not None:
+            # the rows that fed the forward carry: Z for a solve, Y else
+            ctx.save_for_backward(t, c_p, A, B, Z if is_solve else Y, F)
+        ctx.name, ctx.batched, ctx.J = name, batched, J
         return Z if batched else Z[0]
 
     @staticmethod
     def backward(ctx, bZ):
-        _no_backward(ctx.name, "B10", "sweep_rev")
+        t, c_p, A, B, R, F = ctx.saved_tensors
+        is_solve, upper, swap = _SWEEPS[ctx.name]
+        batched, J = ctx.batched, ctx.J
+        p = _scan.transport_up(t, c_p) if upper else _scan.transport(t, c_p)
+        bA, bB, bp, bY = _scan.sweep_bwd(
+            p, A, B, R, F, _cotangent(bZ, R, batched),
+            is_solve=is_solve, upper=upper,
+        )
+        bt, bc = _scan.time_cotangents(t, c_p, bp, upper=upper)
+        b1, b2 = (bB, bA) if swap else (bA, bB)
+        grads = (bt, bc[..., :J], b1[..., :J], b2[..., :J], bY)
+        return (None, *_unchain(batched, *grads), None)
 
 
 def _sweep_op(name, doc):
     def op(t, c, M1, M2, Y):
         validate_call(name, t, c, M1, M2, Y)
-        return _Sweep.apply(name, t, c, M1, M2, Y)
+        return _Sweep.apply(name, t, c, M1, M2, Y, torch.is_grad_enabled())
 
     op.__name__ = op.__qualname__ = name
     op.__doc__ = doc

@@ -32,6 +32,11 @@ OPS = {
         inputs=(_T, _C, ("a", ("N",)), ("U", ("N", "J")),
                 ("V", ("N", "J"))),
     ),
+    "factor_solve": OpSpec(
+        name="factor_solve",
+        inputs=(_T, _C, ("a", ("N",)), ("U", ("N", "J")),
+                ("V", ("N", "J")), ("Y", ("N", "K"))),
+    ),
     "solve_lower": OpSpec(
         name="solve_lower",
         inputs=(_T, _C, ("U", ("N", "J")), ("W", ("N", "J")),

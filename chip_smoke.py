@@ -14,11 +14,16 @@ float64:
   apply_inverse, predict, sample) at N = 100,000 for a J = 8 model of four
   SHOTerms and for the J = 4 SHO mixture (the general factor and sweep
   kernels, ``factor_fwd`` and ``sweep_fwd``, and the blocked prefix of the
-  rectangular products, ``affine_prefix``).
+  rectangular products, ``affine_prefix``);
+* the training path at J = 8: the value and theta-gradient of
+  ``gp_loglik`` for the same four SHOTerms at N = 100,000, one chain and 64
+  chains at N = 30,000, and the gradient of
+  ``GaussianProcess.log_likelihood`` (``factor_fwd`` and ``sweep_fwd`` with
+  their caches, then the adjoint kernels ``sweep_bwd`` and ``factor_bwd``).
 
-It then times chained sampler steps on the first two paths, config5's
-J = 4 model at its own size N = 1e6, and profiles the J = 4 path.  Run
-from the root of the repository:
+It then times chained sampler steps on the J = 2, 4 and 8 paths, config5's
+J = 4 model at its own size N = 1e6, and profiles the J = 4 and J = 8
+paths.  Run from the root of the repository:
 
     python3 chip_smoke.py            # the smoke test (a few minutes)
     python3 chip_smoke.py --sweep    # also time evals/s per block length
@@ -32,10 +37,13 @@ exits with status 1 and prints no result.
 import argparse
 import json
 import math
+import multiprocessing
+import queue
 import re
 import subprocess
 import sys
 import time
+import traceback
 from contextlib import contextmanager
 
 import numpy as np
@@ -63,10 +71,12 @@ TPU_KERNEL = {
     "factor_fwd": "celerite2_tpu/ops/pallas_kernels.py:139",
     "sweep_fwd": "celerite2_tpu/ops/pallas_kernels.py:236",
     "affine_prefix": "celerite2_tpu/ops/planes_engine.py:311",
+    "factor_bwd": "celerite2_tpu/ops/pallas_kernels.py:421",
+    "sweep_bwd": "celerite2_tpu/ops/pallas_kernels.py:578",
 }
+GENERAL = ("factor_fwd", "sweep_fwd", "factor_bwd", "sweep_bwd", "affine_prefix")
 SOURCE = dict.fromkeys(KERNELS, "celerite2_torch/csrc/fused_loglik.cu")
-SOURCE.update(dict.fromkeys(("factor_fwd", "sweep_fwd", "affine_prefix"),
-                            "celerite2_torch/csrc/general_ops.cu"))
+SOURCE.update(dict.fromkeys(GENERAL, "celerite2_torch/csrc/general_ops.cu"))
 # Peak rates of one H100 SXM for the bound of each kernel: 3.35 TB/s of
 # device memory; 67 TFLOP/s in float32 outside the tensor cores, and half
 # of that in float64 (NVIDIA's data sheet: 34 TFLOP/s).
@@ -100,6 +110,19 @@ def sho_mixture(theta):
     """benchmarks/configs.py config5's J = 4 model."""
     return sho(theta) + ct.SHOTerm(sigma=theta[..., 3].exp(),
                                    rho=theta[..., 4].exp(), Q=0.3)
+
+
+def wide8(theta):
+    """The J = 8 model of four SHOTerms (``wide_kernel(8, .)`` below,
+    benchmarks/probe_planes_tpu.py's wide model) as a function of theta =
+    log[sigma, rho, tau]: at THETA0 it is ``wide_kernel(8, 1.0)``; the
+    last term's Q = 0.5 is the stiff near-critical case."""
+    e = theta.exp()
+    k = sho(theta)
+    for j in range(3):
+        k = k + ct.SHOTerm(sigma=e[..., 0] * (0.5 + 0.2 * j),
+                           rho=e[..., 1] * (1.7 + j), Q=0.3 + 0.1 * j)
+    return k
 
 
 def rotation(theta):
@@ -159,7 +182,10 @@ def kernel_flops(name, C, N, J, K=1):
     element's build and one combine with the running value (K1-K3), one
     structured step on J^2 + 1 states (K4) or on one (K5), the rank-one
     update, transport and product of the factor, the transport, projection
-    and feed of a sweep, one multiply-add of the affine prefix."""
+    and feed of a sweep, one multiply-add of the affine prefix; for the
+    adjoints, the factor's rank-one update, the reads of bS's row and
+    column, its transport and the deferrals, and the sweep's projection,
+    feed and three sums per right-hand side."""
     D = J * J
     per_row = {
         "kalman_fwd": 12 * J**3 + 10 * D,
@@ -170,6 +196,8 @@ def kernel_flops(name, C, N, J, K=1):
         "factor_fwd": 7 * D + 4 * J,
         "sweep_fwd": 5 * J * K,
         "affine_prefix": 2 * J * K,
+        "factor_bwd": 13 * D + 10 * J,
+        "sweep_bwd": 12 * J * K,
     }[name]
     return C * N * per_row
 
@@ -383,6 +411,26 @@ def held_at_main_shape(name, got, want, what):
     return max((g - w).abs().max().item() for g, w in zip(got, want))
 
 
+def first_chain(xs):
+    return tuple(x[:1].contiguous() for x in xs)
+
+
+def randn_like(x, rng):
+    return torch.tensor(rng.normal(size=tuple(x.shape)), device=x.device)
+
+
+def hold_against_plain(checks, worst):
+    """``checks``: (name, kernel outputs, plain outputs) triples, each
+    output held to 1e-10 relative; ``worst[name]`` keeps the largest
+    error."""
+    for name, got, want in checks:
+        for g, w in zip(got, want):
+            assert g.shape == w.shape, (name, tuple(g.shape), tuple(w.shape))
+            err = scaled_err(g, w)
+            assert math.isfinite(err) and err < 1e-10, (name, tuple(g.shape), err)
+            worst[name] = max(worst[name], err)
+
+
 def timed_plain(fn):
     """One run of a plain version on the card: (result, milliseconds)."""
     torch.cuda.synchronize()
@@ -394,37 +442,41 @@ def timed_plain(fn):
 
 def phase_general_kernels(dev):
     """factor_fwd and sweep_fwd (its four modes) against their plain
-    versions on the card, float64, caches included, to 1e-10 relative; then
-    their times at N = 1e5, J = 8, at C = 1 and C = 64, and each sweep shape
-    the GP path launches against the plain version at N = 1e5.  The times
-    and bounds reported are those of the call the GP path makes: without
-    the caches."""
+    versions on the card, float64, caches included, to 1e-10 relative, at
+    C = 8 and at C = 1 as the first of those chains (the plain version runs
+    once on all eight); then their times at N = 1e5, J = 8, at C = 1 and
+    C = 64, and each sweep shape the GP path launches against the plain
+    version at N = 1e5.  The times and bounds reported are those of the
+    call the GP path makes: without the caches."""
     worst = {"factor_fwd": 0.0, "sweep_fwd": 0.0}
     for J in (1, 2, 3, 8, 16, 32):
         for N in (130, 1040, 10_000):
-            for C in (1, 8):
-                t, c, a, U, V, Y5 = wide_system(J, N, C, 5, dev, seed=J + N)
-                p = scan.transport(t, c)
-                got = _build.factor_fwd_cuda(p, a, U, V, want_cache=True)
-                want = scan.factor_fwd_plain(p, a, U, V)
-                W = want[1]
-                pairs = [("factor_fwd", g, w) for g, w in zip(got, want)]
-                for mode, (is_solve, upper) in MODES.items():
-                    ps, A, B = sweep_args(mode, t, c, U, V, W)
-                    for Y in (Y5[..., :1].contiguous(), Y5):
-                        got = _build.sweep_fwd_cuda(ps, A, B, Y, is_solve, upper,
-                                                    want_cache=True)
-                        want = scan.sweep_fwd_plain(ps, A, B, Y, is_solve=is_solve,
-                                                    upper=upper)
-                        pairs += [("sweep_fwd", g, w) for g, w in zip(got, want)]
-                for name, g, w in pairs:
-                    assert g.shape == w.shape, (name, J, N, C)
-                    err = scaled_err(g, w)
-                    assert math.isfinite(err) and err < 1e-10, (name, J, N, C, err)
-                    worst[name] = max(worst[name], err)
+            t, c, a, U, V, Y5 = wide_system(J, N, 8, 5, dev, seed=J + N)
+            p = scan.transport(t, c)
+            fin = (p, a, U, V)
+            want = scan.factor_fwd_plain(*fin)
+            W = want[1]
+            checks = [
+                ("factor_fwd", _build.factor_fwd_cuda(*fin, want_cache=True), want),
+                ("factor_fwd", _build.factor_fwd_cuda(*first_chain(fin), True),
+                 [w[:1] for w in want]),
+            ]
+            for mode, (is_solve, upper) in MODES.items():
+                ps, A, B = sweep_args(mode, t, c, U, V, W)
+                for Y in (Y5[..., :1].contiguous(), Y5):
+                    sin = (ps, A, B, Y)
+                    want = scan.sweep_fwd_plain(*sin, is_solve=is_solve, upper=upper)
+                    checks += [
+                        ("sweep_fwd", _build.sweep_fwd_cuda(*sin, is_solve, upper, True),
+                         want),
+                        ("sweep_fwd", _build.sweep_fwd_cuda(
+                            *first_chain(sin), is_solve, upper, True),
+                         [w[:1] for w in want]),
+                    ]
+            hold_against_plain(checks, worst)
     for name, err in worst.items():
         log("kernels", f"{name}: worst relative error {err:.3e} (J = 1, 2, "
-            "3 -> 4, 8, 16, 32; N = 130, 1040, 1e4; C = 1, 8; K = 1, 5; "
+            "3 -> 4, 8, 16, 32; N = 130, 1040, 1e4; C = 8 and 1; K = 1, 5; "
             "caches included)")
 
     # times at the gp path's shapes: N = 1e5, J = 8, K = 1, float64
@@ -555,15 +607,99 @@ def phase_prefix_kernel(dev):
     return {"affine_prefix": main_abs}, {"affine_prefix": times}
 
 
+# ------------------------------------------- the adjoint kernels (training)
+
+
+def phase_adjoint_kernels(dev):
+    """factor_bwd and sweep_bwd (four modes, K = 1 and 5) against their
+    plain versions on the card, float64, to 1e-10 relative, on the
+    kernels' own forward caches and random cotangents: J = 1, 2, 3 -> 4, 8,
+    16, 32; N = 130, 1040, 1e4; C = 8, and C = 1 as the first of those
+    chains (the plain version runs once on all eight).  Then their times at
+    N = 1e5, J = 8, K = 1 at C = 1 and C = 64, and at C = 1 the factor and
+    the lower solve's adjoint (the training path's shapes) against the
+    plain versions to 1e-9 (LONG_RTOL)."""
+    worst = {"factor_bwd": 0.0, "sweep_bwd": 0.0}
+    for J in (1, 2, 3, 8, 16, 32):
+        for N in (130, 1040, 10_000):
+            rng = np.random.default_rng(J * N)
+            t, c, a, U, V, Y5 = wide_system(J, N, 8, 5, dev, seed=J + N)
+            p = scan.transport(t, c)
+            d, W, S = _build.factor_fwd_cuda(p, a, U, V, want_cache=True)
+            fin = (p, d, U, W, S, randn_like(d, rng), randn_like(W, rng))
+            want = scan.factor_bwd_plain(*fin)
+            checks = [("factor_bwd", _build.factor_bwd_cuda(*fin), want),
+                      ("factor_bwd", _build.factor_bwd_cuda(*first_chain(fin)),
+                       [w[:1] for w in want])]
+            for mode, (is_solve, upper) in MODES.items():
+                ps, A, B = sweep_args(mode, t, c, U, V, W)
+                for Y in (Y5[..., :1].contiguous(), Y5):
+                    Z, F = _build.sweep_fwd_cuda(ps, A, B, Y, is_solve, upper, True)
+                    sin = (ps, A, B, Z if is_solve else Y, F, randn_like(Z, rng))
+                    want = scan.sweep_bwd_plain(*sin, is_solve=is_solve, upper=upper)
+                    checks += [
+                        ("sweep_bwd", _build.sweep_bwd_cuda(*sin, is_solve, upper),
+                         want),
+                        ("sweep_bwd", _build.sweep_bwd_cuda(
+                            *first_chain(sin), is_solve, upper), [w[:1] for w in want]),
+                    ]
+            hold_against_plain(checks, worst)
+    for name, err in worst.items():
+        log("kernels", f"{name}: worst relative error {err:.3e} (J = 1, 2, "
+            "3 -> 4, 8, 16, 32; N = 130, 1040, 1e4; C = 8 and 1; K = 1, 5 in "
+            "four modes)")
+
+    # times at the training path's shapes: N = 1e5, J = 8, K = 1, float64
+    main_abs, times = {}, {}
+    for C in (1, 64):
+        rng = np.random.default_rng(C)
+        t, c, a, U, V, Y = wide_system(8, N_MAIN, C, 1, dev, seed=8)
+        p = scan.transport(t, c)
+        d, W, S = _build.factor_fwd_cuda(p, a, U, V, want_cache=True)
+        fin = (p, d, U, W, S, randn_like(d, rng), randn_like(W, rng))
+        got = _build.factor_bwd_cuda(*fin)
+        ms = cuda_ms(lambda: _build.factor_bwd_cuda(*fin), reps=5, warmup=1)
+        bound, by = bound_ms((*fin, *got), kernel_flops("factor_bwd", C, N_MAIN, 8))
+        log("kernels", f"factor_bwd: {ms:.4f} ms (bound {bound:.4f} ms by {by}) at "
+            f"N = 1e5, J = 8, C = {C}, float64")
+        if C == 1:
+            want, plain_ms = timed_plain(lambda: scan.factor_bwd_plain(*fin))
+            log("kernels", f"factor_bwd: plain version {plain_ms:.1f} ms (one run)")
+            main_abs["factor_bwd"] = held_at_main_shape(
+                "factor_bwd", got, want, "ba, bU, bV, bp")
+            times["factor_bwd"] = (ms, plain_ms, bound, by)
+        for mode, (is_solve, upper) in MODES.items():
+            ps, A, B = sweep_args(mode, t, c, U, V, W)
+            Z, F = _build.sweep_fwd_cuda(ps, A, B, Y, is_solve, upper, True)
+            sin = (ps, A, B, Z if is_solve else Y, F, randn_like(Z, rng))
+            got = _build.sweep_bwd_cuda(*sin, is_solve, upper)
+            ms = cuda_ms(lambda: _build.sweep_bwd_cuda(*sin, is_solve, upper),
+                         reps=5, warmup=1)
+            bound, by = bound_ms((*sin, *got),
+                                 kernel_flops("sweep_bwd", C, N_MAIN, 8))
+            log("kernels", f"sweep_bwd {mode}: {ms:.4f} ms (bound {bound:.4f} ms "
+                f"by {by}) at N = 1e5, J = 8, K = 1, C = {C}, float64")
+            if C == 1 and mode == "solve_lower":
+                want, plain_ms = timed_plain(lambda: scan.sweep_bwd_plain(
+                    *sin, is_solve=True, upper=False))
+                log("kernels", f"sweep_bwd {mode}: plain version {plain_ms:.1f} ms "
+                    "(one run)")
+                main_abs["sweep_bwd"] = held_at_main_shape(
+                    "sweep_bwd", got, want, f"{mode} K = 1")
+                times["sweep_bwd"] = (ms, plain_ms, bound, by)
+    return main_abs, times
+
+
 # ----------------------------------------- the forward GaussianProcess path
 
 
 @contextmanager
 def count_plain_versions():
-    """Count the calls of the plain versions of the general recursions
-    and of the affine prefix."""
+    """Count the calls of the plain versions of the general recursions,
+    their adjoints and the affine prefix."""
     counts = {"factor_fwd_plain": 0, "sweep_fwd_plain": 0,
-              "affine_prefix_plain": 0}
+              "factor_bwd_plain": 0, "sweep_bwd_plain": 0,
+              "factor_solve_plain": 0, "affine_prefix_plain": 0}
     saved = {n: getattr(scan, n) for n in counts}
 
     def counting(name):
@@ -616,20 +752,97 @@ def gp_calls(gp, y, t_new, t_var, seed):
     return out
 
 
-def phase_gp_path(dev, smi):
+def gp_data(N):
+    """bench.py's data at N rows, and the new points of the predictions."""
+    rng = np.random.default_rng(42)
+    t = np.sort(rng.uniform(0, 1000.0, N))
+    y = np.sin(0.7 * t) + 0.25 * rng.normal(size=N)
+    return t, y, np.linspace(-5.0, 1005.0, 10_000), np.linspace(-5.0, 1005.0, 500)
+
+
+# --------------------------------------------- the CPU's plain route, aside
+
+
+def cpu_references(N):
+    """What the GP path and the training path are held against, on the
+    CPU's plain route in float64 at N rows, as numpy: per GP model the
+    state's d, W and each call's (result, seconds); for the training path
+    gp_loglik's value and theta-gradient for wide8 at THETA0 on bench's
+    data, and its seconds."""
+    ct.set_config(device="cpu")
+    torch.set_num_threads(2)
+    t, y, t_new, t_var = gp_data(N)
+    out = {}
+    for label, model in GP_MODELS.items():
+        gp = ct.GaussianProcess(model(), t, yerr=0.25, mean=0.1, device="cpu")
+        calls = gp_calls(gp, torch.tensor(y), t_new, t_var, seed=3)
+        out[label] = (gp.state.d.numpy(), gp.state.W.numpy(),
+                      {k: (v.numpy(), sec) for k, (v, sec) in calls.items()})
+    tt, yy = bench_data(N, "cpu", torch.float64)
+    start = time.perf_counter()
+    v, g = value_and_grad(torch.tensor(THETA0), tt, yy, wide8)
+    out["train"] = (v.numpy(), g.numpy(), time.perf_counter() - start)
+    return out
+
+
+def _cpu_references_worker(queue, N):
+    try:
+        queue.put(("ok", cpu_references(N)))
+    except BaseException:
+        queue.put(("error", traceback.format_exc()))
+        raise
+
+
+class CpuReferences:
+    """cpu_references(N) in a worker process, started at once, so that the
+    CPU's plain route (minutes at N = 1e5) runs beside the card's phases."""
+
+    def __init__(self, N):
+        ctx = multiprocessing.get_context("spawn")
+        self._queue = ctx.Queue()
+        self._proc = ctx.Process(target=_cpu_references_worker,
+                                 args=(self._queue, N), daemon=True)
+        self._proc.start()
+        self._result = None
+
+    def get(self):
+        if self._result is None:
+            deadline = time.monotonic() + 1000
+            while True:
+                try:
+                    status, result = self._queue.get(timeout=5)
+                    break
+                except queue.Empty:
+                    # a worker that put its result and exited has left it
+                    # in the queue; one that died before has not
+                    if not self._proc.is_alive():
+                        status, result = self._queue.get(timeout=5)
+                        break
+                    if time.monotonic() > deadline:
+                        raise
+            self._proc.join(timeout=60)
+            if status != "ok":
+                raise RuntimeError(f"the CPU references failed:\n{result}")
+            self._result = result
+        return self._result
+
+    def stop(self):
+        if self._proc.is_alive():
+            self._proc.terminate()
+        self._proc.join(timeout=30)
+
+
+def phase_gp_path(dev, smi, refs):
     """GaussianProcess.compute, log_likelihood, apply_inverse, predict and
     sample at N = 1e5, float64, through factor_fwd, sweep_fwd and
     affine_prefix, against the same calls on the CPU's plain route to 1e-9
     relative."""
-    rng = np.random.default_rng(42)
-    t = np.sort(rng.uniform(0, 1000.0, N_MAIN))
-    y = np.sin(0.7 * t) + 0.25 * rng.normal(size=N_MAIN)
-    t_new = np.linspace(-5.0, 1005.0, 10_000)
-    t_var = np.linspace(-5.0, 1005.0, 500)
+    t, y, t_new, t_var = gp_data(N_MAIN)
     launches = {}
     for label, model in GP_MODELS.items():
-        ref_gp = ct.GaussianProcess(model(), t, yerr=0.25, mean=0.1, device="cpu")
-        ref = gp_calls(ref_gp, torch.tensor(y), t_new, t_var, seed=3)
+        ref_d, ref_W, ref = refs.get()[label]
+        ref_d, ref_W = torch.from_numpy(ref_d), torch.from_numpy(ref_W)
+        ref = {k: (torch.from_numpy(v), sec) for k, (v, sec) in ref.items()}
 
         reset_launches()
         with count_plain_versions() as plain_calls:
@@ -651,10 +864,10 @@ def phase_gp_path(dev, smi):
 
         log("gp_path", f"{label}, N = 1e5, float64 | {smi}")
         log("gp_path", f"{label}: compute {1e3 * compute_s:.2f} ms; state d, W "
-            f"vs the CPU route: {scaled_err(gp.state.d, ref_gp.state.d):.2e}, "
-            f"{scaled_err(gp.state.W, ref_gp.state.W):.2e}")
-        assert scaled_err(gp.state.d, ref_gp.state.d) < 1e-9
-        assert scaled_err(gp.state.W, ref_gp.state.W) < 1e-9
+            f"vs the CPU route: {scaled_err(gp.state.d, ref_d):.2e}, "
+            f"{scaled_err(gp.state.W, ref_W):.2e}")
+        assert scaled_err(gp.state.d, ref_d) < 1e-9
+        assert scaled_err(gp.state.W, ref_W) < 1e-9
         shapes = {"log_likelihood": (), "apply_inverse": (N_MAIN,),
                   "predict(y)": (N_MAIN,), "predict(y, t_new) M=1e4": (10_000,),
                   "predict(y, t_new, return_var) M=500": (2, 500),
@@ -707,6 +920,97 @@ def phase_gp_path(dev, smi):
         f"(relative difference {err:.2e})")
     assert err < 1e-8
     return launches["J=8"]
+
+
+# ------------------------------------------------ the training path, J = 8
+
+TRAIN_KERNELS = ("factor_fwd", "sweep_fwd", "factor_bwd", "sweep_bwd")
+
+
+def phase_train_j8(dev, smi, refs):
+    """gp_loglik value and theta-gradient for the J = 8 model (wide8) at
+    N = 1e5, float64, one chain, through factor_fwd and sweep_fwd with their
+    caches and the adjoint kernels sweep_bwd and factor_bwd, against the
+    CPU's plain route (value 1e-9 relative, gradient 1e-8 scaled); 64
+    chains at N = 3e4 against a loop over the chains; the gradient of
+    GaussianProcess.log_likelihood against the same CPU reference; and a
+    dense yardstick at N = 4000."""
+    v, g, seconds = refs.get()["train"]
+    ref = torch.from_numpy(v), torch.from_numpy(g)
+    log("train J=8", f"CPU plain route: {seconds:.1f} s")
+    td, yd = bench_data(N_MAIN, dev, torch.float64)
+    thd = torch.tensor(THETA0, device=dev)
+    value_and_grad(thd, td, yd, wide8)  # warm-up
+    reset_launches()
+    with count_plain_versions() as plain_calls:
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        got = value_and_grad(thd, td, yd, wide8)
+        torch.cuda.synchronize()
+        eval_s = time.perf_counter() - start
+    launches = dict(_build.LAUNCHES)
+    assert not any(plain_calls.values()), plain_calls
+    log("train J=8", f"N = 1e5, float64, C = 1 | {smi}")
+    _check_path("train J=8", {"gp_loglik": got}, {"gp_loglik": ref},
+                {"gp_loglik": (1e-9, 1e-8)}, 3)
+    log("train J=8", f"one value+gradient eval {1e3 * eval_s:.2f} ms; launches "
+        f"{launches}")
+    for name in TRAIN_KERNELS:
+        assert launches[name] == 1, f"{name}: {launches[name]} launches per eval"
+
+    # the same gradient through the state API: compute, log_likelihood
+    thg = thd.clone().requires_grad_(True)
+    before = dict(_build.LAUNCHES)
+    gp = ct.GaussianProcess(wide8(thg), td, yerr=0.25)
+    ll = gp.log_likelihood(yd)
+    (g,) = torch.autograd.grad(ll, thg)
+    ev, eg = scaled_err(ll, ref[0]), scaled_err(g, ref[1])
+    log("train J=8", f"GaussianProcess(...).log_likelihood(y) gradient vs the CPU "
+        f"gp_loglik reference: value err {ev:.2e}, grad err {eg:.2e}")
+    assert ev < 1e-9 and eg < 1e-8, (ev, eg)
+    for name in TRAIN_KERNELS:
+        assert _build.LAUNCHES[name] == before[name] + 1, name
+
+    # 64 chains at N = 3e4 against a loop over the chains
+    C, N = 64, 30_000
+    rng = np.random.default_rng(17)
+    t3, y3 = bench_data(N, dev, torch.float64, seed=8)
+    thetas = torch.tensor(THETA0 + 0.1 * rng.normal(size=(C, 3)), device=dev)
+    v, g = value_and_grad(thetas, t3, y3, wide8)
+    assert v.shape == (C,) and g.shape == (C, 3)
+    loop = [value_and_grad(thetas[k], t3, y3, wide8) for k in range(C)]
+    ev = scaled_err(v, torch.stack([x[0] for x in loop]))
+    eg = max(scaled_err(g[k], loop[k][1]) for k in range(C))
+    log("train J=8", f"C = {C}, N = {N}: batched vs loop value err {ev:.2e}, "
+        f"grad err {eg:.2e}")
+    assert torch.isfinite(v).all() and torch.isfinite(g).all()
+    assert ev < 1e-10 and eg < 1e-10, (ev, eg)
+
+    # a yardstick: the gradient through the dense Cholesky factor at N = 4000
+    # (torch.linalg.cholesky; used nowhere in the package)
+    ts, ys = td[:4000], yd[:4000]
+    n = len(ts)
+
+    def dense_value_and_grad():
+        th = thd.detach().requires_grad_(True)
+        K = wide8(th).to_dense(ts, torch.full_like(ts, 0.0625))
+        L = torch.linalg.cholesky(K)
+        alpha = torch.cholesky_solve(ys[:, None], L)[:, 0]
+        ll = -0.5 * (2 * torch.log(torch.diagonal(L)).sum() + ys @ alpha
+                     + n * math.log(2 * math.pi))
+        (g,) = torch.autograd.grad(ll, th)
+        return ll.detach(), g
+
+    dense = dense_value_and_grad()
+    port = value_and_grad(thd, ts, ys, wide8)
+    ev, eg = scaled_err(port[0], dense[0]), scaled_err(port[1], dense[1])
+    ms = cuda_ms(lambda: value_and_grad(thd, ts, ys, wide8), reps=5)
+    ms_dense = cuda_ms(dense_value_and_grad, reps=3)
+    log("train J=8", f"value+gradient at N = {n}: {ms:.3f} ms; through the dense "
+        f"Cholesky factor {ms_dense:.3f} ms (difference: value {ev:.2e}, grad "
+        f"{eg:.2e})")
+    assert ev < 1e-9 and eg < 1e-6, (ev, eg)
+    return launches
 
 
 def _check_path(label, results, refs, tols, nparam):
@@ -803,8 +1107,10 @@ def phase_chains(dev):
 
 
 def phase_quiet_failure(dev):
+    """A system that is not positive definite: -inf and zero gradients at
+    J = 2, 4 (the fused path) and 8 (factor_solve and its adjoints)."""
     t, y = bench_data(2000, dev, torch.float64)
-    for model, theta0 in ((sho, THETA0), (sho_mixture, THETA4)):
+    for model, theta0 in ((sho, THETA0), (sho_mixture, THETA4), (wide8, THETA0)):
         theta = torch.tensor(theta0, device=dev).requires_grad_(True)
         ll = ct.gp_loglik(model(theta), t, y, diag=-5.0)
         (g,) = torch.autograd.grad(ll, theta)
@@ -863,6 +1169,18 @@ def phase_steps(dev):
         log("steps", f"J = 4, {dtype}: kernel route {kernel:.2f} evals/s "
             f"(20 chained steps), plain route {plain:.3f} evals/s (3 steps); "
             f"N = 1e5, config5 SHO mixture, L = {L}")
+    # J = 8: the general factor and lower solve with their adjoints, one
+    # chain at N = 1e5 and 64 chains at N = 3e4
+    for dtype in (torch.float64, torch.float32):
+        rate = steps_per_s(dev, dtype, model=wide8)
+        log("steps", f"J = 8, {dtype}: {rate:.2f} evals/s (20 chained steps); "
+            "N = 1e5, C = 1, four SHOTerms")
+    C, N = 64, 30_000
+    theta0 = THETA0 + 0.1 * np.random.default_rng(17).normal(size=(C, 3))
+    rate = steps_per_s(dev, torch.float64, model=wide8, theta0=theta0,
+                       data=bench_data(N, dev, torch.float64, seed=8))
+    log("steps", f"J = 8, torch.float64, C = {C}, N = {N}: {rate:.2f} evals/s "
+        f"(20 chained steps), {C * rate:.1f} chain-evals/s")
     # config5's own size: t ~ sort(U(0, 1e4)), N = 1e6, seed 11
     N = 1_000_000
     data = bench_data(N, dev, torch.float64, seed=11, span=10_000.0)
@@ -875,20 +1193,21 @@ def phase_steps(dev):
         f"{fl.default_block_len(N)}), peak device memory {peak:.2f} GiB")
 
 
-def phase_profile(dev):
-    """torch.profiler over 3 J = 4 evaluations at N = 1e5, float64:
-    device kernels per evaluation, device busy time and idle share."""
+def phase_profile(dev, label, model, theta0):
+    """torch.profiler over 3 value+gradient evaluations at N = 1e5,
+    float64: device kernels per evaluation, device busy time, idle share
+    and device time by kernel."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     t, y = bench_data(N_MAIN, dev, torch.float64)
-    theta = torch.tensor(THETA4, device=dev)
-    value_and_grad(theta, t, y, sho_mixture)
+    theta = torch.tensor(theta0, device=dev)
+    value_and_grad(theta, t, y, model)
     torch.cuda.synchronize()
     n = 3
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(n):
-            value_and_grad(theta, t, y, sho_mixture)
+            value_and_grad(theta, t, y, model)
         torch.cuda.synchronize()
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     if not kernels:
@@ -897,20 +1216,21 @@ def phase_profile(dev):
     busy = sum(e.time_range.end - e.time_range.start for e in kernels) / n
     span = (max(e.time_range.end for e in kernels)
             - min(e.time_range.start for e in kernels)) / n
-    log("profile", f"J = 4, N = 1e5, float64: {len(kernels) / n:.0f} device "
+    log("profile", f"{label}, N = 1e5, float64: {len(kernels) / n:.0f} device "
         f"kernels per eval, device busy {busy / 1000:.3f} ms of a "
         f"{span / 1000:.3f} ms span per eval (idle share "
         f"{1 - busy / span:.3f}; under the profiler)")
+    ours = (*KERNELS, *GENERAL)
     by_name = {}
     for e in kernels:
-        name = next((k for k in KERNELS if f"{k}_kernel" in e.name), e.name[:60])
+        name = next((k for k in ours if f"{k}_kernel" in e.name), e.name[:60])
         calls, us = by_name.get(name, (0, 0.0))
         by_name[name] = (calls + 1, us + e.time_range.end - e.time_range.start)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
-    log("profile", "per eval, device time by kernel (top 8): " + "; ".join(
+    log("profile", f"{label}: per eval, device time by kernel (top 8): " + "; ".join(
         f"{k} x{c / n:.0f} {us / n / 1000:.4f} ms" for k, (c, us) in top))
-    log("profile", "per eval, this repo's kernels: " + ", ".join(
-        f"{k} {by_name[k][1] / n / 1000:.4f} ms" for k in KERNELS if k in by_name))
+    log("profile", f"{label}: per eval, this repo's kernels: " + ", ".join(
+        f"{k} {by_name[k][1] / n / 1000:.4f} ms" for k in ours if k in by_name))
 
 
 def phase_sweep(dev):
@@ -940,30 +1260,45 @@ def main(argv=None):
         return 1
     dev = torch.device("cuda", 0)
     start = time.perf_counter()
+
+    def timed(phase, *args):
+        began = time.perf_counter()
+        out = phase(*args)
+        log("time", f"{phase.__name__}: {time.perf_counter() - began:.1f} s")
+        return out
+
     smi = phase_device()
-    phase_build()
-    main_abs, times = phase_kernels(dev)
-    for phase in (phase_general_kernels, phase_prefix_kernel):
-        phase_abs, phase_times = phase(dev)
-        main_abs.update(phase_abs)
-        times.update(phase_times)
-    launches = phase_main_path(dev)
-    launches4 = phase_main_path_j4(dev)
-    launches8 = phase_gp_path(dev, smi)
-    phase_chains(dev)
-    phase_quiet_failure(dev)
-    phase_steps(dev)
-    phase_profile(dev)
+    refs = CpuReferences(N_MAIN)
+    try:
+        timed(phase_build)
+        main_abs, times = timed(phase_kernels, dev)
+        for phase in (phase_general_kernels, phase_prefix_kernel,
+                      phase_adjoint_kernels):
+            phase_abs, phase_times = timed(phase, dev)
+            main_abs.update(phase_abs)
+            times.update(phase_times)
+        launches = timed(phase_main_path, dev)
+        launches4 = timed(phase_main_path_j4, dev)
+        launches8 = timed(phase_gp_path, dev, smi, refs)
+        launches_train = timed(phase_train_j8, dev, smi, refs)
+    finally:
+        refs.stop()
+    timed(phase_chains, dev)
+    timed(phase_quiet_failure, dev)
+    timed(phase_steps, dev)
+    timed(phase_profile, dev, "J = 4", sho_mixture, THETA4)
+    timed(phase_profile, dev, "J = 8", wide8, THETA0)
     if args.sweep:
-        phase_sweep(dev)
+        timed(phase_sweep, dev)
     log("done", f"{time.perf_counter() - start:.1f} s")
     # each kernel's launches on the path that runs it: K3 on the J = 2
-    # path, K1, K2, K4, K5 on the J = 4 path, the general kernels on the GP
-    # path
+    # path, K1, K2, K4, K5 on the J = 4 path, the general forward kernels on
+    # the GP path, their adjoints on the training path
     on_path = {name: (launches if REPORT_J[name] == 2 else launches4)
                for name in KERNELS}
     on_path.update(factor_fwd=launches8, sweep_fwd=launches8,
-                   affine_prefix=launches8)
+                   affine_prefix=launches8, factor_bwd=launches_train,
+                   sweep_bwd=launches_train)
     kernels = [
         {"name": name, "route": "cuda", "source": SOURCE[name],
          "replaces": TPU_KERNEL[name], "launches": on_path[name][name],

@@ -377,14 +377,145 @@ def test_gaussian_process_defaults_to_the_card(cuda):
     assert not ct.models.term_from_numpy(spec, device="cpu").a.is_cuda
 
 
-def test_backward_raises_on_the_card(cuda):
+@pytest.mark.parametrize("J", [1, 2, 4, 8, 16, 32])
+def test_factor_bwd_matches_plain(cuda, J):
+    """The factor adjoint kernel against the plain loop (ba, bU, bV, bp) at
+    N = 301, C = 3, float64, to 1e-10 relative."""
+    t, c, a, U, V, _ = _wide_system(301, 3, J, 1, cuda, seed=J)
+    p = scan.transport(t, c)
+    d, W, S = scan.factor_fwd_plain(p, a, U, V)
+    rng = np.random.default_rng(J)
+    bd = torch.tensor(rng.normal(size=d.shape), device=cuda)
+    bW = torch.tensor(rng.normal(size=W.shape), device=cuda)
+    before = _build.LAUNCHES["factor_bwd"]
+    got = _build.factor_bwd_cuda(p, d, U, W, S, bd, bW)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["factor_bwd"] == before + 1
+    for g, w in zip(got, scan.factor_bwd_plain(p, d, U, W, S, bd, bW)):
+        assert g.shape == w.shape and _rel(g, w) < 1e-10
+
+
+@pytest.mark.parametrize("is_solve, upper",
+                         [(s, u) for s in (True, False) for u in (False, True)])
+@pytest.mark.parametrize("J, K", [(1, 1), (2, 4), (4, 1), (8, 5), (16, 1),
+                                  (32, 3), (8, 200)])
+def test_sweep_bwd_matches_plain(cuda, J, K, is_solve, upper):
+    """The sweep adjoint kernel in its four modes against the plain loop
+    (bA, bB, bp, bY) at N = 301, C = 3, float64, to 1e-10 relative; K = 200
+    spans two blocks of right-hand sides."""
+    t, c, a, U, V, Y = _wide_system(301, 3, J, K, cuda)
+    d, W, _ = scan.factor_fwd_plain(scan.transport(t, c), a, U, V)
+    second = W if is_solve else V
+    A, B = (second, U) if upper else (U, second)
+    p = scan.transport_up(t, c) if upper else scan.transport(t, c)
+    Z, F = scan.sweep_fwd_plain(p, A, B, Y, is_solve=is_solve, upper=upper)
+    R = Z if is_solve else Y
+    bZ = torch.tensor(np.random.default_rng(K).normal(size=Z.shape), device=cuda)
+    before = _build.LAUNCHES["sweep_bwd"]
+    got = _build.sweep_bwd_cuda(p, A, B, R, F, bZ, is_solve, upper)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["sweep_bwd"] == before + 1
+    want = scan.sweep_bwd_plain(p, A, B, R, F, bZ, is_solve=is_solve, upper=upper)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and _rel(g, w) < 1e-10
+
+
+def test_adjoints_long_rows(cuda):
+    """Several tiles of rows (N = 5000 at J = 8) in float32 and float64."""
+    for dtype, tol in ((torch.float64, 1e-10), (torch.float32, 1e-4)):
+        t, c, a, U, V, Y = (
+            x.to(dtype) for x in _wide_system(5000, 2, 8, 1, cuda, seed=4))
+        p = scan.transport(t, c)
+        d, W, S = scan.factor_fwd_plain(p, a, U, V)
+        Z, F = scan.sweep_fwd_plain(p, U, W, Y, is_solve=True, upper=False)
+        bd, bW = torch.ones_like(d), torch.ones_like(W)
+        for g, w in zip(_build.factor_bwd_cuda(p, d, U, W, S, bd, bW),
+                        scan.factor_bwd_plain(p, d, U, W, S, bd, bW)):
+            assert _rel(g, w) < tol
+        for g, w in zip(_build.sweep_bwd_cuda(p, U, W, Z, F, Z, True, False),
+                        scan.sweep_bwd_plain(p, U, W, Z, F, Z, is_solve=True,
+                                             upper=False)):
+            assert _rel(g, w) < tol
+
+
+@pytest.mark.parametrize("J", [3, 8])
+def test_op_gradients_cuda_match_cpu(cuda, J):
+    """Gradients of factor, the four sweeps and factor_solve on the card
+    (through factor_bwd and sweep_bwd) against the CPU route."""
     from celerite2_torch import ops
 
+    t, c, a, U, V, Y = _wide_system(400, 2, J, 2, "cpu", seed=J)
+    rng = np.random.default_rng(J)
+    weights = [torch.tensor(rng.normal(size=s)) for s in (a.shape, U.shape, Y.shape)]
+    results = []
+    for device in ("cpu", cuda):
+        args = [x.to(device).requires_grad_(True) for x in (t, c, a, U, V, Y)]
+        wd, wW, wZ = (w.to(device) for w in weights)
+        d, W = ops.factor(*args[:5])
+        loss = (wd * d).sum() + (wW * W).sum()
+        for name in ("solve_lower", "solve_upper", "matmul_lower", "matmul_upper"):
+            z = getattr(ops, name)(args[0], args[1], args[3], W, args[5])
+            loss = loss + (wZ * z).sum()
+        d2, W2, Z2 = ops.factor_solve(*args)
+        loss = loss + (wd * d2).sum() + (wW * W2).sum() + (wZ * Z2).sum()
+        before = dict(_build.LAUNCHES)
+        grads = torch.autograd.grad(loss, args)
+        if device != "cpu":
+            assert _build.LAUNCHES["factor_bwd"] == before["factor_bwd"] + 2
+            assert _build.LAUNCHES["sweep_bwd"] == before["sweep_bwd"] + 5
+        results.append([g.cpu() for g in grads])
+    for got, want in zip(results[1], results[0]):
+        assert _rel(got, want) < 1e-9
+
+
+def test_gp_loglik_gradient_at_j8_cuda_matches_cpu(cuda):
+    """gp_loglik value and theta-gradient at J = 8 on the card (factor_fwd,
+    sweep_fwd, sweep_bwd, factor_bwd) against the CPU route."""
+    rng = np.random.default_rng(2)
+    t = torch.tensor(np.sort(rng.uniform(0, 100, 3000)))
+    y = torch.tensor(np.sin(t.numpy()) + 0.2 * rng.normal(size=3000))
+    theta = torch.tensor([0.1, 0.4, 1.0, -0.2])
+
+    def value_grad(device):
+        th = theta.to(device).requires_grad_(True)
+        kernel = _wide_kernel(8, th[0].exp()) + ct.SHOTerm(
+            sigma=th[1].exp(), rho=th[2].exp(), Q=th[3].exp())
+        ll = ct.gp_loglik(kernel, t.to(device), y.to(device), yerr=0.2)
+        (g,) = torch.autograd.grad(ll, th)
+        return ll.item(), g.cpu()
+
+    v0, g0 = value_grad("cpu")
+    before = dict(_build.LAUNCHES)
+    v1, g1 = value_grad(cuda)
+    for name in ("factor_fwd", "sweep_fwd", "factor_bwd", "sweep_bwd"):
+        assert _build.LAUNCHES[name] == before[name] + 1, name
+    np.testing.assert_allclose(v1, v0, rtol=1e-10)
+    assert _rel(g1, g0) < 1e-9
+
+
+def test_no_cache_without_a_gradient_on_the_card(cuda, monkeypatch):
+    """Under torch.no_grad() the ops launch the forward kernels without
+    their caches (the serving path's launches); with a gradient to come,
+    with them, and the backward launches the adjoint kernels."""
+    from celerite2_torch import ops
+
+    asked = []
+    for name in ("factor_fwd_cuda", "sweep_fwd_cuda"):
+        def spy(*args, _fn=getattr(_build, name)):
+            asked.append(args[-1])
+            return _fn(*args)
+        monkeypatch.setattr(_build, name, spy)
     t, c, a, U, V, Y = (x[0] for x in _wide_system(100, 1, 8, 1, cuda))
     U = U.requires_grad_(True)
+    with torch.no_grad():
+        d, W = ops.factor(t, c, a, U, V)
+        ops.solve_lower(t, c, U, W, Y)
+    assert asked == [False, False] and not d.requires_grad
     d, W = ops.factor(t, c, a, U, V)
-    with pytest.raises(NotImplementedError, match="B9"):
-        d.sum().backward()
-    z = ops.solve_lower(t, c, U, W.detach(), Y)
-    with pytest.raises(NotImplementedError, match="B10"):
-        z.sum().backward()
+    z = ops.solve_lower(t, c, U, W, Y)
+    assert asked[2:] == [True, True]
+    before = dict(_build.LAUNCHES)
+    (gU,) = torch.autograd.grad(z.sum() + d.sum(), U)
+    assert gU.is_cuda and torch.isfinite(gU).all()
+    assert _build.LAUNCHES["sweep_bwd"] == before["sweep_bwd"] + 1
+    assert _build.LAUNCHES["factor_bwd"] == before["factor_bwd"] + 1

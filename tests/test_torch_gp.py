@@ -1,6 +1,7 @@
 """The port's main path as a whole: celerite2_torch.gp_loglik's value
 and theta-gradient against celerite2_tpu.gp.gp_loglik under
-jax.value_and_grad, in float64 on CPU."""
+jax.value_and_grad, in float64 on CPU: the fused path at J <= 4 and the
+general factor_solve with its adjoints at J = 8."""
 
 import jax
 import jax.numpy as jnp
@@ -53,6 +54,20 @@ def _real_sho(mod, th, exp):
     return _real(mod, th, exp) + _sho(mod, th[2:], exp)
 
 
+def _wide8(mod, th, exp):
+    """A J = 8 model: four SHOTerms (benchmarks/probe_planes_tpu.py's wide
+    model), the last one's Q = exp(th[3]) near critical damping."""
+    k = _sho(mod, th, exp)
+    for j in range(3):
+        Q = exp(th[3]) if j == 2 else 0.3 + 0.1 * j
+        k = k + mod.SHOTerm(sigma=exp(th[0]) * (0.5 + 0.2 * j),
+                            rho=exp(th[1]) * (1.7 + j), Q=Q)
+    return k
+
+
+THETA8 = [0.1, 1.2, 1.0, np.log(0.5)]
+
+
 MODELS = {
     "sho": (_sho, [0.1, 1.2, 1.0]),
     "real": (_real, [0.2, -0.4]),
@@ -82,6 +97,58 @@ def test_value_and_theta_gradient(model, N):
     (g0,) = torch.autograd.grad(v0, th)
     np.testing.assert_allclose(v0.item(), float(v1), rtol=1e-10)
     assert_scaled_close(g0.numpy(), np.asarray(g1), 1e-9, "theta")
+
+
+@pytest.mark.parametrize("N", [65, 130, 1040])
+def test_value_and_theta_gradient_at_j8(N):
+    """J = 8 runs ops.factor_solve and, for the gradient, its adjoint (the
+    lower solve's, then the factor's), as the JAX package does at J > 4."""
+    t, yerr, y = _data(N, seed=N)
+
+    def jax_ll(th):
+        return jax_gp_loglik(_wide8(jt, th, jnp.exp), t, y, yerr=yerr, mean=0.25)
+
+    with jax_config(backend="scan", fused_slab="off"):
+        v1, g1 = jax.value_and_grad(jax_ll)(jnp.asarray(THETA8))
+    th = torch.tensor(THETA8, dtype=torch.float64, requires_grad=True)
+    kernel = _wide8(ct, th, torch.exp)
+    assert kernel.width == 8
+    v0 = ct.gp_loglik(kernel, t64(t), t64(y), yerr=t64(yerr), mean=0.25)
+    (g0,) = torch.autograd.grad(v0, th)
+    np.testing.assert_allclose(v0.item(), float(v1), rtol=1e-10)
+    assert_scaled_close(g0.numpy(), np.asarray(g1), 1e-9, "theta")
+
+
+def test_j8_chains_match_loop():
+    """theta of shape (C, 4) at J = 8: one call through factor_solve with
+    a chain axis against a loop over the chains."""
+    t, yerr, y = _data(150)
+    theta = torch.tensor([THETA8, [0.3, 0.5, -1.5, -0.2], [-0.2, 2.0, 0.4, -1.0]],
+                         dtype=torch.float64, requires_grad=True)
+    ll = ct.gp_loglik(_wide8(ct, theta.T, torch.exp), t64(t), t64(y), yerr=0.2)
+    assert tuple(ll.shape) == (3,)
+    (g,) = torch.autograd.grad(ll.sum(), theta)
+    for k in range(3):
+        thk = theta[k].detach().clone().requires_grad_(True)
+        llk = ct.gp_loglik(_wide8(ct, thk, torch.exp), t64(t), t64(y), yerr=0.2)
+        (gk,) = torch.autograd.grad(llk, thk)
+        torch.testing.assert_close(ll[k], llk, rtol=1e-12, atol=0)
+        torch.testing.assert_close(g[k], gk, rtol=1e-10, atol=1e-12)
+
+
+def test_j8_not_positive_definite_is_quiet():
+    """A system that is not positive definite gives -inf and zero
+    gradients, never NaN, at J = 8 as at J <= 4; a chain that is gives its
+    own finite value and gradient beside it."""
+    t, _, y = _data(300)
+    theta = torch.tensor([THETA8, THETA8], dtype=torch.float64,
+                         requires_grad=True)
+    diag = torch.tensor([[-3.0], [0.04]], dtype=torch.float64)
+    ll = ct.gp_loglik(_wide8(ct, theta.T, torch.exp), t64(t), t64(y), diag=diag)
+    (g,) = torch.autograd.grad(ll.sum(), theta)
+    assert ll[0].item() == -np.inf and torch.all(g[0] == 0)
+    assert torch.isfinite(ll[1]) and torch.isfinite(g[1]).all()
+    assert torch.any(g[1] != 0)
 
 
 def test_chains_match_loop():
@@ -156,14 +223,13 @@ def test_argument_errors():
     kernel = ct.SHOTerm(sigma=1.0, rho=2.0, tau=3.0)
     with pytest.raises(ValueError, match="only one of"):
         ct.gp_loglik(kernel, t64(t), t64(y), yerr=0.1, diag=0.01)
-    # J = 8: the value runs on the general factor and solve, the gradient
-    # waits for their adjoints
+    # J = 8 under torch.no_grad(): the value alone, on the general factor
+    # and solve
     sigma = t64(1.0).requires_grad_(True)
     wide = ct.SHOTerm(sigma=sigma, rho=2.0, tau=3.0) + kernel + kernel + kernel
-    with pytest.raises(NotImplementedError, match="B9/B10"):
-        ct.gp_loglik(wide, t64(t), t64(y), yerr=0.1)
     with torch.no_grad():
         got = ct.gp_loglik(wide, t64(t), t64(y), yerr=0.1)
+    assert not got.requires_grad
     jk = jt.SHOTerm(sigma=1.0, rho=2.0, tau=3.0)
     with jax_config(backend="scan", fused_slab="off"):
         want = float(jax_gp_loglik(jk + jk + jk + jk, t, y, yerr=0.1))

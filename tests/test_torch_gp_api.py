@@ -18,7 +18,8 @@ from celerite2_tpu import gp as jgp
 from celerite2_tpu import terms as jt
 from celerite2_tpu.utils import LinAlgError as JaxLinAlgError
 from torch_parity import (
-    WIDTHS, assert_rel_close, jax_config, spec_from_jax, t64, wide_kernel,
+    WIDTHS, assert_rel_close, assert_scaled_close, jax_config, spec_from_jax, t64,
+    wide_kernel,
 )
 
 RTOL = 1e-9
@@ -341,16 +342,81 @@ def test_float64_core_dtype_in_compute(data):
     assert_rel_close(state.log_det, exact.log_det, 1e-6)
 
 
-def test_gradients_through_the_state_api_raise(data):
-    """The state API runs on ops whose adjoints are not ported: backward
-    raises instead of returning a detached or wrong gradient."""
+def _theta_kernel(mod, th, exp):
+    """A J = 5 kernel (bucketed to 8) of theta: an SHOTerm, an overdamped
+    SHOTerm and a RealTerm."""
+    return (mod.SHOTerm(sigma=exp(th[0]), rho=exp(th[1]), tau=exp(th[2]))
+            + mod.SHOTerm(sigma=0.6 * exp(th[0]), rho=1.1, Q=0.3)
+            + mod.RealTerm(a=0.3, c=exp(th[3])))
+
+
+THETA = [0.2, 0.4, 1.0, -0.3]
+STATE_CALLS = ["log_likelihood", "apply_inverse", "dot_tril", "predict(y)",
+               "predict(y, t_new)", "sample"]
+
+
+def _state_call(name, gp, y, weights, noise, t_new, draw=None):
+    """A scalar of the call's result: its dot product with fixed weights.
+    ``draw`` is the sample's normals (the port draws them itself)."""
+    if name == "log_likelihood":
+        return gp.log_likelihood(y)
+    if name == "apply_inverse":
+        out = gp.apply_inverse(y)
+    elif name == "dot_tril":
+        out = gp.dot_tril(noise)
+    elif name == "predict(y)":
+        out = gp.predict(y)
+    elif name == "predict(y, t_new)":
+        out = gp.predict(y, t_new)
+        return (weights[: len(t_new)] * out).sum()
+    else:
+        out = draw(gp)
+    return (weights * out).sum()
+
+
+@pytest.mark.parametrize("call", STATE_CALLS)
+def test_gradients_through_the_state_api_match_jax(data, call):
+    """The theta-gradient of each GaussianProcess call (through ops.factor,
+    the sweeps and the rectangular products, with their adjoints) against
+    jax.grad of the same call in the JAX package (scan tier), scaled 1e-9.
+    A sample is L sqrt(d) z plus the mean: the port's draw from a seeded
+    generator against the JAX transform of the same normals."""
     t, yerr, y = data
-    sigma = t64(1.2).requires_grad_(True)
-    gp = ct.GaussianProcess(ct.SHOTerm(sigma=sigma, rho=2.0, tau=3.0), t, yerr=yerr)
-    ll = gp.log_likelihood(y)
-    assert ll.requires_grad
-    with pytest.raises(NotImplementedError, match="B9|B10"):
-        ll.backward()
+    rng = np.random.default_rng(17)
+    weights = rng.normal(size=len(t))
+    t_new = np.sort(rng.uniform(-1, 11, 30))
+    z = torch.randn(len(t), generator=torch.Generator().manual_seed(4),
+                    dtype=torch.float64)
+
+    def jax_value(th):
+        gp = JaxGP(_theta_kernel(jt, th, jnp.exp), t=t, yerr=yerr, mean=0.2)
+        return _state_call(call, gp, y, jnp.asarray(weights), np.asarray(z),
+                           t_new, draw=lambda g: g.dot_tril(np.asarray(z)) + 0.2)
+
+    with jax_config(backend="scan"):
+        want = jax.grad(jax_value)(jnp.asarray(THETA))
+    th = torch.tensor(THETA, dtype=torch.float64, requires_grad=True)
+    gp = ct.GaussianProcess(_theta_kernel(ct, th, torch.exp), t, yerr=yerr, mean=0.2)
+    value = _state_call(
+        call, gp, y, t64(weights), z, t_new,
+        draw=lambda g: g.sample(torch.Generator().manual_seed(4)))
+    (got,) = torch.autograd.grad(value, th)
+    assert torch.isfinite(got).all() and torch.any(got != 0)
+    assert_scaled_close(got.numpy(), np.asarray(want), 1e-9, call)
+
+
+def test_gradients_through_the_functional_core(data):
+    """gp_compute + gp_log_likelihood equal gp_loglik, value and gradient
+    (the two routes through the general ops at J = 5)."""
+    t, yerr, y = data
+    th = torch.tensor(THETA, dtype=torch.float64, requires_grad=True)
+    state = ct.gp_compute(_theta_kernel(ct, th, torch.exp), t, yerr=yerr)
+    ll = ct.gp_log_likelihood(state, y)
+    (g1,) = torch.autograd.grad(ll, th)
+    ll2 = ct.gp_loglik(_theta_kernel(ct, th, torch.exp), t, y, yerr=yerr)
+    (g2,) = torch.autograd.grad(ll2, th)
+    np.testing.assert_allclose(ll.item(), ll2.item(), rtol=1e-12)
+    assert_rel_close(g1, g2, 1e-10)
 
 
 def test_inputs_follow_the_default_device(data):

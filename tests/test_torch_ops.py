@@ -1,7 +1,7 @@
 """The port's public ops (celerite2_torch.ops) against the JAX package's
-(celerite2_tpu.ops, scan tier), float64 on the CPU, to 1e-10 relative to
-each array's largest entry; their argument contracts; and the gradient
-they do not have yet."""
+(celerite2_tpu.ops, scan tier), float64 on the CPU: values to 1e-10
+relative to each array's largest entry, the cotangents of their hand-derived
+adjoints against jax.vjp to 1e-9; and their argument contracts."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -18,7 +18,8 @@ from celerite2_torch.utils.misc import as_tensor
 from celerite2_tpu import ops as jops
 from celerite2_tpu import terms as jt
 from torch_parity import (
-    WIDTHS, assert_rel_close, jax_config, t64, wide_kernel, wide_system,
+    WIDTHS, assert_rel_close, assert_scaled_close, jax_config, t64, wide_kernel,
+    wide_system,
 )
 
 RTOL = 1e-10
@@ -191,32 +192,119 @@ def test_get_value_on_a_lag_matrix_matches_jax():
                          wide_kernel(jt, J).get_value(tau), 1e-12)
 
 
-@pytest.mark.parametrize("op", ["factor"] + SWEEPS)
-def test_backward_raises_not_implemented(op):
-    """The adjoint recursions are not ported: backward raises, naming the
-    roadmap item, instead of detaching or differentiating the row loop."""
-    t, c, a, U, V, Y = map(t64, wide_system(31, 5, 2))
-    U = U.requires_grad_(True)
+def _op_args(op, t, c, a, U, V, Y, W):
+    """The arguments of ``op``: the solves take the factor's W, the
+    matmuls V."""
     if op == "factor":
-        out = tops.factor(t, c, a, U, V)[0]
-        item = "B9"
-    else:
-        out = getattr(tops, op)(t, c, U, V, Y)
-        item = "B10"
-    assert out.requires_grad
-    with pytest.raises(NotImplementedError, match=item):
-        out.sum().backward()
-    with pytest.raises(NotImplementedError, match="B9: factor, B10: sweeps"):
-        torch.autograd.grad(out.sum(), U)
+        return (t, c, a, U, V)
+    if op == "factor_solve":
+        return (t, c, a, U, V, Y)
+    return (t, c, U, W if op.startswith("solve") else V, Y)
 
 
-def test_no_gradient_is_no_error():
-    """Without anything that requires a gradient the ops are plain
-    forward functions."""
+def _as_tuple(x):
+    return x if isinstance(x, tuple) else (x,)
+
+
+@pytest.mark.parametrize("J", [3, 5, 31])
+@pytest.mark.parametrize("op", ["factor", "factor_solve"] + SWEEPS)
+def test_backward_matches_jax_vjp(op, J):
+    """Every cotangent of the op (five, six for factor_solve) against
+    jax.vjp of the JAX package's op on its scan tier, at widths that the
+    bucket pads (3 -> 4, 5 -> 8, 31 -> 32), scaled 1e-9."""
+    import jax
+
+    sys_ = wide_system(41, J, 2, seed=200 + J)
+    W = np.asarray(_jax(jops.factor, *sys_[:5])[1])
+    args = _op_args(op, *sys_, W)
+    rng = np.random.default_rng(J)
+    with jax_config(backend="scan"):
+        out, vjp = jax.vjp(getattr(jops, op), *map(jnp.asarray, args))
+        cots = tuple(jnp.asarray(rng.normal(size=o.shape)) for o in _as_tuple(out))
+        want = vjp(cots if isinstance(out, tuple) else cots[0])
+    targs = [t64(x).requires_grad_(True) for x in args]
+    got = torch.autograd.grad(_as_tuple(getattr(tops, op)(*targs)), targs,
+                              [t64(x) for x in cots])
+    assert len(got) == (6 if op == "factor_solve" else 5)
+    for g, w, name in zip(got, want, "tcaUVY" if op.startswith("factor") else "tcABY"):
+        assert g.shape == w.shape, name
+        assert_scaled_close(g, w, 1e-9, f"{op} b{name}")
+
+
+@pytest.mark.parametrize("op", ["factor", "factor_solve"] + SWEEPS)
+def test_gradcheck(op):
+    """torch.autograd.gradcheck of the hand adjoint against finite
+    differences, float64, N = 9, J = 3 (bucketed to 4), K = 2."""
+    t, c, a, U, V, Y = map(t64, wide_system(9, 3, 2, seed=5))
+    W = tops.factor(t, c, a, U, V)[1]
+    args = [x.requires_grad_(True) for x in _op_args(op, t, c, a, U, V, Y, W)]
+    assert torch.autograd.gradcheck(getattr(tops, op), args, eps=1e-6,
+                                    atol=1e-7, rtol=1e-5)
+
+
+def test_gradients_with_a_chain_axis_match_a_loop():
+    """C = 3 systems in one call give, chain by chain, the gradients of
+    each system alone."""
+    systems = [wide_system(31, 5, 2, seed=80 + k, sigma=1.0 + 0.2 * k)
+               for k in range(3)]
+    stacked = [torch.stack([t64(s[i]) for s in systems]).requires_grad_(True)
+               for i in range(6)]
+
+    def loss(t, c, a, U, V, Y):
+        d, W, Z = tops.factor_solve(t, c, a, U, V, Y)
+        Zu = tops.solve_upper(t, c, U, W, Z)
+        Zm = tops.matmul_lower(t, c, U, V, Y)
+        return (d.sum() + (W * W).sum() + (Zu * Zu).sum() + (Zm * Y).sum())
+
+    got = torch.autograd.grad(loss(*stacked), stacked)
+    for k in range(3):
+        one = [t64(x).requires_grad_(True) for x in systems[k]]
+        want = torch.autograd.grad(loss(*one), one)
+        for g, w in zip(got, want):
+            assert_rel_close(g[k], w, 1e-13)
+
+
+def test_no_gradient_is_no_error(monkeypatch):
+    """Without anything that requires a gradient, or under
+    torch.no_grad(), the ops are plain forward functions and ask the
+    recursions for no cache; with a gradient to come they keep it."""
     t, c, a, U, V, Y = map(t64, wide_system(31, 3, 1))
     d, W = tops.factor(t, c, a, U, V)
     assert not d.requires_grad and not W.requires_grad
     assert not tops.solve_lower(t, c, U, W, Y).requires_grad
+
+    from celerite2_torch.ops import scan
+
+    asked = []
+    for name in ("factor_fwd", "sweep_fwd", "factor_solve"):
+        def spy(*args, _fn=getattr(scan, name), **kw):
+            asked.append(kw["want_cache"])
+            return _fn(*args, **kw)
+        monkeypatch.setattr(scan, name, spy)
+    U.requires_grad_(True)
+    with torch.no_grad():
+        tops.factor(t, c, a, U, V)
+        tops.solve_upper(t, c, U, W, Y)
+        tops.factor_solve(t, c, a, U, V, Y)
+    tops.factor(t, c, a, U.detach(), V)
+    assert asked == [False] * 4
+    tops.factor(t, c, a, U, V)
+    tops.matmul_upper(t, c, U, V, Y)
+    tops.factor_solve(t, c, a, U, V, Y)
+    assert asked[4:] == [True] * 3
+
+
+def test_zero_and_missing_cotangents():
+    """A cotangent that is zero (an output the loss does not use) gives
+    exactly the gradient of the outputs that are used."""
+    t, c, a, U, V, Y = (t64(x).requires_grad_(True) for x in wide_system(31, 5, 1))
+    d, W, Z = tops.factor_solve(t, c, a, U, V, Y)
+    only_d = torch.autograd.grad(d.sum(), (a, U, V), retain_graph=True)
+    d2, _ = tops.factor(t, c, a, U, V)
+    for g, w in zip(only_d, torch.autograd.grad(d2.sum(), (a, U, V))):
+        assert_rel_close(g, w, 1e-13)
+    (gY,) = torch.autograd.grad(Z.sum(), Y)
+    assert torch.isfinite(gY).all()
 
 
 def test_bucketing():
@@ -239,7 +327,8 @@ def test_validate_call_contracts():
     assert validate_call("factor", t, c, a, U, V) == {"N": 20, "J": 3}
     assert validate_call("solve_lower", t[None], c[None], U[None], V[None],
                          Y[None]) == {"C": 1, "N": 20, "J": 3, "K": 2}
-    assert set(OPS) == {"factor", "solve_lower", "solve_upper", "matmul_lower",
+    assert set(OPS) == {"factor", "factor_solve", "solve_lower", "solve_upper",
+                        "matmul_lower",
                         "matmul_upper", "general_matmul_lower",
                         "general_matmul_upper", "to_dense"}
     with pytest.raises(ValueError, match="expects 5 arguments"):

@@ -1,10 +1,11 @@
 """The port's row recursions (celerite2_torch.ops.scan: the plain versions
-of the factor, sweep and affine prefix kernels) against the JAX package,
-float64 on the CPU: against the scan tier (celerite2_tpu.ops.scan) and
-against the TPU kernels they replace, run in interpret mode
-(pallas_kernels.* tiled, pallas_packed.* lane-packed, and the prefix
-engine's in-block kernel).  Values and caches agree to 1e-10 relative to
-each array's largest entry."""
+of the factor, sweep, factor adjoint, sweep adjoint and affine prefix
+kernels) against the JAX package, float64 on the CPU: against the scan
+tier (celerite2_tpu.ops.scan) and against the TPU kernels they replace,
+run in interpret mode (pallas_kernels.* tiled, pallas_packed.*
+lane-packed, and the prefix engine's in-block kernel).  Values, caches and
+cotangents agree to 1e-10 relative to each array's largest entry (1e-9
+against the TPU kernels' adjoints, tests/test_pallas.py's tolerance)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -23,6 +24,13 @@ RTOL = 1e-10
 N = 101  # odd: ragged against every block size
 BLOCK = 16  # the Pallas tests' block: several grid steps and padding
 SWEEPS = ["solve_lower", "solve_upper", "matmul_lower", "matmul_upper"]
+# name -> (is_solve, upper); the upper sweeps project with the second
+# matrix and feed the carry with U
+MODES = {"solve_lower": (True, False), "solve_upper": (True, True),
+         "matmul_lower": (False, False), "matmul_upper": (False, True)}
+REV_WIDTHS = [1, 2, 3, 4, 8, 16]
+FACTOR_COTANGENTS = ("bt", "bc", "ba", "bU", "bV")
+SWEEP_COTANGENTS = ("bt", "bc", "bA", "bB", "bY")
 
 
 def _jax_factor(sys_):
@@ -168,6 +176,154 @@ def test_nonpositive_pivot_divides_by_one():
         assert_rel_close(g[0], w, RTOL)
 
 
+# ------------------------------------------------------------- adjoints
+
+
+def _factor_rev_inputs(sys_, seed):
+    """``(t, c, a, U, V, d, W, S, bd, bW)`` as JAX arrays: the system, the
+    JAX scan tier's factor and random cotangents."""
+    t, c, a, U, V, _ = map(jnp.asarray, sys_)
+    d, W, S = jscan.factor_scan(t, c, a, U, V)
+    rng = np.random.default_rng(seed)
+    bd, bW = (jnp.asarray(rng.normal(size=x.shape)) for x in (d, W))
+    return t, c, a, U, V, d, W, S, bd, bW
+
+
+def _sweep_rev_inputs(op, sys_, seed):
+    """``(t, c, A, B, Y, Z, F, bZ)`` of a sweep as the adjoint takes it:
+    ``A`` projects, ``B`` feeds the carry."""
+    is_solve, upper = MODES[op]
+    t, c, a, U, V, Y = map(jnp.asarray, sys_)
+    second = jscan.factor_scan(t, c, a, U, V)[1] if is_solve else V
+    A, B = (second, U) if upper else (U, second)
+    Z, F = jscan._sweep(t, c, A, B, Y, is_solve=is_solve, upper=upper)
+    bZ = jnp.asarray(np.random.default_rng(seed).normal(size=Z.shape))
+    return t, c, A, B, Y, Z, F, bZ
+
+
+def _torch_sweep_rev(op, args):
+    is_solve, upper = MODES[op]
+    return tscan.sweep_rev_scan(*chains(args), is_solve=is_solve, upper=upper)
+
+
+@pytest.mark.parametrize("J", REV_WIDTHS)
+def test_factor_rev_matches_jax_scan(J):
+    args = _factor_rev_inputs(wide_system(N, J, 1, seed=100 + J), seed=J)
+    want = jscan.factor_rev_scan(*args)
+    got = tscan.factor_rev_scan(*chains(args))
+    for g, w, name in zip(got, want, FACTOR_COTANGENTS):
+        assert_rel_close(g[0], w, RTOL, name)
+
+
+@pytest.mark.parametrize("K", [1, 4])
+@pytest.mark.parametrize("J", REV_WIDTHS)
+@pytest.mark.parametrize("op", SWEEPS)
+def test_sweep_rev_matches_jax_scan(op, J, K):
+    args = _sweep_rev_inputs(op, wide_system(N, J, K, seed=110 + J), seed=K)
+    is_solve, upper = MODES[op]
+    want = jscan.sweep_rev_scan(*args, is_solve=is_solve, upper=upper)
+    got = _torch_sweep_rev(op, args)
+    for g, w, name in zip(got, want, SWEEP_COTANGENTS):
+        assert_rel_close(g[0], w, RTOL, f"{op} {name}")
+
+
+@pytest.mark.parametrize("J", [2, 8])
+def test_factor_solve_matches_jax_scan(J):
+    """The fused factor and lower solve (both caches) against
+    jscan.factor_solve_scan, and against the factor then the solve."""
+    sys_ = wide_system(N, J, 2, seed=120 + J)
+    want = jscan.factor_solve_scan(*map(jnp.asarray, sys_))
+    got = tscan.factor_solve_scan(*chains(sys_))
+    for g, w, name in zip(got, want, ("d", "W", "Z", "S_half", "F")):
+        assert_rel_close(g[0], w, RTOL, name)
+    t, c, a, U, V, Y = chains(sys_)
+    p = tscan.transport(t, c)
+    d, W, S = tscan.factor_fwd_plain(p, a, U, V)
+    Z, F = tscan.sweep_fwd_plain(p, U, W, Y, is_solve=True, upper=False)
+    for g, w in zip(got, (d, W, Z, S, F)):
+        assert torch.allclose(g, w, rtol=1e-13, atol=0)
+
+
+RTOL_PALLAS = 1e-9
+
+
+@pytest.mark.parametrize("J", [1, 2, 5, 8])
+def test_factor_rev_matches_tiled_tpu_kernel(J):
+    """pallas_kernels.factor_rev_pallas (K9) in interpret mode."""
+    args = _factor_rev_inputs(wide_system(N, J, 1, seed=130 + J), seed=J)
+    want = pk.factor_rev_pallas(*args, block_size=BLOCK)
+    got = tscan.factor_rev_scan(*chains(args))
+    for g, w, name in zip(got, want, FACTOR_COTANGENTS):
+        assert_rel_close(g[0], w, RTOL_PALLAS, name)
+
+
+@pytest.mark.parametrize("J, K", [(1, 1), (3, 2), (8, 1)])
+@pytest.mark.parametrize("op", SWEEPS)
+def test_sweep_rev_matches_tiled_tpu_kernel(op, J, K):
+    """pallas_kernels.sweep_rev_pallas (K10) in interpret mode."""
+    args = _sweep_rev_inputs(op, wide_system(N, J, K, seed=140 + J), seed=K)
+    is_solve, upper = MODES[op]
+    want = pk.sweep_rev_pallas(*args, is_solve=is_solve, upper=upper,
+                               block_size=BLOCK)
+    for g, w, name in zip(_torch_sweep_rev(op, args), want, SWEEP_COTANGENTS):
+        assert_rel_close(g[0], w, RTOL_PALLAS, f"{op} {name}")
+
+
+@pytest.mark.parametrize("J", [1, 3, 8])
+def test_factor_rev_matches_packed_tpu_kernel(J):
+    """pallas_packed.factor_rev_packed (K13) in interpret mode, on the
+    cache pair (Sh, ShT) of pallas_packed.factor_packed."""
+    t, c, a, U, V, _ = map(jnp.asarray, wide_system(N, J, 1, seed=150 + J))
+    d, W, pair = pp.factor_packed(t, c, a, U, V, block_size=BLOCK)
+    rng = np.random.default_rng(J)
+    bd, bW = (jnp.asarray(rng.normal(size=x.shape)) for x in (d, W))
+    want = pp.factor_rev_packed(t, c, a, U, V, d, W, pair, bd, bW,
+                                block_size=BLOCK)
+    S = jscan.factor_scan(t, c, a, U, V)[2]
+    got = tscan.factor_rev_scan(*chains((t, c, a, U, V, d, W, S, bd, bW)))
+    for g, w, name in zip(got, want, FACTOR_COTANGENTS):
+        assert_rel_close(g[0], w, RTOL_PALLAS, name)
+
+
+@pytest.mark.parametrize("J", [2, 5])
+@pytest.mark.parametrize("op", SWEEPS)
+def test_sweep_rev_matches_packed_tpu_kernel(op, J):
+    """pallas_packed.sweep_rev_packed (K14, K = 1) in interpret mode."""
+    args = _sweep_rev_inputs(op, wide_system(N, J, 1, seed=160 + J), seed=J)
+    is_solve, upper = MODES[op]
+    want = pp.sweep_rev_packed(*args, is_solve=is_solve, upper=upper,
+                               block_size=BLOCK)
+    for g, w, name in zip(_torch_sweep_rev(op, args), want, SWEEP_COTANGENTS):
+        assert_rel_close(g[0], np.asarray(w).reshape(g[0].shape), RTOL_PALLAS,
+                         f"{op} {name}")
+
+
+@pytest.mark.parametrize("J", [3, 8])
+def test_adjoint_chains_match_a_loop(J):
+    """C = 3 systems through factor_bwd_plain and sweep_bwd_plain in one
+    call against the JAX scan tier's adjoints chain by chain."""
+    inputs = [_factor_rev_inputs(wide_system(N, J, 2, seed=170 + k,
+                                             sigma=1.0 + 0.3 * k), seed=k)
+              for k in range(3)]
+    stacked = [torch.stack([t64(x[i]) for x in inputs]) for i in range(10)]
+    got = tscan.factor_rev_scan(*stacked)
+    for k, args in enumerate(inputs):
+        for g, w, name in zip(got, jscan.factor_rev_scan(*args),
+                              FACTOR_COTANGENTS):
+            assert_rel_close(g[k], w, RTOL, f"chain {k} {name}")
+    for op in ("solve_lower", "matmul_upper"):
+        inputs = [_sweep_rev_inputs(op, wide_system(N, J, 2, seed=180 + k,
+                                                    sigma=1.0 + 0.3 * k), seed=k)
+                  for k in range(3)]
+        stacked = [torch.stack([t64(x[i]) for x in inputs]) for i in range(8)]
+        is_solve, upper = MODES[op]
+        got = tscan.sweep_rev_scan(*stacked, is_solve=is_solve, upper=upper)
+        for k, args in enumerate(inputs):
+            want = jscan.sweep_rev_scan(*args, is_solve=is_solve, upper=upper)
+            for g, w, name in zip(got, want, SWEEP_COTANGENTS):
+                assert_rel_close(g[k], w, RTOL, f"chain {k} {op} {name}")
+
+
 def test_cpu_route_is_the_plain_version_and_other_devices_raise():
     """On CPU tensors the wrappers take the plain loop; on any other device
     they go to the kernel's checked wrapper, which refuses what is not
@@ -188,6 +344,19 @@ def test_cpu_route_is_the_plain_version_and_other_devices_raise():
         tscan.factor_fwd(*meta)
     with pytest.raises(ValueError, match="CUDA tensors"):
         tscan.sweep_fwd(meta[0], meta[2], meta[3], Y.to("meta"),
+                        is_solve=False, upper=True)
+    bd, bW = torch.ones_like(d), torch.ones_like(W)
+    for g, w in zip(tscan.factor_bwd(p, d, U, W, S, bd, bW),
+                    tscan.factor_bwd_plain(p, d, U, W, S, bd, bW)):
+        assert torch.equal(g, w)
+    for g, w in zip(tscan.sweep_bwd(p, U, W, Z, F, Y, is_solve=True, upper=False),
+                    tscan.sweep_bwd_plain(p, U, W, Z, F, Y, is_solve=True,
+                                          upper=False)):
+        assert torch.equal(g, w)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        tscan.factor_bwd(*(x.to("meta") for x in (p, d, U, W, S, bd, bW)))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        tscan.sweep_bwd(*(x.to("meta") for x in (p, U, W, Z, F, Y)),
                         is_solve=False, upper=True)
     G = (V[..., None] * Y[..., None, :]).contiguous()
     assert torch.equal(tscan.affine_prefix(p, G), tscan.affine_prefix_plain(p, G))
