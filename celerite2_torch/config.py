@@ -1,10 +1,11 @@
 """Runtime configuration for celerite2-torch.
 
-Counterpart of ``celerite2_tpu/config.py``.  Only the width contract
-and the dtype policy carry over: the JAX package's backend, engine,
-planes, Pallas and fused-slab knobs steer TPU code paths that this
-package does not have.  ``device`` is this package's own: PyTorch places
-each tensor explicitly, where JAX has one default backend.
+Counterpart of ``celerite2_tpu/config.py``.  The width contract, the
+dtype policy and the choice of tier (``backend``, ``assoc_threshold``)
+carry over; the JAX package's engine, planes, Pallas and fused-slab knobs
+steer TPU code paths that this package does not have.  ``device`` is
+this package's own: PyTorch places each tensor explicitly, where JAX has
+one default backend.
 """
 
 from __future__ import annotations
@@ -44,10 +45,23 @@ class Config:
             PyTorch's own error surfaces.  Tensors the caller passes keep
             their device, and every entry point's ``device=`` argument
             overrides this field for one call.
+        backend: the tier of the general ops (``factor``,
+            ``factor_solve``, the four sweeps and their adjoints).
+            ``"scan"`` is the sequential tier: the plain row loops on the
+            CPU, the row kernels of ``csrc/general_ops.cu`` on the card.
+            ``"assoc"`` is the blocked prefix tier of ``ops/assoc.py``:
+            the doubling in plain PyTorch on the CPU, the prefix kernels
+            of ``csrc/assoc_prefix.cu`` on the card.  ``"auto"`` picks by
+            device, length, width and dtype (``ops/dispatch.py``).
+        assoc_threshold: with ``"auto"``, send every system of at least
+            this many rows to the assoc tier, on any device and in any
+            dtype; ``None`` keeps the rule measured on the card.
     """
 
     core_dtype: Literal["float64"] | None = None
     device: str = "cuda"
+    backend: Literal["auto", "scan", "assoc"] = "auto"
+    assoc_threshold: int | None = None
 
 
 _config = Config()
@@ -60,5 +74,8 @@ def get_config() -> Config:
 def set_config(**kwargs) -> Config:
     """Replace fields of the global config; returns the new config."""
     global _config
+    backend = kwargs.get("backend", _config.backend)
+    if backend not in ("auto", "scan", "assoc"):
+        raise ValueError(f"backend must be auto, scan or assoc, got {backend!r}")
     _config = dataclasses.replace(_config, **kwargs)
     return _config

@@ -39,6 +39,9 @@ __all__ = [
     "factor_bwd_cuda",
     "sweep_bwd_cuda",
     "affine_prefix_cuda",
+    "riccati_prefix_cuda",
+    "kalman_prefix_cuda",
+    "mat_affine_prefix_cuda",
 ]
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -66,11 +69,15 @@ LAUNCHES = {
     "factor_bwd": 0,
     "sweep_bwd": 0,
     "affine_prefix": 0,
+    "riccati_prefix": 0,
+    "kalman_prefix": 0,
+    "mat_affine_prefix": 0,
 }
 
 # The celerite widths J each kernel is built for (csrc/fused_loglik.cu;
-# csrc/general_ops.cu at the buckets of config.J_BUCKETS).  The affine
-# prefix takes its width at run time and is not listed.
+# csrc/general_ops.cu and csrc/assoc_prefix.cu at the buckets of
+# config.J_BUCKETS).  The affine prefixes take their width at run time and
+# are not listed.
 WIDTHS = {
     "kalman_fwd": (1, 2, 3, 4),
     "solve_rev": (1, 2, 3, 4),
@@ -81,6 +88,8 @@ WIDTHS = {
     "sweep_fwd": J_BUCKETS,
     "factor_bwd": J_BUCKETS,
     "sweep_bwd": J_BUCKETS,
+    "riccati_prefix": J_BUCKETS,
+    "kalman_prefix": J_BUCKETS,
 }
 
 _lib = None
@@ -180,6 +189,14 @@ def _library():
         #  stream)
         lib.c2t_affine_prefix.argtypes = [I, I] + [P] * 6 + [I] * 5 + [P]
         lib.c2t_affine_prefix.restype = I
+        # (is_double, J, p, a, U, V, Y, S, F, tA, tQ, tR, tb, teta, cS, cF,
+        #  C, N, K, L, phase, stream)
+        lib.c2t_riccati_prefix.argtypes = [I, I] + [P] * 14 + [I] * 5 + [P]
+        lib.c2t_riccati_prefix.restype = I
+        # (is_double, A, b, carry, F, last, P, Pw, C, M, D, K, L, reverse,
+        #  phase, stream)
+        lib.c2t_mat_affine_prefix.argtypes = [I] + [P] * 7 + [I] * 7 + [P]
+        lib.c2t_mat_affine_prefix.restype = I
         _lib = lib
     return _lib
 
@@ -303,11 +320,13 @@ def frev_states_cuda(p, U, W, bv0, bdp, seeds, L):
     return out
 
 
-def _launch_general(key, J, inputs, outs, ints):
-    """Launch ``c2t_<key>`` (csrc/general_ops.cu) on ``inputs`` into
-    ``outs`` (None for an array that is not wanted: its pointer is null),
-    with the trailing integer arguments ``ints``."""
-    if J not in WIDTHS.get(key, (J,)):
+def _launch_general(key, J, inputs, outs, ints, fn=None):
+    """Launch ``c2t_<fn>`` (``fn`` defaults to ``key``; csrc/general_ops.cu,
+    csrc/assoc_prefix.cu) on ``inputs`` into ``outs`` (None for an array
+    that is not given or not wanted: its pointer is null), with the
+    trailing integer arguments ``ints``, and count it under ``key``.  ``J``
+    None is not passed (a kernel that takes its width from ``ints``)."""
+    if J is not None and J not in WIDTHS.get(key, (J,)):
         raise NotImplementedError(
             f"{key}: J must be one of {WIDTHS[key]}, got {J}"
         )
@@ -315,11 +334,10 @@ def _launch_general(key, J, inputs, outs, ints):
     lib = _library()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = getattr(lib, f"c2t_{key}")(
+        rc = getattr(lib, f"c2t_{fn or key}")(
             int(x.dtype == torch.float64),
-            J,
-            *(t.data_ptr() for t in inputs),
-            *(None if t is None else t.data_ptr() for t in outs),
+            *(() if J is None else (J,)),
+            *(None if t is None else t.data_ptr() for t in (*inputs, *outs)),
             *ints,
             stream,
         )
@@ -442,4 +460,101 @@ def affine_prefix_cuda(phi, G, reverse=False, block_len=None):
     launch(None, None, *totals, L)
     carry = affine_prefix_cuda(*totals, reverse, L)
     launch(carry, F, None, None, L)
+    return F
+
+
+def kalman_block_len(N):
+    """Rows per block of the Riccati and Kalman prefixes: the power of two
+    at or above 4 sqrt(N) (at least 32).  Fewer, longer blocks than
+    :func:`prefix_block_len`: each block map the carry walk composes costs a
+    Gauss-Jordan solve and loses digits (at N = 1e4, J = 8, blocks of 128
+    rows put the solve state 1e-10 from the row recursion, blocks of 512
+    2e-11), while a row of the apply walk costs three barriers."""
+    L = 32
+    while L * L < 16 * N:
+        L *= 2
+    return L
+
+
+def kalman_prefix_cuda(p, a, U, V, Y=None, block_len=None):
+    """The Riccati prefix (``Y`` None) or the Kalman prefix on the card.
+
+    The element of row n >= 1 is built from row n - 1 and ``p[n]``
+    (``assoc.factor_assoc``, ``factor_solve_assoc``), that of row 0 is the
+    identity; returns the state after every row applied to zero: ``S (C,
+    N, J, J)``, and with ``Y (C, N, K)`` also ``F (C, N, J, K)``.
+
+    Up to ``block_len`` rows (default :func:`kalman_block_len`) one launch
+    walks them; above, three: the map of every block, the walk over the
+    block maps for the state entering every block, and every block's rows
+    from that state."""
+    C, N, J = U.shape
+    kalman = Y is not None
+    K = Y.shape[-1] if kalman else 0
+    key = "kalman_prefix" if kalman else "riccati_prefix"
+    shapes = [(C, N, J), (C, N), (C, N, J), (C, N, J)]
+    _check(key, (p, a, U, V) + ((Y,) if kalman else ()),
+           shapes + ([(C, N, K)] if kalman else []))
+    if min(C, N) < 1 or (kalman and K < 1):
+        raise ValueError(f"{key}: empty system (C={C}, N={N}, K={K})")
+    L = kalman_block_len(N) if block_len is None else int(block_len)
+    if L < 1:
+        raise ValueError(f"{key}: block length must be >= 1, got {L}")
+    NB = -(-N // L)
+    S = _empty(p, C, N, J, J)
+    F = _empty(p, C, N, J, K) if kalman else None
+    maps = [None] * 5
+    carry = [None, None]
+    if NB > 1:
+        maps = [_empty(p, C, NB, J, J) for _ in range(3)]
+        maps += [_empty(p, C, NB, J, K) if kalman else None for _ in range(2)]
+        carry = [_empty(p, C, NB, J, J), _empty(p, C, NB, J, K) if kalman else None]
+        for phase in (0, 1):
+            _launch_general(key, J, (p, a, U, V, Y), (None, None, *maps, *carry),
+                            (C, N, K, L, phase), "riccati_prefix")
+    _launch_general(key, J, (p, a, U, V, Y), (S, F, *maps, *carry),
+                    (C, N, K, L, 2), "riccati_prefix")
+    return (S, F) if kalman else S
+
+
+def riccati_prefix_cuda(p, a, U, V, block_len=None):
+    """The Riccati prefix on the card: ``S (C, N, J, J)``
+    (:func:`kalman_prefix_cuda` without right-hand sides)."""
+    return kalman_prefix_cuda(p, a, U, V, None, block_len)
+
+
+def mat_affine_prefix_cuda(A, b, reverse=False, block_len=None):
+    """The matrix-affine prefix on the card: the value ``x_m = A_m x_prev +
+    b_m`` after every row of ``A (C, M, D, D)``, ``b (C, M, D, K)``,
+    starting from zero; rows descending with ``reverse``.  Returns ``(C, M,
+    D, K)``.
+
+    Up to ``block_len`` rows (default :func:`prefix_block_len`) it is one
+    launch.  Above, four: the product of every block's linear parts, every
+    block's walk from zero, this function on those block maps for the
+    value leaving every block, and every block's rows from the value
+    entering it."""
+    C, M, D, K = b.shape
+    _check("mat_affine_prefix", (A, b), ((C, M, D, D), (C, M, D, K)))
+    if min(C, M, D, K) < 1:
+        raise ValueError(f"mat_affine_prefix: empty system {tuple(b.shape)}")
+    L = prefix_block_len(M) if block_len is None else int(block_len)
+    if L < 1:
+        raise ValueError(f"mat_affine_prefix: block length must be >= 1, got {L}")
+
+    def launch(phase, carry, F, last, P, Pw, L):
+        _launch_general("mat_affine_prefix", None, (A, b, carry),
+                        (F, last, P, Pw), (C, M, D, K, L, int(reverse), phase))
+
+    F = torch.empty_like(b)
+    if M <= L:
+        launch(1, None, F, None, None, None, M)
+        return F
+    NB = -(-M // L)
+    P, Pw = _empty(b, C, NB, D, D), _empty(b, C, NB, D, D)
+    launch(0, None, None, None, P, Pw, L)
+    last = _empty(b, C, NB, D, K)
+    launch(1, None, None, last, None, None, L)
+    carry = mat_affine_prefix_cuda(P, last, reverse, L)
+    launch(1, carry, F, None, None, None, L)
     return F

@@ -7,12 +7,15 @@ the two solves, the two matmuls, the rectangular ``general_matmul_*`` and
 independent systems at once, with a leading chain axis on every argument.
 
 ``factor``, ``factor_solve`` and the four sweeps are
-``torch.autograd.Function``s.  Their forward is the CUDA kernel of
-``csrc/general_ops.cu`` for CUDA tensors and the plain loop of
-``ops/scan.py`` for CPU tensors, and so is their backward: the
-hand-derived adjoint recursions (``factor_bwd``, ``sweep_bwd``; the JAX
-package's ``factor_rev`` and ``sweep_rev``), so autograd never
-differentiates through the row loop.  The adjoints read the forward's
+``torch.autograd.Function``s.  Each runs on one of two tiers, which
+``ops/dispatch.py`` picks once per call (the JAX package's
+``dispatch._backend``): the sequential tier of ``ops/scan.py`` (the CUDA
+kernels of ``csrc/general_ops.cu`` for CUDA tensors, the plain loop for CPU
+tensors) or the assoc tier of ``ops/assoc.py`` (the blocked prefix kernels
+of ``csrc/assoc_prefix.cu``, the doubling in plain PyTorch on the CPU).
+The backward runs on the forward's tier: the hand-derived adjoints
+(``factor_bwd``, ``sweep_bwd``; the JAX package's ``factor_rev`` and
+``sweep_rev``), so autograd never differentiates through the row loop.  The adjoints read the forward's
 caches (``S_half (C, N, J, J)``, ``F (C, N, J, K)``), which the forward
 keeps only when a gradient will be asked for: under ``torch.no_grad()``,
 or with nothing that requires a gradient, the forward runs without them.
@@ -32,6 +35,7 @@ from __future__ import annotations
 import torch
 
 from celerite2_torch.config import MAX_WIDTH, pad_width
+from celerite2_torch.ops import dispatch as _dispatch
 from celerite2_torch.ops import scan as _scan
 from celerite2_torch.ops.spec import validate_call
 
@@ -100,7 +104,8 @@ class _Factor(torch.autograd.Function):
         batched = U.dim() == 3
         t, c, a, U, V = _chains(batched, t, c, a, U, V)
         c_p, (U_p, V_p), J = _bucketed(c, U, V)
-        d, W_p, S = _scan.factor_fwd(
+        ctx.tier = _dispatch.tier(U, *U.shape)
+        d, W_p, S = ctx.tier.factor_fwd(
             _scan.transport(t, c_p), a, U_p, V_p,
             want_cache=_wants_cache(ctx, grad_enabled),
         )
@@ -114,7 +119,7 @@ class _Factor(torch.autograd.Function):
     def backward(ctx, bd, bW):
         t, c_p, U_p, d, W_p, S = ctx.saved_tensors
         batched, J = ctx.batched, ctx.J
-        ba, bU, bV, bp = _scan.factor_bwd(
+        ba, bU, bV, bp = ctx.tier.factor_bwd(
             _scan.transport(t, c_p), d, U_p, W_p, S,
             _cotangent(bd, d, batched), _cotangent(bW, W_p, batched),
         )
@@ -144,7 +149,8 @@ class _FactorSolve(torch.autograd.Function):
         batched = U.dim() == 3
         t, c, a, U, V, Y = _chains(batched, t, c, a, U, V, Y)
         c_p, (U_p, V_p), J = _bucketed(c, U, V)
-        d, W_p, Z, S, F = _scan.factor_solve(
+        ctx.tier = _dispatch.tier(U, *U.shape)
+        d, W_p, Z, S, F = ctx.tier.factor_solve(
             _scan.transport(t, c_p), a, U_p, V_p, Y,
             want_cache=_wants_cache(ctx, grad_enabled),
         )
@@ -156,17 +162,17 @@ class _FactorSolve(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, bd, bW, bZ):
-        """The chained adjoint (``dispatch.factor_solve_rev_impl`` off its
-        assoc tier): the lower solve's, then the factor's with ``bW`` plus
-        what the solve gives W."""
+        """The chained adjoint (``dispatch.factor_solve_rev_impl`` with
+        ``paired_reverse=False``): the lower solve's, then the factor's with
+        ``bW`` plus what the solve gives W."""
         t, c_p, U_p, d, W_p, Z, S, F = ctx.saved_tensors
         batched, J = ctx.batched, ctx.J
         p = _scan.transport(t, c_p)
-        bU1, bW1, bp1, bY = _scan.sweep_bwd(
+        bU1, bW1, bp1, bY = ctx.tier.sweep_bwd(
             p, U_p, W_p, Z, F, _cotangent(bZ, Z, batched),
             is_solve=True, upper=False,
         )
-        ba, bU2, bV, bp2 = _scan.factor_bwd(
+        ba, bU2, bV, bp2 = ctx.tier.factor_bwd(
             p, d, U_p, W_p, S, _cotangent(bd, d, batched),
             _cotangent(bW, W_p, batched) + bW1,
         )
@@ -177,8 +183,9 @@ class _FactorSolve(torch.autograd.Function):
 
 def factor_solve(t, c, a, U, V, Y):
     """``factor`` and ``solve_lower`` in one op: returns ``(d, W, Z)`` with
-    ``Z = L^{-1} Y``, the log-likelihood's forward.  On the CPU one fused
-    plain loop; on the card the factor and sweep kernels.  Its gradient is
+    ``Z = L^{-1} Y``, the log-likelihood's forward.  On the scan tier one
+    fused plain loop on the CPU, the factor and sweep kernels on the card;
+    on the assoc tier one Kalman prefix.  Its gradient is
     the lower solve's adjoint followed by the factor's."""
     validate_call("factor_solve", t, c, a, U, V, Y)
     return _FactorSolve.apply(t, c, a, U, V, Y, torch.is_grad_enabled())
@@ -206,8 +213,9 @@ class _Sweep(torch.autograd.Function):
         c_p, (M1_p, M2_p), J = _bucketed(c, M1, M2)
         A, B = (M2_p, M1_p) if swap else (M1_p, M2_p)
         p = _scan.transport_up(t, c_p) if upper else _scan.transport(t, c_p)
-        Z, F = _scan.sweep_fwd(p, A, B, Y, is_solve=is_solve, upper=upper,
-                               want_cache=_wants_cache(ctx, grad_enabled))
+        ctx.tier = _dispatch.tier(A, *A.shape)
+        Z, F = ctx.tier.sweep_fwd(p, A, B, Y, is_solve=is_solve, upper=upper,
+                                  want_cache=_wants_cache(ctx, grad_enabled))
         if F is not None:
             # the rows that fed the forward carry: Z for a solve, Y else
             ctx.save_for_backward(t, c_p, A, B, Z if is_solve else Y, F)
@@ -220,7 +228,7 @@ class _Sweep(torch.autograd.Function):
         is_solve, upper, swap = _SWEEPS[ctx.name]
         batched, J = ctx.batched, ctx.J
         p = _scan.transport_up(t, c_p) if upper else _scan.transport(t, c_p)
-        bA, bB, bp, bY = _scan.sweep_bwd(
+        bA, bB, bp, bY = ctx.tier.sweep_bwd(
             p, A, B, R, F, _cotangent(bZ, R, batched),
             is_solve=is_solve, upper=upper,
         )

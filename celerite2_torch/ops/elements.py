@@ -1,9 +1,11 @@
 """Monoid element algebra for the fused log-likelihood's scans.
 
-Counterpart of ``celerite2_tpu/ops/planes.py`` (``kalman_spec``,
-``mat_affine_spec``, the clamped small inverse ``p_inv`` and the
-symmetrisation ``p_sym``) and of the Hillis-Steele prefix
-``planes_engine._leaf_scan``.  The JAX package stores each matrix entry
+Counterpart of ``celerite2_tpu/ops/planes.py`` (``riccati_spec``,
+``kalman_spec``, ``mat_affine_spec``, the clamped small inverse ``p_inv``
+and the symmetrisation ``p_sym``; ``ops/assoc.py``'s ``_riccati_combine``,
+``_kalman_combine``, ``_mat_affine_combine`` and their distribute
+variants) and of the Hillis-Steele prefix ``planes_engine._leaf_scan``.
+The JAX package stores each matrix entry
 as its own plane so the TPU's vector unit sees full tiles; here an
 element is a tuple of ordinary ``(..., J, J)`` / ``(..., J, 1)``
 tensors and the algebra is batched ``torch.matmul``.
@@ -12,7 +14,7 @@ This is plain tensor code for the cross-block level (composing the
 block maps the scan kernels emit, and distributing the exclusive block
 states over the rows), and for the kernels' plain versions.  The CUDA
 kernels in ``csrc/fused_loglik.cu`` carry the same formulas in
-registers.
+registers; those of ``csrc/assoc_prefix.cu`` their rank-one forms.
 
 Convention, as in the JAX package: ``combine(e1, e2)`` with ``e1``
 earlier and ``e2`` later.
@@ -25,6 +27,8 @@ import torch
 __all__ = [
     "inv_clamped",
     "sym",
+    "riccati_combine",
+    "riccati_distribute",
     "kalman_combine",
     "kalman_distribute",
     "kalman_identity",
@@ -87,6 +91,30 @@ def _eye_like(X):
     return torch.eye(X.shape[-1], dtype=X.dtype, device=X.device)
 
 
+# ----------------------------------------------------- Riccati (factor)
+#
+# (A, Q, R): S -> Q + A S (I + R S)^{-1} A^T, the factor's carry map
+# (planes.riccati_spec / assoc._riccati_combine).  Q carries the state.
+
+
+def riccati_combine(e1, e2):
+    A1, Q1, R1 = e1
+    A2, Q2, R2 = e2
+    G = inv_clamped(_eye_like(Q1) + Q1 @ R2)
+    A12 = A2 @ (G @ A1)
+    Q12 = Q2 + (A2 @ (G @ Q1)) @ A2.mT
+    R12 = R1 + (A1.mT @ (R2 @ G)) @ A1
+    return (A12, sym(Q12), sym(R12))
+
+
+def riccati_distribute(e1, e2):
+    """Reduced combine: only Q (the state applied to zero) is valid."""
+    A1, Q1, R1 = e1
+    A2, Q2, R2 = e2
+    GQ1 = inv_clamped(_eye_like(Q1) + Q1 @ R2) @ Q1
+    return (A2, sym(Q2 + (A2 @ GQ1) @ A2.mT), R2)
+
+
 # ------------------------------------------------ Kalman (factor+solve)
 #
 # (A, Q, R, b, eta): the fused Cholesky factor + lower solve element
@@ -133,7 +161,7 @@ def kalman_identity(shape, J, *, dtype, device):
 
 # -------------------------------------------------------- affine maps
 #
-# (A, b): x -> A x + b (planes.mat_affine_spec with K = 1).
+# (A, b): x -> A x + b (planes.mat_affine_spec; b is (..., D, K)).
 
 
 def affine_combine(e1, e2):

@@ -19,7 +19,15 @@ float64:
   ``gp_loglik`` for the same four SHOTerms at N = 100,000, one chain and 64
   chains at N = 30,000, and the gradient of
   ``GaussianProcess.log_likelihood`` (``factor_fwd`` and ``sweep_fwd`` with
-  their caches, then the adjoint kernels ``sweep_bwd`` and ``factor_bwd``).
+  their caches, then the adjoint kernels ``sweep_bwd`` and ``factor_bwd``);
+* the assoc tier (``set_config(backend="assoc")``): the same GP and
+  training calls at J = 8, N = 100,000 through the blocked prefix kernels
+  ``riccati_prefix``, ``kalman_prefix`` and ``mat_affine_prefix`` (and
+  ``affine_prefix``), each held against its plain version, timed against
+  its bound, and the crossover between the two tiers that sets "auto".
+
+Every phase before the assoc phase pins ``backend="scan"``, the sequential
+tier its launch counts and times assume.
 
 It then times chained sampler steps on the J = 2, 4 and 8 paths, config5's
 J = 4 model at its own size N = 1e6, and profiles the J = 4 and J = 8
@@ -51,7 +59,10 @@ import torch
 
 import celerite2_torch as ct
 from celerite2_torch.ops import _build
+from celerite2_torch.ops import assoc
+from celerite2_torch.ops import dispatch
 from celerite2_torch.ops import fused_loglik as fl
+from celerite2_torch.ops import prefix_engine as pe
 from celerite2_torch.ops import scan
 
 # the kernels of the fused log-likelihood: (plain version, wrapper)
@@ -73,10 +84,15 @@ TPU_KERNEL = {
     "affine_prefix": "celerite2_tpu/ops/planes_engine.py:311",
     "factor_bwd": "celerite2_tpu/ops/pallas_kernels.py:421",
     "sweep_bwd": "celerite2_tpu/ops/pallas_kernels.py:578",
+    "riccati_prefix": "celerite2_tpu/ops/planes_engine.py:311",
+    "kalman_prefix": "celerite2_tpu/ops/planes_engine.py:311",
+    "mat_affine_prefix": "celerite2_tpu/ops/planes_engine.py:311",
 }
 GENERAL = ("factor_fwd", "sweep_fwd", "factor_bwd", "sweep_bwd", "affine_prefix")
+ASSOC = ("riccati_prefix", "kalman_prefix", "mat_affine_prefix")
 SOURCE = dict.fromkeys(KERNELS, "celerite2_torch/csrc/fused_loglik.cu")
 SOURCE.update(dict.fromkeys(GENERAL, "celerite2_torch/csrc/general_ops.cu"))
+SOURCE.update(dict.fromkeys(ASSOC, "celerite2_torch/csrc/assoc_prefix.cu"))
 # Peak rates of one H100 SXM for the bound of each kernel: 3.35 TB/s of
 # device memory; 67 TFLOP/s in float32 outside the tensor cores, and half
 # of that in float64 (NVIDIA's data sheet: 34 TFLOP/s).
@@ -185,7 +201,10 @@ def kernel_flops(name, C, N, J, K=1):
     and feed of a sweep, one multiply-add of the affine prefix; for the
     adjoints, the factor's rank-one update, the reads of bS's row and
     column, its transport and the deferrals, and the sweep's projection,
-    feed and three sums per right-hand side."""
+    feed and three sums per right-hand side.  The assoc tier's prefixes:
+    per row, the rank-one composition of the block maps (A, Q, R; b, eta)
+    and the row step of the apply walk (Riccati, Kalman); the product of the
+    block's J x J maps and the two walks (matrix-affine, D = J)."""
     D = J * J
     per_row = {
         "kalman_fwd": 12 * J**3 + 10 * D,
@@ -198,6 +217,9 @@ def kernel_flops(name, C, N, J, K=1):
         "affine_prefix": 2 * J * K,
         "factor_bwd": 13 * D + 10 * J,
         "sweep_bwd": 12 * J * K,
+        "riccati_prefix": 26 * D,
+        "kalman_prefix": 26 * D + 14 * J * K,
+        "mat_affine_prefix": 2 * J**3 + 4 * D * K,
     }[name]
     return C * N * per_row
 
@@ -693,28 +715,35 @@ def phase_adjoint_kernels(dev):
 # ----------------------------------------- the forward GaussianProcess path
 
 
+PLAIN_VERSIONS = (
+    (scan, ("factor_fwd_plain", "sweep_fwd_plain", "factor_bwd_plain",
+            "sweep_bwd_plain", "factor_solve_plain", "affine_prefix_plain")),
+    (pe, ("riccati_prefix_plain", "kalman_prefix_plain",
+          "mat_affine_prefix_plain")),
+)
+
+
 @contextmanager
 def count_plain_versions():
     """Count the calls of the plain versions of the general recursions,
-    their adjoints and the affine prefix."""
-    counts = {"factor_fwd_plain": 0, "sweep_fwd_plain": 0,
-              "factor_bwd_plain": 0, "sweep_bwd_plain": 0,
-              "factor_solve_plain": 0, "affine_prefix_plain": 0}
-    saved = {n: getattr(scan, n) for n in counts}
+    their adjoints and the prefixes of both tiers."""
+    counts = {n: 0 for _, names in PLAIN_VERSIONS for n in names}
+    saved = [(mod, n, getattr(mod, n)) for mod, names in PLAIN_VERSIONS
+             for n in names]
 
-    def counting(name):
-        def fn(*args, **kwargs):
+    def counting(name, fn):
+        def wrapped(*args, **kwargs):
             counts[name] += 1
-            return saved[name](*args, **kwargs)
-        return fn
+            return fn(*args, **kwargs)
+        return wrapped
 
-    for n in counts:
-        setattr(scan, n, counting(n))
+    for mod, n, fn in saved:
+        setattr(mod, n, counting(n, fn))
     try:
         yield counts
     finally:
-        for n, f in saved.items():
-            setattr(scan, n, f)
+        for mod, n, fn in saved:
+            setattr(mod, n, fn)
 
 
 GP_MODELS = {
@@ -768,7 +797,9 @@ def cpu_references(N):
     CPU's plain route in float64 at N rows, as numpy: per GP model the
     state's d, W and each call's (result, seconds); for the training path
     gp_loglik's value and theta-gradient for wide8 at THETA0 on bench's
-    data, and its seconds."""
+    data, and its seconds, on the scan tier ("train") and on the assoc
+    tier ("train assoc"); for the J = 8 model also the state and three
+    calls on the assoc tier ("J=8 assoc")."""
     ct.set_config(device="cpu")
     torch.set_num_threads(2)
     t, y, t_new, t_var = gp_data(N)
@@ -782,6 +813,19 @@ def cpu_references(N):
     start = time.perf_counter()
     v, g = value_and_grad(torch.tensor(THETA0), tt, yy, wide8)
     out["train"] = (v.numpy(), g.numpy(), time.perf_counter() - start)
+    # the same on the CPU's plain assoc route (the doublings): how far the
+    # assoc algorithm itself lies from the sequential one at this size
+    ct.set_config(backend="assoc")
+    gp = ct.GaussianProcess(GP_MODELS["J=8"](), t, yerr=0.25, mean=0.1,
+                            device="cpu")
+    yt = torch.tensor(y)
+    out["J=8 assoc"] = (gp.state.d.numpy(), gp.state.W.numpy(), {
+        "log_likelihood": gp.log_likelihood(yt).numpy(),
+        "apply_inverse": gp.apply_inverse(yt).numpy(),
+        "predict(y)": gp.predict(yt).numpy()})
+    start = time.perf_counter()
+    v, g = value_and_grad(torch.tensor(THETA0), tt, yy, wide8)
+    out["train assoc"] = (v.numpy(), g.numpy(), time.perf_counter() - start)
     return out
 
 
@@ -1011,6 +1055,414 @@ def phase_train_j8(dev, smi, refs):
         f"{eg:.2e})")
     assert ev < 1e-9 and eg < 1e-6, (ev, eg)
     return launches
+
+
+# ------------------------------------------------------- the assoc tier
+
+
+@contextmanager
+def tier(name):
+    """Run with ``set_config(backend=name)``, restored after."""
+    prior = ct.get_config()
+    ct.set_config(backend=name)
+    try:
+        yield
+    finally:
+        ct.set_config(**prior.__dict__)
+
+
+def prefix_inputs(J, N, C, K, dev, seed):
+    """``(p, a, U, V, Y)`` of ``wide_system``: the row data the Riccati and
+    Kalman prefixes build their elements from."""
+    t, c, a, U, V, Y = wide_system(J, N, C, K, dev, seed=seed)
+    return scan.transport(t, c), a, U, V, Y
+
+
+def frev_maps(J, M, C, dev, seed):
+    """``M`` per-step maps of the factor adjoint on the J^2 entries of its
+    carry (``assoc.frev_step_maps``, the dense form of phase B), with random
+    cotangents."""
+    rng = np.random.default_rng(seed)
+    p, a, U, V, _ = prefix_inputs(J, M + 1, C, 1, dev, seed)
+    d, W, _ = _build.factor_fwd_cuda(p, a, U, V)
+    bv0, bdp = randn_like(W, rng)[:, 1:], randn_like(d, rng)[:, 1:]
+    return assoc.frev_step_maps(p[:, 1:], U[:, 1:], W[:, 1:], bv0, bdp)
+
+
+def sequential_prefix(name, inputs, reverse=False):
+    """The prefix of a family row by row, the sequential recursion the
+    doubling reorganises: the factor and lower solve's plain loop
+    (``scan.factor_solve_plain``) for the Riccati and Kalman families (S
+    after every row is its cache S_half times diag(p), F its cache F times
+    diag(p)), ``x <- A x + b`` over the rows for the matrix-affine one."""
+    if name == "mat_affine_prefix":
+        A, b = inputs
+        x, rows = torch.zeros_like(b[:, 0]), [None] * b.shape[1]
+        for m in range(b.shape[1] - 1, -1, -1) if reverse else range(b.shape[1]):
+            x = A[:, m] @ x + b[:, m]
+            rows[m] = x
+        return (torch.stack(rows, 1),)
+    p, a, U, V = inputs[:4]
+    Y = inputs[4] if len(inputs) > 4 else torch.zeros_like(a)[..., None]
+    _, _, _, S_half, F = scan.factor_solve_plain(p, a, U, V, Y)
+    S = S_half * p[..., None, :]
+    return (S,) if len(inputs) == 4 else (S, p[..., :, None] * F)
+
+
+def hold_prefix(checks, worst, tol=1e-10):
+    """``checks``: (name, kernel outputs, doubling outputs, row-by-row
+    outputs).  Each kernel output is held to ``tol`` relative against the
+    row-by-row recursion, and against the plain doubling to ``tol`` or 1.5
+    times the doubling's own distance from the row-by-row recursion,
+    whichever is larger (the doubling composes maps of up to N / 2 rows and
+    loses more digits than the row recursion the kernel's apply walk runs).
+    ``worst[name]`` keeps (against the rows, against the doubling, the
+    doubling's own)."""
+    for name, got, dbl, rows in checks:
+        for g, d, r in zip(got, dbl, rows):
+            assert g.shape == d.shape == r.shape, (name, tuple(g.shape))
+            e_rows, e_dbl, e_self = scaled_err(g, r), scaled_err(g, d), scaled_err(d, r)
+            tol_dbl = max(tol, 1.5 * e_self)
+            assert math.isfinite(e_rows) and e_rows < tol, (name, tuple(g.shape), e_rows)
+            assert math.isfinite(e_dbl) and e_dbl < tol_dbl, (
+                name, tuple(g.shape), e_dbl, tol_dbl)
+            worst[name] = tuple(map(max, worst[name], (e_rows, e_dbl, e_self)))
+
+
+def phase_assoc_kernels(dev):
+    """riccati_prefix, kalman_prefix (K = 1, 5) and mat_affine_prefix (the
+    lower solve's J x J maps, K = 1, 5, forward and reverse; the factor
+    adjoint's J^2 x J^2 maps at M = 130, 1040 for J <= 8 and M = 130 at
+    J = 16) on the card, float64, against their plain doublings and the
+    row-by-row recursion (``hold_prefix``, 1e-10): J = 1, 2, 3 -> 4, 8, 16,
+    32; N = 130, 1040, 1e4; C = 8, and C = 1 as the first of those chains.
+    Then their times at N = 1e5, J = 8, K = 1, C = 1 and 64, and at C = 1
+    the same checks at 1e-9."""
+    worst = {name: (0.0, 0.0, 0.0) for name in ASSOC}
+    first = lambda xs: [x[:1] for x in xs]  # noqa: E731
+    for J in (1, 2, 3, 8, 16, 32):
+        for N in (130, 1040, 10_000):
+            p, a, U, V, Y5 = prefix_inputs(J, N, 8, 5, dev, seed=J + N)
+            fin = (p, a, U, V)
+            W = _build.factor_fwd_cuda(*fin)[1]
+            # one doubling and one row loop per family at K = 5: each
+            # right-hand side's leaves depend on its own column only, so
+            # those at K = 1 are their first column
+            Y1 = Y5[..., :1].contiguous()
+            kal_dbl = pe.kalman_prefix_plain(*fin, Y5)
+            kal_rows = sequential_prefix("kalman_prefix", fin + (Y5,))
+            col0 = lambda xs: [xs[0], xs[1][..., :1]]  # noqa: E731
+            dbl = (pe.riccati_prefix_plain(*fin),)
+            checks = [
+                ("riccati_prefix", (_build.riccati_prefix_cuda(*fin),), dbl,
+                 kal_rows[:1]),
+                ("riccati_prefix", (_build.riccati_prefix_cuda(*first_chain(fin)),),
+                 first(dbl), first(kal_rows[:1])),
+                ("kalman_prefix", _build.kalman_prefix_cuda(*fin, Y5), kal_dbl,
+                 kal_rows),
+                ("kalman_prefix", _build.kalman_prefix_cuda(*fin, Y1), col0(kal_dbl),
+                 col0(kal_rows)),
+                ("kalman_prefix", _build.kalman_prefix_cuda(*first_chain(fin + (Y1,))),
+                 first(col0(kal_dbl)), first(col0(kal_rows))),
+            ]
+            A, b = assoc.solve_elements(p, U, W, Y5)
+            A1, b1 = A, b[..., :1].contiguous()
+            for reverse in (False, True):
+                dbl = (pe.mat_affine_prefix_plain(A, b, reverse=reverse),)
+                rows = sequential_prefix("mat_affine_prefix", (A, b), reverse)
+                dbl1, rows1 = (dbl[0][..., :1],), (rows[0][..., :1],)
+                checks += [
+                    ("mat_affine_prefix",
+                     (_build.mat_affine_prefix_cuda(A, b, reverse),), dbl, rows),
+                    ("mat_affine_prefix",
+                     (_build.mat_affine_prefix_cuda(A1, b1, reverse),), dbl1, rows1),
+                    ("mat_affine_prefix", (_build.mat_affine_prefix_cuda(
+                        *first_chain((A1, b1)), reverse),), first(dbl1), first(rows1)),
+                ]
+            hold_prefix(checks, worst)
+        for M in ((130, 1040) if J <= 8 else (130,) if J == 16 else ()):
+            A, b = frev_maps(J, M, 8 if J <= 8 else 1, dev, seed=J * M)
+            for reverse in (False, True):
+                hold_prefix([("mat_affine_prefix",
+                              (_build.mat_affine_prefix_cuda(A, b, reverse),),
+                              (pe.mat_affine_prefix_plain(A, b, reverse=reverse),),
+                              sequential_prefix("mat_affine_prefix", (A, b), reverse))],
+                            worst)
+    for name, (e_rows, e_dbl, e_self) in worst.items():
+        log("assoc", f"{name}: worst relative error {e_rows:.3e} against the row "
+            f"recursion, {e_dbl:.3e} against the plain doubling (whose own "
+            f"distance from the row recursion reaches {e_self:.3e}) (J = 1, 2, "
+            "3 -> 4, 8, 16, 32; N = 130, 1040, 1e4; C = 8 and 1" +
+            ("; K = 1, 5" if name != "riccati_prefix" else "") +
+            ("; forward and reverse; D = J^2 at M = 130, 1040 for J <= 8, 130 "
+             "at J = 16" if name == "mat_affine_prefix" else "") + ")")
+
+    # times at the assoc path's shapes: N = 1e5, J = 8, K = 1, float64
+    main_abs, times = {}, {}
+    for C in (1, 64):
+        p, a, U, V, Y = prefix_inputs(8, N_MAIN, C, 1, dev, seed=8)
+        fin = (p, a, U, V)
+        W = _build.factor_fwd_cuda(*fin)[1]
+        A, b = assoc.solve_elements(p, U, W, Y)
+        runs = {
+            "riccati_prefix": (lambda: (_build.riccati_prefix_cuda(*fin),),
+                               lambda: (pe.riccati_prefix_plain(*fin),), fin),
+            "kalman_prefix": (lambda: _build.kalman_prefix_cuda(*fin, Y),
+                              lambda: pe.kalman_prefix_plain(*fin, Y), fin + (Y,)),
+            "mat_affine_prefix": (lambda: (_build.mat_affine_prefix_cuda(A, b),),
+                                  lambda: (pe.mat_affine_prefix_plain(A, b),),
+                                  (A, b)),
+        }
+        if C == 1:
+            # one row loop serves the Riccati and Kalman families
+            _, _, _, S_half, F = scan.factor_solve_plain(*fin, Y)
+            S = S_half * p[..., None, :]
+            rows = {"riccati_prefix": (S,), "kalman_prefix": (S, p[..., :, None] * F),
+                    "mat_affine_prefix": sequential_prefix("mat_affine_prefix", (A, b))}
+        for name, (kernel, plain, inputs) in runs.items():
+            before = _build.LAUNCHES[name]
+            got = kernel()
+            torch.cuda.synchronize()
+            per_call = _build.LAUNCHES[name] - before
+            ms = cuda_ms(kernel, reps=5, warmup=1)
+            bound, by = bound_ms((*inputs, *got), kernel_flops(name, C, N_MAIN, 8))
+            L = (_build.prefix_block_len if name == "mat_affine_prefix"
+                 else _build.kalman_block_len)(N_MAIN)
+            log("assoc", f"{name}: {ms:.4f} ms (bound {bound:.4f} ms by {by}; "
+                f"{per_call} launches, L = {L}) at N = 1e5, J = 8, K = 1, "
+                f"C = {C}, float64")
+            if C == 1:
+                dbl, plain_ms = timed_plain(plain)
+                log("assoc", f"{name}: plain version {plain_ms:.1f} ms (one run)")
+                main = {name: (0.0, 0.0, 0.0)}
+                hold_prefix([(name, got, dbl, rows[name])], main, tol=LONG_RTOL)
+                log("assoc", f"{name} at N = 1e5: relative error {main[name][0]:.3e} "
+                    f"against the row recursion, {main[name][1]:.3e} against the "
+                    f"doubling (its own distance {main[name][2]:.3e})")
+                main_abs[name] = max((g - d).abs().max().item()
+                                     for g, d in zip(got, dbl))
+                times[name] = (ms, plain_ms, bound, by)
+    # the shape of the factor adjoint's phase B at N = 1e5, J = 8, C = 1:
+    # the prefix of ceil(N / L) maps of 64 x 64 (contracting random maps:
+    # the adjoint's own maps are checked above, and on the path)
+    NB = -(-N_MAIN // assoc.frev_block_len(1, N_MAIN, 8))
+    rng = np.random.default_rng(5)
+    A = torch.tensor(rng.normal(size=(1, NB, 64, 64)) / 12.0, device=dev)
+    b = torch.tensor(rng.normal(size=(1, NB, 64, 1)), device=dev)
+    got = _build.mat_affine_prefix_cuda(A, b)
+    ms = cuda_ms(lambda: _build.mat_affine_prefix_cuda(A, b), reps=5, warmup=1)
+    main = {"mat_affine_prefix": (0.0, 0.0, 0.0)}
+    hold_prefix([("mat_affine_prefix", (got,), (pe.mat_affine_prefix_plain(A, b),),
+                  sequential_prefix("mat_affine_prefix", (A, b)))], main)
+    log("assoc", f"mat_affine_prefix at phase B's shape (M = {NB} maps of 64 x 64, "
+        f"K = 1, C = 1): {ms:.4f} ms, relative errors {main}")
+    return main_abs, times
+
+
+def general_value_and_grad(theta, t, y, model):
+    """The log-likelihood and its theta-gradient through ``ops.factor_solve``
+    and its adjoint: what ``gp_loglik`` runs above J = 4, at any J (at
+    J <= 4 gp_loglik runs the fused path instead)."""
+    theta = theta.detach().requires_grad_(True)
+    c, a, U, V = model(theta).get_celerite_matrices(t, torch.full_like(t, 0.0625))
+    if c.dim() == 2:
+        C, N = c.shape[0], t.shape[-1]
+        t, y = t.expand(C, N), y.expand(C, N)
+        a, U, V = a.expand(C, N), U.expand(C, N, -1), V.expand(C, N, -1)
+    d, _, z = ct.ops.factor_solve(t, c, a, U, V, y[..., None])
+    ll = -0.5 * (torch.log(d).sum(-1) + (z[..., 0] ** 2 / d).sum(-1)
+                 + t.shape[-1] * math.log(2 * math.pi))
+    (g,) = torch.autograd.grad(ll.sum(), theta)
+    return ll.detach(), g
+
+
+def phase_assoc_path(dev, smi, refs):
+    """The J = 8 path with backend="assoc" at N = 1e5, float64, one chain:
+    GaussianProcess compute, log_likelihood, apply_inverse, predict(y)
+    against the CPU references of the GP phase, and gp_loglik's value and
+    theta-gradient against the training phase's: each to 1e-9 (the
+    gradient 1e-8 scaled), or to 1.5 times the error of the CPU's plain
+    assoc route against the same reference if that is larger; launches per
+    call; non-PD; 8 chains against a loop; float32."""
+    t, y, _, _ = gp_data(N_MAIN)
+    ref_d, ref_W, ref = refs.get()["J=8"]
+    cpu_d, cpu_W, cpu_calls = refs.get()["J=8 assoc"]
+    v_ref, g_ref, _ = refs.get()["train"]
+    v_cpu, g_cpu, cpu_s = refs.get()["train assoc"]
+    err_cpu_v = scaled_err(torch.from_numpy(v_cpu), torch.from_numpy(v_ref))
+    err_cpu_g = scaled_err(torch.from_numpy(g_cpu), torch.from_numpy(g_ref))
+    tol_v, tol_g = max(1e-9, 1.5 * err_cpu_v), max(1e-8, 1.5 * err_cpu_g)
+    log("assoc path", f"the CPU's plain assoc route against its scan route at "
+        f"N = 1e5, J = 8: value {err_cpu_v:.2e}, gradient {err_cpu_g:.2e} "
+        f"({cpu_s:.1f} s); gates value {tol_v:.3g}, gradient {tol_g:.3g}")
+    per_call = {}
+
+    def run(name, fn):
+        before = dict(_build.LAUNCHES)
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - start
+        per_call[name] = {k: v - before[k] for k, v in _build.LAUNCHES.items()
+                          if v != before[k]}
+        log("assoc path", f"{name}: {1e3 * seconds:.2f} ms, launches "
+            f"{per_call[name]}")
+        return out
+
+    td, yd = bench_data(N_MAIN, dev, torch.float64)
+    thd = torch.tensor(THETA0, device=dev)
+    with tier("assoc"):
+        # warm-up of every call (the first launch of a kernel loads it)
+        gp = ct.GaussianProcess(GP_MODELS["J=8"](), t[:5000], yerr=0.25)
+        gp.predict(gp.state.t.new_tensor(y[:5000]))
+        value_and_grad(thd, td[:5000], yd[:5000], wide8)
+        reset_launches()
+        with count_plain_versions() as plain_calls:
+            gp = run("compute", lambda: ct.GaussianProcess(
+                GP_MODELS["J=8"](), t, yerr=0.25, mean=0.1))
+            ys = gp.state.t.new_tensor(y)
+            got = {name: run(name, fn) for name, fn in (
+                ("log_likelihood", lambda: gp.log_likelihood(ys)),
+                ("apply_inverse", lambda: gp.apply_inverse(ys)),
+                ("predict(y)", lambda: gp.predict(ys)))}
+            vg = run("gp_loglik value+grad", lambda: value_and_grad(thd, td, yd, wide8))
+        launches = dict(_build.LAUNCHES)
+    assert not any(plain_calls.values()), plain_calls
+    log("assoc path", f"N = 1e5, J = 8, float64, C = 1 | {smi}")
+    held = [("state d", gp.state.d, ref_d, cpu_d), ("state W", gp.state.W, ref_W, cpu_W)]
+    held += [(name, res, ref[name][0], cpu_calls[name]) for name, res in got.items()]
+    for name, res, want, cpu in held:
+        want = torch.from_numpy(want)
+        err, err_cpu = scaled_err(res, want), scaled_err(torch.from_numpy(cpu), want)
+        tol = max(1e-9, 1.5 * err_cpu)
+        log("assoc path", f"{name} vs the CPU's scan route: {err:.2e} (the CPU's "
+            f"assoc route: {err_cpu:.2e}; tol {tol:.3g})")
+        assert res.device.type == dev.type and torch.isfinite(res).all(), name
+        assert err < tol, (name, err, tol)
+    _check_path("assoc path", {"gp_loglik": vg},
+                {"gp_loglik": (torch.from_numpy(v_ref), torch.from_numpy(g_ref))},
+                {"gp_loglik": (tol_v, tol_g)}, 3)
+    for name in ASSOC:
+        assert launches[name] >= 1, f"{name} was not launched on the assoc path"
+    for name in TRAIN_KERNELS:
+        assert launches[name] == 0, f"the assoc path launched {name}"
+    log("assoc path", f"launches over the path: {launches}")
+
+    with tier("assoc"):
+        # a system that is not positive definite
+        th = torch.tensor(THETA0, device=dev).requires_grad_(True)
+        ll = ct.gp_loglik(wide8(th), td[:2000], yd[:2000], diag=-5.0)
+        (g,) = torch.autograd.grad(ll, th)
+        log("assoc path", f"non-PD wide8: ll = {ll.item()}, grad = {g.tolist()}")
+        assert ll.item() == -math.inf and torch.all(g == 0)
+        # 8 chains at N = 3e4 against a loop over the chains
+        C, N = 8, 30_000
+        rng = np.random.default_rng(17)
+        t3, y3 = bench_data(N, dev, torch.float64, seed=8)
+        thetas = torch.tensor(THETA0 + 0.1 * rng.normal(size=(C, 3)), device=dev)
+        v, g = value_and_grad(thetas, t3, y3, wide8)
+        loop = [value_and_grad(thetas[k], t3, y3, wide8) for k in range(C)]
+        ev = scaled_err(v, torch.stack([x[0] for x in loop]))
+        eg = max(scaled_err(g[k], loop[k][1]) for k in range(C))
+        log("assoc path", f"C = {C}, N = {N}: batched vs loop value err {ev:.2e}, "
+            f"grad err {eg:.2e}")
+        assert ev < 1e-10 and eg < 1e-10, (ev, eg)
+        # float32 at N = 1e5 against the float64 reference
+        t32, y32 = bench_data(N_MAIN, dev, torch.float32)
+        v32, g32 = value_and_grad(thd.float(), t32, y32, wide8)
+        ev = scaled_err(v32, torch.from_numpy(v_ref))
+        eg = scaled_err(g32, torch.from_numpy(g_ref))
+        ok32 = bool(torch.isfinite(v32).all()) and ev < F32_RTOL
+        log("assoc path", f"float32, N = 1e5, J = 8: value err {ev:.2e}, grad err "
+            f"{eg:.2e} against the float64 reference: the value "
+            f"{'passes' if ok32 else 'fails'} the float32 gate {F32_RTOL:g}")
+    if not ok32:
+        assert (torch.float32, 8, False) not in dispatch.ASSOC_MIN_ROWS, (
+            "auto sends float32 at J = 8 to the assoc tier, which fails its gate")
+    return launches, ok32
+
+
+CROSS_MODELS = {2: (sho, THETA0), 4: (sho_mixture, THETA4), 8: (wide8, THETA0)}
+
+
+def phase_crossover(dev, ok32):
+    """factor, solve_lower (both under no_grad, as the serving path calls
+    them) and the log-likelihood's value and theta-gradient through
+    ops.factor_solve, on each tier, with CUDA events (1 warm-up, 3 runs):
+    J = 2, 4, 8; N = 1e3, 1e4, 1e5; C = 1, 64; float64, and float32 at J = 8.
+    Prints the table and the rule it supports for dispatch.ASSOC_MIN_ROWS:
+    the fewest rows from which the assoc tier is faster in all three and as
+    accurate as the gates ask (its log-likelihood and gradient against the
+    float64 scan tier's), and float32 only if its value passed the float32
+    gate on the path (``ok32``)."""
+    Ns = (1_000, 10_000, N_MAIN)
+    faster, rows = {}, []
+    configs = [(torch.float64, J) for J in (2, 4, 8)] + [(torch.float32, 8)]
+    for dtype, J in configs:
+        model, theta0 = CROSS_MODELS[J]
+        for C in (1, 64):
+            for N_rows in Ns:
+                t, y = bench_data(N_rows, dev, dtype)
+                N = t.shape[-1]
+                theta = torch.tensor(theta0, device=dev, dtype=dtype)
+                if C > 1:
+                    noise = np.random.default_rng(17).normal(size=(C, len(theta0)))
+                    theta = theta + 0.1 * torch.tensor(noise, device=dev, dtype=dtype)
+                with torch.no_grad():
+                    c, a, U, V = model(theta).get_celerite_matrices(
+                        t, torch.full_like(t, 0.0625))
+                    tc = t.expand(C, N) if C > 1 else t
+                    if C > 1:
+                        a, U, V = a.expand(C, N), U.expand(C, N, -1), V.expand(C, N, -1)
+                    Y = (y.expand(C, N) if C > 1 else y)[..., None]
+                    W = ct.ops.factor(tc, c, a, U, V)[1]
+                ms, out = {}, {}
+                for name in ("scan", "assoc"):
+                    with tier(name), torch.no_grad():
+                        ms[name, "factor"] = cuda_ms(
+                            lambda: ct.ops.factor(tc, c, a, U, V), reps=3, warmup=1)
+                        ms[name, "solve_lower"] = cuda_ms(
+                            lambda: ct.ops.solve_lower(tc, c, U, W, Y), reps=3, warmup=1)
+                    with tier(name):
+                        out[name] = general_value_and_grad(theta, t, y, model)
+                        ms[name, "loglik+grad"] = cuda_ms(
+                            lambda: general_value_and_grad(theta, t, y, model),
+                            reps=3, warmup=1)
+                # accuracy: each tier against the float64 scan tier; the
+                # assoc tier within 1e-9 (value) and 1e-8 (gradient), or in
+                # float32 within 1e-3 or 1.5 times the scan tier's own error
+                with tier("scan"):
+                    ref = out["scan"] if dtype == torch.float64 else \
+                        general_value_and_grad(theta.double(), t.double(),
+                                               y.double(), model)
+                errs = {name: (scaled_err(v, ref[0]), scaled_err(g, ref[1]))
+                        for name, (v, g) in out.items()}
+                if dtype == torch.float64:
+                    tols = (1e-9, 1e-8)
+                else:
+                    tols = tuple(max(F32_RTOL, 1.5 * e) for e in errs["scan"])
+                accurate = all(math.isfinite(e) and e < tol
+                               for e, tol in zip(errs["assoc"], tols))
+                wins = all(ms["assoc", op] < ms["scan", op]
+                           for op in ("factor", "solve_lower", "loglik+grad"))
+                faster[dtype, J, C > 1, N_rows] = wins and accurate
+                rows.append(f"{str(dtype)[6:]} J={J} C={C} N={N}: " + ", ".join(
+                    f"{op} scan {ms['scan', op]:.3f} / assoc {ms['assoc', op]:.3f} ms"
+                    for op in ("factor", "solve_lower", "loglik+grad"))
+                    + f"; assoc value err {errs['assoc'][0]:.2e}, grad err "
+                    f"{errs['assoc'][1]:.2e} (tol {tols[0]:.3g}, {tols[1]:.3g})")
+                log("crossover", rows[-1])
+    rule = {}
+    for dtype, J in configs if ok32 else configs[:-1]:
+        for many in (False, True):
+            for N in Ns:
+                if all(faster[dtype, J, many, n] for n in Ns if n >= N):
+                    rule[dtype, J, many] = N
+                    break
+    log("crossover", f"the rule this run supports: {rule}")
+    log("crossover", f"dispatch.ASSOC_MIN_ROWS: {dispatch.ASSOC_MIN_ROWS}"
+        f" ({'the same' if rule == dispatch.ASSOC_MIN_ROWS else 'differs'})")
 
 
 def _check_path(label, results, refs, tols, nparam):
@@ -1268,6 +1720,8 @@ def main(argv=None):
         return out
 
     smi = phase_device()
+    # every phase but the assoc tier's runs the sequential tier
+    ct.set_config(backend="scan")
     refs = CpuReferences(N_MAIN)
     try:
         timed(phase_build)
@@ -1281,8 +1735,13 @@ def main(argv=None):
         launches4 = timed(phase_main_path_j4, dev)
         launches8 = timed(phase_gp_path, dev, smi, refs)
         launches_train = timed(phase_train_j8, dev, smi, refs)
+        phase_abs, phase_times = timed(phase_assoc_kernels, dev)
+        main_abs.update(phase_abs)
+        times.update(phase_times)
+        launches_assoc, ok32 = timed(phase_assoc_path, dev, smi, refs)
     finally:
         refs.stop()
+    timed(phase_crossover, dev, ok32)
     timed(phase_chains, dev)
     timed(phase_quiet_failure, dev)
     timed(phase_steps, dev)
@@ -1293,12 +1752,14 @@ def main(argv=None):
     log("done", f"{time.perf_counter() - start:.1f} s")
     # each kernel's launches on the path that runs it: K3 on the J = 2
     # path, K1, K2, K4, K5 on the J = 4 path, the general forward kernels on
-    # the GP path, their adjoints on the training path
+    # the GP path, their adjoints on the training path, the prefix kernels
+    # of the assoc tier on its J = 8 path
     on_path = {name: (launches if REPORT_J[name] == 2 else launches4)
                for name in KERNELS}
     on_path.update(factor_fwd=launches8, sweep_fwd=launches8,
                    affine_prefix=launches8, factor_bwd=launches_train,
                    sweep_bwd=launches_train)
+    on_path.update(dict.fromkeys(ASSOC, launches_assoc))
     kernels = [
         {"name": name, "route": "cuda", "source": SOURCE[name],
          "replaces": TPU_KERNEL[name], "launches": on_path[name][name],

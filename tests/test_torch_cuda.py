@@ -519,3 +519,159 @@ def test_no_cache_without_a_gradient_on_the_card(cuda, monkeypatch):
     assert gU.is_cuda and torch.isfinite(gU).all()
     assert _build.LAUNCHES["sweep_bwd"] == before["sweep_bwd"] + 1
     assert _build.LAUNCHES["factor_bwd"] == before["factor_bwd"] + 1
+
+
+# ------------------------------------------------ the assoc tier's prefixes
+
+
+def _riccati_inputs(N, C, J, K, device, seed=0):
+    t, c, a, U, V, Y = _wide_system(N, C, J, K, device, seed=seed)
+    c, (U, V), _ = ct.ops.api._bucketed(c, U, V)
+    return scan.transport(t, c), a, U.contiguous(), V.contiguous(), Y
+
+
+def _hold_prefix(got, dbl, rows, tol=1e-10):
+    """A prefix kernel's outputs against the row-by-row recursion to
+    ``tol`` relative, and against the plain doubling to ``tol`` or 1.5
+    times the doubling's own distance from the rows, whichever is larger
+    (the doubling composes maps of up to N / 2 rows and loses more digits
+    than the row recursion the kernel's apply walk runs)."""
+    def rel(x, y):
+        return ((x - y).abs().max() / y.abs().max().clamp_min(1e-300)).item()
+
+    for g, d, r in zip(got, dbl, rows):
+        assert g.shape == d.shape == r.shape
+        assert rel(g, r) < tol, rel(g, r)
+        assert rel(g, d) < max(tol, 1.5 * rel(d, r)), (rel(g, d), rel(d, r))
+
+
+@pytest.mark.parametrize("N, block_len", [(1, None), (130, None), (1040, None),
+                                          (301, 7), (5000, None)])
+@pytest.mark.parametrize("J", [1, 2, 3, 8, 16, 32])
+def test_riccati_and_kalman_prefix_match_plain(cuda, J, N, block_len):
+    """The Riccati and Kalman prefix kernels against their plain doublings
+    and the factor and lower solve's row loop, C = 3, float64, to 1e-10
+    relative (``_hold_prefix``): one launch up to one block of rows, three
+    above it (block_len = 7 at N = 301: 43 blocks)."""
+    from celerite2_torch.ops import prefix_engine as pe
+
+    p, a, U, V, Y = _riccati_inputs(N, 3, J, 20, cuda, seed=J)
+    L = block_len or _build.kalman_block_len(N)
+    launches = 1 if N <= L else 3
+    for key, Yk in (("riccati_prefix", None), ("kalman_prefix", Y[..., :1].contiguous()),
+                    ("kalman_prefix", Y)):
+        before = _build.LAUNCHES[key]
+        got = _build.kalman_prefix_cuda(p, a, U, V, Yk, block_len)
+        torch.cuda.synchronize()
+        assert _build.LAUNCHES[key] == before + launches
+        _, _, _, S_half, F = scan.factor_solve_plain(
+            p, a, U, V, Y[..., :1] if Yk is None else Yk)
+        rows = (S_half * p[..., None, :], p[..., :, None] * F)
+        if Yk is None:
+            got, dbl, rows = (got,), (pe.riccati_prefix_plain(p, a, U, V),), rows[:1]
+        else:
+            dbl = pe.kalman_prefix_plain(p, a, U, V, Yk)
+        _hold_prefix(got, dbl, rows)
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("M, D, K, block_len", [
+    (1, 1, 1, None), (130, 4, 1, None), (1040, 8, 5, None), (301, 3, 2, 4),
+    (5000, 8, 1, None), (300, 64, 1, None), (40, 256, 1, None),
+    (200, 16, 40, None)])
+def test_mat_affine_prefix_matches_plain(cuda, M, D, K, block_len, reverse):
+    """The matrix-affine prefix kernel against the plain doubling and the
+    row-by-row recurrence (``_hold_prefix``), C = 2, float64, on
+    contracting maps of the sizes the solves (D = J) and the factor
+    adjoint (D = J^2) give it."""
+    from celerite2_torch.ops import prefix_engine as pe
+
+    rng = np.random.default_rng(M + D)
+    A = torch.tensor(rng.normal(size=(2, M, D, D)) / (1.5 * np.sqrt(D)),
+                     device=cuda)
+    b = torch.tensor(rng.normal(size=(2, M, D, K)), device=cuda)
+    before = _build.LAUNCHES["mat_affine_prefix"]
+    got = _build.mat_affine_prefix_cuda(A, b, reverse, block_len)
+    torch.cuda.synchronize()
+    L, levels, rows = block_len or _build.prefix_block_len(M), 0, M
+    while rows > L:
+        rows, levels = -(-rows // L), levels + 1
+    assert _build.LAUNCHES["mat_affine_prefix"] == before + 3 * levels + 1
+    x, want = torch.zeros_like(b[:, 0]), [None] * M
+    for m in (range(M - 1, -1, -1) if reverse else range(M)):
+        x = A[:, m] @ x + b[:, m]
+        want[m] = x
+    _hold_prefix((got,), (pe.mat_affine_prefix_plain(A, b, reverse=reverse),),
+                 (torch.stack(want, 1),))
+
+
+@pytest.mark.parametrize("J", [2, 3, 8])
+def test_assoc_tier_cuda_matches_cpu(cuda, J):
+    """Every op and its gradient on the assoc tier on the card (the prefix
+    kernels) against the CPU's assoc route and the card's scan tier."""
+    from celerite2_torch import ops
+
+    t, c, a, U, V, Y = _wide_system(700, 2, J, 2, "cpu", seed=J)
+    rng = np.random.default_rng(J)
+    weights = [torch.tensor(rng.normal(size=s)) for s in (a.shape, U.shape, Y.shape)]
+    results = {}
+    prior = ct.get_config()
+    try:
+        for backend, device in (("assoc", "cpu"), ("assoc", cuda), ("scan", cuda)):
+            ct.set_config(backend=backend)
+            args = [x.to(device).requires_grad_(True) for x in (t, c, a, U, V, Y)]
+            wd, wW, wZ = (w.to(device) for w in weights)
+            before = dict(_build.LAUNCHES)
+            d, W = ops.factor(*args[:5])
+            loss = (wd * d).sum() + (wW * W).sum()
+            for name in ("solve_lower", "solve_upper", "matmul_lower", "matmul_upper"):
+                z = getattr(ops, name)(args[0], args[1], args[3], W, args[5])
+                loss = loss + (wZ * z).sum()
+            d2, W2, Z2 = ops.factor_solve(*args)
+            loss = loss + (wd * d2).sum() + (wW * W2).sum() + (wZ * Z2).sum()
+            grads = torch.autograd.grad(loss, args)
+            if device != "cpu" and backend == "assoc":
+                for key in ("riccati_prefix", "kalman_prefix", "mat_affine_prefix"):
+                    assert _build.LAUNCHES[key] > before[key], key
+                for key in ("factor_fwd", "sweep_fwd", "factor_bwd", "sweep_bwd"):
+                    assert _build.LAUNCHES[key] == before[key], key
+            results[backend, str(device)] = [
+                x.detach().cpu() for x in (d, W, Z2, *grads)]
+    finally:
+        ct.set_config(**prior.__dict__)
+    want = results["assoc", "cpu"]
+    for key in (("assoc", str(cuda)), ("scan", str(cuda))):
+        for got, w in zip(results[key], want):
+            assert _rel(got, w) < 1e-9, key
+
+
+def test_assoc_tier_nonpd_is_quiet_on_card(cuda):
+    """A system that is not positive definite on the assoc tier: -inf and
+    zero gradients from gp_loglik at J = 8."""
+    rng = np.random.default_rng(5)
+    t = torch.tensor(np.sort(rng.uniform(0, 100, 3000)), device=cuda)
+    y = torch.sin(t)
+    prior = ct.get_config()
+    try:
+        ct.set_config(backend="assoc")
+        th = torch.tensor(0.1, device=cuda, requires_grad=True)
+        ll = ct.gp_loglik(_wide_kernel(8, th.exp()), t, y, diag=-5.0)
+        (g,) = torch.autograd.grad(ll, th)
+    finally:
+        ct.set_config(**prior.__dict__)
+    assert ll.item() == -np.inf and g.item() == 0.0
+
+
+def test_auto_routes_by_the_measured_rule(cuda):
+    """"auto" on the card: a single float64 system at J = 4 from 1e5 rows
+    takes the assoc tier (riccati_prefix), below it and at J = 8 the scan
+    tier (factor_fwd), as dispatch.ASSOC_MIN_ROWS says."""
+    from celerite2_torch import ops
+
+    assert ct.get_config().backend == "auto"
+    for J, N, kernel in ((4, 100_000, "riccati_prefix"), (4, 20_000, "factor_fwd"),
+                         (8, 100_000, "factor_fwd")):
+        t, c, a, U, V, _ = (x[0] for x in _wide_system(N, 1, J, 1, cuda))
+        before = _build.LAUNCHES[kernel]
+        ops.factor(t, c, a, U, V)
+        assert _build.LAUNCHES[kernel] > before, (J, N, kernel)
