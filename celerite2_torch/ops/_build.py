@@ -38,6 +38,7 @@ __all__ = [
     "sweep_fwd_cuda",
     "factor_bwd_cuda",
     "sweep_bwd_cuda",
+    "adjoint_ring",
     "affine_prefix_cuda",
     "riccati_prefix_cuda",
     "kalman_prefix_cuda",
@@ -185,6 +186,9 @@ def _library():
         lib.c2t_factor_bwd.restype = I
         lib.c2t_sweep_bwd.argtypes = [I, I] + [P] * 10 + [I] * 5 + [P]
         lib.c2t_sweep_bwd.restype = I
+        # (is_double, J, K, C, is_sweep, chains, bytes)
+        lib.c2t_adjoint_ring.argtypes = [I] * 5 + [P] * 2
+        lib.c2t_adjoint_ring.restype = I
         # (is_double, J, phi, G, carry, F, tot_a, tot_b, C, M, K, L, reverse,
         #  stream)
         lib.c2t_affine_prefix.argtypes = [I, I] + [P] * 6 + [I] * 5 + [P]
@@ -400,6 +404,22 @@ def factor_bwd_cuda(p, d, U, W, S_half, bd, bW):
     return outs
 
 
+def adjoint_ring(dtype, J, K=1, C=1, sweep=False):
+    """``(rows per tile, chains per block, bytes of shared memory)`` of the
+    ring of ``factor_bwd`` (or, with ``sweep``, ``sweep_bwd`` at K
+    right-hand sides) for C chains of ``dtype`` at width J, as the built
+    library plans it on the current card."""
+    chains, nbytes = ctypes.c_int(0), ctypes.c_longlong(0)
+    rows = _library().c2t_adjoint_ring(
+        int(dtype == torch.float64), J, K, C, int(sweep), ctypes.byref(chains),
+        ctypes.byref(nbytes))
+    if rows == 0:
+        raise NotImplementedError(f"adjoint rings: no width J = {J}")
+    if rows < 0:
+        raise RuntimeError(f"adjoint rings: CUDA error {-rows}")
+    return rows, chains.value, nbytes.value
+
+
 def sweep_bwd_cuda(p, A, B, R, F, bZ, is_solve, upper):
     """The sweep adjoint kernel on the card: ``bA, bB, bp (C, N, J)`` and
     ``bY (C, N, K)`` from the rows ``R (C, N, K)`` that fed the forward
@@ -412,10 +432,7 @@ def sweep_bwd_cuda(p, A, B, R, F, bZ, is_solve, upper):
            ((C, N, J),) * 3 + ((C, N, K), (C, N, J, K), (C, N, K)))
     if min(C, N, K) < 1:
         raise ValueError(f"sweep_bwd: empty system (C={C}, N={N}, K={K})")
-    # with K > 1 the kernel adds each warp's sums over k into these
-    sums = [_empty(p, C, N, J) if K == 1 else p.new_zeros(C, N, J)
-            for _ in range(3)]
-    outs = (*sums, _empty(p, C, N, K))
+    outs = (*(_empty(p, C, N, J) for _ in range(3)), _empty(p, C, N, K))
     _launch_general(
         "sweep_bwd", J, inputs, outs, (C, N, K, int(is_solve), int(upper))
     )

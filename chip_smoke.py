@@ -632,83 +632,208 @@ def phase_prefix_kernel(dev):
 # ------------------------------------------- the adjoint kernels (training)
 
 
+def adjoint_inputs(J, N, C, K, dev, seed, nonpositive=False, data_seed=None):
+    """factor_bwd's inputs on the kernels' own forward cache with random
+    cotangents (from ``seed``), and per sweep mode sweep_bwd's (K
+    right-hand sides), for C chains of width J (padded to its bucket) of
+    ``wide_system`` (``data_seed``, by default J + N + K).  With
+    ``nonpositive`` some pivots are set to 0 and below, which both versions
+    divide by 1."""
+    rng = np.random.default_rng(seed)
+    t, c, a, U, V, Y = wide_system(
+        J, N, C, K, dev, seed=J + N + K if data_seed is None else data_seed)
+    p = scan.transport(t, c)
+    d, W, S = _build.factor_fwd_cuda(p, a, U, V, want_cache=True)
+    if nonpositive:
+        d = d.clone()
+        d[:, ::7] = -d[:, ::7].abs()
+        d[:, 3::11] = 0.0
+    fin = (p, d, U, W, S, randn_like(d, rng), randn_like(W, rng))
+    sins = {}
+    for mode, (is_solve, upper) in MODES.items():
+        ps, A, B = sweep_args(mode, t, c, U, V, W)
+        Z, F = _build.sweep_fwd_cuda(ps, A, B, Y, is_solve, upper, True)
+        sins[mode] = (ps, A, B, Z if is_solve else Y, F, randn_like(Z, rng))
+    return fin, sins
+
+
+def adjoint_checks(fin, sins, whole=True, first=True, factor=True):
+    """(name, kernel outputs, plain outputs) of factor_bwd (unless not
+    ``factor``) and sweep_bwd in its four modes; with ``first`` also the
+    first chain alone (the plain version runs once on all chains)."""
+    def pair(name, kernel, plain, args):
+        want = plain(*args)
+        out = [(name, kernel(*args), want)] if whole else []
+        if first:
+            out.append((name, kernel(*first_chain(args)), [w[:1] for w in want]))
+        return out
+
+    checks = (pair("factor_bwd", _build.factor_bwd_cuda, scan.factor_bwd_plain,
+                   fin) if factor else [])
+    for mode, (is_solve, upper) in MODES.items():
+        checks += pair(
+            "sweep_bwd",
+            lambda *a, s=is_solve, u=upper: _build.sweep_bwd_cuda(*a, s, u),
+            lambda *a, s=is_solve, u=upper: scan.sweep_bwd_plain(
+                *a, is_solve=s, upper=u),
+            sins[mode])
+    return checks
+
+
+def hold_float32(checks32, checks64, worst):
+    """Kernels run in float32 against the plain version in float64 (the
+    same inputs, rounded): within 1e-4 relative or twice the plain
+    version's own float32 error, the larger (sums in another order; the
+    float32 gates of the paths are 1e-3)."""
+    for (name, got, want32), (_, _, want64) in zip(checks32, checks64):
+        for g, w32, w64 in zip(got, want32, want64):
+            assert g.dtype == torch.float32 and g.shape == w64.shape, name
+            err, own = scaled_err(g, w64), scaled_err(w32, w64)
+            assert math.isfinite(err) and err <= max(1e-4, 2 * own), (
+                name, tuple(g.shape), err, own)
+            worst[name] = max(worst[name], err)
+
+
+def to_float32(xs):
+    return tuple(x.float() for x in xs)
+
+
 def phase_adjoint_kernels(dev):
-    """factor_bwd and sweep_bwd (four modes, K = 1 and 5) against their
-    plain versions on the card, float64, to 1e-10 relative, on the
-    kernels' own forward caches and random cotangents: J = 1, 2, 3 -> 4, 8,
-    16, 32; N = 130, 1040, 1e4; C = 8, and C = 1 as the first of those
-    chains (the plain version runs once on all eight).  Then their times at
-    N = 1e5, J = 8, K = 1 at C = 1 and C = 64, and at C = 1 the factor and
-    the lower solve's adjoint (the training path's shapes) against the
-    plain versions to 1e-9 (LONG_RTOL)."""
+    """factor_bwd and sweep_bwd (four modes) against their plain versions
+    on the card, float64, to 1e-10 relative, on the kernels' own forward
+    caches and random cotangents: J = 1, 2, 3 -> 4, 8, 16, 32; N = 130,
+    1040, 1e4; C = 8, and C = 1 as the first of those chains; K = 1, 5.
+    Then the edges of their rings of row tiles: N = 1 and one row below and
+    past a tile (C = 3; K = 1, 5, 200), 64 chains, blocks of several chains
+    (the last one fewer), pivots d <= 0, and chains whose rows start off a
+    16-byte boundary (odd N at J = 1, 2, in float32 and float64).  Then
+    their times at N = 1e5, J = 8 (K = 1 in the four modes, and K = 5) at
+    C = 1 and C = 64, and at C = 1024, N = 3e4 (K = 1, the lower solve's),
+    with ns per row, and at C = 1 the factor and the lower solve's adjoint
+    (the training path's shapes) against the plain versions to 1e-9
+    (LONG_RTOL)."""
     worst = {"factor_bwd": 0.0, "sweep_bwd": 0.0}
     for J in (1, 2, 3, 8, 16, 32):
         for N in (130, 1040, 10_000):
-            rng = np.random.default_rng(J * N)
-            t, c, a, U, V, Y5 = wide_system(J, N, 8, 5, dev, seed=J + N)
-            p = scan.transport(t, c)
-            d, W, S = _build.factor_fwd_cuda(p, a, U, V, want_cache=True)
-            fin = (p, d, U, W, S, randn_like(d, rng), randn_like(W, rng))
-            want = scan.factor_bwd_plain(*fin)
-            checks = [("factor_bwd", _build.factor_bwd_cuda(*fin), want),
-                      ("factor_bwd", _build.factor_bwd_cuda(*first_chain(fin)),
-                       [w[:1] for w in want])]
-            for mode, (is_solve, upper) in MODES.items():
-                ps, A, B = sweep_args(mode, t, c, U, V, W)
-                for Y in (Y5[..., :1].contiguous(), Y5):
-                    Z, F = _build.sweep_fwd_cuda(ps, A, B, Y, is_solve, upper, True)
-                    sin = (ps, A, B, Z if is_solve else Y, F, randn_like(Z, rng))
-                    want = scan.sweep_bwd_plain(*sin, is_solve=is_solve, upper=upper)
-                    checks += [
-                        ("sweep_bwd", _build.sweep_bwd_cuda(*sin, is_solve, upper),
-                         want),
-                        ("sweep_bwd", _build.sweep_bwd_cuda(
-                            *first_chain(sin), is_solve, upper), [w[:1] for w in want]),
-                    ]
-            hold_against_plain(checks, worst)
+            fin, sins = adjoint_inputs(J, N, 8, 5, dev, seed=J * N)
+            sins1 = {m: s[:3] + tuple(x[..., :1].contiguous() for x in s[3:4])
+                     + (s[4][..., :1].contiguous(), s[5][..., :1].contiguous())
+                     for m, s in sins.items()}
+            hold_against_plain(adjoint_checks(fin, sins), worst)
+            hold_against_plain(adjoint_checks(fin, sins1, factor=False), worst)
     for name, err in worst.items():
         log("kernels", f"{name}: worst relative error {err:.3e} (J = 1, 2, "
             "3 -> 4, 8, 16, 32; N = 130, 1040, 1e4; C = 8 and 1; K = 1, 5 in "
             "four modes)")
 
-    # times at the training path's shapes: N = 1e5, J = 8, K = 1, float64
+    # the rings' edges: rows per tile at each bucket, K and type
+    edges = {"factor_bwd": 0.0, "sweep_bwd": 0.0}
+    for J in (1, 2, 3, 8, 16, 32):
+        Jb = J if J != 3 else 4
+        for K in (1, 5, 200):
+            rows = {_build.adjoint_ring(torch.float64, Jb, K, sweep=True)[0]}
+            if K == 1:
+                rows.add(_build.adjoint_ring(torch.float64, Jb)[0])
+            for N in sorted({1} | {r + e for r in rows for e in (-1, 1)}):
+                fin, sins = adjoint_inputs(J, N, 3, K, dev, seed=J + K)
+                hold_against_plain(adjoint_checks(fin, sins, first=False), edges)
+        rings = ", ".join(
+            f"{name} {dt} K = {K}: {r} rows, {b} B"
+            for name, sweep, Ks in (("factor_bwd", False, (1,)),
+                                    ("sweep_bwd", True, (1, 5, 200)))
+            for K in Ks
+            for dt, dtype in (("float64", torch.float64), ("float32", torch.float32))
+            for r, _, b in (_build.adjoint_ring(dtype, Jb, K, sweep=sweep),))
+        log("kernels", f"J = {J}: N = 1 and one row below and past a tile held; "
+            f"tiles of the rings (shared memory per block): {rings}")
+    fin, sins = adjoint_inputs(8, 1040, 64, 1, dev, seed=64)
+    hold_against_plain(adjoint_checks(fin, sins, first=False), edges)
+    plans = ", ".join(
+        f"C = {C}: " + " / ".join(
+            "{1} ({0} rows)".format(*_build.adjoint_ring(torch.float64, 8, 1, C,
+                                                          sweep))
+            for sweep in (False, True))
+        for C in (1, 264, 265, 300, 528, 529, 792, 793, 1024, 4096))
+    log("kernels", "chains per block (rows per tile) of factor_bwd / sweep_bwd "
+        f"at J = 8, K = 1, float64: {plans}")
+    # blocks of several chains: 1023 chains (the last block fewer) over two
+    # tiles at J = 2 and 8, K = 1 and 5
+    for J in (2, 8):
+        for K in (1, 5):
+            plans = [_build.adjoint_ring(torch.float64, J, K, 1023, sweep)
+                     for sweep in (False, True)]
+            N = max(r for r, _, _ in plans) + 1
+            fin, sins = adjoint_inputs(J, N, 1023, K, dev, seed=J * K)
+            hold_against_plain(adjoint_checks(fin, sins, first=False), edges)
+            log("kernels", f"J = {J}, K = {K}, C = 1023, N = {N}: chains per "
+                f"block (rows per tile) of factor_bwd, sweep_bwd: "
+                + ", ".join(f"{c} ({r})" for r, c, _ in plans))
+    fin, sins = adjoint_inputs(8, 1040, 3, 5, dev, seed=5, nonpositive=True)
+    assert (fin[1] <= 0).any()
+    hold_against_plain(adjoint_checks(fin, sins, first=False)[:1], edges)
+    worst32 = {"factor_bwd": 0.0, "sweep_bwd": 0.0}
+    for J in (1, 2):
+        for N in (131, 1041):
+            for K in (1, 5):
+                fin, sins = adjoint_inputs(J, N, 3, K, dev, seed=N + K)
+                hold_against_plain(adjoint_checks(fin, sins, first=False), edges)
+                checks64 = adjoint_checks(fin, sins, first=False)
+                checks32 = adjoint_checks(
+                    to_float32(fin), {m: to_float32(s) for m, s in sins.items()},
+                    first=False)
+                hold_float32(checks32, checks64, worst32)
+    log("kernels", f"ring edges: worst relative error {edges} (float64: N = 1, "
+        "tile +- 1 row, C = 3, K = 1, 5, 200; C = 64; C = 1023; pivots d <= 0; "
+        f"odd N at J = 1, 2); float32 against the float64 plain version {worst32}")
+
+    # times at the training path's shapes: N = 1e5, J = 8, float64
     main_abs, times = {}, {}
+    per_row = 1e6 / N_MAIN  # ms per launch -> ns per row
     for C in (1, 64):
-        rng = np.random.default_rng(C)
-        t, c, a, U, V, Y = wide_system(8, N_MAIN, C, 1, dev, seed=8)
-        p = scan.transport(t, c)
-        d, W, S = _build.factor_fwd_cuda(p, a, U, V, want_cache=True)
-        fin = (p, d, U, W, S, randn_like(d, rng), randn_like(W, rng))
+        fin, sins = adjoint_inputs(8, N_MAIN, C, 1, dev, seed=C, data_seed=8)
         got = _build.factor_bwd_cuda(*fin)
         ms = cuda_ms(lambda: _build.factor_bwd_cuda(*fin), reps=5, warmup=1)
         bound, by = bound_ms((*fin, *got), kernel_flops("factor_bwd", C, N_MAIN, 8))
-        log("kernels", f"factor_bwd: {ms:.4f} ms (bound {bound:.4f} ms by {by}) at "
-            f"N = 1e5, J = 8, C = {C}, float64")
+        log("kernels", f"factor_bwd: {ms:.4f} ms, {ms * per_row:.1f} ns per row "
+            f"(bound {bound:.4f} ms by {by}) at N = 1e5, J = 8, C = {C}, float64")
         if C == 1:
             want, plain_ms = timed_plain(lambda: scan.factor_bwd_plain(*fin))
             log("kernels", f"factor_bwd: plain version {plain_ms:.1f} ms (one run)")
             main_abs["factor_bwd"] = held_at_main_shape(
                 "factor_bwd", got, want, "ba, bU, bV, bp")
             times["factor_bwd"] = (ms, plain_ms, bound, by)
+        _, sins5 = adjoint_inputs(8, N_MAIN, C, 5, dev, seed=C, data_seed=8)
         for mode, (is_solve, upper) in MODES.items():
-            ps, A, B = sweep_args(mode, t, c, U, V, W)
-            Z, F = _build.sweep_fwd_cuda(ps, A, B, Y, is_solve, upper, True)
-            sin = (ps, A, B, Z if is_solve else Y, F, randn_like(Z, rng))
-            got = _build.sweep_bwd_cuda(*sin, is_solve, upper)
-            ms = cuda_ms(lambda: _build.sweep_bwd_cuda(*sin, is_solve, upper),
-                         reps=5, warmup=1)
-            bound, by = bound_ms((*sin, *got),
-                                 kernel_flops("sweep_bwd", C, N_MAIN, 8))
-            log("kernels", f"sweep_bwd {mode}: {ms:.4f} ms (bound {bound:.4f} ms "
-                f"by {by}) at N = 1e5, J = 8, K = 1, C = {C}, float64")
-            if C == 1 and mode == "solve_lower":
-                want, plain_ms = timed_plain(lambda: scan.sweep_bwd_plain(
-                    *sin, is_solve=True, upper=False))
-                log("kernels", f"sweep_bwd {mode}: plain version {plain_ms:.1f} ms "
-                    "(one run)")
-                main_abs["sweep_bwd"] = held_at_main_shape(
-                    "sweep_bwd", got, want, f"{mode} K = 1")
-                times["sweep_bwd"] = (ms, plain_ms, bound, by)
+            for K, sin in ((1, sins[mode]), (5, sins5[mode])):
+                got = _build.sweep_bwd_cuda(*sin, is_solve, upper)
+                ms = cuda_ms(lambda: _build.sweep_bwd_cuda(*sin, is_solve, upper),
+                             reps=5, warmup=1)
+                bound, by = bound_ms((*sin, *got),
+                                     kernel_flops("sweep_bwd", C, N_MAIN, 8, K))
+                log("kernels", f"sweep_bwd {mode}: {ms:.4f} ms, "
+                    f"{ms * per_row:.1f} ns per row (bound {bound:.4f} ms by "
+                    f"{by}) at N = 1e5, J = 8, K = {K}, C = {C}, float64")
+                if C == 1 and K == 1 and mode == "solve_lower":
+                    want, plain_ms = timed_plain(lambda: scan.sweep_bwd_plain(
+                        *sin, is_solve=True, upper=False))
+                    log("kernels", f"sweep_bwd {mode}: plain version "
+                        f"{plain_ms:.1f} ms (one run)")
+                    main_abs["sweep_bwd"] = held_at_main_shape(
+                        "sweep_bwd", got, want, f"{mode} K = 1")
+                    times["sweep_bwd"] = (ms, plain_ms, bound, by)
+    # a fleet of chains (the sampler's): C = 1024 at N = 3e4
+    C, N = 1024, 30_000
+    fin, sins = adjoint_inputs(8, N, C, 1, dev, seed=C, data_seed=8)
+    sin = sins["solve_lower"]
+    for name, fn in (("factor_bwd", lambda: _build.factor_bwd_cuda(*fin)),
+                     ("sweep_bwd solve_lower",
+                      lambda: _build.sweep_bwd_cuda(*sin, True, False))):
+        ms = cuda_ms(fn, reps=5, warmup=1)
+        bound, by = bound_ms((*(fin if name == "factor_bwd" else sin), *fn()),
+                             kernel_flops(name.split()[0], C, N, 8))
+        log("kernels", f"{name}: {ms:.4f} ms, {ms * 1e6 / N:.1f} ns per row "
+            f"(bound {bound:.4f} ms by {by}) at N = 3e4, J = 8, K = 1, "
+            f"C = {C}, float64")
     return main_abs, times
 
 
@@ -976,8 +1101,8 @@ def phase_train_j8(dev, smi, refs):
     N = 1e5, float64, one chain, through factor_fwd and sweep_fwd with their
     caches and the adjoint kernels sweep_bwd and factor_bwd, against the
     CPU's plain route (value 1e-9 relative, gradient 1e-8 scaled); 64
-    chains at N = 3e4 against a loop over the chains; the gradient of
-    GaussianProcess.log_likelihood against the same CPU reference; and a
+    chains at N = 3e4 against a loop over the chains, and 1024 chains
+    timed; the gradient of GaussianProcess.log_likelihood against the same CPU reference; and a
     dense yardstick at N = 4000."""
     v, g, seconds = refs.get()["train"]
     ref = torch.from_numpy(v), torch.from_numpy(g)
@@ -1029,6 +1154,13 @@ def phase_train_j8(dev, smi, refs):
         f"grad err {eg:.2e}")
     assert torch.isfinite(v).all() and torch.isfinite(g).all()
     assert ev < 1e-10 and eg < 1e-10, (ev, eg)
+    # a fleet of 1024 chains (the sampler's) at the same N, timed
+    thetas = torch.tensor(THETA0 + 0.1 * rng.normal(size=(1024, 3)), device=dev)
+    v, g = value_and_grad(thetas, t3, y3, wide8)
+    assert torch.isfinite(v).all() and torch.isfinite(g).all()
+    ms = cuda_ms(lambda: value_and_grad(thetas, t3, y3, wide8), reps=3, warmup=1)
+    log("train J=8", f"C = 1024, N = {N}: value+gradient eval {ms:.2f} ms, "
+        f"{1e3 / ms:.2f} evals/s, float64 | {smi}")
 
     # a yardstick: the gradient through the dense Cholesky factor at N = 4000
     # (torch.linalg.cholesky; used nowhere in the package)

@@ -377,33 +377,88 @@ def test_gaussian_process_defaults_to_the_card(cuda):
     assert not ct.models.term_from_numpy(spec, device="cpu").a.is_cuda
 
 
+# The adjoints' rings of row tiles: a system at N = 301 rows, one row, one
+# row below and one past a tile, odd N in float32 (chains that start off a
+# 16-byte boundary), so many chains that a block holds several (the last
+# block fewer) and, for the factor, pivots d <= 0.
+ADJOINT_EDGES = ["rows_301", "one_row", "tile_minus_one", "tile_plus_one",
+                 "odd_rows_float32", "many_chains"]
+
+
+def _edge_rows(edge, J, K=1, sweep=False):
+    """``(N, C, dtype)`` of an edge case of the adjoints' rings."""
+    if edge == "one_row":
+        return 1, 3, torch.float64
+    if edge == "many_chains":
+        # the fewest of these chain counts at which a block holds several
+        # chains (none does at J = 32 or past 32 right-hand sides), over two
+        # tiles of rows
+        for C in (257, 513, 1025, 2049, 4097):
+            rows, chains, _ = _build.adjoint_ring(torch.float64, J, K, C, sweep)
+            if chains > 1:
+                return rows + 1, C, torch.float64
+        rows, _, _ = _build.adjoint_ring(torch.float64, J, K, 257, sweep)
+        return rows + 1, 257, torch.float64
+    if edge.startswith("tile"):
+        rows, _, _ = _build.adjoint_ring(torch.float64, J, K, sweep=sweep)
+        return rows + (1 if edge == "tile_plus_one" else -1), 3, torch.float64
+    return 301, 3, torch.float32 if edge == "odd_rows_float32" else torch.float64
+
+
+def _hold_adjoint(got, want64, want=None):
+    """float64: 1e-10 relative against the plain version; float32: against
+    the plain version in float64 within 1e-4 or twice the float32 plain
+    version's own error, the larger (sums run in another order)."""
+    for i, w64 in enumerate(want64):
+        g = got[i]
+        assert g.shape == w64.shape and g.dtype == (want or want64)[i].dtype
+        if not w64.abs().max():  # bU and bp of a single row
+            assert not g.abs().max()
+        elif g.dtype == torch.float64:
+            assert _rel(g, w64) < 1e-10
+        else:
+            assert _rel(g, w64) <= max(1e-4, 2 * _rel(want[i], w64))
+
+
+@pytest.mark.parametrize("edge", ADJOINT_EDGES + ["nonpositive_pivots"])
 @pytest.mark.parametrize("J", [1, 2, 4, 8, 16, 32])
-def test_factor_bwd_matches_plain(cuda, J):
-    """The factor adjoint kernel against the plain loop (ba, bU, bV, bp) at
-    N = 301, C = 3, float64, to 1e-10 relative."""
-    t, c, a, U, V, _ = _wide_system(301, 3, J, 1, cuda, seed=J)
+def test_factor_bwd_matches_plain(cuda, J, edge):
+    """The factor adjoint kernel against the plain loop (ba, bU, bV, bp),
+    C = 3 (or many chains), at the rings' edges (float64 to 1e-10
+    relative)."""
+    N, C, dtype = _edge_rows(edge, J)
+    t, c, a, U, V, _ = _wide_system(N, C, J, 1, cuda, seed=J)
     p = scan.transport(t, c)
     d, W, S = scan.factor_fwd_plain(p, a, U, V)
+    if edge == "nonpositive_pivots":
+        d = d.clone()
+        d[:, ::7] = -d[:, ::7].abs()
+        d[:, 3::11] = 0.0
     rng = np.random.default_rng(J)
     bd = torch.tensor(rng.normal(size=d.shape), device=cuda)
     bW = torch.tensor(rng.normal(size=W.shape), device=cuda)
+    args = (p, d, U, W, S, bd, bW)
+    want64 = scan.factor_bwd_plain(*args)
+    args = tuple(x.to(dtype) for x in args)
     before = _build.LAUNCHES["factor_bwd"]
-    got = _build.factor_bwd_cuda(p, d, U, W, S, bd, bW)
+    got = _build.factor_bwd_cuda(*args)
     torch.cuda.synchronize()
     assert _build.LAUNCHES["factor_bwd"] == before + 1
-    for g, w in zip(got, scan.factor_bwd_plain(p, d, U, W, S, bd, bW)):
-        assert g.shape == w.shape and _rel(g, w) < 1e-10
+    _hold_adjoint(got, want64, scan.factor_bwd_plain(*args))
 
 
+@pytest.mark.parametrize("edge", ADJOINT_EDGES)
 @pytest.mark.parametrize("is_solve, upper",
                          [(s, u) for s in (True, False) for u in (False, True)])
 @pytest.mark.parametrize("J, K", [(1, 1), (2, 4), (4, 1), (8, 5), (16, 1),
-                                  (32, 3), (8, 200)])
-def test_sweep_bwd_matches_plain(cuda, J, K, is_solve, upper):
+                                  (32, 3), (8, 200), (4, 32), (2, 33)])
+def test_sweep_bwd_matches_plain(cuda, J, K, is_solve, upper, edge):
     """The sweep adjoint kernel in its four modes against the plain loop
-    (bA, bB, bp, bY) at N = 301, C = 3, float64, to 1e-10 relative; K = 200
-    spans two blocks of right-hand sides."""
-    t, c, a, U, V, Y = _wide_system(301, 3, J, K, cuda)
+    (bA, bB, bp, bY), C = 3 (or many chains), at the rings' edges (float64
+    to 1e-10 relative); K = 200 spans seven blocks of right-hand sides, K =
+    32 one whole block and K = 33 two."""
+    N, C, dtype = _edge_rows(edge, J, K, sweep=True)
+    t, c, a, U, V, Y = _wide_system(N, C, J, K, cuda)
     d, W, _ = scan.factor_fwd_plain(scan.transport(t, c), a, U, V)
     second = W if is_solve else V
     A, B = (second, U) if upper else (U, second)
@@ -411,31 +466,36 @@ def test_sweep_bwd_matches_plain(cuda, J, K, is_solve, upper):
     Z, F = scan.sweep_fwd_plain(p, A, B, Y, is_solve=is_solve, upper=upper)
     R = Z if is_solve else Y
     bZ = torch.tensor(np.random.default_rng(K).normal(size=Z.shape), device=cuda)
+    args = (p, A, B, R, F, bZ)
+    want64 = scan.sweep_bwd_plain(*args, is_solve=is_solve, upper=upper)
+    args = tuple(x.to(dtype) for x in args)
     before = _build.LAUNCHES["sweep_bwd"]
-    got = _build.sweep_bwd_cuda(p, A, B, R, F, bZ, is_solve, upper)
+    got = _build.sweep_bwd_cuda(*args, is_solve, upper)
     torch.cuda.synchronize()
     assert _build.LAUNCHES["sweep_bwd"] == before + 1
-    want = scan.sweep_bwd_plain(p, A, B, R, F, bZ, is_solve=is_solve, upper=upper)
-    for g, w in zip(got, want):
-        assert g.shape == w.shape and _rel(g, w) < 1e-10
+    _hold_adjoint(got, want64,
+                  scan.sweep_bwd_plain(*args, is_solve=is_solve, upper=upper))
 
 
-def test_adjoints_long_rows(cuda):
-    """Several tiles of rows (N = 5000 at J = 8) in float32 and float64."""
-    for dtype, tol in ((torch.float64, 1e-10), (torch.float32, 1e-4)):
-        t, c, a, U, V, Y = (
-            x.to(dtype) for x in _wide_system(5000, 2, 8, 1, cuda, seed=4))
-        p = scan.transport(t, c)
-        d, W, S = scan.factor_fwd_plain(p, a, U, V)
-        Z, F = scan.sweep_fwd_plain(p, U, W, Y, is_solve=True, upper=False)
-        bd, bW = torch.ones_like(d), torch.ones_like(W)
-        for g, w in zip(_build.factor_bwd_cuda(p, d, U, W, S, bd, bW),
-                        scan.factor_bwd_plain(p, d, U, W, S, bd, bW)):
-            assert _rel(g, w) < tol
-        for g, w in zip(_build.sweep_bwd_cuda(p, U, W, Z, F, Z, True, False),
-                        scan.sweep_bwd_plain(p, U, W, Z, F, Z, is_solve=True,
-                                             upper=False)):
-            assert _rel(g, w) < tol
+@pytest.mark.parametrize("N", [5000, 5001])
+@pytest.mark.parametrize("dtype, tol", [(torch.float64, 1e-10),
+                                        (torch.float32, 1e-4)])
+def test_adjoints_long_rows(cuda, dtype, tol, N):
+    """Many tiles of rows (N = 5000, and odd N, whose later chains start off
+    a 16-byte boundary) at J = 8, C = 3, in float32 and float64."""
+    t, c, a, U, V, Y = (
+        x.to(dtype) for x in _wide_system(N, 3, 8, 1, cuda, seed=4))
+    p = scan.transport(t, c)
+    d, W, S = scan.factor_fwd_plain(p, a, U, V)
+    Z, F = scan.sweep_fwd_plain(p, U, W, Y, is_solve=True, upper=False)
+    bd, bW = torch.ones_like(d), torch.ones_like(W)
+    for g, w in zip(_build.factor_bwd_cuda(p, d, U, W, S, bd, bW),
+                    scan.factor_bwd_plain(p, d, U, W, S, bd, bW)):
+        assert _rel(g, w) < tol
+    for g, w in zip(_build.sweep_bwd_cuda(p, U, W, Z, F, Z, True, False),
+                    scan.sweep_bwd_plain(p, U, W, Z, F, Z, is_solve=True,
+                                         upper=False)):
+        assert _rel(g, w) < tol
 
 
 @pytest.mark.parametrize("J", [3, 8])
