@@ -28,23 +28,19 @@
 // The recursions are sequential in the rows n and independent across the C
 // chains (and, for the sweeps, across the K right-hand sides).  What bounds
 // them on this card is the latency of the dependent chain of one row step
-// (a few dependent multiply-adds, a division or a shuffle reduction), N times
-// over: at one chain the card moves a small fraction of what its memory
-// could.  The design keeps everything that does not depend on the carry off
-// that chain, and the carry in registers for all N rows; chains and
-// right-hand sides spread over threads.  The forward kernels fetch a row's
-// inputs before the row is reached (one row ahead in registers in the
-// factor, a tile of rows ahead in shared memory in the sweep), carry the
-// previous row's d, w (factor) or b, r (sweep) in registers and shared
-// memory, and store their outputs and caches from the carry's own thread.
-// The adjoints, which walk the rows in the order opposite to their
-// forward's, go further (see "the adjoints' tile ring" below): a producer
-// warp keeps tiles of rows in flight into shared memory by asynchronous
-// bulk copies, a carry warp per chain does only the carry, and epilogue
-// warps compute the per-row outputs from what the carry leaves in shared
-// memory and store them by tiles; a block serves one chain, or up to four
-// when C is large.  Nothing is padded to a block of rows and nothing is
-// pre-shifted.
+// (a few dependent multiply-adds, a reciprocal or a shuffle reduction), N
+// times over: at one chain the card moves a small fraction of what its
+// memory could.  So the four row kernels share one design (see "the tile
+// ring" below), which keeps everything that does not depend on the carry
+// off that chain: a producer warp keeps tiles of rows in flight into shared
+// memory by asynchronous bulk copies, a carry warp per chain does only the
+// carry, in registers for all N rows, and epilogue warps turn what the
+// carry leaves in shared memory into the per-row outputs and caches and
+// store them by tiles; a block serves one chain, or up to four when C is
+// large.  The factor also takes the part of its row step that does not
+// depend on the previous row's w one row ahead, and the matmul sweeps
+// leave their output to the epilogue.  Nothing is padded to a block of
+// rows and nothing is pre-shifted.
 //
 // Layouts are natural row-major with a leading chain axis: p, U, V, W, A, B
 // (C, N, J); a, d (C, N); Y, Z, R (C, N, K); the caches S_half (C, N, J, J)
@@ -56,169 +52,19 @@
 #include <algorithm>
 #include <cstdint>
 #include <initializer_list>
+#include <type_traits>
 
 namespace {
 
 constexpr unsigned kFullMask = 0xffffffffu;
-constexpr int kFactorThreads = 32;  // one warp: 32 / J chains
-constexpr int kSweepThreads = 128;  // right-hand sides per block
-constexpr int kTileElems = 1024;    // per staged array: 1024 / J rows
 
-// ============================================================= factor
+// ======================================================== the tile ring
 //
-// S <- p (S + d w w^T) p,  d_n = a_n - u^T S u,  w_n = (v - S u) / d_n.
-//
-// J consecutive lanes serve one chain (J divides 32, so a warp serves 32 / J
-// chains and a group never straddles a warp).  Lane j keeps column j of the
-// symmetric carry S in J registers, computes (S u)_j from its own column,
-// and the group reduces u^T (S u) by xor shuffles of width J.  The row
-// vectors every lane needs in full (p, u and the previous w) go through
-// shared memory, written by their owning lanes and read as broadcasts.  The
-// next row's p, u, v, a are loaded before the current row's arithmetic
-// (staging 16 rows at a time in shared memory instead was measured and is no
-// faster: the row step itself, not the fetch, sets the time).
-template <typename T, int J>
-__global__ void factor_fwd_kernel(const T* __restrict__ p,
-                                  const T* __restrict__ a,
-                                  const T* __restrict__ U,
-                                  const T* __restrict__ V, T* __restrict__ d,
-                                  T* __restrict__ W, T* __restrict__ Sh, int C,
-                                  int N) {
-  __shared__ T sp[kFactorThreads], su[kFactorThreads], sw[kFactorThreads];
-  const int tid = threadIdx.x;
-  const long long gid = (long long)blockIdx.x * kFactorThreads + tid;
-  const long long chain_of = gid / J;
-  const bool live = chain_of < C;
-  // lanes past the last chain repeat it (they must take part in the
-  // shuffles) and store nothing
-  const size_t row0 = (size_t)(live ? chain_of : C - 1) * N;
-  const int j = tid % J;
-  const int base = tid - j;
-
-  T s[J];
-#pragma unroll
-  for (int i = 0; i < J; ++i) s[i] = T(0);
-  T d_prev = T(0), w_prev = T(0);
-  sw[tid] = T(0);
-
-  T p_n = p[row0 * J + j], u_n = U[row0 * J + j], v_n = V[row0 * J + j];
-  T a_n = a[row0];
-  for (int n = 0; n < N; ++n) {
-    const size_t row = row0 + n;
-    const T pj = p_n, uj = u_n, vj = v_n, an = a_n;
-    if (n + 1 < N) {
-      p_n = p[(row + 1) * J + j];
-      u_n = U[(row + 1) * J + j];
-      v_n = V[(row + 1) * J + j];
-      a_n = a[row + 1];
-    }
-    sp[tid] = pj;
-    su[tid] = uj;
-    __syncwarp();
-    const T dwj = d_prev * w_prev;
-    T tmp = T(0);
-#pragma unroll
-    for (int i = 0; i < J; ++i) {
-      // S_half[i][j] = p_i (S[i][j] + d w_i w_j)
-      const T half = sp[base + i] * (s[i] + dwj * sw[base + i]);
-      if (Sh != nullptr && live) Sh[(row * J + i) * J + j] = half;
-      s[i] = half * pj;
-      tmp += s[i] * su[base + i];
-    }
-    T dot = uj * tmp;
-#pragma unroll
-    for (int off = J / 2; off > 0; off /= 2)
-      dot += __shfl_xor_sync(kFullMask, dot, off, J);
-    const T dn = an - dot;
-    const T wn = (vj - tmp) / (dn > T(0) ? dn : T(1));
-    if (live) {
-      W[row * J + j] = wn;
-      if (j == 0) d[row] = dn;
-    }
-    __syncwarp();  // every lane has read this row's sp, su, sw
-    sw[tid] = wn;
-    w_prev = wn;
-    d_prev = dn;
-  }
-}
-
-// ============================================================== sweeps
-//
-// Per row, in the order the rows are walked (ascending for a lower sweep,
-// descending for an upper one):
-//   F_cache[n] = F;  F <- p_n F;  proj = a_n^T F;
-//   z_n = y_n - proj (solve) or proj (matmul);  r = z_n (solve) or y_n;
-//   F <- F + b_n r^T,
-// which is F_n = p_n (F_prev + b_prev r_prev^T) with the feed of row n added
-// as soon as r is known.
-//
-// One thread owns one right-hand side k of one chain and keeps column k of F
-// (J values) in registers; a block serves up to kSweepThreads right-hand
-// sides of one chain.  The block stages p, A, B for a tile of 1024 / J rows
-// in shared memory (coalesced loads, read back as broadcasts), so the global
-// latency is paid once per tile, and each thread loads its next y one row
-// ahead.  Loads and stores of Y, Z and F are coalesced across k.
-template <typename T, int J>
-__global__ void sweep_fwd_kernel(const T* __restrict__ p,
-                                 const T* __restrict__ A,
-                                 const T* __restrict__ B,
-                                 const T* __restrict__ Y, T* __restrict__ Z,
-                                 T* __restrict__ Fc, int N, int K, int KB,
-                                 int is_solve, int upper) {
-  constexpr int kTileRows = kTileElems / J;
-  __shared__ T sp[kTileElems], sa[kTileElems], sb[kTileElems];
-  const int chain = blockIdx.x / KB;
-  const int k = (blockIdx.x % KB) * kSweepThreads + threadIdx.x;
-  const bool live = k < K;
-  const size_t row0 = (size_t)chain * N;
-
-  T F[J];
-#pragma unroll
-  for (int j = 0; j < J; ++j) F[j] = T(0);
-  const int step = upper ? -1 : 1;
-  int n = upper ? N - 1 : 0;
-  T y_next = live ? Y[(row0 + n) * K + k] : T(0);
-
-  for (int q0 = 0; q0 < N; q0 += kTileRows) {
-    const int rows = min(kTileRows, N - q0);
-    const int lo = upper ? N - q0 - rows : q0;  // first row of the tile
-    __syncthreads();  // the previous tile has been consumed
-    const size_t tile0 = (row0 + lo) * J;
-    for (int e = threadIdx.x; e < rows * J; e += kSweepThreads) {
-      sp[e] = p[tile0 + e];
-      sa[e] = A[tile0 + e];
-      sb[e] = B[tile0 + e];
-    }
-    __syncthreads();
-    if (!live) continue;
-    for (int q = 0; q < rows; ++q, n += step) {
-      const int at = (n - lo) * J;
-      const size_t row = row0 + n;
-      const T y = y_next;
-      const int nn = n + step;
-      if (nn >= 0 && nn < N) y_next = Y[(row0 + nn) * K + k];
-      T proj = T(0);
-#pragma unroll
-      for (int j = 0; j < J; ++j) {
-        if (Fc != nullptr) Fc[(row * J + j) * K + k] = F[j];
-        F[j] *= sp[at + j];
-        proj += sa[at + j] * F[j];
-      }
-      const T z = is_solve ? y - proj : proj;
-      Z[row * K + k] = z;
-      const T r = is_solve ? z : y;
-#pragma unroll
-      for (int j = 0; j < J; ++j) F[j] += sb[at + j] * r;
-    }
-  }
-}
-
-// ============================================== the adjoints' tile ring
-//
-// Both adjoints walk N rows with a carry that depends on every row before,
-// and read caches far larger than the carry: S_half (C, N, J, J) for the
-// factor's, F (C, N, J, K) for the sweep's.  Their blocks split the work by
-// warp, so that the carry's dependent chain waits on nothing else:
+// The four row kernels (the factor, the sweeps and their adjoints) walk N
+// rows with a carry that depends on every row before; their inputs and
+// outputs, the caches S_half (C, N, J, J) and F (C, N, J, K) above all, are
+// far larger than the carry.  Their blocks split the work by warp, so that
+// the carry's dependent chain waits on nothing else:
 //   warp 0, the producer, keeps kRingStages tiles of rows in flight into a
 //     ring of slots in dynamic shared memory, in the order the rows are
 //     walked.  A tile that is contiguous in device memory and starts on a
@@ -275,8 +121,8 @@ __host__ __device__ constexpr int ring_threads(int NC, int chains) {
 constexpr size_t kRingBudget = 96 * 1024;
 constexpr int kMinTileRows = 4;
 constexpr int kMaxTileRows = 128;
-// right-hand sides per block of the sweep adjoint (one carry warp)
-constexpr int kSweepBwdSlice = 32;
+// right-hand sides per block of a sweep and of its adjoint (one carry warp)
+constexpr int kSweepSlice = 32;
 
 __device__ __forceinline__ uint32_t smem_addr(const void* ptr) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
@@ -639,6 +485,539 @@ int ring_plan(long long C, int max_chains, Size size,
   return best_waves < 0 ? -1 : 0;
 }
 
+// the reciprocal of a pivot: the hardware's approximation and Newton steps
+// to the last bit or so (two for float64, one for float32), a few dependent
+// multiply-adds where a division is a longer sequence with a branch
+__device__ __forceinline__ double recip(double x) {
+  double r;
+  asm("rcp.approx.ftz.f64 %0, %1;" : "=d"(r) : "d"(x));
+  double e = fma(-x, r, 1.0);
+  r = fma(r, e, r);
+  e = fma(-x, r, 1.0);
+  return fma(r, e, r);
+}
+__device__ __forceinline__ float recip(float x) {
+  float r;
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(x));
+  return fmaf(r, fmaf(-x, r, 1.0f), r);
+}
+
+// the sum over the J lanes of a chain (every lane gets the same bits)
+template <int J, typename T>
+__device__ __forceinline__ T lane_sum(T x, unsigned mask) {
+#pragma unroll
+  for (int off = J / 2; off > 0; off /= 2)
+    x += __shfl_xor_sync(mask, x, off, J);
+  return x;
+}
+
+// ============================================================= factor
+//
+// S <- p (S + d w w^T) p,  d_n = a_n - u^T S u,  w_n = (v - S u) / d_n,
+// with the pivot guarded (w divides by 1 where d <= 0; d is stored as
+// computed).  Written with x = p_n o u_n and C the carry after row n - 1's
+// update (zero before row 0), row n is
+//   c = w_{n-1} . x;  e = d_{n-1} c
+//   d_n = a_n - x^T C x - e c;  S u = p_n o (C x + e w_{n-1})
+//   C <- diag(p_n) (C + d_{n-1} w_{n-1} w_{n-1}^T) diag(p_n),
+// where S_half_n (the cache the adjoint reads) is the carry after the
+// rank-one update and the first transport.  C x and x^T C x do not depend
+// on w_{n-1}, so the carry works them out one row ahead: what is left on
+// the dependent chain of a row is the two sums over the chain's lanes,
+// w_{n-1} . x and x^T C x, side by side (log2 J shuffles each), two
+// multiply-adds, the pivot's reciprocal and a multiply, while the update
+// of C, S_half and the next row's C x run beside it.
+//
+// What bounds it on this card is that row step, N times over: one warp
+// issuing, in order, the chain's shuffles, reciprocal and multiply-adds
+// beside the update's float64 instructions (H100, N = 1e5, J = 8: 0.18 us
+// a row, 0.19 with the cache; the parent of this design, which walked the
+// update and S u on the chain, read p, u, v and the previous w one value a
+// load and fetched a row ahead from device memory, took 0.42 and 0.56;
+// variants that summed w_n . x_{n+1} beside the reciprocal, or spread a
+// column over several lanes, were slower at one chain; PERF.md,
+// Findings).  The block is the ring above: the producer streams p, U, V and a in tiles of rows; each
+// chain's carry warp has J lanes, lane j keeping column j of the symmetric
+// C in registers, reading the rows 16 bytes at a time and gathering w
+// through shared memory (one store and one read of the row, off the
+// chain); it leaves w, d and, with the cache, lane j's column of S_half in
+// the output tile, and the epilogue stores them by tiles.  The carry's
+// arithmetic does not depend on whether the cache is stored.
+template <typename T, int J>
+struct FactorFwdSmem {
+  // row stride of the S_half tile (lane j's column of a row): J values and
+  // 16 bytes, so that each lane's row is 16-byte aligned and the lanes'
+  // rows fall in other banks
+  static constexpr int kSnap = J + 16 / sizeof(T);
+  // a chain's part of a slot: p, U, V (rows x J), a (rows)
+  unsigned p, u, v, a, slot;
+  // a chain's part of an output tile: W (rows x J), d (rows), and with the
+  // cache S_half (rows x J x kSnap)
+  unsigned w, d, sh, out;
+  unsigned ring, wbuf, outs, bytes;
+  // per chain, w of two rows
+  static constexpr unsigned kWbuf = (2 * J * sizeof(T) + 15u) & ~15u;
+  // R rows per tile, ``chains`` chains per block
+  __host__ __device__ FactorFwdSmem(int R, int chains, bool cache) {
+    const unsigned row = R * J * sizeof(T);
+    Carve c;
+    p = c.take(row);
+    u = c.take(row);
+    v = c.take(row);
+    a = c.take(R * sizeof(T));
+    slot = c.end();
+    Carve o;
+    w = o.take(row);
+    d = o.take(R * sizeof(T));
+    sh = o.take(cache ? R * J * kSnap * sizeof(T) : 0);
+    out = o.end();
+    ring = (sizeof(RingBars) + 15u) & ~15u;
+    wbuf = ring + kRingStages * chains * slot;
+    outs = wbuf + chains * kWbuf;
+    bytes = outs + 2 * chains * out;
+  }
+  // per chain and row
+  static size_t bytes_per_row(bool cache) {
+    return (kRingStages * (3 * J + 1) + 2 * (J + 1 + (cache ? J * kSnap : 0))) *
+           sizeof(T);
+  }
+};
+
+// (one block a multiprocessor at least: without it ptxas held the float64
+// J = 32 instantiation of four chains to 128 registers, and spilled)
+template <typename T, int J, int NC>
+__global__ void __launch_bounds__(ring_threads(NC, NC), 1)
+    factor_fwd_kernel(const T* __restrict__ p, const T* __restrict__ a,
+                      const T* __restrict__ U, const T* __restrict__ V,
+                      T* __restrict__ d, T* __restrict__ W, T* __restrict__ Sh,
+                      int C, int N, int R, int chains_) {
+  constexpr int SN = FactorFwdSmem<T, J>::kSnap;
+  // values of a row the carry lane holds at once: the whole row, or 16
+  // bytes where four rows would not fit its registers (float64 at J = 32)
+  constexpr int CH = J * sizeof(T) > 128 ? 16 / sizeof(T) : J;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int chains = NC == 1 ? 1 : chains_;  // of this launch's blocks
+  const int c0 = blockIdx.x * chains;
+  const int live = min(chains, C - c0);  // this block's chains
+  const bool cache = Sh != nullptr;
+  const FactorFwdSmem<T, J> L(R, chains, cache);
+  RingBars* bars = reinterpret_cast<RingBars*>(smem);
+  // chain g's piece of ring slot s, of output tile o
+  auto in = [&](int s, int g, unsigned piece) {
+    return reinterpret_cast<T*>(smem + L.ring + (s * chains + g) * L.slot +
+                                piece);
+  };
+  auto out = [&](int o, int g, unsigned piece) {
+    return reinterpret_cast<T*>(smem + L.outs + (o * chains + g) * L.out +
+                                piece);
+  };
+  const int tiles = (N + R - 1) / R;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x & 31;
+  constexpr int ET = 32 * epilogue_warps(NC);  // the epilogue's threads
+  ring_init(bars, live, ET / 32);
+
+  if (warp == 0) {  // ----------------------------------------- producer
+    for (int t = 0; t < tiles; ++t) {
+      const int lo = t * R, rows = min(R, N - lo);
+      const int s = t % kRingStages;
+      ring_wait_empty(bars, t);
+      fill_slot<T>(
+          [&](auto&& piece) {
+            for (int g = 0; g < live; ++g) {
+              const size_t first = (size_t)(c0 + g) * N + lo;
+              piece(in(s, g, L.p), p + first * J, rows * J);
+              piece(in(s, g, L.u), U + first * J, rows * J);
+              piece(in(s, g, L.v), V + first * J, rows * J);
+              piece(in(s, g, L.a), a + first, rows);
+            }
+          },
+          &bars->full[s], lane);
+    }
+  } else if (warp <= chains) {  // --------------------------- carry of chain g
+    const int g = warp - 1;
+    if (g >= live || lane >= J) return;
+    constexpr unsigned mask = J == 32 ? kFullMask : (1u << J) - 1u;
+    const int j = lane;
+    T* const wbuf = reinterpret_cast<T*>(smem + L.wbuf + g * L.kWbuf);
+    wbuf[j] = T(0);  // w before row 0
+    // the walk, with the stores of S_half or without (the same arithmetic)
+    auto walk = [&](auto with_cache) {
+      constexpr bool kCache = decltype(with_cache)::value;
+      int parity = 0;
+      T Cj[J];  // column (and row) j of the carry C
+#pragma unroll
+      for (int i = 0; i < J; ++i) Cj[i] = T(0);
+      // this lane's w_{n-1, j}, d_{n-1}, x_{n, j}, (C x_n)_j and x_{n, j}
+      // (C x_n)_j, whose sum over the lanes is x_n^T C x_n
+      T w_prev = T(0), d_prev = T(0), xj = T(0), cx = T(0), xcxj = T(0);
+      for (int t = 0; t < tiles; ++t) {
+        const int lo = t * R, rows = min(R, N - lo);
+        const int s = t % kRingStages, o = t & 1;
+        ring_wait_full(bars, t, false);
+        // the last row of a tile works ahead on the first of the next
+        if (t + 1 < tiles) ring_wait_full(bars, t + 1, false);
+        if (t >= 2) mbar_wait(&bars->out_empty[o], ((t >> 1) & 1) ^ 1);
+        const T* tp = in(s, g, L.p);
+        const T* tu = in(s, g, L.u);
+        const T* tv = in(s, g, L.v);
+        const T* ta = in(s, g, L.a);
+        // the next tile's first p and u row (past the last tile, this
+        // tile's last again: what the last row works out from them is not
+        // used)
+        const int s1 = (t + 1) % kRingStages;
+        const T* np = t + 1 < tiles ? in(s1, g, L.p) : tp + (rows - 1) * J;
+        const T* nu = t + 1 < tiles ? in(s1, g, L.u) : tu + (rows - 1) * J;
+        T* ow = out(o, g, L.w);
+        T* od = out(o, g, L.d);
+        T* osh = out(o, g, L.sh);
+        if (t == 0) xj = tp[j] * tu[j];
+        __syncwarp(mask);  // wbuf's first row is written
+        for (int q = 0; q < rows; ++q) {
+          const bool last = q + 1 == rows;
+          const T* p1 = last ? np : tp + (q + 1) * J;
+          const T* u1 = last ? nu : tu + (q + 1) * J;
+          const T* pr = tp + q * J;
+          const T pj = pr[j];
+          // the chain: w_n from w_{n-1}, its two sums over the lanes side
+          // by side
+          const T c = lane_sum<J>(w_prev * xj, mask);
+          const T xcx = lane_sum<J>(xcxj, mask);
+          const T e = d_prev * c;
+          const T dn = (ta[q] - xcx) - e * c;
+          const T su = pj * (cx + e * w_prev);
+          const T wn = (tv[q * J + j] - su) * recip(dn > T(0) ? dn : T(1));
+          // beside it: C's update with w_{n-1} (gathered) and p_n, S_half,
+          // and C x_{n+1}
+          const T* wr = wbuf + parity * J;
+          const T dwj = d_prev * w_prev;
+          T acc0 = T(0), acc1 = T(0);
+#pragma unroll
+          for (int cb = 0; cb < J; cb += CH) {
+            T wc[CH], pc[CH], p1c[CH], u1c[CH], half[CH];
+            load_row(wc, wr + cb);
+            load_row(pc, pr + cb);
+            load_row(p1c, p1 + cb);
+            load_row(u1c, u1 + cb);
+#pragma unroll
+            for (int i = 0; i < CH; ++i) {
+              // S_half[n][i][j] = p_i (C[i][j] + d w_i w_j)
+              half[i] = pc[i] * (Cj[cb + i] + dwj * wc[i]);
+              Cj[cb + i] = half[i] * pj;
+              (i & 1 ? acc1 : acc0) += Cj[cb + i] * (p1c[i] * u1c[i]);
+            }
+            if constexpr (kCache) store_row(osh + (q * J + j) * SN + cb, half);
+          }
+          cx = acc0 + acc1;
+          xj = p1[j] * u1[j];
+          xcxj = xj * cx;
+          // w_n for the next row's update, and the row's outputs
+          wbuf[(parity ^ 1) * J + j] = wn;
+          ow[q * J + j] = wn;
+          if (j == 0) od[q] = dn;
+          __syncwarp(mask);
+          parity ^= 1;
+          w_prev = wn;
+          d_prev = dn;
+        }
+        if (j == 0) mbar_arrive(&bars->out_full[o]);
+      }
+    };
+    if (cache)
+      walk(std::true_type{});
+    else
+      walk(std::false_type{});
+  } else {  // ------------------------------------------------- epilogue
+    const int e = threadIdx.x - 32 * (1 + chains);
+    for (int t = 0; t < tiles; ++t) {
+      const int lo = t * R, rows = min(R, N - lo);
+      const int s = t % kRingStages, o = t & 1;
+      mbar_wait_idle(&bars->out_full[o], (t >> 1) & 1);
+      for (int g = 0; g < live; ++g) {
+        const size_t first = (size_t)(c0 + g) * N + lo;
+        const T* ow = out(o, g, L.w);
+        const T* od = out(o, g, L.d);
+        for (int x = e; x < rows * J; x += ET) W[first * J + x] = ow[x];
+        for (int q = e; q < rows; q += ET) d[first + q] = od[q];
+        if (cache) {
+          // two neighbours in a row of S_half a thread (one 16- or 8-byte
+          // store), from lanes j and j + 1's columns in the tile
+          constexpr int JJ = J * J, P = J > 1 ? 2 : 1;
+          const T* osh = out(o, g, L.sh);
+          for (int x = P * e; x < rows * JJ; x += P * ET) {
+            const int q = x / JJ, i = x % JJ / J, j = x % J;
+            const T* col = osh + (q * J + j) * SN + i;
+            if constexpr (P == 2)
+              store_pair(Sh + first * JJ + x, col[0], col[SN]);
+            else
+              Sh[first * JJ + x] = col[0];
+          }
+        }
+      }
+      epilogue_arrive(&bars->empty[s]);
+      epilogue_arrive(&bars->out_empty[o]);
+    }
+  }
+}
+
+// ============================================================== sweeps
+//
+// Per row, in the order the rows are walked (ascending for a lower sweep,
+// descending for an upper one, with no time flip):
+//   F_cache[n] = F;  F <- p_n F;  proj = a_n^T F;
+//   z_n = y_n - proj (solve) or proj (matmul);  r = z_n (solve) or y_n;
+//   F <- F + b_n r^T,
+// which is F_n = p_n (F_prev + b_prev r_prev^T) with the feed of row n added
+// as soon as r is known.  In a matmul r = y, so the carry does not need z:
+// it is F <- p_n o F + b_n y_n alone, and z_n = a_n . (p_n o F_cache[n])
+// is worked out from the cached F by the epilogue.
+//
+// The carry is independent across the right-hand sides k.  What bounds it
+// on this card is the row step of one right-hand side, N times over (H100,
+// N = 1e5, J = 8, K = 1: 59 ns a row in a solve, 75 with the cache, 47 to
+// 52 in a matmul; the parent of this design, which staged a tile of p, A,
+// B between two block barriers, fetched y a row ahead from device memory,
+// stored Z and F from the carry's thread and computed z in the matmuls
+// too, took 136 to 142, 194 to 200 with the cache; PERF.md, Findings).  So the block is the ring above,
+// as for the sweep adjoint: a block serves a slice of up to kSweepSlice
+// right-hand sides (KB slices per chain) of one chain, or of its chains
+// when a chain has one slice; the producer streams p, A, B and the slice's
+// Y in tiles of rows; each chain's carry warp holds one k per lane, column
+// k of F in registers, reads a row's p, a, b 16 bytes at a time, and
+// leaves F before the row (with the cache, or in a matmul) and, in a
+// solve, z in the output tile; the epilogue stores Z and F by tiles.
+template <typename T, int J>
+struct SweepFwdSmem {
+  static constexpr int kRow = J + 16 / sizeof(T);  // see FactorFwdSmem
+  // a chain's part of a slot: p, A, B (rows x J), Y (rows x KS)
+  unsigned p, a, b, y, slot;
+  // a chain's part of an output tile: F before each row (rows x KS x kRow;
+  // with the cache, or in a matmul), z (rows x KS)
+  unsigned f, z, out;
+  unsigned ring, outs, bytes;
+  // R rows per tile, KS right-hand sides, ``chains`` chains per block;
+  // ``with_f``: F goes through the output tile
+  __host__ __device__ SweepFwdSmem(int R, int KS, int chains, bool with_f) {
+    const unsigned row = R * J * sizeof(T);
+    Carve c;
+    p = c.take(row);
+    a = c.take(row);
+    b = c.take(row);
+    y = c.take(R * KS * sizeof(T));
+    slot = c.end();
+    Carve o;
+    f = o.take(with_f ? R * KS * kRow * sizeof(T) : 0);
+    z = o.take(R * KS * sizeof(T));
+    out = o.end();
+    ring = (sizeof(RingBars) + 15u) & ~15u;
+    outs = ring + kRingStages * chains * slot;
+    bytes = outs + 2 * chains * out;
+  }
+  // per chain and row
+  static size_t bytes_per_row(int KS, bool with_f) {
+    return (kRingStages * (3 * J + KS) + 2 * ((with_f ? kRow * KS : 0) + KS)) *
+           sizeof(T);
+  }
+};
+
+template <typename T, int J, int NC>
+__global__ void __launch_bounds__(ring_threads(NC, NC))
+    sweep_fwd_kernel(const T* __restrict__ p, const T* __restrict__ A,
+                     const T* __restrict__ B, const T* __restrict__ Y,
+                     T* __restrict__ Z, T* __restrict__ Fc, int C, int N,
+                     int K, int KB, int is_solve, int upper, int R,
+                     int chains_) {
+  constexpr int SR = SweepFwdSmem<T, J>::kRow;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int KS = min(K, kSweepSlice);
+  const int chains = NC == 1 ? 1 : chains_;  // of this launch's blocks
+  const int c0 = (blockIdx.x / KB) * chains;
+  const int live = min(chains, C - c0);  // this block's chains
+  const bool cache = Fc != nullptr;
+  const SweepFwdSmem<T, J> L(R, KS, chains, cache || !is_solve);
+  RingBars* bars = reinterpret_cast<RingBars*>(smem);
+  // chain g's piece of ring slot s, of output tile o
+  auto in = [&](int s, int g, unsigned piece) {
+    return reinterpret_cast<T*>(smem + L.ring + (s * chains + g) * L.slot +
+                                piece);
+  };
+  auto out = [&](int o, int g, unsigned piece) {
+    return reinterpret_cast<T*>(smem + L.outs + (o * chains + g) * L.out +
+                                piece);
+  };
+  const int k0 = (blockIdx.x % KB) * KS;
+  const int nk = min(KS, K - k0);  // live right-hand sides of this block
+  // one slice per chain: a tile's Y, Z and F are contiguous
+  const bool whole = KB == 1;
+  const int tiles = (N + R - 1) / R;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x & 31;
+  constexpr int ET = 32 * epilogue_warps(NC);  // the epilogue's threads
+  ring_init(bars, live, ET / 32);
+  // tile t holds rows [lo, lo + rows), walked upwards (lower) or downwards
+  auto tile = [&](int t, int& lo, int& rows) {
+    rows = min(R, N - t * R);
+    lo = upper ? N - t * R - rows : t * R;
+  };
+
+  if (warp == 0) {  // ----------------------------------------- producer
+    for (int t = 0; t < tiles; ++t) {
+      int lo, rows;
+      tile(t, lo, rows);
+      const int s = t % kRingStages;
+      ring_wait_empty(bars, t);
+      if (!whole) {
+        // a slice of k of the block's one chain: strided rows, one
+        // cp.async per element
+        const size_t first = (size_t)c0 * N + lo;
+        T* sy = in(s, 0, L.y);
+        for (int x = lane; x < rows * nk; x += 32) {
+          const int q = x / nk, kk = x - q * nk;
+          cp_async_elem(sy + q * KS + kk, Y + (first + q) * K + k0 + kk);
+        }
+      }
+      fill_slot<T>(
+          [&](auto&& piece) {
+            for (int g = 0; g < live; ++g) {
+              const size_t first = (size_t)(c0 + g) * N + lo;
+              piece(in(s, g, L.p), p + first * J, rows * J);
+              piece(in(s, g, L.a), A + first * J, rows * J);
+              piece(in(s, g, L.b), B + first * J, rows * J);
+              if (whole) piece(in(s, g, L.y), Y + first * K, rows * K);
+            }
+          },
+          &bars->full[s], lane);
+    }
+  } else if (warp <= chains) {  // ---------------------- carry of chain g
+    const int g = warp - 1;
+    if (g >= live || lane >= nk) return;
+    const unsigned mask = nk == 32 ? kFullMask : (1u << nk) - 1u;
+    const int kk = lane;
+    T F[J];  // column k of F
+#pragma unroll
+    for (int j = 0; j < J; ++j) F[j] = T(0);
+    // the walk in a solve or a matmul, storing F before each row or not
+    // (the same arithmetic)
+    auto walk = [&](auto solve, auto store_f) {
+      constexpr bool kSolve = decltype(solve)::value;
+      constexpr bool kStoreF = decltype(store_f)::value;
+      // a solve reads the next row's p, b, a and y into registers before
+      // this row's stores to the output tile, which the compiler would not
+      // move them past, so that their latency stays off its chain (float64
+      // up to J = 8, float32 up to 16; wider rows would not fit the
+      // registers twice).  A matmul's chain, two operations a row, gains
+      // nothing from it (H100: 56 ns a row with it, 43 without).
+      constexpr bool kAhead = kSolve && 3 * J * sizeof(T) <= 192;
+      const int step = upper ? -1 : 1;
+      for (int t = 0; t < tiles; ++t) {
+        int lo, rows;
+        tile(t, lo, rows);
+        const int s = t % kRingStages, o = t & 1;
+        ring_wait_full(bars, t, false);
+        if (t >= 2) mbar_wait(&bars->out_empty[o], ((t >> 1) & 1) ^ 1);
+        const T* tp = in(s, g, L.p);
+        const T* ta = in(s, g, L.a);
+        const T* tb = in(s, g, L.b);
+        const T* ty = in(s, g, L.y);
+        T* of = out(o, g, L.f);
+        T* oz = out(o, g, L.z);
+        auto fetch = [&](int q, T(&p_)[J], T(&b_)[J], T(&a_)[J], T& y_) {
+          load_row(p_, tp + q * J);
+          load_row(b_, tb + q * J);
+          if constexpr (kSolve) load_row(a_, ta + q * J);
+          y_ = ty[q * KS + kk];
+        };
+        // row q: F before it, and the carry's step
+        auto row = [&](int q, const T(&pr)[J], const T(&br)[J],
+                       const T(&ar)[J], T y) {
+          if constexpr (kStoreF) store_row(of + (q * KS + kk) * SR, F);
+          if constexpr (kSolve) {
+#pragma unroll
+            for (int j = 0; j < J; ++j) F[j] *= pr[j];
+            const T z = y - dot2(ar, F);
+#pragma unroll
+            for (int j = 0; j < J; ++j) F[j] += br[j] * z;
+            oz[q * KS + kk] = z;
+          } else {
+#pragma unroll
+            for (int j = 0; j < J; ++j) {
+              F[j] *= pr[j];
+              F[j] += br[j] * y;
+            }
+          }
+        };
+        if constexpr (kAhead) {
+          // two sets of registers in turns: a row's step runs on one while
+          // the next row's inputs are read into the other (past the last
+          // row, a row of the tile again)
+          T p0[J], b0[J], a0[J], y0, p1[J], b1[J], a1[J], y1;
+          int q = upper ? rows - 1 : 0, i = 0;
+          fetch(q, p0, b0, a0, y0);
+          for (; i + 1 < rows; i += 2, q += 2 * step) {
+            fetch(q + step, p1, b1, a1, y1);
+            row(q, p0, b0, a0, y0);
+            fetch(i + 2 < rows ? q + 2 * step : q, p0, b0, a0, y0);
+            row(q + step, p1, b1, a1, y1);
+          }
+          if (i < rows) row(q, p0, b0, a0, y0);
+        } else {
+          for (int i = 0; i < rows; ++i) {
+            const int q = upper ? rows - 1 - i : i;
+            T pr[J], br[J], ar[J], y;
+            fetch(q, pr, br, ar, y);
+            row(q, pr, br, ar, y);
+          }
+        }
+        __syncwarp(mask);
+        if (kk == 0) mbar_arrive(&bars->out_full[o]);
+      }
+    };
+    if (!is_solve)
+      walk(std::false_type{}, std::true_type{});
+    else if (cache)
+      walk(std::true_type{}, std::true_type{});
+    else
+      walk(std::true_type{}, std::false_type{});
+  } else {  // ------------------------------------------------- epilogue
+    const int e = threadIdx.x - 32 * (1 + chains);
+    for (int t = 0; t < tiles; ++t) {
+      int lo, rows;
+      tile(t, lo, rows);
+      const int s = t % kRingStages, o = t & 1;
+      ring_wait_full(bars, t, true);
+      mbar_wait_idle(&bars->out_full[o], (t >> 1) & 1);
+      for (int x = e; x < live * rows * nk; x += ET) {
+        const int g = NC == 1 ? 0 : x / (rows * nk), xr = x - g * rows * nk;
+        const int q = xr / nk, kk = xr - q * nk;
+        T z;
+        if (is_solve) {
+          z = out(o, g, L.z)[q * KS + kk];
+        } else {
+          // a . (p o F before the row), as the carry would have it
+          const T* fq = out(o, g, L.f) + (q * KS + kk) * SR;
+          const T* pq = in(s, g, L.p) + q * J;
+          const T* aq = in(s, g, L.a) + q * J;
+          T z0 = T(0), z1 = T(0);
+#pragma unroll
+          for (int j = 0; j < J; ++j) (j & 1 ? z1 : z0) += aq[j] * (pq[j] * fq[j]);
+          z = z0 + z1;
+        }
+        Z[((size_t)(c0 + g) * N + lo + q) * K + k0 + kk] = z;
+      }
+      if (cache) {
+        for (int x = e; x < live * rows * J * nk; x += ET) {
+          const int g = NC == 1 ? 0 : x / (rows * J * nk),
+                    xr = x - g * rows * J * nk;
+          const int q = xr / (J * nk), rem = xr - q * J * nk;
+          const int j = rem / nk, kk = rem - j * nk;
+          Fc[(((size_t)(c0 + g) * N + lo + q) * J + j) * K + k0 + kk] =
+              out(o, g, L.f)[(q * KS + kk) * SR + j];
+        }
+      }
+      epilogue_arrive(&bars->empty[s]);
+      epilogue_arrive(&bars->out_empty[o]);
+    }
+  }
+}
+
 // ====================================================== factor adjoint
 //
 // The reverse of the factor over the rows, descending
@@ -932,7 +1311,7 @@ __global__ void __launch_bounds__(ring_threads(NC, NC))
 // and bY_n = bz for a solve, dbR for a matmul.
 //
 // The carry is independent across the right-hand sides k: a block serves
-// a slice of up to kSweepBwdSlice of them (KB slices per chain) of one
+// a slice of up to kSweepSlice of them (KB slices per chain) of one
 // chain, or of its chains when a chain has one slice; each chain's carry
 // warp one k per lane, column k of bF in registers.  What
 // bounds it on this card is the row step (H100, N = 1e5, J = 8, K = 1:
@@ -944,7 +1323,7 @@ __global__ void __launch_bounds__(ring_threads(NC, NC))
 // bY) in the output tile.  The epilogue computes bB, bA and bp from that
 // tile and the ring's F and R, sums them over the slice's k in shared
 // memory, and stores them by tiles; only with more than one slice per
-// chain (K > kSweepBwdSlice) does it add into the outputs, which the
+// chain (K > kSweepSlice) does it add into the outputs, which the
 // launch zeroes first, with atomicAdd, whose order varies from run to run
 // in the last bits.  Nothing of size (C, N, J, K) is allocated.
 template <typename T, int J>
@@ -995,7 +1374,7 @@ __global__ void __launch_bounds__(ring_threads(NC, NC))
                      int chains_) {
   constexpr int SR = SweepBwdSmem<T, J>::kRow;
   extern __shared__ __align__(16) unsigned char smem[];
-  const int KS = min(K, kSweepBwdSlice);
+  const int KS = min(K, kSweepSlice);
   const int chains = NC == 1 ? 1 : chains_;  // of this launch's blocks
   const int c0 = (blockIdx.x / KB) * chains;
   const int live = min(chains, C - c0);  // this block's chains
@@ -1233,14 +1612,41 @@ __global__ void affine_prefix_kernel(const T* __restrict__ phi,
 // ------------------------------------------------------------ launchers
 
 template <typename T, int J>
-int launch_factor_j(const void* p, const void* a, const void* U, const void* V,
-                    void* d, void* W, void* Sh, int C, int N, cudaStream_t s) {
-  const long long lanes = (long long)C * J;
-  const unsigned grid =
-      (unsigned)((lanes + kFactorThreads - 1) / kFactorThreads);
-  factor_fwd_kernel<T, J><<<grid, kFactorThreads, 0, s>>>(
-      (const T*)p, (const T*)a, (const T*)U, (const T*)V, (T*)d, (T*)W, (T*)Sh,
-      C, N);
+using FactorFwdKernel = decltype(&factor_fwd_kernel<T, J, 1>);
+
+// the factor's ring for C chains, with or without the cache
+template <typename T, int J>
+int factor_fwd_plan(long long C, bool cache,
+                    RingPlan<FactorFwdKernel<T, J>>* plan) {
+  static size_t allowed[2] = {0, 0};  // of the two instantiations
+  return ring_plan(
+      C, kMaxRingChains,
+      [cache](int chains) {
+        const int NC = chains == 1 ? 1 : kMaxRingChains;
+        RingPlan<FactorFwdKernel<T, J>> x;
+        x.kernel = NC == 1 ? factor_fwd_kernel<T, J, 1>
+                           : factor_fwd_kernel<T, J, kMaxRingChains>;
+        x.rows = tile_rows(chains * FactorFwdSmem<T, J>::bytes_per_row(cache));
+        x.chains = chains;
+        x.threads = ring_threads(NC, chains);
+        x.bytes = FactorFwdSmem<T, J>(x.rows, chains, cache).bytes;
+        x.allowed = &allowed[NC != 1];
+        return x;
+      },
+      plan);
+}
+
+template <typename T, int J>
+int launch_factor_fwd_j(const void* p, const void* a, const void* U,
+                        const void* V, void* d, void* W, void* Sh, int C,
+                        int N, cudaStream_t s) {
+  RingPlan<FactorFwdKernel<T, J>> plan;
+  const int rc = factor_fwd_plan<T, J>(C, Sh != nullptr, &plan);
+  if (rc != 0) return rc;
+  const unsigned grid = (unsigned)((C + plan.chains - 1) / plan.chains);
+  plan.kernel<<<grid, plan.threads, plan.bytes, s>>>(
+      (const T*)p, (const T*)a, (const T*)U, (const T*)V, (T*)d, (T*)W,
+      (T*)Sh, C, N, plan.rows, plan.chains);
   return (int)cudaGetLastError();
 }
 
@@ -1248,26 +1654,64 @@ template <typename T>
 int launch_factor_fwd(int J, const void* p, const void* a, const void* U,
                       const void* V, void* d, void* W, void* Sh, int C, int N,
                       cudaStream_t s) {
+#define C2T_FACTOR_FWD(JJ) \
+  case JJ:                 \
+    return launch_factor_fwd_j<T, JJ>(p, a, U, V, d, W, Sh, C, N, s)
   switch (J) {
-    case 1: return launch_factor_j<T, 1>(p, a, U, V, d, W, Sh, C, N, s);
-    case 2: return launch_factor_j<T, 2>(p, a, U, V, d, W, Sh, C, N, s);
-    case 4: return launch_factor_j<T, 4>(p, a, U, V, d, W, Sh, C, N, s);
-    case 8: return launch_factor_j<T, 8>(p, a, U, V, d, W, Sh, C, N, s);
-    case 16: return launch_factor_j<T, 16>(p, a, U, V, d, W, Sh, C, N, s);
-    case 32: return launch_factor_j<T, 32>(p, a, U, V, d, W, Sh, C, N, s);
-    default: return -1;
+    C2T_FACTOR_FWD(1);
+    C2T_FACTOR_FWD(2);
+    C2T_FACTOR_FWD(4);
+    C2T_FACTOR_FWD(8);
+    C2T_FACTOR_FWD(16);
+    C2T_FACTOR_FWD(32);
+    default:
+      return -1;
   }
+#undef C2T_FACTOR_FWD
 }
 
 template <typename T, int J>
-int launch_sweep_j(const void* p, const void* A, const void* B, const void* Y,
-                   void* Z, void* Fc, int C, int N, int K, int is_solve,
-                   int upper, cudaStream_t s) {
-  const int KB = (K + kSweepThreads - 1) / kSweepThreads;
-  const unsigned grid = (unsigned)((long long)C * KB);
-  sweep_fwd_kernel<T, J><<<grid, kSweepThreads, 0, s>>>(
-      (const T*)p, (const T*)A, (const T*)B, (const T*)Y, (T*)Z, (T*)Fc, N, K,
-      KB, is_solve, upper);
+using SweepFwdKernel = decltype(&sweep_fwd_kernel<T, J, 1>);
+
+// the sweep's ring for C chains of K right-hand sides; ``with_f``: F goes
+// through the output tile (with the cache, or in a matmul)
+template <typename T, int J>
+int sweep_fwd_plan(long long C, int K, bool with_f,
+                   RingPlan<SweepFwdKernel<T, J>>* plan) {
+  static size_t allowed[2] = {0, 0};  // of the two instantiations
+  const int KS = std::min(K, kSweepSlice);
+  const long long KB = (K + kSweepSlice - 1) / kSweepSlice;
+  return ring_plan(
+      C * KB, KB == 1 ? kMaxRingChains : 1,
+      [KS, with_f](int chains) {
+        const int NC = chains == 1 ? 1 : kMaxRingChains;
+        RingPlan<SweepFwdKernel<T, J>> x;
+        x.kernel = NC == 1 ? sweep_fwd_kernel<T, J, 1>
+                           : sweep_fwd_kernel<T, J, kMaxRingChains>;
+        x.rows = tile_rows(chains *
+                           SweepFwdSmem<T, J>::bytes_per_row(KS, with_f));
+        x.chains = chains;
+        x.threads = ring_threads(NC, chains);
+        x.bytes = SweepFwdSmem<T, J>(x.rows, KS, chains, with_f).bytes;
+        x.allowed = &allowed[NC != 1];
+        return x;
+      },
+      plan);
+}
+
+template <typename T, int J>
+int launch_sweep_fwd_j(const void* p, const void* A, const void* B,
+                       const void* Y, void* Z, void* Fc, int C, int N, int K,
+                       int is_solve, int upper, cudaStream_t s) {
+  const int KB = (K + kSweepSlice - 1) / kSweepSlice;
+  RingPlan<SweepFwdKernel<T, J>> plan;
+  const int rc =
+      sweep_fwd_plan<T, J>(C, K, Fc != nullptr || !is_solve, &plan);
+  if (rc != 0) return rc;
+  const long long blocks = (C + plan.chains - 1) / plan.chains * (long long)KB;
+  plan.kernel<<<(unsigned)blocks, plan.threads, plan.bytes, s>>>(
+      (const T*)p, (const T*)A, (const T*)B, (const T*)Y, (T*)Z, (T*)Fc, C, N,
+      K, KB, is_solve, upper, plan.rows, plan.chains);
   return (int)cudaGetLastError();
 }
 
@@ -1275,24 +1719,21 @@ template <typename T>
 int launch_sweep_fwd(int J, const void* p, const void* A, const void* B,
                      const void* Y, void* Z, void* Fc, int C, int N, int K,
                      int is_solve, int upper, cudaStream_t s) {
+#define C2T_SWEEP_FWD(JJ)                                                    \
+  case JJ:                                                                   \
+    return launch_sweep_fwd_j<T, JJ>(p, A, B, Y, Z, Fc, C, N, K, is_solve, \
+                                     upper, s)
   switch (J) {
-    case 1:
-      return launch_sweep_j<T, 1>(p, A, B, Y, Z, Fc, C, N, K, is_solve, upper, s);
-    case 2:
-      return launch_sweep_j<T, 2>(p, A, B, Y, Z, Fc, C, N, K, is_solve, upper, s);
-    case 4:
-      return launch_sweep_j<T, 4>(p, A, B, Y, Z, Fc, C, N, K, is_solve, upper, s);
-    case 8:
-      return launch_sweep_j<T, 8>(p, A, B, Y, Z, Fc, C, N, K, is_solve, upper, s);
-    case 16:
-      return launch_sweep_j<T, 16>(p, A, B, Y, Z, Fc, C, N, K, is_solve, upper,
-                                   s);
-    case 32:
-      return launch_sweep_j<T, 32>(p, A, B, Y, Z, Fc, C, N, K, is_solve, upper,
-                                   s);
+    C2T_SWEEP_FWD(1);
+    C2T_SWEEP_FWD(2);
+    C2T_SWEEP_FWD(4);
+    C2T_SWEEP_FWD(8);
+    C2T_SWEEP_FWD(16);
+    C2T_SWEEP_FWD(32);
     default:
       return -1;
   }
+#undef C2T_SWEEP_FWD
 }
 
 template <typename T, int J>
@@ -1364,8 +1805,8 @@ using SweepBwdKernel = decltype(&sweep_bwd_kernel<T, J, 1>);
 template <typename T, int J>
 int sweep_bwd_plan(long long C, int K, RingPlan<SweepBwdKernel<T, J>>* plan) {
   static size_t allowed[2] = {0, 0};  // of the two instantiations
-  const int KS = std::min(K, kSweepBwdSlice);
-  const long long KB = (K + kSweepBwdSlice - 1) / kSweepBwdSlice;
+  const int KS = std::min(K, kSweepSlice);
+  const long long KB = (K + kSweepSlice - 1) / kSweepSlice;
   return ring_plan(
       C * KB, KB == 1 ? kMaxRingChains : 1,
       [KS](int chains) {
@@ -1388,7 +1829,7 @@ int launch_sweep_bwd_j(const void* p, const void* A, const void* B,
                        const void* R, const void* Fc, const void* bZ, void* bA,
                        void* bB, void* bp, void* bY, int C, int N, int K,
                        int is_solve, int upper, cudaStream_t s) {
-  const int KB = (K + kSweepBwdSlice - 1) / kSweepBwdSlice;
+  const int KB = (K + kSweepSlice - 1) / kSweepSlice;
   RingPlan<SweepBwdKernel<T, J>> plan;
   int rc = sweep_bwd_plan<T, J>(C, K, &plan);
   // with more than one slice per chain the blocks add into the sums
@@ -1426,32 +1867,57 @@ int launch_sweep_bwd(int J, const void* p, const void* A, const void* B,
 #undef C2T_SWEEP_BWD
 }
 
-// the adjoints' rings for C chains (rows per tile, chains per block and
-// shared memory; rows 0 for a width that is not built, below 0 for an error)
+// The rings' plans for C chains: rows per tile, chains per block and shared
+// memory of ``kernel`` (0 factor_fwd, 1 sweep_fwd, 2 factor_bwd, 3
+// sweep_bwd) at K right-hand sides; ``with_out``: the forward's optional
+// output tile (the factor's cache; F of a sweep, with its cache or in a
+// matmul).  Rows 0 for a width or kernel that is not built, below 0 for an
+// error.
 template <typename T, int J>
-int adjoint_ring_j(int K, int C, int is_sweep, int* chains, long long* bytes) {
-  RingPlan<SweepBwdKernel<T, J>> sweep;
-  RingPlan<FactorBwdKernel<T, J>> factor;
-  const int rc = is_sweep ? sweep_bwd_plan<T, J>(C, K, &sweep)
-                          : factor_bwd_plan<T, J>(C, &factor);
+int ring_j(int kernel, int K, int C, int with_out, int* chains,
+           long long* bytes) {
+  int rc = -1, rows = 0, n = 0;
+  size_t b = 0;
+  auto take = [&](const auto& plan) {
+    rows = plan.rows;
+    n = plan.chains;
+    b = plan.bytes;
+  };
+  if (kernel == 0) {
+    RingPlan<FactorFwdKernel<T, J>> x;
+    rc = factor_fwd_plan<T, J>(C, with_out != 0, &x);
+    take(x);
+  } else if (kernel == 1) {
+    RingPlan<SweepFwdKernel<T, J>> x;
+    rc = sweep_fwd_plan<T, J>(C, K, with_out != 0, &x);
+    take(x);
+  } else if (kernel == 2) {
+    RingPlan<FactorBwdKernel<T, J>> x;
+    rc = factor_bwd_plan<T, J>(C, &x);
+    take(x);
+  } else if (kernel == 3) {
+    RingPlan<SweepBwdKernel<T, J>> x;
+    rc = sweep_bwd_plan<T, J>(C, K, &x);
+    take(x);
+  } else {
+    return 0;
+  }
   if (rc != 0) return rc > 0 ? -rc : rc;
-  const int rows = is_sweep ? sweep.rows : factor.rows;
-  if (chains != nullptr) *chains = is_sweep ? sweep.chains : factor.chains;
-  if (bytes != nullptr)
-    *bytes = (long long)(is_sweep ? sweep.bytes : factor.bytes);
+  if (chains != nullptr) *chains = n;
+  if (bytes != nullptr) *bytes = (long long)b;
   return rows;
 }
 
 template <typename T>
-int adjoint_ring(int J, int K, int C, int is_sweep, int* chains,
-                 long long* bytes) {
+int ring(int J, int kernel, int K, int C, int with_out, int* chains,
+         long long* bytes) {
   switch (J) {
-    case 1: return adjoint_ring_j<T, 1>(K, C, is_sweep, chains, bytes);
-    case 2: return adjoint_ring_j<T, 2>(K, C, is_sweep, chains, bytes);
-    case 4: return adjoint_ring_j<T, 4>(K, C, is_sweep, chains, bytes);
-    case 8: return adjoint_ring_j<T, 8>(K, C, is_sweep, chains, bytes);
-    case 16: return adjoint_ring_j<T, 16>(K, C, is_sweep, chains, bytes);
-    case 32: return adjoint_ring_j<T, 32>(K, C, is_sweep, chains, bytes);
+    case 1: return ring_j<T, 1>(kernel, K, C, with_out, chains, bytes);
+    case 2: return ring_j<T, 2>(kernel, K, C, with_out, chains, bytes);
+    case 4: return ring_j<T, 4>(kernel, K, C, with_out, chains, bytes);
+    case 8: return ring_j<T, 8>(kernel, K, C, with_out, chains, bytes);
+    case 16: return ring_j<T, 16>(kernel, K, C, with_out, chains, bytes);
+    case 32: return ring_j<T, 32>(kernel, K, C, with_out, chains, bytes);
     default: return 0;
   }
 }
@@ -1480,11 +1946,13 @@ int launch_affine_prefix(const void* phi, const void* G, const void* carry,
 // contiguous device arrays of the scalar type given by ``is_double``.  The
 // forward's cache pointers ``Sh`` and ``Fc`` may be null: the cache is then
 // not written.  The adjoints read the caches.  C, N, K >= 1.
-// c2t_adjoint_ring gives the rows per tile of the factor adjoint's
-// (``is_sweep`` 0) or the sweep adjoint's ring for C chains of width J and
-// K right-hand sides, with its chains per block in ``chains`` and its
-// launch's dynamic shared memory in ``bytes`` (either may be null); 0 for a
-// width that is not built, below 0 for a CUDA error.
+// c2t_ring gives the rows per tile of the ring of a row kernel (``kernel``
+// 0 factor_fwd, 1 sweep_fwd, 2 factor_bwd, 3 sweep_bwd) for C chains of
+// width J and K right-hand sides, with (``with_out`` 1) or without the
+// forward's optional output tile (the factor's cache; F of a sweep, with
+// its cache or in a matmul), with its chains per block in ``chains`` and
+// its launch's dynamic shared memory in ``bytes`` (either may be null); 0
+// for a width that is not built, below 0 for a CUDA error.
 // c2t_affine_prefix takes any J >= 1 and blocks of L >= 1 rows; ``carry``,
 // ``F``, ``tot_a`` and ``tot_b`` may be null as its kernel describes.
 
@@ -1532,10 +2000,10 @@ int c2t_sweep_bwd(int is_double, int J, const void* p, const void* A,
                                              bY, C, N, K, is_solve, upper, s);
 }
 
-int c2t_adjoint_ring(int is_double, int J, int K, int C, int is_sweep,
-                     int* chains, long long* bytes) {
-  return is_double ? adjoint_ring<double>(J, K, C, is_sweep, chains, bytes)
-                   : adjoint_ring<float>(J, K, C, is_sweep, chains, bytes);
+int c2t_ring(int is_double, int J, int kernel, int K, int C, int with_out,
+             int* chains, long long* bytes) {
+  return is_double ? ring<double>(J, kernel, K, C, with_out, chains, bytes)
+                   : ring<float>(J, kernel, K, C, with_out, chains, bytes);
 }
 
 int c2t_affine_prefix(int is_double, int J, const void* phi, const void* G,

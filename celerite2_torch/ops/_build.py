@@ -38,7 +38,7 @@ __all__ = [
     "sweep_fwd_cuda",
     "factor_bwd_cuda",
     "sweep_bwd_cuda",
-    "adjoint_ring",
+    "ring",
     "affine_prefix_cuda",
     "riccati_prefix_cuda",
     "kalman_prefix_cuda",
@@ -186,9 +186,9 @@ def _library():
         lib.c2t_factor_bwd.restype = I
         lib.c2t_sweep_bwd.argtypes = [I, I] + [P] * 10 + [I] * 5 + [P]
         lib.c2t_sweep_bwd.restype = I
-        # (is_double, J, K, C, is_sweep, chains, bytes)
-        lib.c2t_adjoint_ring.argtypes = [I] * 5 + [P] * 2
-        lib.c2t_adjoint_ring.restype = I
+        # (is_double, J, kernel, K, C, with_out, chains, bytes)
+        lib.c2t_ring.argtypes = [I] * 6 + [P] * 2
+        lib.c2t_ring.restype = I
         # (is_double, J, phi, G, carry, F, tot_a, tot_b, C, M, K, L, reverse,
         #  stream)
         lib.c2t_affine_prefix.argtypes = [I, I] + [P] * 6 + [I] * 5 + [P]
@@ -404,19 +404,29 @@ def factor_bwd_cuda(p, d, U, W, S_half, bd, bW):
     return outs
 
 
-def adjoint_ring(dtype, J, K=1, C=1, sweep=False):
+# the row kernels built on the tile ring, in the order c2t_ring numbers them
+RING_KERNELS = ("factor_fwd", "sweep_fwd", "factor_bwd", "sweep_bwd")
+
+
+def ring(name, dtype, J, K=1, C=1, cache=False, is_solve=True):
     """``(rows per tile, chains per block, bytes of shared memory)`` of the
-    ring of ``factor_bwd`` (or, with ``sweep``, ``sweep_bwd`` at K
-    right-hand sides) for C chains of ``dtype`` at width J, as the built
-    library plans it on the current card."""
+    ring of the row kernel ``name`` (one of :data:`RING_KERNELS`) for C
+    chains of ``dtype`` at width J and K right-hand sides (the sweeps), as
+    the built library plans it on the current card.  The forward kernels'
+    plans depend on their optional output tile: ``factor_fwd``'s cache, and
+    ``sweep_fwd``'s F, which goes through it with the cache or in a matmul
+    (``is_solve`` False)."""
+    if name not in RING_KERNELS:
+        raise ValueError(f"ring: {name!r} is not one of {RING_KERNELS}")
+    with_out = cache or (name == "sweep_fwd" and not is_solve)
     chains, nbytes = ctypes.c_int(0), ctypes.c_longlong(0)
-    rows = _library().c2t_adjoint_ring(
-        int(dtype == torch.float64), J, K, C, int(sweep), ctypes.byref(chains),
-        ctypes.byref(nbytes))
+    rows = _library().c2t_ring(
+        int(dtype == torch.float64), J, RING_KERNELS.index(name), K, C,
+        int(with_out), ctypes.byref(chains), ctypes.byref(nbytes))
     if rows == 0:
-        raise NotImplementedError(f"adjoint rings: no width J = {J}")
+        raise NotImplementedError(f"rings: no width J = {J}")
     if rows < 0:
-        raise RuntimeError(f"adjoint rings: CUDA error {-rows}")
+        raise RuntimeError(f"rings: CUDA error {-rows}")
     return rows, chains.value, nbytes.value
 
 

@@ -462,14 +462,59 @@ def timed_plain(fn):
     return out, 1e3 * (time.perf_counter() - start)
 
 
+def forward_checks(system, nonpositive=False):
+    """(name, kernel outputs, plain outputs) of factor_fwd and sweep_fwd in
+    its four modes on ``system`` (``wide_system``'s tuple), caches
+    included; the sweeps take the plain version's W.  Without the caches
+    the kernels must give the same bits (d, W, Z).  With ``nonpositive``
+    two pivots are made d <= 0 (a = 0 at row 7, a = -1 at row 100), which
+    both versions divide by 1."""
+    t, c, a, U, V, Y = system
+    if nonpositive:
+        a = a.clone()
+        a[:, 7] = 0.0
+        a[:, 100] = -1.0
+    fin = (scan.transport(t, c), a, U, V)
+    want = scan.factor_fwd_plain(*fin)
+    if nonpositive:
+        assert (want[0] <= 0).any()
+    got = _build.factor_fwd_cuda(*fin, want_cache=True)
+    d, W, none = _build.factor_fwd_cuda(*fin)
+    assert none is None and torch.equal(d, got[0]) and torch.equal(W, got[1])
+    checks = [("factor_fwd", got, want)]
+    for mode, (is_solve, upper) in MODES.items():
+        sin = (*sweep_args(mode, t, c, U, V, want[1]), Y)
+        got = _build.sweep_fwd_cuda(*sin, is_solve, upper, True)
+        Z, none = _build.sweep_fwd_cuda(*sin, is_solve, upper)
+        assert none is None and torch.equal(Z, got[0]), mode
+        checks.append(("sweep_fwd", got, scan.sweep_fwd_plain(
+            *sin, is_solve=is_solve, upper=upper)))
+    return checks
+
+
+def ring_line(name, J, K=1, C=1, **kw):
+    """A ring's plan as text: float64 and float32 rows per tile, chains per
+    block and shared memory."""
+    opts = "".join(f" {k}={v}" for k, v in kw.items())
+    return f"{name}{opts} K = {K}, C = {C}: " + ", ".join(
+        "{} {} rows, {} a block, {} B".format(dt, *_build.ring(name, dtype, J, K, C, **kw))
+        for dt, dtype in (("float64", torch.float64), ("float32", torch.float32)))
+
+
 def phase_general_kernels(dev):
     """factor_fwd and sweep_fwd (its four modes) against their plain
     versions on the card, float64, caches included, to 1e-10 relative, at
     C = 8 and at C = 1 as the first of those chains (the plain version runs
-    once on all eight); then their times at N = 1e5, J = 8, at C = 1 and
-    C = 64, and each sweep shape the GP path launches against the plain
-    version at N = 1e5.  The times and bounds reported are those of the
-    call the GP path makes: without the caches."""
+    once on all eight).  Then the edges of their rings of row tiles: N = 1
+    and one row below and past a tile (C = 3; K = 1, 5, 200, 500), 64
+    chains, blocks of several chains (1023 chains, the last block fewer),
+    pivots d <= 0, and chains whose rows start off a 16-byte boundary (odd
+    N at J = 1, 2, in float32 and float64); without the caches d, W and Z
+    are the same bits.  Then their times at N = 1e5, J = 8, at C = 1 and
+    C = 64, and at N = 3e4, C = 1024, with ns per row, and each sweep shape
+    the GP path launches against the plain version at N = 1e5.  The times
+    and bounds reported are those of the call the GP path makes: without
+    the caches."""
     worst = {"factor_fwd": 0.0, "sweep_fwd": 0.0}
     for J in (1, 2, 3, 8, 16, 32):
         for N in (130, 1040, 10_000):
@@ -501,8 +546,67 @@ def phase_general_kernels(dev):
             "3 -> 4, 8, 16, 32; N = 130, 1040, 1e4; C = 8 and 1; K = 1, 5; "
             "caches included)")
 
+    # the rings' edges: rows per tile at each bucket, K, cache and mode
+    edges = {"factor_fwd": 0.0, "sweep_fwd": 0.0}
+    for J in (1, 2, 3, 8, 16, 32):
+        Jb = J if J != 3 else 4
+        for K in (1, 5, 200, 500):
+            rows = {_build.ring("sweep_fwd", torch.float64, Jb, K, cache=cache,
+                                is_solve=solve)[0]
+                    for cache in (False, True) for solve in (False, True)}
+            if K == 1:
+                rows |= {_build.ring("factor_fwd", torch.float64, Jb, cache=cache)[0]
+                         for cache in (False, True)}
+            for N in sorted({1} | {r + e for r in rows for e in (-1, 1)}):
+                system = wide_system(J, N, 3, K, dev, seed=J + K + N)
+                hold_against_plain(forward_checks(system), edges)
+        rings = "; ".join(
+            [ring_line("factor_fwd", Jb, cache=cache) for cache in (False, True)]
+            + [ring_line("sweep_fwd", Jb, K, cache=cache, is_solve=solve)
+               for K, cache, solve in ((1, False, True), (1, True, True),
+                                       (1, False, False), (500, False, True))])
+        log("kernels", f"J = {J}: N = 1 and one row below and past a tile held "
+            f"(K = 1, 5, 200, 500); the forward rings: {rings}")
+    hold_against_plain(forward_checks(wide_system(8, 1040, 64, 1, dev, seed=64)),
+                       edges)
+    plans = ", ".join(
+        f"C = {C}: " + " / ".join(
+            "{1} ({0} rows)".format(*_build.ring(name, torch.float64, 8, 1, C,
+                                                 cache=True))
+            for name in ("factor_fwd", "sweep_fwd"))
+        for C in (1, 264, 265, 300, 528, 529, 792, 793, 1024, 4096))
+    log("kernels", "chains per block (rows per tile) of factor_fwd / sweep_fwd "
+        f"with their caches at J = 8, K = 1, float64: {plans}")
+    # blocks of several chains: 1023 chains (the last block fewer) over two
+    # tiles at J = 2 and 8, K = 1 and 5
+    for J in (2, 8):
+        for K in (1, 5):
+            plans = [_build.ring(name, torch.float64, J, K, 1023, cache=True)
+                     for name in ("factor_fwd", "sweep_fwd")]
+            N = max(r for r, _, _ in plans) + 1
+            system = wide_system(J, N, 1023, K, dev, seed=J * K)
+            hold_against_plain(forward_checks(system), edges)
+            log("kernels", f"J = {J}, K = {K}, C = 1023, N = {N}: chains per "
+                f"block (rows per tile) of factor_fwd, sweep_fwd: "
+                + ", ".join(f"{c} ({r})" for r, c, _ in plans))
+    system = wide_system(8, 1040, 3, 5, dev, seed=5)
+    hold_against_plain(forward_checks(system, nonpositive=True)[:1], edges)
+    worst32 = {"factor_fwd": 0.0, "sweep_fwd": 0.0}
+    for J in (1, 2):
+        for N in (131, 1041):
+            for K in (1, 5):
+                system = wide_system(J, N, 3, K, dev, seed=N + K)
+                checks64 = forward_checks(system)
+                hold_against_plain(checks64, edges)
+                hold_float32(forward_checks(to_float32(system)), checks64, worst32)
+    log("kernels", f"ring edges: worst relative error {edges} (float64: N = 1, "
+        "tile +- 1 row, C = 3, K = 1, 5, 200, 500; C = 64; C = 1023; pivots "
+        f"d <= 0; odd N at J = 1, 2); float32 against the float64 plain version "
+        f"{worst32}; caches on and off the same bits")
+
     # times at the gp path's shapes: N = 1e5, J = 8, K = 1, float64
     main_abs, times = {}, {}
+    per_row = 1e6 / N_MAIN  # ms per launch -> ns per row
     for C in (1, 64):
         t, c, a, U, V, Y = wide_system(8, N_MAIN, C, 1, dev, seed=8)
         p = scan.transport(t, c)
@@ -513,9 +617,12 @@ def phase_general_kernels(dev):
         flops = kernel_flops("factor_fwd", C, N_MAIN, 8)
         bound, by = bound_ms((p, a, U, V, d, W), flops)
         bound_c, _ = bound_ms((p, a, U, V, d, W, S), flops)
-        log("kernels", f"factor_fwd: {ms:.4f} ms (bound {bound:.4f} ms by {by}); "
-            f"with the cache {ms_c:.4f} ms (bound {bound_c:.4f} ms) at N = 1e5, "
-            f"J = 8, C = {C}, float64")
+        log("kernels", f"factor_fwd: {ms:.4f} ms, {ms * per_row:.1f} ns per row "
+            f"(bound {bound:.4f} ms by {by}); with the cache {ms_c:.4f} ms, "
+            f"{ms_c * per_row:.1f} ns per row (bound {bound_c:.4f} ms) at "
+            f"N = 1e5, J = 8, C = {C}, float64; rings: "
+            + "; ".join(ring_line("factor_fwd", 8, C=C, cache=cache)
+                        for cache in (False, True)))
         if C == 1:
             want, plain_ms = timed_plain(lambda: scan.factor_fwd_plain(p, a, U, V))
             log("kernels", f"factor_fwd: plain version {plain_ms:.1f} ms (one run)")
@@ -533,9 +640,10 @@ def phase_general_kernels(dev):
             flops = kernel_flops("sweep_fwd", C, N_MAIN, 8)
             bound, by = bound_ms((ps, A, B, Y, Z), flops)
             bound_c, _ = bound_ms((ps, A, B, Y, Z, F), flops)
-            log("kernels", f"sweep_fwd {mode}: {ms:.4f} ms (bound {bound:.4f} ms by "
-                f"{by}); with the cache {ms_c:.4f} ms (bound {bound_c:.4f} ms) at "
-                f"N = 1e5, J = 8, K = 1, C = {C}, float64")
+            log("kernels", f"sweep_fwd {mode}: {ms:.4f} ms, {ms * per_row:.1f} ns "
+                f"per row (bound {bound:.4f} ms by {by}); with the cache "
+                f"{ms_c:.4f} ms, {ms_c * per_row:.1f} ns per row (bound "
+                f"{bound_c:.4f} ms) at N = 1e5, J = 8, K = 1, C = {C}, float64")
             if C == 1 and mode in ("solve_lower", "solve_upper"):
                 want, plain_ms = timed_plain(lambda: scan.sweep_fwd_plain(
                     ps, A, B, Y, is_solve=True, upper=upper))
@@ -547,7 +655,7 @@ def phase_general_kernels(dev):
                     times["sweep_fwd"] = (ms, plain_ms, bound, by)
         if C == 1:
             # the other shapes the GP path launches: sample's matmul_lower
-            # (K = 4) and the variance's solves on K = 500 columns (four
+            # (K = 4) and the variance's solves on K = 500 columns (sixteen
             # blocks of right-hand sides per chain)
             rng = np.random.default_rng(9)
             for mode, K in (("matmul_lower", 4), ("solve_lower", 500),
@@ -563,10 +671,35 @@ def phase_general_kernels(dev):
                     ps, A, B, YK, is_solve=is_solve, upper=upper))
                 bound, by = bound_ms((ps, A, B, YK, Z),
                                      kernel_flops("sweep_fwd", 1, N_MAIN, 8, K))
-                log("kernels", f"sweep_fwd {mode}, K = {K}: {ms:.4f} ms (bound "
-                    f"{bound:.4f} ms by {by}; plain version {plain_ms:.1f} ms) at "
-                    "N = 1e5, J = 8, C = 1, float64")
+                log("kernels", f"sweep_fwd {mode}, K = {K}: {ms:.4f} ms, "
+                    f"{ms * per_row:.1f} ns per row (bound {bound:.4f} ms by {by}; "
+                    f"plain version {plain_ms:.1f} ms) at N = 1e5, J = 8, C = 1, "
+                    f"float64; ring: " + ring_line("sweep_fwd", 8, K,
+                                                   is_solve=is_solve))
                 held_at_main_shape("sweep_fwd", (Z,), (want,), f"{mode} K = {K}")
+    # a fleet of chains (the sampler's): C = 1024 at N = 3e4
+    C, N = 1024, 30_000
+    t, c, a, U, V, Y = wide_system(8, N, C, 1, dev, seed=8)
+    p = scan.transport(t, c)
+    d, W, S = _build.factor_fwd_cuda(p, a, U, V, want_cache=True)
+    Z, F = _build.sweep_fwd_cuda(p, U, W, Y, True, False, True)
+    for name, fn, cache, arrays in (
+            ("factor_fwd", lambda: _build.factor_fwd_cuda(p, a, U, V), False,
+             (p, a, U, V, d, W)),
+            ("factor_fwd", lambda: _build.factor_fwd_cuda(p, a, U, V, True), True,
+             (p, a, U, V, d, W, S)),
+            ("sweep_fwd solve_lower",
+             lambda: _build.sweep_fwd_cuda(p, U, W, Y, True, False), False,
+             (p, U, W, Y, Z)),
+            ("sweep_fwd solve_lower",
+             lambda: _build.sweep_fwd_cuda(p, U, W, Y, True, False, True), True,
+             (p, U, W, Y, Z, F))):
+        ms = cuda_ms(fn, reps=5, warmup=1)
+        bound, by = bound_ms(arrays, kernel_flops(name.split()[0], C, N, 8))
+        log("kernels", f"{name}{' with the cache' if cache else ''}: {ms:.4f} ms, "
+            f"{ms * 1e6 / N:.1f} ns per row (bound {bound:.4f} ms by {by}) at "
+            f"N = 3e4, J = 8, K = 1, C = {C}, float64; ring: "
+            + ring_line(name.split()[0], 8, C=C, cache=cache))
     return main_abs, times
 
 
@@ -731,28 +864,26 @@ def phase_adjoint_kernels(dev):
     for J in (1, 2, 3, 8, 16, 32):
         Jb = J if J != 3 else 4
         for K in (1, 5, 200):
-            rows = {_build.adjoint_ring(torch.float64, Jb, K, sweep=True)[0]}
+            rows = {_build.ring("sweep_bwd", torch.float64, Jb, K)[0]}
             if K == 1:
-                rows.add(_build.adjoint_ring(torch.float64, Jb)[0])
+                rows.add(_build.ring("factor_bwd", torch.float64, Jb)[0])
             for N in sorted({1} | {r + e for r in rows for e in (-1, 1)}):
                 fin, sins = adjoint_inputs(J, N, 3, K, dev, seed=J + K)
                 hold_against_plain(adjoint_checks(fin, sins, first=False), edges)
         rings = ", ".join(
             f"{name} {dt} K = {K}: {r} rows, {b} B"
-            for name, sweep, Ks in (("factor_bwd", False, (1,)),
-                                    ("sweep_bwd", True, (1, 5, 200)))
+            for name, Ks in (("factor_bwd", (1,)), ("sweep_bwd", (1, 5, 200)))
             for K in Ks
             for dt, dtype in (("float64", torch.float64), ("float32", torch.float32))
-            for r, _, b in (_build.adjoint_ring(dtype, Jb, K, sweep=sweep),))
+            for r, _, b in (_build.ring(name, dtype, Jb, K),))
         log("kernels", f"J = {J}: N = 1 and one row below and past a tile held; "
             f"tiles of the rings (shared memory per block): {rings}")
     fin, sins = adjoint_inputs(8, 1040, 64, 1, dev, seed=64)
     hold_against_plain(adjoint_checks(fin, sins, first=False), edges)
     plans = ", ".join(
         f"C = {C}: " + " / ".join(
-            "{1} ({0} rows)".format(*_build.adjoint_ring(torch.float64, 8, 1, C,
-                                                          sweep))
-            for sweep in (False, True))
+            "{1} ({0} rows)".format(*_build.ring(name, torch.float64, 8, 1, C))
+            for name in ("factor_bwd", "sweep_bwd"))
         for C in (1, 264, 265, 300, 528, 529, 792, 793, 1024, 4096))
     log("kernels", "chains per block (rows per tile) of factor_bwd / sweep_bwd "
         f"at J = 8, K = 1, float64: {plans}")
@@ -760,8 +891,8 @@ def phase_adjoint_kernels(dev):
     # tiles at J = 2 and 8, K = 1 and 5
     for J in (2, 8):
         for K in (1, 5):
-            plans = [_build.adjoint_ring(torch.float64, J, K, 1023, sweep)
-                     for sweep in (False, True)]
+            plans = [_build.ring(name, torch.float64, J, K, 1023)
+                     for name in ("factor_bwd", "sweep_bwd")]
             N = max(r for r, _, _ in plans) + 1
             fin, sins = adjoint_inputs(J, N, 1023, K, dev, seed=J * K)
             hold_against_plain(adjoint_checks(fin, sins, first=False), edges)

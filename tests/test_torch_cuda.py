@@ -189,60 +189,123 @@ def _rel(got, want):
     return ((got - want).abs().max() / want.abs().max()).item()
 
 
+# The rings of row tiles: a system at N = 301 rows, one row, one row below
+# and one past a tile, odd N in float32 (chains that start off a 16-byte
+# boundary), so many chains that a block holds several (the last block
+# fewer) and, for the factor and its adjoint, pivots d <= 0.
+RING_EDGES = ["rows_301", "one_row", "tile_minus_one", "tile_plus_one",
+              "odd_rows_float32", "many_chains"]
+
+
+def _edge_rows(edge, J, K=1, name="factor_bwd"):
+    """``(N, C, dtype)`` of an edge case of the ring of the row kernel
+    ``name`` (the forward kernels' with their caches)."""
+    def plan(C=1):
+        return _build.ring(name, torch.float64, J, K, C, cache=True)
+
+    if edge == "one_row":
+        return 1, 3, torch.float64
+    if edge == "many_chains":
+        # the fewest of these chain counts at which a block holds several
+        # chains (none does at J = 32 or past 32 right-hand sides), over two
+        # tiles of rows
+        for C in (257, 513, 1025, 2049, 4097):
+            rows, chains, _ = plan(C)
+            if chains > 1:
+                return rows + 1, C, torch.float64
+        return plan(257)[0] + 1, 257, torch.float64
+    if edge.startswith("tile"):
+        rows = plan()[0]
+        return rows + (1 if edge == "tile_plus_one" else -1), 3, torch.float64
+    return 301, 3, torch.float32 if edge == "odd_rows_float32" else torch.float64
+
+
+def _hold(got, want64, want=None):
+    """float64: 1e-10 relative against the plain version; float32: against
+    the plain version in float64 within 1e-4 or twice the float32 plain
+    version's own error, the larger (sums run in another order)."""
+    for i, w64 in enumerate(want64):
+        g = got[i]
+        assert g.shape == w64.shape and g.dtype == (want or want64)[i].dtype
+        if not w64.abs().max():  # bU and bp of a single row
+            assert not g.abs().max()
+        elif g.dtype == torch.float64:
+            assert _rel(g, w64) < 1e-10
+        else:
+            assert _rel(g, w64) <= max(1e-4, 2 * _rel(want[i], w64))
+
+
+@pytest.mark.parametrize("edge", RING_EDGES + ["nonpositive_pivots"])
 @pytest.mark.parametrize("J", [1, 2, 4, 8, 16, 32])
-def test_factor_fwd_matches_plain(cuda, J):
-    """The factor kernel against the plain loop (d, W and the cache), at
-    N = 301, C = 3, float64, to 1e-10 relative."""
-    t, c, a, U, V, _ = _wide_system(301, 3, J, 1, cuda)
+def test_factor_fwd_matches_plain(cuda, J, edge):
+    """The factor kernel against the plain loop (d, W and the cache), C = 3
+    (or many chains), at the ring's edges (float64 to 1e-10 relative);
+    without the cache d and W are the same bits."""
+    N, C, dtype = _edge_rows(edge, J, name="factor_fwd")
+    t, c, a, U, V, _ = _wide_system(N, C, J, 1, cuda)
+    if edge == "nonpositive_pivots":
+        a = a.clone()
+        a[:, 7] = 0.0
+        a[:, 100] = -1.0
     p = scan.transport(t, c)
+    want64 = scan.factor_fwd_plain(p, a, U, V)
+    if edge == "nonpositive_pivots":
+        assert (want64[0] <= 0).any()
+    args = tuple(x.to(dtype) for x in (p, a, U, V))
     before = _build.LAUNCHES["factor_fwd"]
-    got = _build.factor_fwd_cuda(p, a, U, V, want_cache=True)
+    got = _build.factor_fwd_cuda(*args, want_cache=True)
     torch.cuda.synchronize()
     assert _build.LAUNCHES["factor_fwd"] == before + 1
-    for g, w in zip(got, scan.factor_fwd_plain(p, a, U, V)):
-        assert g.shape == w.shape and _rel(g, w) < 1e-10
-    d, W, none = _build.factor_fwd_cuda(p, a, U, V)
+    _hold(got, want64, scan.factor_fwd_plain(*args))
+    d, W, none = _build.factor_fwd_cuda(*args)
     assert none is None and torch.equal(d, got[0]) and torch.equal(W, got[1])
 
 
+@pytest.mark.parametrize("edge", RING_EDGES)
 @pytest.mark.parametrize("is_solve, upper",
                          [(s, u) for s in (True, False) for u in (False, True)])
 @pytest.mark.parametrize("J, K", [(1, 1), (2, 4), (4, 1), (8, 5), (16, 1),
-                                  (32, 3), (8, 200)])
-def test_sweep_fwd_matches_plain(cuda, J, K, is_solve, upper):
+                                  (32, 3), (8, 200), (4, 32), (2, 33)])
+def test_sweep_fwd_matches_plain(cuda, J, K, is_solve, upper, edge):
     """The sweep kernel in its four modes against the plain loop (Z and the
-    cache), at N = 301 (more than one tile at J >= 4), C = 3, float64, to
-    1e-10 relative."""
-    t, c, a, U, V, Y = _wide_system(301, 3, J, K, cuda)
+    cache), C = 3 (or many chains), at the ring's edges (float64 to 1e-10
+    relative); K = 200 spans seven blocks of right-hand sides, K = 32 one
+    whole block and K = 33 two; without the cache Z is the same bits."""
+    N, C, dtype = _edge_rows(edge, J, K, name="sweep_fwd")
+    t, c, a, U, V, Y = _wide_system(N, C, J, K, cuda)
     d, W, _ = scan.factor_fwd_plain(scan.transport(t, c), a, U, V)
     second = W if is_solve else V
     A, B = (second, U) if upper else (U, second)
     p = scan.transport_up(t, c) if upper else scan.transport(t, c)
+    want64 = scan.sweep_fwd_plain(p, A, B, Y, is_solve=is_solve, upper=upper)
+    args = tuple(x.to(dtype) for x in (p, A, B, Y))
     before = _build.LAUNCHES["sweep_fwd"]
-    got = _build.sweep_fwd_cuda(p, A, B, Y, is_solve, upper, want_cache=True)
+    got = _build.sweep_fwd_cuda(*args, is_solve, upper, want_cache=True)
     torch.cuda.synchronize()
     assert _build.LAUNCHES["sweep_fwd"] == before + 1
-    want = scan.sweep_fwd_plain(p, A, B, Y, is_solve=is_solve, upper=upper)
-    for g, w in zip(got, want):
-        assert g.shape == w.shape and _rel(g, w) < 1e-10
-    Z, none = _build.sweep_fwd_cuda(p, A, B, Y, is_solve, upper)
+    _hold(got, want64,
+          scan.sweep_fwd_plain(*args, is_solve=is_solve, upper=upper))
+    Z, none = _build.sweep_fwd_cuda(*args, is_solve, upper)
     assert none is None and torch.equal(Z, got[0])
 
 
-def test_sweep_fwd_long_rows(cuda):
-    """Several tiles of rows (N = 5000 at J = 8: 40 tiles) in float32 and
-    float64 against the plain loop."""
-    for dtype, tol in ((torch.float64, 1e-10), (torch.float32, 1e-4)):
-        t, c, a, U, V, Y = (
-            x.to(dtype) for x in _wide_system(5000, 1, 8, 2, cuda, seed=4))
-        p = scan.transport(t, c)
-        d, W, S = _build.factor_fwd_cuda(p, a, U, V, want_cache=True)
-        for g, w in zip((d, W, S), scan.factor_fwd_plain(p, a, U, V)):
-            assert _rel(g, w) < tol
-        Z, F = _build.sweep_fwd_cuda(p, U, W, Y, True, False, want_cache=True)
-        for g, w in zip((Z, F), scan.sweep_fwd_plain(p, U, W, Y, is_solve=True,
-                                                     upper=False)):
-            assert _rel(g, w) < tol
+@pytest.mark.parametrize("N", [5000, 5001])
+@pytest.mark.parametrize("dtype, tol", [(torch.float64, 1e-10),
+                                        (torch.float32, 1e-4)])
+def test_sweep_fwd_long_rows(cuda, dtype, tol, N):
+    """Many tiles of rows (N = 5000 at J = 8, and odd N, whose later
+    chains' a starts off a 16-byte boundary), C = 3, in float32 and
+    float64: the factor and the lower solve against the plain loop."""
+    t, c, a, U, V, Y = (
+        x.to(dtype) for x in _wide_system(N, 3, 8, 2, cuda, seed=4))
+    p = scan.transport(t, c)
+    d, W, S = _build.factor_fwd_cuda(p, a, U, V, want_cache=True)
+    for g, w in zip((d, W, S), scan.factor_fwd_plain(p, a, U, V)):
+        assert _rel(g, w) < tol
+    Z, F = _build.sweep_fwd_cuda(p, U, W, Y, True, False, want_cache=True)
+    for g, w in zip((Z, F), scan.sweep_fwd_plain(p, U, W, Y, is_solve=True,
+                                                 upper=False)):
+        assert _rel(g, w) < tol
 
 
 @pytest.mark.parametrize("reverse", [False, True])
@@ -377,50 +440,7 @@ def test_gaussian_process_defaults_to_the_card(cuda):
     assert not ct.models.term_from_numpy(spec, device="cpu").a.is_cuda
 
 
-# The adjoints' rings of row tiles: a system at N = 301 rows, one row, one
-# row below and one past a tile, odd N in float32 (chains that start off a
-# 16-byte boundary), so many chains that a block holds several (the last
-# block fewer) and, for the factor, pivots d <= 0.
-ADJOINT_EDGES = ["rows_301", "one_row", "tile_minus_one", "tile_plus_one",
-                 "odd_rows_float32", "many_chains"]
-
-
-def _edge_rows(edge, J, K=1, sweep=False):
-    """``(N, C, dtype)`` of an edge case of the adjoints' rings."""
-    if edge == "one_row":
-        return 1, 3, torch.float64
-    if edge == "many_chains":
-        # the fewest of these chain counts at which a block holds several
-        # chains (none does at J = 32 or past 32 right-hand sides), over two
-        # tiles of rows
-        for C in (257, 513, 1025, 2049, 4097):
-            rows, chains, _ = _build.adjoint_ring(torch.float64, J, K, C, sweep)
-            if chains > 1:
-                return rows + 1, C, torch.float64
-        rows, _, _ = _build.adjoint_ring(torch.float64, J, K, 257, sweep)
-        return rows + 1, 257, torch.float64
-    if edge.startswith("tile"):
-        rows, _, _ = _build.adjoint_ring(torch.float64, J, K, sweep=sweep)
-        return rows + (1 if edge == "tile_plus_one" else -1), 3, torch.float64
-    return 301, 3, torch.float32 if edge == "odd_rows_float32" else torch.float64
-
-
-def _hold_adjoint(got, want64, want=None):
-    """float64: 1e-10 relative against the plain version; float32: against
-    the plain version in float64 within 1e-4 or twice the float32 plain
-    version's own error, the larger (sums run in another order)."""
-    for i, w64 in enumerate(want64):
-        g = got[i]
-        assert g.shape == w64.shape and g.dtype == (want or want64)[i].dtype
-        if not w64.abs().max():  # bU and bp of a single row
-            assert not g.abs().max()
-        elif g.dtype == torch.float64:
-            assert _rel(g, w64) < 1e-10
-        else:
-            assert _rel(g, w64) <= max(1e-4, 2 * _rel(want[i], w64))
-
-
-@pytest.mark.parametrize("edge", ADJOINT_EDGES + ["nonpositive_pivots"])
+@pytest.mark.parametrize("edge", RING_EDGES + ["nonpositive_pivots"])
 @pytest.mark.parametrize("J", [1, 2, 4, 8, 16, 32])
 def test_factor_bwd_matches_plain(cuda, J, edge):
     """The factor adjoint kernel against the plain loop (ba, bU, bV, bp),
@@ -444,10 +464,10 @@ def test_factor_bwd_matches_plain(cuda, J, edge):
     got = _build.factor_bwd_cuda(*args)
     torch.cuda.synchronize()
     assert _build.LAUNCHES["factor_bwd"] == before + 1
-    _hold_adjoint(got, want64, scan.factor_bwd_plain(*args))
+    _hold(got, want64, scan.factor_bwd_plain(*args))
 
 
-@pytest.mark.parametrize("edge", ADJOINT_EDGES)
+@pytest.mark.parametrize("edge", RING_EDGES)
 @pytest.mark.parametrize("is_solve, upper",
                          [(s, u) for s in (True, False) for u in (False, True)])
 @pytest.mark.parametrize("J, K", [(1, 1), (2, 4), (4, 1), (8, 5), (16, 1),
@@ -457,7 +477,7 @@ def test_sweep_bwd_matches_plain(cuda, J, K, is_solve, upper, edge):
     (bA, bB, bp, bY), C = 3 (or many chains), at the rings' edges (float64
     to 1e-10 relative); K = 200 spans seven blocks of right-hand sides, K =
     32 one whole block and K = 33 two."""
-    N, C, dtype = _edge_rows(edge, J, K, sweep=True)
+    N, C, dtype = _edge_rows(edge, J, K, name="sweep_bwd")
     t, c, a, U, V, Y = _wide_system(N, C, J, K, cuda)
     d, W, _ = scan.factor_fwd_plain(scan.transport(t, c), a, U, V)
     second = W if is_solve else V
@@ -473,7 +493,7 @@ def test_sweep_bwd_matches_plain(cuda, J, K, is_solve, upper, edge):
     got = _build.sweep_bwd_cuda(*args, is_solve, upper)
     torch.cuda.synchronize()
     assert _build.LAUNCHES["sweep_bwd"] == before + 1
-    _hold_adjoint(got, want64,
+    _hold(got, want64,
                   scan.sweep_bwd_plain(*args, is_solve=is_solve, upper=upper))
 
 

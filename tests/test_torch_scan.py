@@ -364,6 +364,19 @@ def test_cpu_route_is_the_plain_version_and_other_devices_raise():
         tscan.affine_prefix(meta[0], G.to("meta"))
 
 
+@pytest.mark.parametrize("name", ["affine_prefix", "factor", "sweep_fwd "])
+def test_ring_plan_refuses_a_kernel_without_a_ring(name):
+    """The query of the row kernels' tile rings names its kernel: anything
+    but the four row kernels is refused on the host, before the library
+    is built or a card is asked."""
+    from celerite2_torch.ops import _build
+
+    assert _build.RING_KERNELS == ("factor_fwd", "sweep_fwd", "factor_bwd",
+                                   "sweep_bwd")
+    with pytest.raises(ValueError, match="is not one of"):
+        _build.ring(name, torch.float64, 8)
+
+
 @pytest.fixture
 def prefix_engine_on(monkeypatch):
     """Route the JAX package's prefix scans through its TPU prefix engine
