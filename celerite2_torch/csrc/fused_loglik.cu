@@ -2,18 +2,23 @@
 // written for Hopper (sm_90a).  Built with nvcc into a shared library with
 // a plain C interface and bound with ctypes (celerite2_torch/ops/_build.py).
 //
-// Each pass is the within-block half of a two-level scan over the rows of
-// every chain: thread (c, b) walks the L rows of block b of chain c in
-// order, builds each row's monoid element in registers from that row's raw
-// data, composes it into a running value held in registers, and writes
+// K1 (the Kalman forward) and K2 (the solve adjoint) run the whole
+// two-level scan over the rows of every chain on the card and return the
+// per-row states the log-likelihood and its gradient use (see "K1, K2"
+// below).
+//
+// K3 and K5 are the within-block half of a two-level scan: thread (c, b)
+// walks the L rows of block b of chain c in order, builds each row's monoid
+// element in registers from that row's raw data, composes it into a running
+// value held in registers, and writes
 //   * for every row, the running composition (the prefix the distribute
 //     reads: celerite2_torch/ops/fused_loglik.py), and
 //   * for the block, its full composition (the block map that the
 //     cross-block level composes in torch, ops/elements.py).
 // Rows index as n = b * L + l in natural row-major (C, N, ...) layout.  A
 // warp's 32 threads read rows L apart, so loads and stores are not
-// coalesced (each thread touches its own cache lines); a packed layout is
-// left for later work.  The ragged last block stops at row N - 1.
+// coalesced (each thread touches its own cache lines).  The ragged last
+// block stops at row N - 1.
 //
 // Elements are templated on the scalar type (float, double) and on the
 // celerite width J (1..4; the dense factor adjoint K3 1, 2 only); the
@@ -28,6 +33,8 @@
 #include <cuda_runtime.h>
 
 #include <cfloat>
+
+#include "device_common.cuh"
 
 namespace {
 
@@ -66,14 +73,6 @@ __device__ __forceinline__ void matmul(const T (&X)[M][K], const T (&Y)[K][P],
       Z[i][j] = s;
     }
   }
-}
-
-template <typename T, int J>
-__device__ __forceinline__ void transpose(const T (&X)[J][J], T (&Y)[J][J]) {
-#pragma unroll
-  for (int i = 0; i < J; ++i)
-#pragma unroll
-    for (int j = 0; j < J; ++j) Y[i][j] = X[j][i];
 }
 
 // The closed-form inverse of planes.p_inv: 1x1; 2x2 with the scale-aware
@@ -146,263 +145,1175 @@ __device__ __forceinline__ void inv_clamped(const T (&M)[J][J], T (&O)[J][J]) {
   }
 }
 
-// ============================================== K1: Kalman forward pass
+// ========================== K1, K2: the Kalman forward and the solve adjoint
 //
-// Replaces the Pallas kernel celerite2_tpu/ops/fused_slab.py:_scan_pass
-// (pallas_call at :308, body _body :234) run forward with the element
-// build _build_kalman (:388) and the kalman_spec combine
-// (celerite2_tpu/ops/planes.py:358).
+// K1 kalman_fwd replaces the Pallas kernel celerite2_tpu/ops/fused_slab.py:
+// _scan_pass (pallas_call at :308, body _body :234) run forward with the
+// element build _build_kalman (:388) and the kalman_spec combine
+// (celerite2_tpu/ops/planes.py:358), together with the cross-block level and
+// the distribute that the JAX package runs after it in XLA (fused_slab.py:
+// 281-330).  It returns what the log-likelihood uses of the Kalman pass: for
+// every row n the state after the elements of rows 0..n, the carry
+// covariance S (C, N, J, J) and the solve state F (C, N, J).
 //
-// Bound on this card: latency.  Each row is one dependent chain of ~200
-// flops (a 2x2 inverse and a dozen 2x2 products at J = 2) on 16 register
-// values, and the blocks give only C * N / L threads, so the card's
-// throughput is far from the limit; bytes are 3J + 3 values read and
-// 3J^2 + 2J written per row.  The design keeps the whole element and the
-// running composition in registers, carries the previous row's (u, v, 1/a,
-// y) from one step to the next so each row is read once, and uses 32-thread
-// CTAs so that few threads still spread over many SMs.  At J = 4 in float64
-// the composition alone is 56 doubles and the combine's temporaries as many
-// again, past the 255-register limit, so ptxas spills (counts in PERF.md).
+// K2 solve_rev replaces the same _scan_pass run in reverse with the element
+// build _build_solve_rev (:424) and the mat_affine_spec(J, 1) combine
+// (planes.py:231), with its cross-block level: it returns the suffix state
+// Rst (C, N, J), Rst_n = A_n Rst_{n+1} + b_n from Rst_N = 0.
+//
+// Each is a two-level scan over blocks of L rows (L is the wrapper's choice
+// for this card, ops/_build.py), in three launches, two when the blocks fit
+// one group of kWalks, one when the rows fit one block:
+//   (a) maps:   each (chain, block) composes its rows' elements into the
+//               block's map; each group of kWalks consecutive blocks of a
+//               chain (one warp, one block a lane) then takes the prefix
+//               (K1) or suffix (K2) of its blocks' maps over its lanes;
+//   (b) scan:   one thread block per chain takes the exclusive prefix (K1)
+//               or suffix (K2) of the groups' maps and writes the state
+//               entering every group;
+//   (c) states: each (chain, block) carries the state entering its group
+//               through the group's blocks before it (one map), walks its
+//               rows again from there and writes the state after every row.
+//
+// What bounds them on this card: each walk of (a) and (c) is a chain of L
+// dependent row steps, and the levels above it chains of combines of whole
+// maps: log2(kWalks) in (a), about 2 NB / (kWalks kScanThreads) +
+// log2(kScanThreads) in (b), one in (c); the bytes (the rows read twice, the
+// states written once) take a small fraction of that time.  So the rows are
+// cut into many short blocks, one thread each, and
+//   * a row step is rank one.  K1's element has Q = p v v^T p / a and
+//     R = -u u^T / a (fused_slab._build_kalman), so composing it into a
+//     running map (A, Q, R, b, eta) needs no J x J inverse (Sherman-Morrison
+//     with the pivot d = a - u^T Q u):
+//       x = Q u, g = A^T u, r = v - x, z = y - b^T u,
+//       A <- p (A - r g^T / d),  Q <- p (Q + r r^T / d) p,
+//       R <- R - g g^T / d,      b <- p (b + r z / d),  eta <- eta - g z / d,
+//     and on a state (S, F) only the Q and b lines run, which are the
+//     factor's and the lower solve's own row step: O(J^2) a row.  K2's
+//     element is x <- p (x - u (w^T x + bZ)): O(J) a row on a state, O(J^2)
+//     on a map;
+//   * a warp is a thread block of kWalks walks, and the rows pass through
+//     shared memory by tiles of kTile rows of every walk: the warp copies
+//     each input's tile with cp.async one tile ahead of the walks,
+//     consecutive lanes on consecutive rows of a walk, a lane a whole row
+//     (copying value by value, each with its own index arithmetic, took
+//     more instructions than the row step: PERF.md), and stores each output
+//     from an output tile the same way;
+//   * only the levels above the rows compose whole maps, K1's with the
+//     general Kalman combine and the clamped closed-form inverse
+//     inv_clamped above (the plain route's elements.inv_clamped,
+//     planes.p_inv): a Kogge-Stone scan over the lanes of a group in (a),
+//     and in (b) reduce-then-scan over the groups: each of kScanThreads
+//     threads composes a run of consecutive groups' maps, a Kogge-Stone
+//     scan in shared memory composes the runs, and each thread applies its
+//     run's maps one by one to the state entering the run (the distribute,
+//     which needs only S and F of that state).
+// A pivot that is not positive (a system that is not positive definite) is
+// taken as it is, as the plain route's combine takes it (inv_pivot below):
+// the state then stays bounded and finite, the rows up to the first such
+// pivot are those of the plain route, and the caller's check d > 0 decides
+// (the quiet -inf).
+
+constexpr int kWalks = 32;          // walks (one thread each) per block of (a), (c)
+constexpr int kTile = 8;            // rows of every walk in a tile
+constexpr int kPitch = kWalks + 1;  // a tile holds value f of row l of walk k
+                                    // at (l * width + f) * kPitch + k
+constexpr int kScanThreads = 128;   // threads of (b), one block per chain
+static_assert(kWalks % kTile == 0, "a lane copies whole rows of a tile");
+// The kernels ask for at least one block a multiprocessor in their launch
+// bounds: without it ptxas held K1's map kernel to 128 registers, and at
+// J = 3 in float64 it spilled.
 
 template <typename T, int J>
-struct Kalman {
-  T A[J][J], Q[J][J], R[J][J], b[J][1], e[J][1];
+__device__ __forceinline__ void mat_load(const T* src, T (&X)[J][J]) {
+#pragma unroll
+  for (int i = 0; i < J; ++i)
+#pragma unroll
+    for (int j = 0; j < J; ++j) X[i][j] = src[i * J + j];
+}
+
+// The walks of one thread block of (a) or (c), a group of kWalks
+// consecutive blocks of one chain: lane k walks block group * kWalks + k,
+// the rows [n0, n0 + len[k]) of the chain, whose first row is row start[k]
+// of the (C * N)-row arrays; lanes past the chain's last block have len 0.
+struct Walk {
+  long long chain;
+  int group, block, n0;
 };
 
-template <typename T, int J>
-__device__ __forceinline__ Kalman<T, J> kalman_combine(const Kalman<T, J>& x,
-                                                       const Kalman<T, J>& y) {
-  // x earlier, y later (planes.kalman_spec combine)
-  T QR[J][J], G[J][J];
-  matmul(x.Q, y.R, QR);
-#pragma unroll
-  for (int i = 0; i < J; ++i) QR[i][i] += T(1);
-  inv_clamped(QR, G);
-
-  T GA1[J][J], GQ1[J][J], R2G[J][J];
-  matmul(G, x.A, GA1);
-  matmul(G, x.Q, GQ1);
-  T Qe[J][1], t1[J][1], Gb[J][1];
-  matmul(x.Q, y.e, Qe);
-#pragma unroll
-  for (int i = 0; i < J; ++i) t1[i][0] = x.b[i][0] + Qe[i][0];
-  matmul(G, t1, Gb);
-  matmul(y.R, G, R2G);
-
-  T Rb[J][1], vE[J][1], QvE[J][1], RQvE[J][1], Eeta[J][1];
-  matmul(y.R, x.b, Rb);
-#pragma unroll
-  for (int i = 0; i < J; ++i) vE[i][0] = y.e[i][0] - Rb[i][0];
-  matmul(x.Q, vE, QvE);
-  matmul(R2G, QvE, RQvE);
-#pragma unroll
-  for (int i = 0; i < J; ++i) Eeta[i][0] = vE[i][0] - RQvE[i][0];
-
-  Kalman<T, J> out;
-  matmul(y.A, GA1, out.A);
-
-  T A2T[J][J], AGQ[J][J], Q12[J][J];
-  transpose(y.A, A2T);
-  matmul(y.A, GQ1, AGQ);
-  matmul(AGQ, A2T, Q12);
-
-  T A1T[J][J], ARG[J][J], R12[J][J];
-  transpose(x.A, A1T);
-  matmul(A1T, R2G, ARG);
-  matmul(ARG, x.A, R12);
-
-#pragma unroll
-  for (int i = 0; i < J; ++i)
-#pragma unroll
-    for (int j = 0; j < J; ++j) {
-      Q12[i][j] += y.Q[i][j];
-      R12[i][j] += x.R[i][j];
-    }
-#pragma unroll
-  for (int i = 0; i < J; ++i)
-#pragma unroll
-    for (int j = 0; j < J; ++j) {
-      out.Q[i][j] = T(0.5) * (Q12[i][j] + Q12[j][i]);
-      out.R[i][j] = T(0.5) * (R12[i][j] + R12[j][i]);
-    }
-
-  T AGb[J][1], AE[J][1];
-  matmul(y.A, Gb, AGb);
-  matmul(A1T, Eeta, AE);
-#pragma unroll
-  for (int i = 0; i < J; ++i) {
-    out.b[i][0] = y.b[i][0] + AGb[i][0];
-    out.e[i][0] = x.e[i][0] + AE[i][0];
-  }
-  return out;
+__device__ __forceinline__ Walk walk_setup(int N, int L, int NB,
+                                           long long* start, int* len) {
+  const int lane = threadIdx.x;
+  const int GB = (NB + kWalks - 1) / kWalks;
+  Walk w;
+  w.chain = blockIdx.x / GB;
+  w.group = blockIdx.x % GB;
+  w.block = w.group * kWalks + lane;
+  const bool live = w.block < NB;
+  w.n0 = live ? w.block * L : 0;
+  start[lane] = w.chain * N + w.n0;
+  len[lane] = live ? min(L, N - w.n0) : 0;
+  __syncwarp();
+  return w;
 }
 
-template <typename T, int J>
-__device__ __forceinline__ void kalman_store(const Kalman<T, J>& k, T* out) {
-  // flat order: A, Q, R (row-major J x J), b, eta
+// Copies rows [s kTile, (s + 1) kTile) of every walk of X (W values a row)
+// into values [OFF, OFF + W) of the tile's rows of WIDTH values (rows past a
+// walk's end are skipped).  Lane j copies row j % kTile of the walks
+// j / kTile, j / kTile + kWalks / kTile, ...: the index arithmetic is paid
+// once a row, not once a value.
+template <int W, int OFF, int WIDTH, typename T>
+__device__ __forceinline__ void stage(T* tile, const T* __restrict__ X,
+                                      const long long* start, const int* len,
+                                      int s) {
+  const int l = threadIdx.x % kTile, n = s * kTile + l;
 #pragma unroll
-  for (int i = 0; i < J; ++i)
+  for (int k = threadIdx.x / kTile; k < kWalks; k += kWalks / kTile) {
+    if (n < len[k]) {
+      const T* src = X + (start[k] + n) * W;
+      T* dst = tile + (l * WIDTH + OFF) * kPitch + k;
 #pragma unroll
-    for (int j = 0; j < J; ++j) {
-      out[i * J + j] = k.A[i][j];
-      out[J * J + i * J + j] = k.Q[i][j];
-      out[2 * J * J + i * J + j] = k.R[i][j];
+      for (int f = 0; f < W; ++f) cp_async_elem(dst + f * kPitch, src + f);
     }
-#pragma unroll
-  for (int i = 0; i < J; ++i) {
-    out[3 * J * J + i] = k.b[i][0];
-    out[3 * J * J + J + i] = k.e[i][0];
   }
 }
 
+// Stores values [OFF, OFF + W) of the output tile's rows of WIDTH values
+// into rows [s kTile, (s + 1) kTile) of every walk of X (W values a row),
+// the lanes taking the rows as stage() does.
+template <int W, int OFF, int WIDTH, typename T>
+__device__ __forceinline__ void unstage(T* __restrict__ X, const T* tile,
+                                        const long long* start,
+                                        const int* len, int s) {
+  const int l = threadIdx.x % kTile, n = s * kTile + l;
+#pragma unroll
+  for (int k = threadIdx.x / kTile; k < kWalks; k += kWalks / kTile) {
+    if (n < len[k]) {
+      T* dst = X + (start[k] + n) * W;
+      const T* src = tile + (l * WIDTH + OFF) * kPitch + k;
+#pragma unroll
+      for (int f = 0; f < W; ++f) dst[f] = src[f * kPitch];
+    }
+  }
+}
+
+// dynamic shared memory of a walk kernel: two input tiles, one output tile
+template <typename T>
+constexpr size_t walk_smem(int in_width, int out_width) {
+  return (size_t)kTile * kPitch * (2 * in_width + out_width) * sizeof(T);
+}
+
+// The reciprocal 1 / d of a row's pivot d = 1 / ainv - s = a - u^T S u, as
+// the plain route's combine takes it: d / a is the determinant of
+// I + S R = I - S u u^T / a, which planes._det2_clamped floors in magnitude
+// at eps (1 + |s / a|) + tiny, keeping its sign.  Row 0's element
+// (ainv = 0) gives 0.
+template <typename T>
+__device__ __forceinline__ T inv_pivot(T ainv, T s) {
+  const T as = ainv * s;
+  T den = T(1) - as;
+  const T floor = Limits<T>::eps() * (T(1) + absval(as)) + Limits<T>::tiny();
+  if (!(absval(den) >= floor)) den = den < T(0) ? -floor : floor;
+  return ainv / den;
+}
+
+// ---------------------------------------------- the block maps' algebra
+
+// K1's block maps: (A, Q, R, b, eta) flat, acting on the state (S, F).
 template <typename T, int J>
-__global__ void __launch_bounds__(kThreads)
-    kalman_fwd_kernel(const T* __restrict__ p, const T* __restrict__ U,
-                      const T* __restrict__ V, const T* __restrict__ ainv,
-                      const T* __restrict__ y, T* __restrict__ pre,
-                      T* __restrict__ maps, int C, int N, int L, int NB) {
-  constexpr int E = 3 * J * J + 2 * J;
-  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= (long long)C * NB) return;
-  const int c = (int)(idx / NB);
-  const int blk = (int)(idx % NB);
-  const long long row0 = (long long)c * N;
-  const int n0 = blk * L;
-  const int n1 = min(n0 + L, N);
+struct KalmanMaps {
+  static constexpr int E = 3 * J * J + 2 * J;
+  static constexpr int ST = J * J + J;
+  static constexpr bool kReverse = false;
 
-  // the previous row's data; row 0 of a chain has none (identity element)
-  T up[J], vp[J], ainvp = T(0), yp = T(0);
-#pragma unroll
-  for (int j = 0; j < J; ++j) up[j] = vp[j] = T(0);
-  if (n0 > 0) {
-    const long long r = row0 + n0 - 1;
-#pragma unroll
-    for (int j = 0; j < J; ++j) {
-      up[j] = U[r * J + j];
-      vp[j] = V[r * J + j];
-    }
-    ainvp = ainv[r];
-    yp = y[r];
+  __device__ static void identity(T* m) {
+    for (int k = 0; k < E; ++k)
+      m[k] = (k < J * J && k / J == k % J) ? T(1) : T(0);
   }
 
-  Kalman<T, J> acc;
+  // the map's state from zero: (Q, b)
+  __device__ static void state_of(const T* m, T (&st)[ST]) {
 #pragma unroll
-  for (int i = 0; i < J; ++i) {
+    for (int k = 0; k < J * J; ++k) st[k] = m[J * J + k];
 #pragma unroll
-    for (int j = 0; j < J; ++j) {
-      acc.A[i][j] = i == j ? T(1) : T(0);
-      acc.Q[i][j] = T(0);
-      acc.R[i][j] = T(0);
-    }
-    acc.b[i][0] = T(0);
-    acc.e[i][0] = T(0);
+    for (int i = 0; i < J; ++i) st[J * J + i] = m[3 * J * J + i];
   }
 
-  for (int n = n0; n < n1; ++n) {
-    const long long r = row0 + n;
-    T pr[J];
+  // x earlier, y later: elements.kalman_combine, operand order included
+  __device__ static void combine(const T* x, const T* y, T* out) {
+    constexpr int JJ = J * J;
+    const T *A1 = x, *Q1 = x + JJ, *R1 = x + 2 * JJ, *b1 = x + 3 * JJ,
+            *e1 = x + 3 * JJ + J;
+    const T *A2 = y, *Q2 = y + JJ, *R2 = y + 2 * JJ, *b2 = y + 3 * JJ,
+            *e2 = y + 3 * JJ + J;
+    T G[J][J];  // (I + Q1 R2)^{-1}
+    {
+      T M[J][J];
 #pragma unroll
-    for (int j = 0; j < J; ++j) pr[j] = p[r * J + j];
-
-    Kalman<T, J> el;  // fused_slab._build_kalman
+      for (int i = 0; i < J; ++i)
 #pragma unroll
-    for (int i = 0; i < J; ++i) {
+        for (int j = 0; j < J; ++j) {
+          T s = T(0);
+#pragma unroll
+          for (int k = 0; k < J; ++k) s += Q1[i * J + k] * R2[k * J + j];
+          M[i][j] = (i == j ? T(1) : T(0)) + s;
+        }
+      inv_clamped<T, J>(M, G);
+    }
+    {  // b12 = b2 + A2 (G (b1 + Q1 eta2))
+      T t[J], g[J];
+#pragma unroll
+      for (int i = 0; i < J; ++i) {
+        T s = T(0);
+#pragma unroll
+        for (int k = 0; k < J; ++k) s += Q1[i * J + k] * e2[k];
+        t[i] = b1[i] + s;
+      }
+#pragma unroll
+      for (int i = 0; i < J; ++i) {
+        T s = T(0);
+#pragma unroll
+        for (int k = 0; k < J; ++k) s += G[i][k] * t[k];
+        g[i] = s;
+      }
+#pragma unroll
+      for (int i = 0; i < J; ++i) {
+        T s = T(0);
+#pragma unroll
+        for (int k = 0; k < J; ++k) s += A2[i * J + k] * g[k];
+        out[3 * JJ + i] = b2[i] + s;
+      }
+    }
+    T RG[J][J];  // R2 G
+#pragma unroll
+    for (int i = 0; i < J; ++i)
 #pragma unroll
       for (int j = 0; j < J; ++j) {
-        el.A[i][j] = pr[i] * ((i == j ? T(1) : T(0)) - vp[i] * up[j] * ainvp);
-        el.Q[i][j] = pr[i] * vp[i] * vp[j] * ainvp * pr[j];
-        el.R[i][j] = -up[i] * up[j] * ainvp;
+        T s = T(0);
+#pragma unroll
+        for (int k = 0; k < J; ++k) s += R2[i * J + k] * G[k][j];
+        RG[i][j] = s;
       }
-      el.b[i][0] = pr[i] * vp[i] * yp * ainvp;
-      el.e[i][0] = -up[i] * yp * ainvp;
-    }
-    acc = kalman_combine(acc, el);
-    kalman_store(acc, pre + r * E);
-
+    {  // eta12 = eta1 + A1^T (vE - R2G (Q1 vE)),  vE = eta2 - R2 b1
+      T vE[J], q[J], h[J];
 #pragma unroll
-    for (int j = 0; j < J; ++j) {
-      up[j] = U[r * J + j];
-      vp[j] = V[r * J + j];
+      for (int i = 0; i < J; ++i) {
+        T s = T(0);
+#pragma unroll
+        for (int k = 0; k < J; ++k) s += R2[i * J + k] * b1[k];
+        vE[i] = e2[i] - s;
+      }
+#pragma unroll
+      for (int i = 0; i < J; ++i) {
+        T s = T(0);
+#pragma unroll
+        for (int k = 0; k < J; ++k) s += Q1[i * J + k] * vE[k];
+        q[i] = s;
+      }
+#pragma unroll
+      for (int i = 0; i < J; ++i) {
+        T s = T(0);
+#pragma unroll
+        for (int k = 0; k < J; ++k) s += RG[i][k] * q[k];
+        h[i] = vE[i] - s;
+      }
+#pragma unroll
+      for (int i = 0; i < J; ++i) {
+        T s = T(0);
+#pragma unroll
+        for (int k = 0; k < J; ++k) s += A1[k * J + i] * h[k];
+        out[3 * JJ + J + i] = e1[i] + s;
+      }
     }
-    ainvp = ainv[r];
-    yp = y[r];
+    {  // A12 = A2 (G A1)
+      T A1r[J][J], GA[J][J];
+      mat_load(A1, A1r);
+      matmul(G, A1r, GA);
+#pragma unroll
+      for (int i = 0; i < J; ++i)
+#pragma unroll
+        for (int j = 0; j < J; ++j) {
+          T s = T(0);
+#pragma unroll
+          for (int k = 0; k < J; ++k) s += A2[i * J + k] * GA[k][j];
+          out[i * J + j] = s;
+        }
+    }
+    {  // Q12 = sym(Q2 + (A2 (G Q1)) A2^T)
+      T Q1r[J][J], A2r[J][J], GQ[J][J], AG[J][J], Q12[J][J];
+      mat_load(Q1, Q1r);
+      mat_load(A2, A2r);
+      matmul(G, Q1r, GQ);
+      matmul(A2r, GQ, AG);
+#pragma unroll
+      for (int i = 0; i < J; ++i)
+#pragma unroll
+        for (int j = 0; j < J; ++j) {
+          T s = T(0);
+#pragma unroll
+          for (int k = 0; k < J; ++k) s += AG[i][k] * A2r[j][k];
+          Q12[i][j] = Q2[i * J + j] + s;
+        }
+#pragma unroll
+      for (int i = 0; i < J; ++i)
+#pragma unroll
+        for (int j = 0; j < J; ++j)
+          out[JJ + i * J + j] = T(0.5) * (Q12[i][j] + Q12[j][i]);
+    }
+    {  // R12 = sym(R1 + (A1^T R2G) A1)
+      T ARG[J][J], R12[J][J];
+#pragma unroll
+      for (int i = 0; i < J; ++i)
+#pragma unroll
+        for (int j = 0; j < J; ++j) {
+          T s = T(0);
+#pragma unroll
+          for (int k = 0; k < J; ++k) s += A1[k * J + i] * RG[k][j];
+          ARG[i][j] = s;
+        }
+#pragma unroll
+      for (int i = 0; i < J; ++i)
+#pragma unroll
+        for (int j = 0; j < J; ++j) {
+          T s = T(0);
+#pragma unroll
+          for (int k = 0; k < J; ++k) s += ARG[i][k] * A1[k * J + j];
+          R12[i][j] = R1[i * J + j] + s;
+        }
+#pragma unroll
+      for (int i = 0; i < J; ++i)
+#pragma unroll
+        for (int j = 0; j < J; ++j)
+          out[2 * JJ + i * J + j] = T(0.5) * (R12[i][j] + R12[j][i]);
+    }
   }
-  kalman_store(acc, maps + idx * E);
-}
 
-// ============================================== K2: solve adjoint pass
-//
-// Replaces celerite2_tpu/ops/fused_slab.py:_scan_pass (pallas_call :308,
-// body _body :234) run in reverse with the element build _build_solve_rev
-// (:424) and the mat_affine_spec(J, 1) combine (planes.py:231).
-//
-// Bound on this card: latency, as K1, with a lighter step (J^2 + J = 6
-// register values at J = 2, one J x J product and a matvec per row).  The
-// element of row 0 of every chain is the identity (u = 0 there).
-
-template <typename T, int J>
-__global__ void __launch_bounds__(kThreads)
-    solve_rev_kernel(const T* __restrict__ p, const T* __restrict__ U,
-                     const T* __restrict__ W, const T* __restrict__ bz,
-                     T* __restrict__ pre, T* __restrict__ maps, int C, int N,
-                     int L, int NB) {
-  constexpr int E = J * J + J;
-  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= (long long)C * NB) return;
-  const int c = (int)(idx / NB);
-  const int blk = (int)(idx % NB);
-  const long long row0 = (long long)c * N;
-  const int n0 = blk * L;
-  const int n1 = min(n0 + L, N);
-
-  T A[J][J], b[J][1];
+  // the state after the map m (elements.kalman_distribute):
+  //   S <- sym(Q + A G S A^T),  F <- b + A G (F + S eta),  G = (I + S R)^{-1}
+  __device__ static void apply(const T* m, T (&st)[ST]) {
+    constexpr int JJ = J * J;
+    const T *A = m, *Q = m + JJ, *R = m + 2 * JJ, *b = m + 3 * JJ,
+            *e = m + 3 * JJ + J;
+    T G[J][J];
+    {
+      T M[J][J];
 #pragma unroll
-  for (int i = 0; i < J; ++i) {
+      for (int i = 0; i < J; ++i)
 #pragma unroll
-    for (int j = 0; j < J; ++j) A[i][j] = i == j ? T(1) : T(0);
-    b[i][0] = T(0);
-  }
-
-  for (int n = n1 - 1; n >= n0; --n) {
-    const long long r = row0 + n;
-    T pr[J], u[J], w[J];
+        for (int j = 0; j < J; ++j) {
+          T s = T(0);
 #pragma unroll
-    for (int j = 0; j < J; ++j) {
-      pr[j] = p[r * J + j];
-      u[j] = n == 0 ? T(0) : U[r * J + j];
-      w[j] = W[r * J + j];
+          for (int k = 0; k < J; ++k) s += st[i * J + k] * R[k * J + j];
+          M[i][j] = (i == j ? T(1) : T(0)) + s;
+        }
+      inv_clamped<T, J>(M, G);
     }
-    const T bzr = bz[r];
-
-    T eA[J][J], eb[J][1];  // fused_slab._build_solve_rev
+    T g[J];  // G (F + S eta)
+    {
+      T t[J];
+#pragma unroll
+      for (int i = 0; i < J; ++i) {
+        T s = T(0);
+#pragma unroll
+        for (int k = 0; k < J; ++k) s += st[i * J + k] * e[k];
+        t[i] = st[JJ + i] + s;
+      }
+#pragma unroll
+      for (int i = 0; i < J; ++i) {
+        T s = T(0);
+#pragma unroll
+        for (int k = 0; k < J; ++k) s += G[i][k] * t[k];
+        g[i] = s;
+      }
+    }
+    T Sm[J][J], Ar[J][J], GS[J][J], AG[J][J], S2[J][J];
+#pragma unroll
+    for (int i = 0; i < J; ++i)
+#pragma unroll
+      for (int j = 0; j < J; ++j) Sm[i][j] = st[i * J + j];
+    mat_load(A, Ar);
+    matmul(G, Sm, GS);
+    matmul(Ar, GS, AG);
+#pragma unroll
+    for (int i = 0; i < J; ++i)
+#pragma unroll
+      for (int j = 0; j < J; ++j) {
+        T s = T(0);
+#pragma unroll
+        for (int k = 0; k < J; ++k) s += AG[i][k] * Ar[j][k];
+        S2[i][j] = Q[i * J + j] + s;
+      }
 #pragma unroll
     for (int i = 0; i < J; ++i) {
 #pragma unroll
       for (int j = 0; j < J; ++j)
-        eA[i][j] = pr[i] * ((i == j ? T(1) : T(0)) - u[i] * w[j]);
-      eb[i][0] = -pr[i] * u[i] * bzr;
+        st[i * J + j] = T(0.5) * (S2[i][j] + S2[j][i]);
+      T s = T(0);
+#pragma unroll
+      for (int k = 0; k < J; ++k) s += Ar[i][k] * g[k];
+      st[JJ + i] = b[i] + s;
     }
-    T nA[J][J], nb[J][1];
-    matmul(eA, A, nA);
-    matmul(eA, b, nb);
-    T* o = pre + r * E;
+  }
+};
+
+// K2's block maps: x -> A x + b, (A row-major J x J, b) flat, composed from
+// the last block down (a suffix).
+template <typename T, int J>
+struct AffineMaps {
+  static constexpr int E = J * J + J;
+  static constexpr int ST = J;
+  static constexpr bool kReverse = true;
+
+  __device__ static void identity(T* m) {
+    for (int k = 0; k < E; ++k)
+      m[k] = (k < J * J && k / J == k % J) ? T(1) : T(0);
+  }
+
+  __device__ static void state_of(const T* m, T (&st)[ST]) {
+#pragma unroll
+    for (int i = 0; i < J; ++i) st[i] = m[J * J + i];
+  }
+
+  // x earlier, y later: (A2 A1, A2 b1 + b2) (elements.affine_combine)
+  __device__ static void combine(const T* x, const T* y, T* out) {
 #pragma unroll
     for (int i = 0; i < J; ++i) {
 #pragma unroll
       for (int j = 0; j < J; ++j) {
-        A[i][j] = nA[i][j];
-        o[i * J + j] = nA[i][j];
+        T s = T(0);
+#pragma unroll
+        for (int k = 0; k < J; ++k) s += y[i * J + k] * x[k * J + j];
+        out[i * J + j] = s;
       }
-      b[i][0] = nb[i][0] + eb[i][0];
-      o[J * J + i] = b[i][0];
+      T s = T(0);
+#pragma unroll
+      for (int k = 0; k < J; ++k) s += y[i * J + k] * x[J * J + k];
+      out[J * J + i] = s + y[J * J + i];
     }
   }
-  T* o = maps + idx * E;
+
+  __device__ static void apply(const T* m, T (&st)[ST]) {
+    T o[J];
+#pragma unroll
+    for (int i = 0; i < J; ++i) {
+      T s = T(0);
+#pragma unroll
+      for (int k = 0; k < J; ++k) s += m[i * J + k] * st[k];
+      o[i] = s + m[J * J + i];
+    }
+#pragma unroll
+    for (int i = 0; i < J; ++i) st[i] = o[i];
+  }
+};
+
+// The inclusive prefix (M::kReverse: suffix) of the warp's kWalks block
+// maps over its lanes (Kogge-Stone, five levels of combines), in shared
+// memory: lane k's map in slots[k E, (k + 1) E), scratch of the same size
+// after it.  Returns the slots that hold the result.
+template <typename T, class M>
+__device__ __forceinline__ T* warp_scan(T* slots) {
+  constexpr int E = M::E;
+  const int lane = threadIdx.x;
+  T* src = slots;
+  T* dst = slots + kWalks * E;
+  for (int d = 1; d < kWalks; d *= 2) {
+    const int from = M::kReverse ? lane + d : lane - d;
+    if (from >= 0 && from < kWalks)
+      M::combine(src + from * E, src + lane * E, dst + lane * E);
+    else
+      for (int k = 0; k < E; ++k) dst[lane * E + k] = src[lane * E + k];
+    __syncwarp();
+    T* t = src;
+    src = dst;
+    dst = t;
+  }
+  return src;
+}
+
+// The end of phase (a): the warp's block maps (``acc`` stored by each lane
+// into ``slots``) scanned over the lanes; each live walk's prefix goes to
+// ``maps`` (C, NB, E), the group's whole composition to ``groups``
+// (C, GB, E).
+template <typename T, class M>
+__device__ __forceinline__ void store_group(T* slots, const Walk& w, int NB,
+                                            int GB, bool live,
+                                            T* __restrict__ maps,
+                                            T* __restrict__ groups) {
+  constexpr int E = M::E;
+  const int lane = threadIdx.x;
+  __syncwarp();
+  const T* pre = warp_scan<T, M>(slots) + lane * E;
+  if (live) {
+    T* o = maps + (w.chain * NB + w.block) * E;
+    for (int k = 0; k < E; ++k) o[k] = pre[k];
+  }
+  if (lane == (M::kReverse ? 0 : kWalks - 1)) {
+    T* o = groups + (w.chain * GB + w.group) * E;
+    for (int k = 0; k < E; ++k) o[k] = pre[k];
+  }
+}
+
+// The state entering a walk in phase (c): the state entering its group
+// (``gstates``, (C, GB, ST); zero when null), carried through the prefix
+// (suffix) of the blocks before it in the group (``maps``).
+template <typename T, class M>
+__device__ __forceinline__ void walk_entry(const T* __restrict__ maps,
+                                           const T* __restrict__ gstates,
+                                           const Walk& w, int NB, int GB,
+                                           T (&st)[M::ST]) {
+  const T* g = gstates != nullptr ? gstates + (w.chain * GB + w.group) * M::ST
+                                  : nullptr;
+#pragma unroll
+  for (int k = 0; k < M::ST; ++k) st[k] = g ? g[k] : T(0);
+  const int lane = threadIdx.x;
+  const int before = M::kReverse ? w.block + 1 : w.block - 1;
+  const bool inside = M::kReverse ? lane + 1 < kWalks && before < NB : lane > 0;
+  if (inside && w.block < NB) M::apply(maps + (w.chain * NB + before) * M::E, st);
+}
+
+// ---------------------------------------------------------------- K1
+
+// the values of a row in K1's input tiles: p, u, v, 1/a, y
+template <int J>
+struct KIn {
+  static constexpr int P = 0, U = J, V = 2 * J, AI = 3 * J, Y = 3 * J + 1,
+                       W = 3 * J + 2;
+};
+
+template <typename T, int J>
+__device__ __forceinline__ void kalman_stage(T* tile, const T* p, const T* U,
+                                             const T* V, const T* ainv,
+                                             const T* y, const long long* start,
+                                             const int* len, int s) {
+  using I = KIn<J>;
+  stage<J, I::P, I::W>(tile, p, start, len, s);
+  stage<J, I::U, I::W>(tile, U, start, len, s);
+  stage<J, I::V, I::W>(tile, V, start, len, s);
+  stage<1, I::AI, I::W>(tile, ainv, start, len, s);
+  stage<1, I::Y, I::W>(tile, y, start, len, s);
+  cp_async_commit();
+}
+
+// The data of row r (u, v, 1/a, y) that builds the next row's element.
+template <typename T, int J>
+struct KRow {
+  T u[J], v[J], ai, y;
+  __device__ void zero() {
+#pragma unroll
+    for (int j = 0; j < J; ++j) u[j] = v[j] = T(0);
+    ai = y = T(0);
+  }
+  __device__ void load(const T* U, const T* V, const T* ainv, const T* Y,
+                       long long r) {
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+      u[j] = U[r * J + j];
+      v[j] = V[r * J + j];
+    }
+    ai = ainv[r];
+    y = Y[r];
+  }
+  // from a tile; x points at value 0 of the row of this lane's walk
+  __device__ void load_tile(const T* x) {
+    using I = KIn<J>;
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+      u[j] = x[(I::U + j) * kPitch];
+      v[j] = x[(I::V + j) * kPitch];
+    }
+    ai = x[I::AI * kPitch];
+    y = x[I::Y * kPitch];
+  }
+};
+
+// The running map (A, Q, R, b, eta) of phase (a), composed with the element
+// of one row: p of that row, (u, v, 1/a, y) of the row before.  Q and R stay
+// symmetric: each pair of entries is updated once.
+template <typename T, int J>
+struct KMap {
+  T A[J][J], Q[J][J], R[J][J], b[J], e[J];
+
+  __device__ void identity() {
+#pragma unroll
+    for (int i = 0; i < J; ++i) {
+#pragma unroll
+      for (int j = 0; j < J; ++j) {
+        A[i][j] = i == j ? T(1) : T(0);
+        Q[i][j] = R[i][j] = T(0);
+      }
+      b[i] = e[i] = T(0);
+    }
+  }
+
+  __device__ void step(const T (&p)[J], const KRow<T, J>& w) {
+    T x[J], g[J], r[J];
+    T s = T(0), z = w.y;
+#pragma unroll
+    for (int i = 0; i < J; ++i) {
+      T xi = T(0), gi = T(0);
+#pragma unroll
+      for (int k = 0; k < J; ++k) {
+        xi += Q[i][k] * w.u[k];
+        gi += A[k][i] * w.u[k];
+      }
+      x[i] = xi;
+      g[i] = gi;
+    }
+#pragma unroll
+    for (int i = 0; i < J; ++i) {
+      s += w.u[i] * x[i];
+      z -= b[i] * w.u[i];
+      r[i] = w.v[i] - x[i];
+    }
+    const T inv = inv_pivot(w.ai, s);
+#pragma unroll
+    for (int i = 0; i < J; ++i) {
+      const T ri = inv * r[i], gi = inv * g[i];
+#pragma unroll
+      for (int j = 0; j < J; ++j) A[i][j] = p[i] * (A[i][j] - ri * g[j]);
+#pragma unroll
+      for (int j = i; j < J; ++j) {
+        Q[i][j] = (p[i] * p[j]) * (Q[i][j] + ri * r[j]);
+        Q[j][i] = Q[i][j];
+        R[i][j] = R[i][j] - gi * g[j];
+        R[j][i] = R[i][j];
+      }
+      b[i] = p[i] * (b[i] + ri * z);
+      e[i] = e[i] - gi * z;
+    }
+  }
+
+  // flat order A, Q, R (row-major J x J), b, eta
+  __device__ void store(T* out) const {
+#pragma unroll
+    for (int i = 0; i < J; ++i) {
+#pragma unroll
+      for (int j = 0; j < J; ++j) {
+        out[i * J + j] = A[i][j];
+        out[J * J + i * J + j] = Q[i][j];
+        out[2 * J * J + i * J + j] = R[i][j];
+      }
+      out[3 * J * J + i] = b[i];
+      out[3 * J * J + J + i] = e[i];
+    }
+  }
+};
+
+// The state (S, F) of phase (c) after the element of one row: the Cholesky
+// step S <- p (S + r r^T / d) p, F <- p (F + r z / d), r = v - S u,
+// z = y - u^T F.
+template <typename T, int J>
+__device__ __forceinline__ void kalman_state_step(T (&S)[J][J], T (&F)[J],
+                                                  const T (&p)[J],
+                                                  const KRow<T, J>& w) {
+  T x[J];
+  T s = T(0), z = w.y;
+#pragma unroll
+  for (int i = 0; i < J; ++i) {
+    T xi = T(0);
+#pragma unroll
+    for (int k = 0; k < J; ++k) xi += S[i][k] * w.u[k];
+    x[i] = xi;
+  }
+#pragma unroll
+  for (int i = 0; i < J; ++i) {
+    s += w.u[i] * x[i];
+    z -= F[i] * w.u[i];
+  }
+  const T inv = inv_pivot(w.ai, s);
+#pragma unroll
+  for (int i = 0; i < J; ++i) {
+    const T ri = inv * (w.v[i] - x[i]);
+#pragma unroll
+    for (int j = i; j < J; ++j) {
+      S[i][j] = (p[i] * p[j]) * (S[i][j] + ri * (w.v[j] - x[j]));
+      S[j][i] = S[i][j];
+    }
+    F[i] = p[i] * (F[i] + ri * z);
+  }
+}
+
+template <typename T, int J>
+__global__ void __launch_bounds__(kWalks, 1)
+    kalman_maps_kernel(const T* __restrict__ p, const T* __restrict__ U,
+                       const T* __restrict__ V, const T* __restrict__ ainv,
+                       const T* __restrict__ y, T* __restrict__ maps,
+                       T* __restrict__ groups, int N, int L, int NB, int GB) {
+  using I = KIn<J>;
+  using M = KalmanMaps<T, J>;
+  constexpr int TILE = kTile * I::W * kPitch;
+  static_assert(2 * kWalks * M::E <= 2 * TILE, "the scan fits the tiles");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* tiles = reinterpret_cast<T*>(smem_raw);
+  __shared__ long long start[kWalks];
+  __shared__ int len[kWalks];
+  const Walk w = walk_setup(N, L, NB, start, len);
+  const int lane = threadIdx.x;
+  const int mine = len[lane];
+
+  KRow<T, J> prev;  // row n0 - 1 builds row n0's element; row 0 has none
+  prev.zero();
+  if (mine > 0 && w.n0 > 0) prev.load(U, V, ainv, y, start[lane] - 1);
+  KMap<T, J> acc;
+  acc.identity();
+
+  const int ntiles = (min(L, N) + kTile - 1) / kTile;
+  kalman_stage<T, J>(tiles, p, U, V, ainv, y, start, len, 0);
+  for (int s = 0; s < ntiles; ++s) {
+    if (s + 1 < ntiles) {
+      kalman_stage<T, J>(tiles + ((s + 1) & 1) * TILE, p, U, V, ainv, y,
+                         start, len, s + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncwarp();
+    const T* tile = tiles + (s & 1) * TILE + lane;
+#pragma unroll 1
+    for (int l = 0; l < kTile && s * kTile + l < mine; ++l) {
+      const T* x = tile + l * I::W * kPitch;
+      T pr[J];
+#pragma unroll
+      for (int j = 0; j < J; ++j) pr[j] = x[(I::P + j) * kPitch];
+      acc.step(pr, prev);
+      prev.load_tile(x);
+    }
+    __syncwarp();
+  }
+  // the group's prefix maps, in the tiles (every lane is done with them)
+  acc.store(tiles + lane * M::E);
+  store_group<T, M>(tiles, w, NB, GB, w.block < NB, maps, groups);
+}
+
+template <typename T, int J>
+__global__ void __launch_bounds__(kWalks, 1)
+    kalman_states_kernel(const T* __restrict__ p, const T* __restrict__ U,
+                         const T* __restrict__ V, const T* __restrict__ ainv,
+                         const T* __restrict__ y, const T* __restrict__ maps,
+                         const T* __restrict__ gstates, T* __restrict__ S,
+                         T* __restrict__ F, int N, int L, int NB, int GB) {
+  using I = KIn<J>;
+  constexpr int TILE = kTile * I::W * kPitch;
+  constexpr int OUT = J * J + J;  // S, F of a row in the output tile
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* tiles = reinterpret_cast<T*>(smem_raw);
+  T* out = tiles + 2 * TILE;
+  __shared__ long long start[kWalks];
+  __shared__ int len[kWalks];
+  const Walk w = walk_setup(N, L, NB, start, len);
+  const int lane = threadIdx.x;
+  const int mine = len[lane];
+
+  KRow<T, J> prev;
+  prev.zero();
+  if (mine > 0 && w.n0 > 0) prev.load(U, V, ainv, y, start[lane] - 1);
+  T Sm[J][J], Fv[J];  // the state entering the block (zero for the first)
+  {
+    T st[OUT];
+    walk_entry<T, KalmanMaps<T, J>>(maps, gstates, w, NB, GB, st);
+#pragma unroll
+    for (int i = 0; i < J; ++i) {
+#pragma unroll
+      for (int j = 0; j < J; ++j) Sm[i][j] = st[i * J + j];
+      Fv[i] = st[J * J + i];
+    }
+  }
+
+  const int ntiles = (min(L, N) + kTile - 1) / kTile;
+  kalman_stage<T, J>(tiles, p, U, V, ainv, y, start, len, 0);
+  for (int s = 0; s < ntiles; ++s) {
+    if (s + 1 < ntiles) {
+      kalman_stage<T, J>(tiles + ((s + 1) & 1) * TILE, p, U, V, ainv, y,
+                         start, len, s + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncwarp();
+    const T* tile = tiles + (s & 1) * TILE + lane;
+#pragma unroll 1
+    for (int l = 0; l < kTile && s * kTile + l < mine; ++l) {
+      const T* x = tile + l * I::W * kPitch;
+      T pr[J];
+#pragma unroll
+      for (int j = 0; j < J; ++j) pr[j] = x[(I::P + j) * kPitch];
+      kalman_state_step(Sm, Fv, pr, prev);
+      prev.load_tile(x);
+      T* o = out + l * OUT * kPitch + lane;
+#pragma unroll
+      for (int i = 0; i < J; ++i) {
+#pragma unroll
+        for (int j = 0; j < J; ++j) o[(i * J + j) * kPitch] = Sm[i][j];
+        o[(J * J + i) * kPitch] = Fv[i];
+      }
+    }
+    __syncwarp();
+    unstage<J * J, 0, OUT>(S, out, start, len, s);
+    unstage<J, J * J, OUT>(F, out, start, len, s);
+    __syncwarp();
+  }
+}
+
+// ---------------------------------------------------------------- K2
+
+// the values of a row in K2's input tiles: p, u, w, bZ
+template <int J>
+struct RIn {
+  static constexpr int P = 0, U = J, W = 2 * J, BZ = 3 * J, WIDTH = 3 * J + 1;
+};
+
+template <typename T, int J>
+__device__ __forceinline__ void solve_stage(T* tile, const T* p, const T* U,
+                                            const T* W, const T* bz,
+                                            const long long* start,
+                                            const int* len, int s) {
+  using I = RIn<J>;
+  stage<J, I::P, I::WIDTH>(tile, p, start, len, s);
+  stage<J, I::U, I::WIDTH>(tile, U, start, len, s);
+  stage<J, I::W, I::WIDTH>(tile, W, start, len, s);
+  stage<1, I::BZ, I::WIDTH>(tile, bz, start, len, s);
+  cp_async_commit();
+}
+
+// One row's parameters from the tile (x at value 0 of the row of this
+// lane's walk); u = 0 at row 0 of a chain (the identity step).
+template <typename T, int J>
+__device__ __forceinline__ void solve_row(const T* x, bool row0, T (&p)[J],
+                                          T (&u)[J], T (&w)[J], T& bz) {
+  using I = RIn<J>;
+#pragma unroll
+  for (int j = 0; j < J; ++j) {
+    p[j] = x[(I::P + j) * kPitch];
+    u[j] = row0 ? T(0) : x[(I::U + j) * kPitch];
+    w[j] = x[(I::W + j) * kPitch];
+  }
+  bz = x[I::BZ * kPitch];
+}
+
+// x <- p (x - u (w^T x + c)) for every column of the running map (c = 0)
+// and its constant (c = bZ)
+template <typename T, int J>
+__global__ void __launch_bounds__(kWalks, 1)
+    solve_maps_kernel(const T* __restrict__ p, const T* __restrict__ U,
+                      const T* __restrict__ W, const T* __restrict__ bz,
+                      T* __restrict__ maps, T* __restrict__ groups, int N,
+                      int L, int NB, int GB) {
+  using I = RIn<J>;
+  using M = AffineMaps<T, J>;
+  constexpr int TILE = kTile * I::WIDTH * kPitch;
+  static_assert(2 * kWalks * M::E <= 2 * TILE, "the scan fits the tiles");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* tiles = reinterpret_cast<T*>(smem_raw);
+  __shared__ long long start[kWalks];
+  __shared__ int len[kWalks];
+  const Walk wk = walk_setup(N, L, NB, start, len);
+  const int n0 = wk.n0;
+  const int lane = threadIdx.x;
+  const int mine = len[lane];
+
+  T A[J][J], c[J];
+#pragma unroll
+  for (int i = 0; i < J; ++i) {
+#pragma unroll
+    for (int j = 0; j < J; ++j) A[i][j] = i == j ? T(1) : T(0);
+    c[i] = T(0);
+  }
+
+  const int ntiles = (min(L, N) + kTile - 1) / kTile;
+  solve_stage<T, J>(tiles + ((ntiles - 1) & 1) * TILE, p, U, W, bz, start, len,
+                    ntiles - 1);
+  for (int s = ntiles - 1; s >= 0; --s) {
+    if (s > 0) {
+      solve_stage<T, J>(tiles + ((s - 1) & 1) * TILE, p, U, W, bz, start, len,
+                        s - 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncwarp();
+    const T* tile = tiles + (s & 1) * TILE + lane;
+#pragma unroll 1
+    for (int l = min(kTile, mine - s * kTile) - 1; l >= 0; --l) {
+      T pr[J], u[J], w[J], b;
+      solve_row<T, J>(tile + l * I::WIDTH * kPitch, n0 + s * kTile + l == 0,
+                      pr, u, w, b);
+#pragma unroll
+      for (int j = 0; j < J; ++j) {
+        T t = T(0);
+#pragma unroll
+        for (int i = 0; i < J; ++i) t += w[i] * A[i][j];
+#pragma unroll
+        for (int i = 0; i < J; ++i) A[i][j] = pr[i] * (A[i][j] - u[i] * t);
+      }
+      T t = b;
+#pragma unroll
+      for (int i = 0; i < J; ++i) t += w[i] * c[i];
+#pragma unroll
+      for (int i = 0; i < J; ++i) c[i] = pr[i] * (c[i] - u[i] * t);
+    }
+    __syncwarp();
+  }
+  // the group's suffix maps, in the tiles (every lane is done with them)
+  T* o = tiles + lane * M::E;
 #pragma unroll
   for (int i = 0; i < J; ++i) {
 #pragma unroll
     for (int j = 0; j < J; ++j) o[i * J + j] = A[i][j];
-    o[J * J + i] = b[i][0];
+    o[J * J + i] = c[i];
+  }
+  store_group<T, M>(tiles, wk, NB, GB, wk.block < NB, maps, groups);
+}
+
+template <typename T, int J>
+__global__ void __launch_bounds__(kWalks, 1)
+    solve_states_kernel(const T* __restrict__ p, const T* __restrict__ U,
+                        const T* __restrict__ W, const T* __restrict__ bz,
+                        const T* __restrict__ maps,
+                        const T* __restrict__ gstates, T* __restrict__ R,
+                        int N, int L, int NB, int GB) {
+  using I = RIn<J>;
+  constexpr int TILE = kTile * I::WIDTH * kPitch;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* tiles = reinterpret_cast<T*>(smem_raw);
+  T* out = tiles + 2 * TILE;
+  __shared__ long long start[kWalks];
+  __shared__ int len[kWalks];
+  const Walk wk = walk_setup(N, L, NB, start, len);
+  const int n0 = wk.n0;
+  const int lane = threadIdx.x;
+  const int mine = len[lane];
+
+  T x[J];  // the state entering the block from above (zero for the last)
+  walk_entry<T, AffineMaps<T, J>>(maps, gstates, wk, NB, GB, x);
+
+  const int ntiles = (min(L, N) + kTile - 1) / kTile;
+  solve_stage<T, J>(tiles + ((ntiles - 1) & 1) * TILE, p, U, W, bz, start, len,
+                    ntiles - 1);
+  for (int s = ntiles - 1; s >= 0; --s) {
+    if (s > 0) {
+      solve_stage<T, J>(tiles + ((s - 1) & 1) * TILE, p, U, W, bz, start, len,
+                        s - 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncwarp();
+    const T* tile = tiles + (s & 1) * TILE + lane;
+#pragma unroll 1
+    for (int l = min(kTile, mine - s * kTile) - 1; l >= 0; --l) {
+      T pr[J], u[J], w[J], b;
+      solve_row<T, J>(tile + l * I::WIDTH * kPitch, n0 + s * kTile + l == 0,
+                      pr, u, w, b);
+      T t = b;
+#pragma unroll
+      for (int i = 0; i < J; ++i) t += w[i] * x[i];
+      T* o = out + l * J * kPitch + lane;
+#pragma unroll
+      for (int i = 0; i < J; ++i) {
+        x[i] = pr[i] * (x[i] - u[i] * t);
+        o[i * kPitch] = x[i];
+      }
+    }
+    __syncwarp();
+    unstage<J, 0, J>(R, out, start, len, s);
+    __syncwarp();
+  }
+}
+
+// One block per chain.  The scan visits the chain's NB block maps in order
+// (from the last block for a suffix); thread t takes the run of them
+// [t per, (t + 1) per).  Maps of the runs and of the scan's levels live in
+// dynamic shared memory, two slots of E values a thread.
+template <typename T, class M>
+__global__ void __launch_bounds__(kScanThreads, 1)
+    block_scan_kernel(const T* __restrict__ maps, T* __restrict__ states,
+                      int NB) {
+  constexpr int E = M::E, ST = M::ST;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* buf = reinterpret_cast<T*>(smem_raw);
+  const int tid = threadIdx.x;
+  const T* cm = maps + (long long)blockIdx.x * NB * E;
+  T* cs = states + (long long)blockIdx.x * NB * ST;
+  const int per = (NB + kScanThreads - 1) / kScanThreads;
+  const int lo = min(NB, tid * per), hi = min(NB, lo + per);
+
+  // 1. the composition of the thread's run
+  T* mine = buf + tid * E;
+  T* cur = mine;
+  T* nxt = buf + (kScanThreads + tid) * E;
+  if (lo < hi) {
+    const T* m = cm + (long long)(M::kReverse ? NB - 1 - lo : lo) * E;
+    for (int k = 0; k < E; ++k) cur[k] = m[k];
+  } else {
+    M::identity(cur);
+  }
+  for (int q = lo + 1; q < hi; ++q) {
+    M::combine(cur, cm + (long long)(M::kReverse ? NB - 1 - q : q) * E, nxt);
+    T* t = cur;
+    cur = nxt;
+    nxt = t;
+  }
+  if (cur != mine)
+    for (int k = 0; k < E; ++k) mine[k] = cur[k];
+  __syncthreads();
+
+  // 2. inclusive scan of the runs' compositions (Kogge-Stone)
+  T* src = buf;
+  T* dst = buf + kScanThreads * E;
+  for (int d = 1; d < kScanThreads; d *= 2) {
+    if (tid >= d)
+      M::combine(src + (tid - d) * E, src + tid * E, dst + tid * E);
+    else
+      for (int k = 0; k < E; ++k) dst[tid * E + k] = src[tid * E + k];
+    __syncthreads();
+    T* t = src;
+    src = dst;
+    dst = t;
+  }
+
+  // 3. the state entering each block of the run
+  T st[ST];
+  if (tid == 0) {
+#pragma unroll
+    for (int k = 0; k < ST; ++k) st[k] = T(0);
+  } else {
+    M::state_of(src + (tid - 1) * E, st);
+  }
+  for (int q = lo; q < hi; ++q) {
+    const long long b = M::kReverse ? NB - 1 - q : q;
+    T* o = cs + b * ST;
+#pragma unroll
+    for (int k = 0; k < ST; ++k) o[k] = st[k];
+    if (q + 1 < hi) M::apply(cm + b * E, st);
+  }
+}
+
+template <typename T, class M>
+int launch_scan(const void* maps, void* states, int C, int NB,
+                cudaStream_t s) {
+  const size_t smem = 2 * (size_t)kScanThreads * M::E * sizeof(T);
+  static size_t allowed = 0;
+  const int err = allow_smem(block_scan_kernel<T, M>, smem, &allowed);
+  if (err) return err;
+  block_scan_kernel<T, M><<<(unsigned)C, kScanThreads, smem, s>>>(
+      (const T*)maps, (T*)states, NB);
+  return (int)cudaGetLastError();
+}
+
+// one thread block of (a) and (c) per group of kWalks blocks of a chain
+inline unsigned walk_grid(int C, int GB) { return (unsigned)((long long)C * GB); }
+
+// The phases of K1 at width J, in order: (a) with more than one block, (b)
+// with more than one group, (c).
+template <typename T, int J>
+int launch_kalman_j(const void* p, const void* U, const void* V,
+                    const void* ainv, const void* y, void* S, void* F,
+                    void* maps, void* groups, void* gstates, int C, int N,
+                    int L, cudaStream_t s) {
+  const int NB = (N + L - 1) / L;
+  const int GB = (NB + kWalks - 1) / kWalks;
+  const T *pp = (const T*)p, *Up = (const T*)U, *Vp = (const T*)V,
+          *ap = (const T*)ainv, *yp = (const T*)y;
+  constexpr int WIN = KIn<J>::W;
+  int err;
+  if (NB > 1) {
+    const size_t smem = walk_smem<T>(WIN, 0);
+    static size_t maps_allowed = 0;
+    if ((err = allow_smem(kalman_maps_kernel<T, J>, smem, &maps_allowed)))
+      return err;
+    kalman_maps_kernel<T, J><<<walk_grid(C, GB), kWalks, smem, s>>>(
+        pp, Up, Vp, ap, yp, (T*)maps, (T*)groups, N, L, NB, GB);
+    if ((err = (int)cudaGetLastError())) return err;
+  }
+  if (GB > 1 &&
+      (err = launch_scan<T, KalmanMaps<T, J>>(groups, gstates, C, GB, s)))
+    return err;
+  const size_t smem = walk_smem<T>(WIN, J * J + J);
+  static size_t states_allowed = 0;
+  if ((err = allow_smem(kalman_states_kernel<T, J>, smem, &states_allowed)))
+    return err;
+  kalman_states_kernel<T, J><<<walk_grid(C, GB), kWalks, smem, s>>>(
+      pp, Up, Vp, ap, yp, NB > 1 ? (const T*)maps : nullptr,
+      GB > 1 ? (const T*)gstates : nullptr, (T*)S, (T*)F, N, L, NB, GB);
+  return (int)cudaGetLastError();
+}
+
+// The phases of K2 at width J, as K1's.
+template <typename T, int J>
+int launch_solve_j(const void* p, const void* U, const void* W,
+                   const void* bz, void* R, void* maps, void* groups,
+                   void* gstates, int C, int N, int L, cudaStream_t s) {
+  const int NB = (N + L - 1) / L;
+  const int GB = (NB + kWalks - 1) / kWalks;
+  const T *pp = (const T*)p, *Up = (const T*)U, *Wp = (const T*)W,
+          *bp = (const T*)bz;
+  constexpr int WIN = RIn<J>::WIDTH;
+  int err;
+  if (NB > 1) {
+    const size_t smem = walk_smem<T>(WIN, 0);
+    static size_t maps_allowed = 0;
+    if ((err = allow_smem(solve_maps_kernel<T, J>, smem, &maps_allowed)))
+      return err;
+    solve_maps_kernel<T, J><<<walk_grid(C, GB), kWalks, smem, s>>>(
+        pp, Up, Wp, bp, (T*)maps, (T*)groups, N, L, NB, GB);
+    if ((err = (int)cudaGetLastError())) return err;
+  }
+  if (GB > 1 &&
+      (err = launch_scan<T, AffineMaps<T, J>>(groups, gstates, C, GB, s)))
+    return err;
+  const size_t smem = walk_smem<T>(WIN, J);
+  static size_t states_allowed = 0;
+  if ((err = allow_smem(solve_states_kernel<T, J>, smem, &states_allowed)))
+    return err;
+  solve_states_kernel<T, J><<<walk_grid(C, GB), kWalks, smem, s>>>(
+      pp, Up, Wp, bp, NB > 1 ? (const T*)maps : nullptr,
+      GB > 1 ? (const T*)gstates : nullptr, (T*)R, N, L, NB, GB);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_kalman(int J, const void* p, const void* U,
+                  const void* V, const void* ainv, const void* y, void* S,
+                  void* F, void* maps, void* groups, void* gstates, int C,
+                  int N, int L, cudaStream_t s) {
+  switch (J) {
+    case 1:
+      return launch_kalman_j<T, 1>(p, U, V, ainv, y, S, F, maps,
+                                   groups, gstates, C, N, L, s);
+    case 2:
+      return launch_kalman_j<T, 2>(p, U, V, ainv, y, S, F, maps,
+                                   groups, gstates, C, N, L, s);
+    case 3:
+      return launch_kalman_j<T, 3>(p, U, V, ainv, y, S, F, maps,
+                                   groups, gstates, C, N, L, s);
+    case 4:
+      return launch_kalman_j<T, 4>(p, U, V, ainv, y, S, F, maps,
+                                   groups, gstates, C, N, L, s);
+    default:
+      return -1;
+  }
+}
+
+template <typename T>
+int launch_solve(int J, const void* p, const void* U,
+                 const void* W, const void* bz, void* R, void* maps,
+                 void* groups, void* gstates, int C, int N, int L,
+                 cudaStream_t s) {
+  switch (J) {
+    case 1:
+      return launch_solve_j<T, 1>(p, U, W, bz, R, maps, groups,
+                                  gstates, C, N, L, s);
+    case 2:
+      return launch_solve_j<T, 2>(p, U, W, bz, R, maps, groups,
+                                  gstates, C, N, L, s);
+    case 3:
+      return launch_solve_j<T, 3>(p, U, W, bz, R, maps, groups,
+                                  gstates, C, N, L, s);
+    case 4:
+      return launch_solve_j<T, 4>(p, U, W, bz, R, maps, groups,
+                                  gstates, C, N, L, s);
+    default:
+      return -1;
   }
 }
 
@@ -573,7 +1484,7 @@ __device__ __forceinline__ void frev_row(const T* __restrict__ p,
 // (C, NB, D^2 + D): column k at [k D, (k + 1) D), the constant at
 // [D^2, D^2 + D).
 //
-// Bound on this card: latency, as K1-K3: 256 dependent steps of O(J^2) per
+// Bound on this card: latency, as K3: 256 dependent steps of O(J^2) per
 // column.  The TPU carried all D^2 + D = 272 values (J = 4) of a block in
 // VMEM scratch; one thread cannot hold that in registers.  So one warp walks
 // one (chain, block) and lane k < D carries column k (D values), lane D the
@@ -620,7 +1531,7 @@ __global__ void __launch_bounds__(kThreads)
 // (C, N, D).  At row 0 (the identity step) that is the state after every
 // real step, which is what the row formulas need there.
 //
-// Bound on this card: latency, as K2: D = 16 register values (J = 4) and
+// Bound on this card: latency, as K3: D = 16 register values (J = 4) and
 // O(J^2) per row; D values written per row.
 
 template <typename T, int J>
@@ -656,54 +1567,6 @@ __global__ void __launch_bounds__(kThreads)
 inline dim3 grid_for(int C, int NB) {
   const long long n = (long long)C * NB;
   return dim3((unsigned)((n + kThreads - 1) / kThreads));
-}
-
-template <typename T>
-int launch_kalman(int J, const void* p, const void* U, const void* V,
-                  const void* ainv, const void* y, void* pre, void* maps,
-                  int C, int N, int L, cudaStream_t s) {
-  const int NB = (N + L - 1) / L;
-  const T *pp = (const T*)p, *Up = (const T*)U, *Vp = (const T*)V,
-          *ap = (const T*)ainv, *yy = (const T*)y;
-  if (J == 1)
-    kalman_fwd_kernel<T, 1><<<grid_for(C, NB), kThreads, 0, s>>>(
-        pp, Up, Vp, ap, yy, (T*)pre, (T*)maps, C, N, L, NB);
-  else if (J == 2)
-    kalman_fwd_kernel<T, 2><<<grid_for(C, NB), kThreads, 0, s>>>(
-        pp, Up, Vp, ap, yy, (T*)pre, (T*)maps, C, N, L, NB);
-  else if (J == 3)
-    kalman_fwd_kernel<T, 3><<<grid_for(C, NB), kThreads, 0, s>>>(
-        pp, Up, Vp, ap, yy, (T*)pre, (T*)maps, C, N, L, NB);
-  else if (J == 4)
-    kalman_fwd_kernel<T, 4><<<grid_for(C, NB), kThreads, 0, s>>>(
-        pp, Up, Vp, ap, yy, (T*)pre, (T*)maps, C, N, L, NB);
-  else
-    return -1;
-  return (int)cudaGetLastError();
-}
-
-template <typename T>
-int launch_solve(int J, const void* p, const void* U, const void* W,
-                 const void* bz, void* pre, void* maps, int C, int N, int L,
-                 cudaStream_t s) {
-  const int NB = (N + L - 1) / L;
-  const T *pp = (const T*)p, *Up = (const T*)U, *Wp = (const T*)W,
-          *bp = (const T*)bz;
-  if (J == 1)
-    solve_rev_kernel<T, 1><<<grid_for(C, NB), kThreads, 0, s>>>(
-        pp, Up, Wp, bp, (T*)pre, (T*)maps, C, N, L, NB);
-  else if (J == 2)
-    solve_rev_kernel<T, 2><<<grid_for(C, NB), kThreads, 0, s>>>(
-        pp, Up, Wp, bp, (T*)pre, (T*)maps, C, N, L, NB);
-  else if (J == 3)
-    solve_rev_kernel<T, 3><<<grid_for(C, NB), kThreads, 0, s>>>(
-        pp, Up, Wp, bp, (T*)pre, (T*)maps, C, N, L, NB);
-  else if (J == 4)
-    solve_rev_kernel<T, 4><<<grid_for(C, NB), kThreads, 0, s>>>(
-        pp, Up, Wp, bp, (T*)pre, (T*)maps, C, N, L, NB);
-  else
-    return -1;
-  return (int)cudaGetLastError();
 }
 
 template <typename T>
@@ -784,25 +1647,39 @@ int launch_frev_states(int J, const void* p, const void* U, const void* W,
 // vectors, (C, N) for per-row scalars, (C, N, E) for ``pre``,
 // (C, ceil(N / L), E) for ``maps``, (C, ceil(N / L), J^2) for ``seeds`` and
 // (C, N, J^2) for ``out``.
+//
+// c2t_kalman_fwd and c2t_solve_rev launch the phases their rows need, on
+// NB = ceil(N / L) blocks in GB = ceil(NB / 32) groups: 0 with NB > 1, the
+// block maps (writes each block's prefix or suffix within its group,
+// ``maps`` (C, NB, E), and each group's map, ``groups`` (C, GB, E);
+// E = 3J^2 + 2J for K1, J^2 + J for K2); 1 with GB > 1, the scan over the
+// groups (writes ``gstates``, the state entering every group: (C, GB,
+// J^2 + J) and (C, GB, J)); 2 the rows (writes S (C, N, J, J) and
+// F (C, N, J), or R (C, N, J)).  The scratch arrays a call does not need
+// may be null.
 
 extern "C" {
 
 int c2t_kalman_fwd(int is_double, int J, const void* p, const void* U,
-                   const void* V, const void* ainv, const void* y, void* pre,
-                   void* maps, int C, int N, int L, void* stream) {
+                   const void* V, const void* ainv, const void* y, void* S,
+                   void* F, void* maps, void* groups, void* gstates, int C,
+                   int N, int L, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  return is_double
-             ? launch_kalman<double>(J, p, U, V, ainv, y, pre, maps, C, N, L, s)
-             : launch_kalman<float>(J, p, U, V, ainv, y, pre, maps, C, N, L, s);
+  return is_double ? launch_kalman<double>(J, p, U, V, ainv, y, S, F, maps,
+                                           groups, gstates, C, N, L, s)
+                   : launch_kalman<float>(J, p, U, V, ainv, y, S, F, maps,
+                                          groups, gstates, C, N, L, s);
 }
 
 int c2t_solve_rev(int is_double, int J, const void* p, const void* U,
-                  const void* W, const void* bz, void* pre, void* maps, int C,
-                  int N, int L, void* stream) {
+                  const void* W, const void* bz, void* R, void* maps,
+                  void* groups, void* gstates, int C, int N, int L,
+                  void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  return is_double
-             ? launch_solve<double>(J, p, U, W, bz, pre, maps, C, N, L, s)
-             : launch_solve<float>(J, p, U, W, bz, pre, maps, C, N, L, s);
+  return is_double ? launch_solve<double>(J, p, U, W, bz, R, maps, groups,
+                                          gstates, C, N, L, s)
+                   : launch_solve<float>(J, p, U, W, bz, R, maps, groups,
+                                         gstates, C, N, L, s);
 }
 
 int c2t_factor_rev(int is_double, int J, const void* p, const void* U,

@@ -54,6 +54,8 @@
 #include <initializer_list>
 #include <type_traits>
 
+#include "device_common.cuh"
+
 namespace {
 
 constexpr unsigned kFullMask = 0xffffffffu;
@@ -124,10 +126,6 @@ constexpr int kMaxTileRows = 128;
 // right-hand sides per block of a sweep and of its adjoint (one carry warp)
 constexpr int kSweepSlice = 32;
 
-__device__ __forceinline__ uint32_t smem_addr(const void* ptr) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
-}
-
 __device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_addr(bar)),
                "r"(count)
@@ -185,13 +183,6 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src,
       "[%0], [%1], %2, [%3];" ::"r"(smem_addr(dst)),
       "l"(src), "r"(bytes), "r"(smem_addr(bar))
       : "memory");
-}
-
-template <typename T>
-__device__ __forceinline__ void cp_async_elem(T* dst, const T* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;" ::"r"(smem_addr(dst)),
-               "l"(src), "n"(sizeof(T))
-               : "memory");
 }
 
 // the barrier's phase also waits for this thread's cp.async copies so far
@@ -422,17 +413,6 @@ int tile_rows(size_t bytes_per_row) {
   const size_t rows = kRingBudget / bytes_per_row;
   return (int)std::max<size_t>(kMinTileRows,
                                std::min<size_t>(kMaxTileRows, rows));
-}
-
-// Set a kernel's dynamic shared memory limit above the default 48 KB once
-// per instantiation (and again if a launch asks for more).
-template <typename Kernel>
-int allow_smem(Kernel kernel, size_t bytes, size_t* allowed) {
-  if (bytes <= 48 * 1024 || bytes <= *allowed) return 0;
-  const int rc = (int)cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (rc == 0) *allowed = bytes;
-  return rc;
 }
 
 // A launch's ring: its kernel (of the instantiation for its chains per

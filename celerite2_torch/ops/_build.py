@@ -29,6 +29,7 @@ from celerite2_torch.config import J_BUCKETS
 __all__ = [
     "LAUNCHES",
     "build",
+    "fused_block_len",
     "kalman_fwd_cuda",
     "solve_rev_cuda",
     "factor_rev_cuda",
@@ -167,8 +168,6 @@ def _library():
         P, I = ctypes.c_void_p, ctypes.c_int
         # (is_double, J, inputs..., outputs..., C, N, L, stream)
         for name, n_arrays in (
-            ("c2t_kalman_fwd", 7),
-            ("c2t_solve_rev", 6),
             ("c2t_factor_rev", 7),
             ("c2t_frev_maps", 6),
             ("c2t_frev_states", 7),
@@ -176,6 +175,11 @@ def _library():
             fn = getattr(lib, name)
             fn.argtypes = [I, I] + [P] * n_arrays + [I, I, I, P]
             fn.restype = I
+        # (is_double, J, inputs..., outputs..., scratch..., C, N, L, stream)
+        lib.c2t_kalman_fwd.argtypes = [I, I] + [P] * 10 + [I] * 3 + [P]
+        lib.c2t_kalman_fwd.restype = I
+        lib.c2t_solve_rev.argtypes = [I, I] + [P] * 8 + [I] * 3 + [P]
+        lib.c2t_solve_rev.restype = I
         # (is_double, J, inputs..., outputs..., C, N, stream)
         lib.c2t_factor_fwd.argtypes = [I, I] + [P] * 7 + [I, I, P]
         lib.c2t_factor_fwd.restype = I
@@ -261,30 +265,67 @@ def _row_shapes(C, N, J, n_vec, n_scalar):
     return ((C, N, J),) * n_vec + ((C, N),) * n_scalar
 
 
-def kalman_fwd_cuda(p, U, V, ainv, y, L):
-    """K1 on the card: per-row Kalman prefixes ``(C, N, 3J^2+2J)`` and
-    block maps ``(C, ceil(N/L), 3J^2+2J)``."""
+def fused_block_len(N):
+    """Rows per block of K1 and K2 on the card: the power of two at or
+    above sqrt(N) / 10, at least 32.  A walk's time grows with L, the scan
+    over the blocks' maps with N / L; the rule follows the sweep of
+    ``chip_smoke.py --sweep`` (PERF.md), where at 64 chains the block
+    length moved the eval by under 5% from 32 to 512 rows."""
+    L = 32
+    while 100 * L * L < N:
+        L *= 2
+    return L
+
+
+# blocks of K1's and K2's rows in a group: the walks of one of their thread
+# blocks (csrc/fused_loglik.cu, kWalks)
+FUSED_GROUP = 32
+
+
+def _two_level(key, J, inputs, outs, C, N, block_len, map_width, state_width):
+    """Launch K1 or K2 (``c2t_<key>``, one call): with more than one block,
+    the block maps; with more than one group of blocks, the scan over the
+    groups; the rows.  Each kernel counts in :data:`LAUNCHES`."""
+    if min(C, N) < 1:
+        raise ValueError(f"{key}: empty system (C={C}, N={N})")
+    L = fused_block_len(N) if block_len is None else int(block_len)
+    if L < 1:
+        raise ValueError(f"{key}: block length must be >= 1, got {L}")
+    NB = -(-N // L)
+    GB = -(-NB // FUSED_GROUP)
+    x = inputs[0]
+    scratch = (
+        _empty(x, C, NB, map_width) if NB > 1 else None,
+        _empty(x, C, GB, map_width) if NB > 1 else None,
+        _empty(x, C, GB, state_width) if GB > 1 else None,
+    )
+    _launch_general(key, J, inputs, (*outs, *scratch), (C, N, L))
+    LAUNCHES[key] += (NB > 1) + (GB > 1)
+
+
+def kalman_fwd_cuda(p, U, V, ainv, y, block_len=None):
+    """K1 on the card: the Kalman pass's per-row states, ``S (C, N, J, J)``
+    and ``F (C, N, J)``, in blocks of ``block_len`` rows (default
+    :func:`fused_block_len`)."""
     C, N, J = U.shape
-    NB = _num_blocks("kalman_fwd", J, N, L)
     inputs = (p, U, V, ainv, y)
     _check("kalman_fwd", inputs, _row_shapes(C, N, J, 3, 2))
-    E = 3 * J * J + 2 * J
-    return tuple(
-        _launch("kalman_fwd", inputs, ((C, N, E), (C, NB, E)), C, N, J, L)
-    )
+    outs = (_empty(p, C, N, J, J), _empty(p, C, N, J))
+    _two_level("kalman_fwd", J, inputs, outs, C, N, block_len,
+               3 * J * J + 2 * J, J * J + J)
+    return outs
 
 
-def solve_rev_cuda(p, U, W, bz, L):
-    """K2 on the card: per-row suffix maps ``(C, N, J^2+J)`` and block
-    maps ``(C, ceil(N/L), J^2+J)``."""
+def solve_rev_cuda(p, U, W, bz, block_len=None):
+    """K2 on the card: the solve adjoint's per-row suffix states
+    ``Rst (C, N, J)``, in blocks of ``block_len`` rows (default
+    :func:`fused_block_len`)."""
     C, N, J = U.shape
-    NB = _num_blocks("solve_rev", J, N, L)
     inputs = (p, U, W, bz)
     _check("solve_rev", inputs, _row_shapes(C, N, J, 3, 1))
-    E = J * J + J
-    return tuple(
-        _launch("solve_rev", inputs, ((C, N, E), (C, NB, E)), C, N, J, L)
-    )
+    out = _empty(p, C, N, J)
+    _two_level("solve_rev", J, inputs, (out,), C, N, block_len, J * J + J, J)
+    return out
 
 
 def factor_rev_cuda(p, U, W, bv0, bdp, L):
@@ -326,8 +367,9 @@ def frev_states_cuda(p, U, W, bv0, bdp, seeds, L):
 
 def _launch_general(key, J, inputs, outs, ints, fn=None):
     """Launch ``c2t_<fn>`` (``fn`` defaults to ``key``; csrc/general_ops.cu,
-    csrc/assoc_prefix.cu) on ``inputs`` into ``outs`` (None for an array
-    that is not given or not wanted: its pointer is null), with the
+    csrc/assoc_prefix.cu, K1 and K2 of csrc/fused_loglik.cu) on ``inputs``
+    into ``outs`` (None for an array that is not given or not wanted: its
+    pointer is null), with the
     trailing integer arguments ``ints``, and count it under ``key``.  ``J``
     None is not passed (a kernel that takes its width from ``ints``)."""
     if J is not None and J not in WIDTHS.get(key, (J,)):

@@ -10,11 +10,12 @@ as its own plane so the TPU's vector unit sees full tiles; here an
 element is a tuple of ordinary ``(..., J, J)`` / ``(..., J, 1)``
 tensors and the algebra is batched ``torch.matmul``.
 
-This is plain tensor code for the cross-block level (composing the
-block maps the scan kernels emit, and distributing the exclusive block
+This is plain tensor code for the cross-block level of K3 (composing
+the block maps its kernel emits, and distributing the exclusive block
 states over the rows), and for the kernels' plain versions.  The CUDA
-kernels in ``csrc/fused_loglik.cu`` carry the same formulas in
-registers; those of ``csrc/assoc_prefix.cu`` their rank-one forms.
+kernels in ``csrc/fused_loglik.cu`` carry the same formulas (K1, K2 their
+cross-block level too, on the card); those of ``csrc/assoc_prefix.cu``
+and K1's row steps their rank-one forms.
 
 Convention, as in the JAX package: ``combine(e1, e2)`` with ``e1``
 earlier and ``e2`` later.

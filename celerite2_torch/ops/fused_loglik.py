@@ -10,16 +10,24 @@ value+gradient
   2. the solve adjoint (suffix composition of J-affine maps),
   3. the factor adjoint (suffix composition of J^2-affine maps),
 
-each run as a two-level scan over blocks of L rows:
+each run as a two-level scan over blocks of rows.
 
-* within each block, one pass (a CUDA kernel on the card,
-  ``csrc/fused_loglik.cu``; its plain PyTorch version, below, on the
-  CPU) builds every row's element from the raw per-row data, composes
-  the elements in order and emits per-row prefixes and one map per
-  block;
+K1 and K2 return the per-row states the glue uses (S and F of the
+forward, the solve adjoint's Rst).  On the card each is one CUDA kernel
+family (``csrc/fused_loglik.cu``) that runs the whole scan, its
+cross-block level included, in blocks of rows of its own choosing
+(``_build.fused_block_len``).  Their plain versions, below, run it in
+PyTorch in blocks of L rows:
+
+* within each block, the pass builds every row's element from the raw
+  per-row data, composes the elements in order and emits per-row
+  prefixes and one map per block;
 * the cross-block level composes the ``C x NB`` block maps with a
   Hillis-Steele prefix (``ops/elements.py``), and the distribute
   combines each row's prefix with its block's exclusive state.
+
+K3 on the card is the within-block pass only; the cross-block level and
+the distribute after it run in PyTorch on both routes.
 
 At J = 3, 4 the factor adjoint instead takes the JAX package's
 structured route (``_factor_adjoint_structured``): a dense J^2-affine
@@ -27,9 +35,8 @@ element per row is J^4 + J^2 values, so only per-block maps are
 densified (K4), composed across blocks in torch, and each block is re-run
 from its incoming state (K5).
 
-Everything outside the kernels (cross-block level, distribute, and the
-glue that turns states into d, W, Z, the log-likelihood and the six
-cotangents) is shared by the CUDA and CPU routes.
+The glue that turns the states into d, W, Z, the log-likelihood and the
+six cotangents is shared by the CUDA and CPU routes.
 
 Fidelity to the JAX package: non-PD rows divide by 1 (``ainv``,
 ``safe_dd``); ``ll`` is ``-inf`` per chain when the system is not
@@ -70,9 +77,10 @@ LAUNCHES = _build.LAUNCHES
 
 
 def default_block_len(N: int) -> int:
-    """Rows per block L (one kernel thread, or in K4 one warp, walks one
-    block of one chain).  Measured on an H100 at N = 1e5, C = 1: see
-    PERF.md."""
+    """Rows per block L of the plain versions and, on the card, of K3-K5
+    (one kernel thread, or in K4 one warp, walks one block of one chain).
+    Measured on an H100 at N = 1e5, C = 1: see PERF.md.  K1 and K2 take
+    their own on the card (``_build.fused_block_len``)."""
     return max(1, min(N, 256))
 
 
@@ -160,8 +168,9 @@ def _plain_scan(steps, N, L, combine, identity, E, reverse):
 def kalman_fwd_plain(p, U, V, ainv, y, L):
     """Plain version of K1: for each row, the Kalman element built from
     p = exp(-c dt) and the previous row's (u, v, 1/a, y), composed
-    forward within each block of L rows.  Returns per-row prefixes
-    ``(C, N, 3J^2+2J)`` and block maps ``(C, NB, 3J^2+2J)``."""
+    forward within each block of L rows, then across the blocks.
+    Returns the state after every row, ``S (C, N, J, J)`` (the carry
+    covariance) and ``F (C, N, J)`` (the solve state)."""
     C, N, J = U.shape
     pb = _blocks(p, L, 1.0)
     upb = _blocks(_shift_bwd(U), L, 0.0)
@@ -183,16 +192,19 @@ def kalman_fwd_plain(p, U, V, ainv, y, L):
 
     NB = pb.shape[1]
     ident = el.kalman_identity((C, NB), J, dtype=p.dtype, device=p.device)
-    return _plain_scan(
+    pre, maps = _plain_scan(
         steps, N, L, el.kalman_combine, ident, 3 * J * J + 2 * J, False
     )
+    full = _complete(pre, maps, _KALMAN, J, L, reverse=False)
+    return full[1], full[3][..., 0]
 
 
 def kalman_fwd(p, U, V, ainv, y, L):
-    """K1: the CUDA kernel for CUDA tensors, the plain version on CPU."""
+    """K1: the CUDA kernels for CUDA tensors (in blocks of their own
+    length), the plain version in blocks of L rows on CPU."""
     if p.device.type == "cpu":
         return kalman_fwd_plain(p, U, V, ainv, y, L)
-    return _build.kalman_fwd_cuda(p, U, V, ainv, y, L)
+    return _build.kalman_fwd_cuda(p, U, V, ainv, y)
 
 
 # =============================================== K2: solve adjoint pass
@@ -201,8 +213,9 @@ def kalman_fwd(p, U, V, ainv, y, L):
 def solve_rev_plain(p, U, W, bz, L):
     """Plain version of K2: the affine maps A = diag(p)(I - u w^T),
     b = -p u bZ (u = 0 at row 0 of every chain), composed as suffixes
-    within each block.  Returns per-row maps ``(C, N, J^2+J)`` and block
-    maps ``(C, NB, J^2+J)``."""
+    within each block of L rows, then across the blocks.  Returns the
+    suffix state of every row, ``Rst (C, N, J)``: Rst_n = A_n Rst_{n+1}
+    + b_n from zero past the last row."""
     C, N, J = U.shape
     pb = _blocks(p, L, 1.0)
     ub = _blocks(_row0_zeroed(U), L, 0.0)
@@ -218,14 +231,18 @@ def solve_rev_plain(p, U, W, bz, L):
 
     NB = pb.shape[1]
     ident = el.affine_identity((C, NB), J, dtype=p.dtype, device=p.device)
-    return _plain_scan(steps, N, L, el.affine_combine, ident, J * J + J, True)
+    pre, maps = _plain_scan(
+        steps, N, L, el.affine_combine, ident, J * J + J, True
+    )
+    return _complete(pre, maps, _AFFINE, J, L, reverse=True)[1][..., 0]
 
 
 def solve_rev(p, U, W, bz, L):
-    """K2: the CUDA kernel for CUDA tensors, the plain version on CPU."""
+    """K2: the CUDA kernels for CUDA tensors (in blocks of their own
+    length), the plain version in blocks of L rows on CPU."""
     if p.device.type == "cpu":
         return solve_rev_plain(p, U, W, bz, L)
-    return _build.solve_rev_cuda(p, U, W, bz, L)
+    return _build.solve_rev_cuda(p, U, W, bz)
 
 
 # ============================================== K3: factor adjoint pass
@@ -454,10 +471,7 @@ def _forward(t, c, a, U, V, y, L, record=None):
 
     if record is not None:
         record["kalman_fwd"] = (p, U, V, ainv, y)
-    pre, maps = kalman_fwd(p, U, V, ainv, y, L)
-    full = _complete(pre, maps, _KALMAN, J, L, reverse=False)
-    S = full[1]  # (C, N, J, J) carry covariance
-    F = full[3][..., 0]  # (C, N, J) solve state
+    S, F = kalman_fwd(p, U, V, ainv, y, L)
 
     Su = (S @ U[..., None])[..., 0]
     dd = a - (U * Su).sum(-1)
@@ -525,8 +539,7 @@ def _backward(c, saved, bll, L, record=None, structured=None):
     # ---------------- solve adjoint (K2) ------------------------------
     if record is not None:
         record["solve_rev"] = (p, U, W, bZt)
-    pre, maps = solve_rev(p, U, W, bZt, L)
-    Rst = _complete(pre, maps, _AFFINE, J, L, reverse=True)[1][..., 0]
+    Rst = solve_rev(p, U, W, bZt, L)
 
     W_prev = _shift_bwd(W)
     Z_prev = _shift_bwd(Z)

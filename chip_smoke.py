@@ -30,11 +30,13 @@ Every phase before the assoc phase pins ``backend="scan"``, the sequential
 tier its launch counts and times assume.
 
 It then times chained sampler steps on the J = 2, 4 and 8 paths, config5's
-J = 4 model at its own size N = 1e6, and profiles the J = 4 and J = 8
-paths.  Run from the root of the repository:
+J = 4 model at its own size N = 1e6, and profiles the J = 2, 4 and 8
+paths.  K1 and K2 are also held at the edges of their blocks and tiles,
+in float32 and on rows that are not positive definite.  Run from the root
+of the repository:
 
     python3 chip_smoke.py            # the smoke test (a few minutes)
-    python3 chip_smoke.py --sweep    # also time evals/s per block length
+    python3 chip_smoke.py --sweep    # also time K1, K2 and evals/s per block length
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``,
@@ -102,6 +104,14 @@ PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 33.5e12}
 # SHO mixture), except the dense factor adjoint K3, which serves J <= 2
 REPORT_J = {"kalman_fwd": 4, "solve_rev": 4, "factor_rev": 2,
             "frev_maps": 4, "frev_states": 4}
+# K1 and K2 take their rows per block on the card themselves
+# (_build.fused_block_len); the other fused kernels take the plain route's L
+OWN_BLOCKS = ("kalman_fwd", "solve_rev")
+# the device kernels of one value+gradient evaluation at N = 1e5, float64,
+# under torch.profiler, at the parent commit (PERF.md, PR 10), and the fall
+# each must show now that K1 and K2 run their cross-block level on the card
+PARENT_KERNELS_PER_EVAL = {"J = 2": 1141, "J = 4": 1682}
+KERNELS_FALL = {"J = 2": 450, "J = 4": 800}
 THETA0 = np.log([1.0, 5.0, 3.0])
 THETA4 = np.zeros(5)  # config5's J4 starting point
 THETA_ROT = np.log([1.0, 3.5, 2.0, 1.0, 0.3])  # config2's RotationTerm
@@ -182,6 +192,13 @@ def cuda_ms(fn, reps, warmup=2):
     return start.elapsed_time(end) / reps
 
 
+def kernel_call(name, inputs, L):
+    """Launch the fused kernel ``name`` on ``inputs``: in blocks of L rows,
+    or, for K1 and K2, of their own length on the card."""
+    kernel = KERNELS[name][1]
+    return kernel(*inputs) if name in OWN_BLOCKS else kernel(*inputs, L)
+
+
 def bound_ms(arrays, flops):
     """The least time the card could take: each input read once and each
     output written once at the peak memory rate, or ``flops`` operations
@@ -194,8 +211,12 @@ def bound_ms(arrays, flops):
 
 
 def kernel_flops(name, C, N, J, K=1):
-    """Operations of one launch, counted from the recursions: per row, the
-    element's build and one combine with the running value (K1-K3), one
+    """Operations of one launch (of K1's and K2's three), counted from the
+    recursions: per row, K1's rank-one composition into its block's map
+    and its rank-one state step, and K2's the same for the affine maps,
+    plus per block of ``_build.fused_block_len`` rows two combines of whole
+    maps (the scan over the blocks and the distribute); per row the
+    element's build and one combine with the running value (K3), one
     structured step on J^2 + 1 states (K4) or on one (K5), the rank-one
     update, transport and product of the factor, the transport, projection
     and feed of a sweep, one multiply-add of the affine prefix; for the
@@ -206,9 +227,12 @@ def kernel_flops(name, C, N, J, K=1):
     and the row step of the apply walk (Riccati, Kalman); the product of the
     block's J x J maps and the two walks (matrix-affine, D = J)."""
     D = J * J
+    blocks = C * -(-N // _build.fused_block_len(N))
+    per_block = {"kalman_fwd": 2 * (12 * J**3 + 10 * D),
+                 "solve_rev": 2 * (2 * J**3 + 2 * D)}.get(name, 0)
     per_row = {
-        "kalman_fwd": 12 * J**3 + 10 * D,
-        "solve_rev": 2 * J**3 + 5 * D,
+        "kalman_fwd": (10 * D + 15 * J + 3) + (4 * D + 11 * J + 3),
+        "solve_rev": (5 * D + 5 * J) + (5 * J + 1),
         "factor_rev": 2 * D**3 + 12 * D * D,
         "frev_maps": (D + 1) * 10 * D,
         "frev_states": 10 * D,
@@ -221,7 +245,7 @@ def kernel_flops(name, C, N, J, K=1):
         "kalman_prefix": 26 * D + 14 * J * K,
         "mat_affine_prefix": 2 * J**3 + 4 * D * K,
     }[name]
-    return C * N * per_row
+    return C * N * per_row + blocks * per_block
 
 
 def reset_launches():
@@ -259,22 +283,39 @@ def phase_device():
     return smi
 
 
+# the kernels of K1 and K2 (ptxas names), which must not spill
+K12_KERNELS = ("kalman_maps", "kalman_states", "solve_maps", "solve_states",
+               "block_scan")
+
+
 def phase_build():
     start = time.perf_counter()
     lib = _build.build()
     seconds = time.perf_counter() - start
     log("build", f"{lib.name} ready in {seconds:.1f} s")
-    name, spills = "?", "?"
+    name, spills, k12 = "?", "?", []
     for line in lib.with_suffix(".log").read_text().splitlines():
         if line.startswith("build_seconds"):
             log("build", f"nvcc took {line.split()[1]} s")
-        elif m := re.search(r"([a-z]+_[a-z]+)_kernelI([fd])(?:Li(\d+))?E", line):
-            name = f"{m[1]}<{'double' if m[2] == 'd' else 'float'}" + (
-                f", J={m[3]}>" if m[3] else ">")
+        elif m := re.search(r"([a-z]+_[a-z]+)_kernelI([fd])(.*)", line):
+            family = re.search(r"(KalmanMaps|AffineMaps)", m[3])
+            width = re.search(r"Li(\d+)E", m[3])
+            name = (f"{m[1]}<{'double' if m[2] == 'd' else 'float'}"
+                    + (f", {family[1]}" if family else "")
+                    + (f", J={width[1]}>" if width else ">"))
         elif "spill stores" in line:
             spills = line.split(",")[1].strip()
+            if name.split("<")[0] in K12_KERNELS:
+                k12.append((name, spills))
         elif m := re.search(r"Used (\d+) registers", line):
             log("build", f"{name}: {m[1]} registers, {spills}")
+    # K1 and K2: two row kernels each and the scan over the blocks' maps, at
+    # J = 1..4 in two types
+    assert len(k12) == 6 * 4 * 2, f"K1/K2 kernels in the build log: {len(k12)}"
+    spilled = [n for n, sp in k12 if not sp.startswith("0 bytes")]
+    assert not spilled, f"K1/K2 kernels that spill: {spilled}"
+    log("build", f"K1, K2: {len(k12)} kernels (J = 1..4, float and double), "
+        "0 bytes spilled")
 
 
 # kernels of each system kind: J = 1 RealTerm, 2 SHOTerm, 3 RealTerm +
@@ -310,10 +351,73 @@ KINDS = (("real", 1), ("sho", 2), ("real_sho", 3), ("sho_mixture", 4),
 GEOMETRIES = ((130, 1), (1040, 1), (N_MAIN, 1), (3001, 8))
 
 
+# K1 and K2 at their edges (N, C, block length on the card, None for their
+# own): one row, one row below and past a tile of rows and a block, a
+# ragged last block, 3 and 64 chains, many groups of 32 blocks (a ragged
+# last one), and 301 groups, more than the 128 threads of the scan over
+# the groups, so that each thread composes a run of three (a ragged last)
+K12_EDGES = ((1, 3, None), (7, 3, None), (9, 3, None), (63, 3, 64), (65, 3, 64),
+             (300, 3, 32), (1000, 64, 32), (3001, 3, 8), (5000, 3, None),
+             (9601, 3, 1))
+
+
+def k12_edges(dev):
+    """K1 and K2 against their plain versions at the edges of their blocks
+    and tiles, in float64 (1e-10) and float32 (within 1e-4 or twice the
+    plain float32 version's error, against the float64 plain version), and
+    on a system whose diagonal turns negative at row N // 3: finite states
+    that agree with the plain version's up to that row and the same verdict
+    d > 0 per chain."""
+    worst = {"float64": 0.0, "float32": 0.0}
+    for kind, J in KINDS[:4]:
+        for N, C, rows in K12_EDGES:
+            inputs = fl.pass_inputs(*system(kind, N, C, dev, seed=N + J))
+            for name in OWN_BLOCKS:
+                inp = inputs[name]
+                got = _tuple(KERNELS[name][1](*inp, rows))
+                want = _tuple(KERNELS[name][0](*inp, 16))
+                for g, w in zip(got, want):
+                    assert g.shape == w.shape, (name, kind, N, C)
+                    err = scaled_err(g, w) if w.abs().max() else g.abs().max().item()
+                    assert math.isfinite(err) and err < 1e-10, (name, kind, N, C, err)
+                    worst["float64"] = max(worst["float64"], err)
+                inp32 = [x.float() for x in inp]
+                got32 = _tuple(KERNELS[name][1](*inp32, rows))
+                want32 = _tuple(KERNELS[name][0](*inp32, 16))
+                for g, w32, w in zip(got32, want32, want):
+                    if not w.abs().max():  # the states of a single row
+                        assert not g.abs().max(), (name, kind, N, C)
+                        continue
+                    err = scaled_err(g, w)
+                    tol = max(1e-4, 2 * scaled_err(w32, w))
+                    assert math.isfinite(err) and err <= tol, (name, kind, N, C, err, tol)
+                    worst["float32"] = max(worst["float32"], err)
+        t, c, a, U, V, y = system(kind, 3000, 3, dev, seed=J)
+        a = torch.where(torch.arange(3000, device=dev) >= 1000, -1.0, a)
+        inp = fl.pass_inputs(t, c, a, U, V, y)["kalman_fwd"]
+        S, F = KERNELS["kalman_fwd"][1](*inp)
+        Sp, Fp = KERNELS["kalman_fwd"][0](*inp, 256)
+        assert torch.isfinite(S).all() and torch.isfinite(F).all(), kind
+        dk, dp = (a - (U * (x @ U[..., None])[..., 0]).sum(-1) for x in (S, Sp))
+        assert torch.equal((dk > 0).all(-1), (dp > 0).all(-1)), kind
+        rows = slice(0, int((dp <= 0).int().argmax(-1).min()) + 1)
+        err = max(scaled_err(S[:, rows], Sp[:, rows]), scaled_err(F[:, rows], Fp[:, rows]))
+        assert err < 1e-10, (kind, err)
+    log("kernels", f"K1, K2 at their edges (N = 1, a tile of rows and a block "
+        f"+-1, ragged blocks, C = 3, 64; J = 1..4): worst relative error "
+        f"{worst['float64']:.3e} in float64, {worst['float32']:.3e} in float32; "
+        "non-PD rows: finite, the same verdict d > 0")
+
+
+def _tuple(x):
+    return (x,) if isinstance(x, torch.Tensor) else tuple(x)
+
+
 def phase_kernels(dev):
     """Each kernel against its plain version on the card, float64, at
     J = 1..4 (K3 at J <= 2; K4, K5 at J = 2..4); at J = 2 also the
-    structured route's MX against K3's.  Then each kernel's time."""
+    structured route's MX against K3's; K1 and K2 at their edges.  Then
+    each kernel's time."""
     worst = {name: (0.0, set()) for name in KERNELS}
     worst_mx = 0.0
     main_abs, main_inputs = {}, {}
@@ -325,14 +429,15 @@ def phase_kernels(dev):
             if J == 2:
                 inputs.update(fl.pass_inputs(*args, structured=True))
             for name, inp in inputs.items():
-                plain, kernel = KERNELS[name]
-                got, want = kernel(*inp, L), plain(*inp, L)
-                if isinstance(got, torch.Tensor):
-                    got, want = (got,), (want,)
+                got = _tuple(kernel_call(name, inp, L))
+                want = _tuple(KERNELS[name][0](*inp, L))
+                # K1 and K2 run the whole scan: over 1e5 rows they hold to
+                # 1e-9, as the factor kernels do
+                tol = 1e-9 if name in OWN_BLOCKS and N > 10_000 else 1e-10
                 for g, w in zip(got, want):
                     assert g.shape == w.shape, (name, kind, N, C)
                     err = scaled_err(g, w)
-                    assert math.isfinite(err) and err < 1e-10, (name, kind, N, C, err)
+                    assert math.isfinite(err) and err < tol, (name, kind, N, C, err)
                     worst[name] = (max(worst[name][0], err), worst[name][1] | {J})
                 main = (N, C) == (N_MAIN, 1) and J == REPORT_J[name] and kind in (
                     "sho", "sho_mixture")
@@ -353,24 +458,29 @@ def phase_kernels(dev):
             "N = 3001 at C = 8)")
     log("kernels", f"J = 2, structured (K4 -> B -> K5) vs dense (K3) MX on "
         f"the card: worst relative error {worst_mx:.3e}")
+    k12_edges(dev)
     times = {}
     L = fl.default_block_len(N_MAIN)
     for name, (plain, kernel) in KERNELS.items():
         inp = main_inputs[name]
-        ms = cuda_ms(lambda: kernel(*inp, L), reps=20)
+        ms = cuda_ms(lambda: kernel_call(name, inp, L), reps=20)
         plain_ms = cuda_ms(lambda: plain(*inp, L), reps=2, warmup=1)
-        out = kernel(*inp, L)
-        out = (out,) if isinstance(out, torch.Tensor) else out
+        out = _tuple(kernel_call(name, inp, L))
         J = REPORT_J[name]
         bound, by = bound_ms((*inp, *out), kernel_flops(name, 1, N_MAIN, J))
         times[name] = (ms, plain_ms, bound, by)
+        rows = (f"{_build.fused_block_len(N_MAIN)} rows a block on the card"
+                if name in OWN_BLOCKS else f"L = {L}")
         log("kernels", f"{name}: {ms:.4f} ms (plain {plain_ms:.2f} ms, bound "
-            f"{bound:.4f} ms by {by}) at N = 1e5, J = {J}, L = {L}, float64")
-    # the J = 2 path's K1, K2 as PR 1 timed them
+            f"{bound:.4f} ms by {by}) at N = 1e5, J = {J}, {rows}, float64")
+    # the J = 2 path's K1, K2
     j2 = fl.pass_inputs(*system("sho", N_MAIN, 1, dev, seed=N_MAIN + 2))
-    for name in ("kalman_fwd", "solve_rev"):
-        ms = cuda_ms(lambda: KERNELS[name][1](*j2[name], L), reps=20)
-        log("kernels", f"{name}: {ms:.4f} ms at N = 1e5, J = 2, L = {L}, float64")
+    for name in OWN_BLOCKS:
+        ms = cuda_ms(lambda: kernel_call(name, j2[name], L), reps=20)
+        out = _tuple(kernel_call(name, j2[name], L))
+        bound, by = bound_ms((*j2[name], *out), kernel_flops(name, 1, N_MAIN, 2))
+        log("kernels", f"{name}: {ms:.4f} ms (bound {bound:.4f} ms by {by}) at "
+            "N = 1e5, J = 2, float64")
     return main_abs, times
 
 
@@ -1906,12 +2016,42 @@ def phase_steps(dev):
     log("steps", f"J = 4, torch.float64, N = 1e6 (config5 J4): kernel route "
         f"{rate:.2f} evals/s (5 chained steps, L = "
         f"{fl.default_block_len(N)}), peak device memory {peak:.2f} GiB")
+    # one value and gradient there against the plain route on the card
+    theta = torch.tensor(THETA4, device=dev)
+    got = value_and_grad(theta, *data, sho_mixture)
+    with plain_route():
+        want = value_and_grad(theta, *data, sho_mixture)
+    ev, eg = scaled_err(got[0], want[0]), scaled_err(got[1], want[1])
+    log("steps", f"J = 4, torch.float64, N = 1e6: kernel route against the "
+        f"plain route on the card: value err {ev:.2e}, grad err {eg:.2e} "
+        f"(tol 1e-9; K1 and K2 in {_build.fused_block_len(N)} rows a block)")
+    assert all(torch.isfinite(x).all() for x in (*got, *want))
+    assert ev < 1e-9 and eg < 1e-9, (ev, eg)
 
 
-def phase_profile(dev, label, model, theta0):
-    """torch.profiler over 3 value+gradient evaluations at N = 1e5,
-    float64: device kernels per evaluation, device busy time, idle share
-    and device time by kernel."""
+# the kernels of K1 and K2 as the profiler names them, by wrapper
+K12_PARTS = {"kalman_fwd": ("kalman_maps_kernel", "kalman_states_kernel",
+                            "KalmanMaps"),
+             "solve_rev": ("solve_maps_kernel", "solve_states_kernel",
+                           "AffineMaps")}
+
+
+def ours(name):
+    """The wrapper in this repository that launched the device kernel
+    ``name``, or None."""
+    for key, parts in K12_PARTS.items():
+        if any(part in name for part in parts):
+            return key
+    return next((k for k in (*KERNELS, *GENERAL) if f"{k}_kernel" in name), None)
+
+
+def profile_eval(dev, model, theta0, n=3):
+    """torch.profiler over ``n`` value+gradient evaluations at N = 1e5,
+    float64, after one outside it.  Returns None when the trace holds no
+    device events, else per evaluation: device kernels, device busy and
+    span ms, the idle share, and (calls, device ms) by kernel, this
+    repository's kernels under the name of the wrapper that launched
+    them (:func:`ours`)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1919,48 +2059,104 @@ def phase_profile(dev, label, model, theta0):
     theta = torch.tensor(theta0, device=dev)
     value_and_grad(theta, t, y, model)
     torch.cuda.synchronize()
-    n = 3
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(n):
             value_and_grad(theta, t, y, model)
         torch.cuda.synchronize()
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     if not kernels:
-        log("profile", "no device events in the trace: not measured")
-        return
+        return None
     busy = sum(e.time_range.end - e.time_range.start for e in kernels) / n
     span = (max(e.time_range.end for e in kernels)
             - min(e.time_range.start for e in kernels)) / n
-    log("profile", f"{label}, N = 1e5, float64: {len(kernels) / n:.0f} device "
-        f"kernels per eval, device busy {busy / 1000:.3f} ms of a "
-        f"{span / 1000:.3f} ms span per eval (idle share "
-        f"{1 - busy / span:.3f}; under the profiler)")
-    ours = (*KERNELS, *GENERAL)
     by_name = {}
     for e in kernels:
-        name = next((k for k in ours if f"{k}_kernel" in e.name), e.name[:60])
+        name = ours(e.name) or e.name[:60]
         calls, us = by_name.get(name, (0, 0.0))
         by_name[name] = (calls + 1, us + e.time_range.end - e.time_range.start)
+    return {"kernels_per_eval": len(kernels) / n, "busy_ms": busy / 1000,
+            "span_ms": span / 1000, "idle_share": 1 - busy / span,
+            "by_name": {k: (c / n, us / n / 1000) for k, (c, us) in by_name.items()}}
+
+
+def phase_profile(dev, label, model, theta0):
+    """The profile of :func:`profile_eval`: device kernels per evaluation,
+    device busy time, idle share and device time by kernel; on the fused
+    path (J <= 4) the fall in device kernels per evaluation from the
+    parent commit's count."""
+    prof = profile_eval(dev, model, theta0)
+    if prof is None:
+        log("profile", "no device events in the trace: not measured")
+        return
+    per_eval, by_name = prof["kernels_per_eval"], prof["by_name"]
+    log("profile", f"{label}, N = 1e5, float64: {per_eval:.0f} device "
+        f"kernels per eval, device busy {prof['busy_ms']:.3f} ms of a "
+        f"{prof['span_ms']:.3f} ms span per eval (idle share "
+        f"{prof['idle_share']:.3f}; under the profiler)")
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
     log("profile", f"{label}: per eval, device time by kernel (top 8): " + "; ".join(
-        f"{k} x{c / n:.0f} {us / n / 1000:.4f} ms" for k, (c, us) in top))
+        f"{k} x{c:.0f} {ms:.4f} ms" for k, (c, ms) in top))
     log("profile", f"{label}: per eval, this repo's kernels: " + ", ".join(
-        f"{k} {by_name[k][1] / n / 1000:.4f} ms" for k in ours if k in by_name))
+        f"{k} x{by_name[k][0]:.0f} {by_name[k][1]:.4f} ms"
+        for k in (*KERNELS, *GENERAL) if k in by_name))
+    if label in PARENT_KERNELS_PER_EVAL:
+        fall = PARENT_KERNELS_PER_EVAL[label] - per_eval
+        log("profile", f"{label}: {per_eval:.0f} device kernels per eval, "
+            f"{fall:.0f} fewer than the parent commit's "
+            f"{PARENT_KERNELS_PER_EVAL[label]} (at least {KERNELS_FALL[label]})")
+        assert fall >= KERNELS_FALL[label], (label, per_eval)
+
+
+@contextmanager
+def k12_block_len(rows):
+    """K1 and K2 in blocks of ``rows`` rows on the card, whatever
+    ``_build.fused_block_len`` would choose."""
+    saved = _build.fused_block_len
+    _build.fused_block_len = lambda N: rows
+    try:
+        yield
+    finally:
+        _build.fused_block_len = saved
 
 
 def phase_sweep(dev):
-    """Per block length L: the three J = 2 kernels' time at N = 1e5
-    (float64) and the end-to-end evals/s in both dtypes."""
+    """K1's and K2's time per block length on the card (float64; one chain:
+    J = 2 and 4 at N = 1e5, J = 4 at N = 1e6; 64 chains: J = 2 and 4 at
+    N = 3e4, J = 4 at N = 1e5, with the evals/s of the 64 chains' value and
+    gradient when K1 and K2 take that block length), and the J = 2 evals/s
+    per block length L of K3 (both dtypes)."""
+    models = {2: (sho, THETA0), 4: (sho_mixture, THETA4)}
+    rng = np.random.default_rng(17)
+    for J, kind, N, C in ((2, "sho", N_MAIN, 1), (4, "sho_mixture", N_MAIN, 1),
+                          (4, "sho_mixture", 1_000_000, 1),
+                          (2, "sho", 30_000, 64), (4, "sho_mixture", 30_000, 64),
+                          (4, "sho_mixture", N_MAIN, 64)):
+        inputs = fl.pass_inputs(*system(kind, N, C, dev))
+        if C > 1:
+            model, theta0 = models[J]
+            theta0 = theta0 + 0.1 * rng.normal(size=(C, len(theta0)))
+            data = bench_data(N, dev, torch.float64, seed=8)
+        for rows in (16, 32, 64, 128, 256, 512, 1024):
+            ms = {name: cuda_ms(lambda: KERNELS[name][1](*inputs[name], rows),
+                                reps=20) for name in OWN_BLOCKS}
+            line = (f"J = {J}, N = {N}, C = {C}, {rows} rows a block (NB = "
+                    f"{-(-N // rows)}): kalman_fwd {ms['kalman_fwd']:.4f} ms, "
+                    f"solve_rev {ms['solve_rev']:.4f} ms")
+            if C > 1:
+                with k12_block_len(rows):
+                    rate = steps_per_s(dev, torch.float64, n_steps=10,
+                                       model=model, theta0=theta0, data=data)
+                line += f", {rate:.2f} evals/s of the {C} chains"
+            if rows == _build.fused_block_len(N):
+                line += " (the default)"
+            log("sweep", line)
     inputs = fl.pass_inputs(*system("sho", N_MAIN, 1, dev))
-    names = ("kalman_fwd", "solve_rev", "factor_rev")
     for L in (32, 64, 128, 256, 512, 1024, 2048):
-        ms = sum(
-            cuda_ms(lambda: KERNELS[name][1](*inputs[name], L), reps=20)
-            for name in names
-        )
+        ms = cuda_ms(lambda: KERNELS["factor_rev"][1](*inputs["factor_rev"], L),
+                     reps=20)
         r64 = steps_per_s(dev, torch.float64, block_len=L)
         r32 = steps_per_s(dev, torch.float32, block_len=L)
-        log("sweep", f"L = {L} (NB = {-(-N_MAIN // L)}): kernels {ms:.4f} ms, "
+        log("sweep", f"L = {L} (NB = {-(-N_MAIN // L)}): factor_rev {ms:.4f} ms, "
             f"float64 {r64:.2f} evals/s, float32 {r32:.2f} evals/s "
             "(N = 1e5, C = 1, J = 2)")
 
@@ -2008,6 +2204,7 @@ def main(argv=None):
     timed(phase_chains, dev)
     timed(phase_quiet_failure, dev)
     timed(phase_steps, dev)
+    timed(phase_profile, dev, "J = 2", sho, THETA0)
     timed(phase_profile, dev, "J = 4", sho_mixture, THETA4)
     timed(phase_profile, dev, "J = 8", wide8, THETA0)
     if args.sweep:

@@ -60,21 +60,26 @@ def _system(N, C, seed=0, J=2):
     return t, c, a, U, V, y
 
 
+def _as_tuple(x):
+    return (x,) if isinstance(x, torch.Tensor) else tuple(x)
+
+
 def _check_kernel(cuda, name, J):
     """Kernel ``name`` against its plain version at N = 300 in blocks of
-    16 (a ragged last block), C = 3, float64."""
+    16 (a ragged last block), C = 3, float64.  K1 and K2 take the block
+    length on the card too, and launch two kernels there (the block maps,
+    the rows: 19 blocks are one group, which needs no scan)."""
     args = [x.to(cuda) for x in _system(300, 3, J=J)]
     # K4, K5 at every J (the default route takes them only at J > 2)
     structured = name.startswith("frev")
     inputs = fl.pass_inputs(*args, block_len=16,
                             structured=structured or None)[name]
     before = _build.LAUNCHES[name]
-    got = KERNEL[name](*inputs, 16)
+    got = _as_tuple(KERNEL[name](*inputs, 16))
     torch.cuda.synchronize()
-    assert _build.LAUNCHES[name] == before + 1
-    want = PLAIN[name](*inputs, 16)
-    if structured:
-        got, want = (got,), (want,)
+    launches = 2 if name in ("kalman_fwd", "solve_rev") else 1
+    assert _build.LAUNCHES[name] == before + launches
+    want = _as_tuple(PLAIN[name](*inputs, 16))
     for g, w in zip(got, want):
         assert g.shape == w.shape
         scale = w.abs().max()
@@ -104,6 +109,104 @@ def test_structured_route_matches_dense_on_card(cuda):
     structured = fl.factor_adjoint(*inputs, 64, structured=True)
     scale = dense.abs().max()
     assert ((structured - dense).abs().max() / scale).item() < 1e-10
+
+
+# K1 and K2 (each the whole two-level scan on the card): one row, one row
+# below and past a tile of rows and a block, a ragged last block, 3 and 64
+# chains, many groups of blocks (a ragged last one), more groups than the
+# threads of the scan over them (301 groups of 32 one-row blocks: runs of
+# three groups a thread, a ragged last), float32, and the card's own block
+# length at N = 5000
+K12_EDGES = {
+    "one_row": (1, 3, None, torch.float64),
+    "tile_minus_one": (7, 3, None, torch.float64),
+    "tile_plus_one": (9, 3, None, torch.float64),
+    "block_minus_one": (63, 3, 64, torch.float64),
+    "block_plus_one": (65, 3, 64, torch.float64),
+    "ragged_blocks": (300, 3, 32, torch.float64),
+    "chains_64": (1000, 64, 32, torch.float64),
+    "many_groups": (3001, 3, 8, torch.float64),
+    "runs_of_groups": (9601, 3, 1, torch.float64),
+    "float32": (1000, 3, 32, torch.float32),
+    "own_block_len": (5000, 3, None, torch.float64),
+}
+
+
+def _k12_inputs(cuda, name, J, N, C, dtype):
+    """K1's or K2's inputs on the card from the fused path of C chains."""
+    args = [x.to(cuda) for x in _system(N, C, seed=N + J, J=J)]
+    return [x.to(dtype) for x in fl.pass_inputs(*args)[name]]
+
+
+@pytest.mark.parametrize("edge", list(K12_EDGES))
+@pytest.mark.parametrize("J", [1, 2, 3, 4])
+@pytest.mark.parametrize("name", ["kalman_fwd", "solve_rev"])
+def test_fused_k12_edges_match_plain(cuda, name, J, edge):
+    N, C, block_len, dtype = K12_EDGES[edge]
+    inputs = _k12_inputs(cuda, name, J, N, C, dtype)
+    got = _as_tuple(KERNEL[name](*inputs, block_len))
+    L = 16 if block_len is None else block_len
+    want64 = _as_tuple(PLAIN[name](*(x.double() for x in inputs), L))
+    want = _as_tuple(PLAIN[name](*inputs, L))
+    _hold(got, want64, want)
+
+
+@pytest.mark.parametrize("J", [1, 2, 3, 4])
+def test_kalman_fwd_nonpositive_pivots(cuda, J):
+    """A diagonal that turns negative from row N // 3 on: K1's states are
+    finite, equal the plain version's up to the first row whose pivot
+    d = a - u^T S u is not positive, and give the same verdict d > 0 per
+    chain (the quiet -inf)."""
+    N, C = 300, 3
+    t, c, a, U, V, y = (x.to(cuda) for x in _system(N, C, seed=7, J=J))
+    a = torch.where(torch.arange(N, device=cuda) >= N // 3, -1.0, a)
+    inputs = fl.pass_inputs(t, c, a, U, V, y)["kalman_fwd"]
+    S, F = KERNEL["kalman_fwd"](*inputs, 8)
+    Sp, Fp = PLAIN["kalman_fwd"](*inputs, 32)
+    assert torch.isfinite(S).all() and torch.isfinite(F).all()
+    dk, dp = (a - (U * (x @ U[..., None])[..., 0]).sum(-1) for x in (S, Sp))
+    assert torch.equal((dk > 0).all(-1), (dp > 0).all(-1))
+    assert not (dp > 0).all(-1).any()
+    rows = slice(0, int((dp <= 0).int().argmax(-1).min()) + 1)
+    assert _rel(S[:, rows], Sp[:, rows]) < 1e-10
+    assert _rel(F[:, rows], Fp[:, rows]) < 1e-10
+
+
+@pytest.mark.parametrize("model", ["sho", "sho_mixture"])
+def test_card_route_runs_no_cross_block_level_for_k1_k2(cuda, monkeypatch,
+                                                       model):
+    """The CUDA route of loglik_fused leaves the Kalman and the J-affine
+    cross-block level to K1 and K2: elements.exclusive_block_states, patched
+    to raise for those two families, is never called on the card (K3's
+    J^2-affine level at J = 2 still runs in PyTorch), and the value and
+    gradient equal the CPU route's."""
+    from celerite2_torch.ops import elements as el
+
+    fn, theta = {"sho": (_sho, [0.0, 1.2, 1.0]),
+                 "sho_mixture": (_sho_mixture, [0.0, 1.2, 1.0, -0.5, 0.1])}[model]
+    J = 2 if model == "sho" else 4
+    t = torch.tensor(np.sort(np.random.default_rng(1).uniform(0, 100, 3000)))
+    y = torch.sin(t)
+
+    def value_and_grad(dev):
+        th = torch.tensor(theta, dtype=torch.float64, device=dev,
+                          requires_grad=True)
+        ll = ct.gp_loglik(fn(th), t.to(dev), y.to(dev), yerr=0.3)
+        (g,) = torch.autograd.grad(ll, th)
+        return ll.detach().cpu(), g.cpu()
+
+    v0, g0 = value_and_grad("cpu")
+    real = el.exclusive_block_states
+
+    def guarded(maps, combine, identity, *, reverse):
+        if combine is el.kalman_combine or maps[0].shape[-1] == J:
+            raise AssertionError("K1/K2's cross-block level ran in PyTorch")
+        return real(maps, combine, identity, reverse=reverse)
+
+    monkeypatch.setattr(el, "exclusive_block_states", guarded)
+    v1, g1 = value_and_grad(cuda)
+    assert abs((v1 - v0) / v0).item() < 1e-10
+    assert _rel(g1, g0) < 1e-9
 
 
 def _sho(th):

@@ -14,10 +14,17 @@ import numpy as np
 import pytest
 import torch
 
-from celerite2_torch.ops.fused_loglik import loglik_fused
+import jax.numpy as jnp
+
+from celerite2_torch.ops.fused_loglik import kalman_fwd_plain, loglik_fused
+from celerite2_tpu.ops import fused_slab
 from celerite2_tpu.ops.fused_slab import loglik_slab
 from torch_parity import (
+    assert_rel_close,
+    check_kalman_states_against_factor,
     check_parity,
+    check_solve_rev_against_recursion,
+    fused_pass_inputs,
     fused_system,
     jax_value_and_grads,
     ll_ref,
@@ -38,6 +45,39 @@ def test_against_loglik_slab_interpret():
     larger geometries stay off tier-1, ROADMAP.md hazard C3)."""
     args = fused_system(130, J=2)
     check_parity(torch_value_and_grads(args), jax_value_and_grads(loglik_slab, args))
+
+
+def test_kalman_states_against_slab_interpret():
+    """The plain K1's (S, F) at N = 130, J = 2 against the S and F planes
+    of the JAX fused slab's forward (``RES``, Pallas interpret mode)."""
+    N, J = 130, 2
+    args = fused_system(N, J=J)
+    g = fused_slab.Geom(N, jnp.float64)
+    RES = fused_slab._forward(g, *(jnp.asarray(x) for x in args))[3]
+    planes = np.stack(
+        fused_slab._unpack(g, [RES[:, :, e] for e in range(J * J + J)]), -1
+    )
+    p, U, V, ainv, y = fused_pass_inputs(args)["kalman_fwd"]
+    S, F = kalman_fwd_plain(p, U, V, ainv, y, 256)
+    assert_rel_close(S[0].numpy(), planes[:, : J * J].reshape(N, J, J), 1e-10, "S")
+    assert_rel_close(F[0].numpy(), planes[:, J * J :], 1e-10, "F")
+
+
+# K1's states through d, W, Z against ops.factor / ops.solve_lower, and K2's
+# suffix states against the row recursion; L = 16 puts several blocks (a
+# ragged last one at N = 65) under the cross-block level
+@pytest.mark.parametrize("block_len", [None, 16])
+@pytest.mark.parametrize("N", [65, 130, 1040])
+@pytest.mark.parametrize("J", [1, 2])
+def test_kalman_states_against_factor(N, J, block_len):
+    check_kalman_states_against_factor(fused_system(N, J=J), block_len)
+
+
+@pytest.mark.parametrize("block_len", [None, 16])
+@pytest.mark.parametrize("N", [65, 130, 1040])
+@pytest.mark.parametrize("J", [1, 2])
+def test_solve_rev_states_against_recursion(N, J, block_len):
+    check_solve_rev_against_recursion(fused_system(N, J=J), block_len)
 
 
 @pytest.fixture(scope="module")

@@ -21,7 +21,9 @@ from celerite2_tpu.ops import planes
 from torch_parity import (
     COTANGENTS,
     assert_scaled_close,
+    check_kalman_states_against_factor,
     check_parity,
+    check_solve_rev_against_recursion,
     fused_system,
     jax_value_and_grads,
     ll_ref,
@@ -191,3 +193,20 @@ def test_frev_seeds_match_sequential_composition():
     for blk in range(NB - 1, -1, -1):
         torch.testing.assert_close(seeds[:, blk], state, rtol=1e-12, atol=1e-14)
         state = (A[:, blk] @ state[..., None])[..., 0] + b[:, blk]
+
+
+# K1's states through d, W, Z against ops.factor / ops.solve_lower, and K2's
+# suffix states against the row recursion, at J = 3, 4 (J = 1, 2:
+# test_torch_fused_loglik.py)
+@pytest.mark.parametrize("block_len", [None, 16])
+@pytest.mark.parametrize("N", [65, 130, 1040])
+@pytest.mark.parametrize("J", [3, 4])
+def test_kalman_states_against_factor(N, J, block_len):
+    check_kalman_states_against_factor(fused_system(N, J=J), block_len)
+
+
+@pytest.mark.parametrize("block_len", [None, 16])
+@pytest.mark.parametrize("N", [65, 130, 1040])
+@pytest.mark.parametrize("J", [3, 4])
+def test_solve_rev_states_against_recursion(N, J, block_len):
+    check_solve_rev_against_recursion(fused_system(N, J=J), block_len)

@@ -166,3 +166,56 @@ def assert_rel_close(got, want, rtol, name=""):
     scale = np.max(np.abs(want)) + 1e-300
     assert np.max(np.abs(got - want)) <= rtol * scale, (
         name, np.max(np.abs(got - want)) / scale)
+
+
+# -------------------------------- the fused loglik's K1 and K2, one by one
+
+
+def fused_pass_inputs(args, block_len=None):
+    """The inputs K1 and K2 receive when ``loglik_fused`` evaluates the
+    value and gradient of one system ``(t, c, a, U, V, y)`` (numpy)."""
+    from celerite2_torch.ops.fused_loglik import pass_inputs
+
+    t, *rest = (t64(x) for x in args)
+    return pass_inputs(t, *(x[None] for x in rest), block_len=block_len)
+
+
+def check_kalman_states_against_factor(args, block_len=None, rtol=1e-10):
+    """The plain K1's states ``(S, F)`` of one system through what the
+    log-likelihood derives from them, d = a - u^T S u, W = (V - S u) / d
+    and Z = y - u^T F, against the JAX package's ``ops.factor`` and
+    ``ops.solve_lower``."""
+    from celerite2_torch.ops.fused_loglik import kalman_fwd_plain
+
+    L = 256 if block_len is None else block_len
+    p, U, V, ainv, y = fused_pass_inputs(args, block_len)["kalman_fwd"]
+    S, F = kalman_fwd_plain(p, U, V, ainv, y, L)
+    t, c, a = (t64(x) for x in args[:3])
+    Su = (S[0] @ U[0, ..., None])[..., 0]
+    d = a - (U[0] * Su).sum(-1)
+    W = (V[0] - Su) / d[:, None]
+    Z = y[0] - (U[0] * F[0]).sum(-1)
+    jd, jW = jops.factor(*(jnp.asarray(x) for x in args[:5]))
+    jZ = jops.solve_lower(jnp.asarray(args[0]), jnp.asarray(args[1]),
+                          jnp.asarray(args[3]), jW, jnp.asarray(args[5])[:, None])
+    for name, got, want in (("d", d, jd), ("W", W, jW), ("Z", Z, jZ[:, 0])):
+        assert_rel_close(got.numpy(), np.asarray(want), rtol, name)
+
+
+def check_solve_rev_against_recursion(args, block_len=None, rtol=1e-10):
+    """The plain K2's suffix states ``Rst`` of one system against the solve
+    adjoint's row recursion in numpy: Rst_n = p_n (Rst_{n+1} - u_n (w_n .
+    Rst_{n+1} + bZ_n)) from zero past the last row, u_0 = 0."""
+    from celerite2_torch.ops.fused_loglik import solve_rev_plain
+
+    L = 256 if block_len is None else block_len
+    p, U, W, bz = fused_pass_inputs(args, block_len)["solve_rev"]
+    got = solve_rev_plain(p, U, W, bz, L)[0].numpy()
+    p, U, W, bz = (x[0].numpy() for x in (p, U, W, bz))
+    want = np.empty_like(got)
+    R = np.zeros(U.shape[1])
+    for n in range(U.shape[0] - 1, -1, -1):
+        u = U[n] if n else np.zeros_like(U[n])
+        R = p[n] * (R - u * (W[n] @ R + bz[n]))
+        want[n] = R
+    assert_rel_close(got, want, rtol, "Rst")
