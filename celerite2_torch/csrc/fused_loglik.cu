@@ -2,33 +2,16 @@
 // written for Hopper (sm_90a).  Built with nvcc into a shared library with
 // a plain C interface and bound with ctypes (celerite2_torch/ops/_build.py).
 //
-// K1 (the Kalman forward) and K2 (the solve adjoint) run the whole
-// two-level scan over the rows of every chain on the card and return the
-// per-row states the log-likelihood and its gradient use (see "K1, K2"
-// below).
-//
-// K3 and K5 are the within-block half of a two-level scan: thread (c, b)
-// walks the L rows of block b of chain c in order, builds each row's monoid
-// element in registers from that row's raw data, composes it into a running
-// value held in registers, and writes
-//   * for every row, the running composition (the prefix the distribute
-//     reads: celerite2_torch/ops/fused_loglik.py), and
-//   * for the block, its full composition (the block map that the
-//     cross-block level composes in torch, ops/elements.py).
-// Rows index as n = b * L + l in natural row-major (C, N, ...) layout.  A
-// warp's 32 threads read rows L apart, so loads and stores are not
-// coalesced (each thread touches its own cache lines).  The ragged last
-// block stops at row N - 1.
+// Each pass runs the whole two-level scan over the rows of every chain on
+// the card and returns the per-row states the log-likelihood and its
+// gradient use: K1 (the Kalman forward) S and F, K2 (the solve adjoint) R,
+// the factor adjoint MX, through K3 at J <= 2 and through K4 and K5 at
+// J = 3, 4 (fused_slab.py:476-493).  See "K1, K2" and "K3, K4, K5" below.
 //
 // Elements are templated on the scalar type (float, double) and on the
-// celerite width J (1..4; the dense factor adjoint K3 1, 2 only); the
-// formulas are the JAX package's (celerite2_tpu/ops/fused_slab.py builds,
-// celerite2_tpu/ops/planes.py combines), operand order included.
-//
-// At J = 3, 4 the factor adjoint is the structured pair K4 / K5 instead of
-// K3 (fused_slab.py:476-493): K4 densifies one (J^2 + 1)-affine map per
-// block, the block maps compose in torch, and K5 re-runs each block's
-// structured recursion from its seed.
+// celerite width J (1..4; K3 1, 2 only); the formulas are the JAX
+// package's (celerite2_tpu/ops/fused_slab.py builds, celerite2_tpu/ops/
+// planes.py combines), operand order included.
 
 #include <cuda_runtime.h>
 
@@ -1317,110 +1300,93 @@ int launch_solve(int J, const void* p, const void* U,
   }
 }
 
-// ============================================= K3: factor adjoint pass
+// ================================ K3, K4, K5: the factor adjoint
 //
-// Replaces celerite2_tpu/ops/fused_slab.py:_scan_pass (pallas_call :308,
-// body _body :234) run in reverse with the element build _build_factor_rev
-// (:441) and the mat_affine_spec(J^2, 1) combine.
-//
-// Bound on this card: latency, with the heaviest step of the three: a
-// dense J^2 x J^2 affine map (J^4 + J^2 = 20 register values at J = 2) is
-// built per row and composed by a (J^2)^3 product.  The design keeps the
-// map and the running composition in registers (about 60 values at J = 2,
-// within the 255-register limit); the element of row 0 of every chain is
-// the identity (u = 0 there).
-
-template <typename T, int J>
-__global__ void __launch_bounds__(kThreads)
-    factor_rev_kernel(const T* __restrict__ p, const T* __restrict__ U,
-                      const T* __restrict__ W, const T* __restrict__ bv0,
-                      const T* __restrict__ bdp, T* __restrict__ pre,
-                      T* __restrict__ maps, int C, int N, int L, int NB) {
-  constexpr int D = J * J;
-  constexpr int E = D * D + D;
-  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= (long long)C * NB) return;
-  const int c = (int)(idx / NB);
-  const int blk = (int)(idx % NB);
-  const long long row0 = (long long)c * N;
-  const int n0 = blk * L;
-  const int n1 = min(n0 + L, N);
-
-  T A[D][D], b[D][1];
-#pragma unroll
-  for (int i = 0; i < D; ++i) {
-#pragma unroll
-    for (int j = 0; j < D; ++j) A[i][j] = i == j ? T(1) : T(0);
-    b[i][0] = T(0);
-  }
-
-  for (int n = n1 - 1; n >= n0; --n) {
-    const long long r = row0 + n;
-    T pr[J], u[J], w[J], g[J];
-#pragma unroll
-    for (int j = 0; j < J; ++j) {
-      pr[j] = p[r * J + j];
-      u[j] = n == 0 ? T(0) : U[r * J + j];
-      w[j] = W[r * J + j];
-      g[j] = bv0[r * J + j];
-    }
-    const T bd = bdp[r];
-
-    // fused_slab._build_factor_rev: dM'[jk]/dM[lm] = p_j p_k [d_jl d_km
-    //   - u_j (d_kl w_m + d_km w_l) + u_j u_k w_l w_m], constant = step(0)
-    T eA[D][D], eb[D][1];
-#pragma unroll
-    for (int jj = 0; jj < J; ++jj)
-#pragma unroll
-      for (int kk = 0; kk < J; ++kk) {
-#pragma unroll
-        for (int ll = 0; ll < J; ++ll)
-#pragma unroll
-          for (int mm = 0; mm < J; ++mm) {
-            const T term = (jj == ll && kk == mm) ? T(1) : T(0);
-            T t2 = T(0);
-            if (kk == ll) t2 = t2 + w[mm];
-            if (kk == mm) t2 = t2 + w[ll];
-            const T val = term - u[jj] * t2 + u[jj] * u[kk] * w[ll] * w[mm];
-            eA[jj * J + kk][ll * J + mm] = pr[jj] * pr[kk] * val;
-          }
-        eb[jj * J + kk][0] =
-            pr[jj] * (-u[jj] * g[kk] - bd * u[jj] * u[kk]) * pr[kk];
-      }
-
-    T nA[D][D], nb[D][1];
-    matmul(eA, A, nA);
-    matmul(eA, b, nb);
-    T* o = pre + r * E;
-#pragma unroll
-    for (int i = 0; i < D; ++i) {
-#pragma unroll
-      for (int j = 0; j < D; ++j) {
-        A[i][j] = nA[i][j];
-        o[i * D + j] = nA[i][j];
-      }
-      b[i][0] = nb[i][0] + eb[i][0];
-      o[D * D + i] = b[i][0];
-    }
-  }
-  T* o = maps + idx * E;
-#pragma unroll
-  for (int i = 0; i < D; ++i) {
-#pragma unroll
-    for (int j = 0; j < D; ++j) o[i * D + j] = A[i][j];
-    o[D * D + i] = b[i][0];
-  }
-}
-
-// ================================ K4, K5: the structured factor adjoint
-//
-// At J = 3, 4 the dense step of K3 is J^4 + J^2 = 272 values per row
-// (J = 4); the structured step (fused_slab._structured_apply, :496) applies
-// the same affine map to a J x J state M in O(J^2):
+// The factor adjoint carries a J x J state M over the rows in descending
+// order.  Its row step (fused_slab._structured_apply, :496) is affine in M
+// and costs O(J^2):
 //   bv = (M + M^T) w (+ bv0),  ba = -w^T M w (+ bdp),
 //   M' = p (.) [M - u (x) bv - ba u (x) u] (.) p,
 // where the parenthesised constants belong to the affine step only, and
-// u = 0 at row 0 of every chain (the identity step).
+// u = 0 at row 0 of every chain (the identity step, p = 1 there).  Flattened
+// row-major, M is a vector of D = J^2 values and a block of rows a dense
+// D-affine map, which the suffix level composes (AffineMaps<T, D>).
+//
+// K3 factor_rev (J <= 2) replaces celerite2_tpu/ops/fused_slab.py:
+// _scan_pass (pallas_call :308) run in reverse with the dense element build
+// _build_factor_rev (:441), with the cross-block level and the distribute
+// the JAX package runs in XLA after it.  K4 frev_maps and K5 frev_states
+// (J = 3, 4 on the main path) replace fused_slab.py:
+// _factor_adjoint_structured's phase A (pallas_call :629, body _phaseA_body
+// :530) and phase C (pallas_call :697, body _phaseC_body :580), with phase
+// B, which the JAX package runs in XLA (:651-682), between them.  Both
+// return MX (C, N, J, J), the state entering every row; at row 0, whose step
+// is the identity, that is the state after every step.
+//
+// What bounds them on this card is what bounds K2: chains of dependent row
+// steps and of map combines.  So they take K2's shape, on blocks of L rows
+// of the wrapper's choice (ops/_build.py), a lane a block, the rows staged
+// through shared memory by tiles and the outputs stored by tiles:
+//   K3 (a) factor_maps: each lane composes its block's rows into the
+//          block's D-affine map: the D basis states through the steps'
+//          linear part and the zero state through the affine steps, O(J^2 D)
+//          a row (no dense D x D element per row); a warp scan then takes
+//          the suffixes of the group's 32 maps;
+//      (b) block_scan_kernel on AffineMaps<T, D> (E = 20 at J = 2) over the
+//          groups;
+//      (c) frev_rows: each lane's rows from its block's incoming state, D
+//          values a row.
+//   K5 takes K4's block maps (J^4 + J^2 = 272 values at J = 4, which
+//   block_scan_kernel's two slots a thread over 128 threads cannot hold in
+//   shared memory), reduce-then-scan:
+//      (a) frev_groups: a warp per group of 32 blocks composes the group's
+//          maps, lane k carrying column k and lane D the constant (a D x D
+//          mat-vec a lane and block, the block's map read once into shared
+//          memory and broadcast), and writes each block's suffix within the
+//          group and the group's map;
+//      (b) frev_scan: a warp per chain carries the state over the groups,
+//          last to first (a mat-vec a group, lane i computing value i);
+//      (c) frev_rows, K3's (c).
+// K4 keeps its design (below).
+
+// the values of a row in the factor adjoint's input tiles: p, u, w, bv0, bdp
+template <int J>
+struct FIn {
+  static constexpr int P = 0, U = J, W = 2 * J, G = 3 * J, BD = 4 * J,
+                       WIDTH = 4 * J + 1;
+};
+
+template <typename T, int J>
+__device__ __forceinline__ void frev_stage(T* tile, const T* p, const T* U,
+                                           const T* W, const T* bv0,
+                                           const T* bdp,
+                                           const long long* start,
+                                           const int* len, int s) {
+  using I = FIn<J>;
+  stage<J, I::P, I::WIDTH>(tile, p, start, len, s);
+  stage<J, I::U, I::WIDTH>(tile, U, start, len, s);
+  stage<J, I::W, I::WIDTH>(tile, W, start, len, s);
+  stage<J, I::G, I::WIDTH>(tile, bv0, start, len, s);
+  stage<1, I::BD, I::WIDTH>(tile, bdp, start, len, s);
+  cp_async_commit();
+}
+
+// One row's parameters from the tile (x at value 0 of the row of this
+// lane's walk); u = 0 at row 0 of a chain.
+template <typename T, int J>
+__device__ __forceinline__ void frev_row_tile(const T* x, bool row0,
+                                              T (&p)[J], T (&u)[J], T (&w)[J],
+                                              T (&g)[J], T& bd) {
+  using I = FIn<J>;
+#pragma unroll
+  for (int j = 0; j < J; ++j) {
+    p[j] = x[(I::P + j) * kPitch];
+    u[j] = row0 ? T(0) : x[(I::U + j) * kPitch];
+    w[j] = x[(I::W + j) * kPitch];
+    g[j] = x[(I::G + j) * kPitch];
+  }
+  bd = x[I::BD * kPitch];
+}
 
 template <typename T, int J>
 __device__ __forceinline__ void structured_apply(T (&M)[J * J], const T (&p)[J],
@@ -1457,6 +1423,245 @@ __device__ __forceinline__ void structured_apply(T (&M)[J * J], const T (&p)[J],
           p[i] * (M[i * J + k] - u[i] * bv[k] - ba * u[i] * u[k]) * p[k];
 }
 
+// K3 (a): each lane's block map, X[k] the image of basis state k under the
+// linear part of the block's steps, X[D] the image of the zero state under
+// the affine steps (rows descending), stored as AffineMaps<T, D>: A[i][k] =
+// X[k][i], b = X[D]; then the suffixes over the group's lanes.
+template <typename T, int J>
+__global__ void __launch_bounds__(kWalks, 1)
+    factor_maps_kernel(const T* __restrict__ p, const T* __restrict__ U,
+                       const T* __restrict__ W, const T* __restrict__ bv0,
+                       const T* __restrict__ bdp, T* __restrict__ maps,
+                       T* __restrict__ groups, int N, int L, int NB, int GB) {
+  using I = FIn<J>;
+  constexpr int D = J * J;
+  using M = AffineMaps<T, D>;
+  constexpr int TILE = kTile * I::WIDTH * kPitch;
+  static_assert(2 * kWalks * M::E <= 2 * TILE, "the scan fits the tiles");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* tiles = reinterpret_cast<T*>(smem_raw);
+  __shared__ long long start[kWalks];
+  __shared__ int len[kWalks];
+  const Walk wk = walk_setup(N, L, NB, start, len);
+  const int n0 = wk.n0;
+  const int lane = threadIdx.x;
+  const int mine = len[lane];
+
+  T X[D + 1][D];
+#pragma unroll
+  for (int k = 0; k <= D; ++k)
+#pragma unroll
+    for (int i = 0; i < D; ++i) X[k][i] = k == i ? T(1) : T(0);
+
+  const int ntiles = (min(L, N) + kTile - 1) / kTile;
+  frev_stage<T, J>(tiles + ((ntiles - 1) & 1) * TILE, p, U, W, bv0, bdp, start,
+                   len, ntiles - 1);
+  for (int s = ntiles - 1; s >= 0; --s) {
+    if (s > 0) {
+      frev_stage<T, J>(tiles + ((s - 1) & 1) * TILE, p, U, W, bv0, bdp, start,
+                       len, s - 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncwarp();
+    const T* tile = tiles + (s & 1) * TILE + lane;
+#pragma unroll 1
+    for (int l = min(kTile, mine - s * kTile) - 1; l >= 0; --l) {
+      T pr[J], u[J], w[J], g[J], bd;
+      frev_row_tile<T, J>(tile + l * I::WIDTH * kPitch,
+                          n0 + s * kTile + l == 0, pr, u, w, g, bd);
+#pragma unroll
+      for (int k = 0; k <= D; ++k)
+        structured_apply<T, J>(X[k], pr, u, w, g, bd, k == D);
+    }
+    __syncwarp();
+  }
+  // the group's suffix maps, in the tiles (every lane is done with them)
+  T* o = tiles + lane * M::E;
+#pragma unroll
+  for (int i = 0; i < D; ++i) {
+#pragma unroll
+    for (int k = 0; k < D; ++k) o[i * D + k] = X[k][i];
+    o[D * D + i] = X[D][i];
+  }
+  store_group<T, M>(tiles, wk, NB, GB, wk.block < NB, maps, groups);
+}
+
+// The rows of K3 (c) and K5 (c): each lane's block from its incoming state
+// (the state entering its group, ``gstates``, carried through the suffix of
+// its group's later blocks, ``maps``: AffineMaps<T, D>), rows descending,
+// writing the state entering every row.  At row 0 of a chain that is also
+// the state after every step: the step there is the identity (u = 0, and
+// p = 1 since dt = 0).
+template <typename T, int J>
+__global__ void __launch_bounds__(kWalks, 1)
+    frev_rows_kernel(const T* __restrict__ p, const T* __restrict__ U,
+                     const T* __restrict__ W, const T* __restrict__ bv0,
+                     const T* __restrict__ bdp, const T* __restrict__ maps,
+                     const T* __restrict__ gstates, T* __restrict__ MX, int N,
+                     int L, int NB, int GB) {
+  using I = FIn<J>;
+  constexpr int D = J * J;
+  constexpr int TILE = kTile * I::WIDTH * kPitch;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* tiles = reinterpret_cast<T*>(smem_raw);
+  T* out = tiles + 2 * TILE;
+  __shared__ long long start[kWalks];
+  __shared__ int len[kWalks];
+  const Walk wk = walk_setup(N, L, NB, start, len);
+  const int n0 = wk.n0;
+  const int lane = threadIdx.x;
+  const int mine = len[lane];
+
+  T x[D];
+  walk_entry<T, AffineMaps<T, D>>(maps, gstates, wk, NB, GB, x);
+
+  const int ntiles = (min(L, N) + kTile - 1) / kTile;
+  frev_stage<T, J>(tiles + ((ntiles - 1) & 1) * TILE, p, U, W, bv0, bdp, start,
+                   len, ntiles - 1);
+  for (int s = ntiles - 1; s >= 0; --s) {
+    if (s > 0) {
+      frev_stage<T, J>(tiles + ((s - 1) & 1) * TILE, p, U, W, bv0, bdp, start,
+                       len, s - 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncwarp();
+    const T* tile = tiles + (s & 1) * TILE + lane;
+#pragma unroll 1
+    for (int l = min(kTile, mine - s * kTile) - 1; l >= 0; --l) {
+      T pr[J], u[J], w[J], g[J], bd;
+      frev_row_tile<T, J>(tile + l * I::WIDTH * kPitch,
+                          n0 + s * kTile + l == 0, pr, u, w, g, bd);
+      T* o = out + l * D * kPitch + lane;
+#pragma unroll
+      for (int i = 0; i < D; ++i) o[i * kPitch] = x[i];
+      structured_apply<T, J>(x, pr, u, w, g, bd, true);
+    }
+    __syncwarp();
+    unstage<D, 0, D>(MX, out, start, len, s);
+    __syncwarp();
+  }
+}
+
+// K5 (a): one warp per group of kWalks blocks of a chain.  K4's maps hold
+// column k of a block's linear part at [k D, (k + 1) D) and its constant at
+// [D^2, D^2 + D).  Walking the group's blocks last to first, lane k < D
+// carries column k of the composition of the blocks walked so far, lane D
+// its constant; after block b it is block b's suffix within the group,
+// written as AffineMaps<T, D> to ``suffix`` (C, NB, E), and after the first
+// block the group's map, to ``groups`` (C, GB, E).  Each block's map is
+// copied into shared memory one block ahead.
+template <typename T, int J>
+__global__ void __launch_bounds__(kWalks, 1)
+    frev_groups_kernel(const T* __restrict__ maps, T* __restrict__ suffix,
+                       T* __restrict__ groups, int NB, int GB) {
+  constexpr int D = J * J, E = D * D + D;
+  static_assert(D < kWalks, "a lane a column and one for the constant");
+  __shared__ __align__(16) T buf[2][E];
+  const int lane = threadIdx.x;
+  const long long chain = blockIdx.x / GB;
+  const int group = blockIdx.x % GB;
+  const int b0 = group * kWalks, b1 = min(NB, b0 + kWalks);
+  const T* cm = maps + chain * NB * E;
+
+  T X[D];
+#pragma unroll
+  for (int i = 0; i < D; ++i) X[i] = i == lane ? T(1) : T(0);
+
+  for (int e = lane; e < E; e += kWalks)
+    cp_async_elem(buf[(b1 - 1) & 1] + e, cm + (long long)(b1 - 1) * E + e);
+  cp_async_commit();
+  for (int b = b1 - 1; b >= b0; --b) {
+    if (b > b0) {
+      for (int e = lane; e < E; e += kWalks)
+        cp_async_elem(buf[(b - 1) & 1] + e, cm + (long long)(b - 1) * E + e);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncwarp();
+    const T* m = buf[b & 1];
+    if (lane <= D) {
+      T y[D];
+#pragma unroll
+      for (int i = 0; i < D; ++i) {
+        T s = lane == D ? m[D * D + i] : T(0);
+#pragma unroll
+        for (int j = 0; j < D; ++j) s += m[j * D + i] * X[j];
+        y[i] = s;
+      }
+      T* o = suffix + (chain * NB + b) * E;
+#pragma unroll
+      for (int i = 0; i < D; ++i) {
+        X[i] = y[i];
+        o[lane < D ? i * D + lane : D * D + i] = y[i];
+      }
+    }
+    __syncwarp();  // every lane is done with the buffer before it is refilled
+  }
+  if (lane <= D) {
+    T* o = groups + (chain * GB + group) * E;
+#pragma unroll
+    for (int i = 0; i < D; ++i) o[lane < D ? i * D + lane : D * D + i] = X[i];
+  }
+}
+
+// K5 (b): one warp per chain carries the state over the groups, last to
+// first: the state entering group g is the map of group g + 1 applied to
+// the state entering it, zero for the last group.  Lane i < D holds value i
+// and reads row i of each group's map one group ahead.
+template <typename T, int J>
+__global__ void __launch_bounds__(kWalks, 1)
+    frev_scan_kernel(const T* __restrict__ groups, T* __restrict__ gstates,
+                     int GB) {
+  constexpr int D = J * J, E = D * D + D;
+  const int lane = threadIdx.x;
+  const int row = min(lane, D - 1);
+  const T* cg = groups + (long long)blockIdx.x * GB * E;
+  T* cs = gstates + (long long)blockIdx.x * GB * D;
+  T cur[D + 1], nxt[D + 1];
+  auto load = [&](int g, T(&r)[D + 1]) {
+#pragma unroll
+    for (int k = 0; k < D; ++k) r[k] = cg[(long long)g * E + row * D + k];
+    r[D] = cg[(long long)g * E + D * D + row];
+  };
+  load(GB - 1, cur);
+  T x = T(0);
+  for (int g = GB - 1; g >= 0; --g) {
+    if (lane < D) cs[(long long)g * D + lane] = x;
+    if (g == 0) break;
+    load(g - 1, nxt);
+    T s0 = cur[D], s1 = T(0);
+#pragma unroll
+    for (int k = 0; k < D; k += 2) {
+      s0 += cur[k] * __shfl_sync(0xffffffffu, x, k);
+      if (k + 1 < D) s1 += cur[k + 1] * __shfl_sync(0xffffffffu, x, k + 1);
+    }
+    x = s0 + s1;
+#pragma unroll
+    for (int k = 0; k <= D; ++k) cur[k] = nxt[k];
+  }
+}
+
+// K4 frev_maps: replaces the Pallas kernel celerite2_tpu/ops/fused_slab.py:
+// _factor_adjoint_structured phase A (pallas_call :629, body _phaseA_body
+// :530).  For each (chain, block) it densifies the block's composed reverse
+// map: the D = J^2 basis columns go through the steps' linear part, the
+// constant through the full affine step, rows in descending order.  Output
+// (C, NB, D^2 + D): column k at [k D, (k + 1) D), the constant at
+// [D^2, D^2 + D).
+//
+// Bound on this card: latency: L dependent steps of O(J^2) per column.  The
+// TPU carried all D^2 + D = 272 values (J = 4) of a block in VMEM scratch;
+// one thread cannot hold that in registers.  So one warp walks one (chain,
+// block) and lane k < D carries column k (D values), lane D the constant:
+// 17 of 32 lanes at J = 4, 10 at J = 3.  Every lane reads the same row's
+// parameters, which the hardware serves as one broadcast load.
+
 // The parameters of row n (global row r): p, u (0 at n = 0), w, bv0, bdp.
 template <typename T, int J>
 __device__ __forceinline__ void frev_row(const T* __restrict__ p,
@@ -1475,21 +1680,6 @@ __device__ __forceinline__ void frev_row(const T* __restrict__ p,
   }
   bd = bdp[r];
 }
-
-// K4 frev_maps: replaces the Pallas kernel celerite2_tpu/ops/fused_slab.py:
-// _factor_adjoint_structured phase A (pallas_call :629, body _phaseA_body
-// :530).  For each (chain, block) it densifies the block's composed reverse
-// map: the D = J^2 basis columns go through the steps' linear part, the
-// constant through the full affine step, rows in descending order.  Output
-// (C, NB, D^2 + D): column k at [k D, (k + 1) D), the constant at
-// [D^2, D^2 + D).
-//
-// Bound on this card: latency, as K3: 256 dependent steps of O(J^2) per
-// column.  The TPU carried all D^2 + D = 272 values (J = 4) of a block in
-// VMEM scratch; one thread cannot hold that in registers.  So one warp walks
-// one (chain, block) and lane k < D carries column k (D values), lane D the
-// constant: 17 of 32 lanes at J = 4, 10 at J = 3.  Every lane reads the same
-// row's parameters, which the hardware serves as one broadcast load.
 
 template <typename T, int J>
 __global__ void __launch_bounds__(kThreads)
@@ -1523,68 +1713,89 @@ __global__ void __launch_bounds__(kThreads)
   for (int i = 0; i < D; ++i) o[i] = M[i];
 }
 
-// K5 frev_states: replaces fused_slab.py:_factor_adjoint_structured phase C
-// (pallas_call :697, body _phaseC_body :580).  Thread (c, b) starts from its
-// block's seed (the state after every later block, from the cross-block
-// level) and walks the block's rows in descending order, writing the state
-// ENTERING each row before applying that row's affine step.  Output
-// (C, N, D).  At row 0 (the identity step) that is the state after every
-// real step, which is what the row formulas need there.
-//
-// Bound on this card: latency, as K3: D = 16 register values (J = 4) and
-// O(J^2) per row; D values written per row.
-
+// the rows of K3 (c) or K5 (c), with the shared memory they need
 template <typename T, int J>
-__global__ void __launch_bounds__(kThreads)
-    frev_states_kernel(const T* __restrict__ p, const T* __restrict__ U,
-                       const T* __restrict__ W, const T* __restrict__ bv0,
-                       const T* __restrict__ bdp, const T* __restrict__ seeds,
-                       T* __restrict__ out, int C, int N, int L, int NB) {
-  constexpr int D = J * J;
-  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= (long long)C * NB) return;
-  const int c = (int)(idx / NB);
-  const int blk = (int)(idx % NB);
-  const long long row0 = (long long)c * N;
-  const int n0 = blk * L;
-  const int n1 = min(n0 + L, N);
-
-  T M[D];
-#pragma unroll
-  for (int i = 0; i < D; ++i) M[i] = seeds[idx * D + i];
-
-  for (int n = n1 - 1; n >= n0; --n) {
-    const long long r = row0 + n;
-    T* o = out + r * D;
-#pragma unroll
-    for (int i = 0; i < D; ++i) o[i] = M[i];
-    T pr[J], u[J], w[J], g[J], bd;
-    frev_row<T, J>(p, U, W, bv0, bdp, n, r, pr, u, w, g, bd);
-    structured_apply<T, J>(M, pr, u, w, g, bd, true);
-  }
+int launch_rows(const T* p, const T* U, const T* W, const T* bv0,
+                const T* bdp, const T* maps, const T* gstates, T* MX, int C,
+                int N, int L, int NB, int GB, cudaStream_t s) {
+  const size_t smem = walk_smem<T>(FIn<J>::WIDTH, J * J);
+  static size_t allowed = 0;
+  const int err = allow_smem(frev_rows_kernel<T, J>, smem, &allowed);
+  if (err) return err;
+  frev_rows_kernel<T, J><<<walk_grid(C, GB), kWalks, smem, s>>>(
+      p, U, W, bv0, bdp, maps, gstates, MX, N, L, NB, GB);
+  return (int)cudaGetLastError();
 }
 
-inline dim3 grid_for(int C, int NB) {
-  const long long n = (long long)C * NB;
-  return dim3((unsigned)((n + kThreads - 1) / kThreads));
+// The phases of K3 at width J, as K2's.
+template <typename T, int J>
+int launch_factor_j(const void* p, const void* U, const void* W,
+                    const void* bv0, const void* bdp, void* MX, void* maps,
+                    void* groups, void* gstates, int C, int N, int L,
+                    cudaStream_t s) {
+  const int NB = (N + L - 1) / L;
+  const int GB = (NB + kWalks - 1) / kWalks;
+  const T *pp = (const T*)p, *Up = (const T*)U, *Wp = (const T*)W,
+          *gp = (const T*)bv0, *dp = (const T*)bdp;
+  int err;
+  if (NB > 1) {
+    const size_t smem = walk_smem<T>(FIn<J>::WIDTH, 0);
+    static size_t maps_allowed = 0;
+    if ((err = allow_smem(factor_maps_kernel<T, J>, smem, &maps_allowed)))
+      return err;
+    factor_maps_kernel<T, J><<<walk_grid(C, GB), kWalks, smem, s>>>(
+        pp, Up, Wp, gp, dp, (T*)maps, (T*)groups, N, L, NB, GB);
+    if ((err = (int)cudaGetLastError())) return err;
+  }
+  if (GB > 1 &&
+      (err = launch_scan<T, AffineMaps<T, J * J>>(groups, gstates, C, GB, s)))
+    return err;
+  return launch_rows<T, J>(pp, Up, Wp, gp, dp, NB > 1 ? (const T*)maps : nullptr,
+                           GB > 1 ? (const T*)gstates : nullptr, (T*)MX, C, N,
+                           L, NB, GB, s);
+}
+
+// The phases of K5 at width J: (a) with more than one block, (b) with more
+// than one group, (c).
+template <typename T, int J>
+int launch_frev_states_j(const void* p, const void* U, const void* W,
+                         const void* bv0, const void* bdp, const void* kmaps,
+                         void* MX, void* suffix, void* groups, void* gstates,
+                         int C, int N, int L, cudaStream_t s) {
+  const int NB = (N + L - 1) / L;
+  const int GB = (NB + kWalks - 1) / kWalks;
+  int err;
+  if (NB > 1) {
+    frev_groups_kernel<T, J><<<walk_grid(C, GB), kWalks, 0, s>>>(
+        (const T*)kmaps, (T*)suffix, (T*)groups, NB, GB);
+    if ((err = (int)cudaGetLastError())) return err;
+  }
+  if (GB > 1) {
+    frev_scan_kernel<T, J><<<(unsigned)C, kWalks, 0, s>>>(
+        (const T*)groups, (T*)gstates, GB);
+    if ((err = (int)cudaGetLastError())) return err;
+  }
+  return launch_rows<T, J>(
+      (const T*)p, (const T*)U, (const T*)W, (const T*)bv0, (const T*)bdp,
+      NB > 1 ? (const T*)suffix : nullptr, GB > 1 ? (const T*)gstates : nullptr,
+      (T*)MX, C, N, L, NB, GB, s);
 }
 
 template <typename T>
 int launch_factor(int J, const void* p, const void* U, const void* W,
-                  const void* bv0, const void* bdp, void* pre, void* maps,
-                  int C, int N, int L, cudaStream_t s) {
-  const int NB = (N + L - 1) / L;
-  const T *pp = (const T*)p, *Up = (const T*)U, *Wp = (const T*)W,
-          *gp = (const T*)bv0, *dp = (const T*)bdp;
-  if (J == 1)
-    factor_rev_kernel<T, 1><<<grid_for(C, NB), kThreads, 0, s>>>(
-        pp, Up, Wp, gp, dp, (T*)pre, (T*)maps, C, N, L, NB);
-  else if (J == 2)
-    factor_rev_kernel<T, 2><<<grid_for(C, NB), kThreads, 0, s>>>(
-        pp, Up, Wp, gp, dp, (T*)pre, (T*)maps, C, N, L, NB);
-  else
-    return -1;
-  return (int)cudaGetLastError();
+                  const void* bv0, const void* bdp, void* MX, void* maps,
+                  void* groups, void* gstates, int C, int N, int L,
+                  cudaStream_t s) {
+  switch (J) {
+    case 1:
+      return launch_factor_j<T, 1>(p, U, W, bv0, bdp, MX, maps, groups,
+                                   gstates, C, N, L, s);
+    case 2:
+      return launch_factor_j<T, 2>(p, U, W, bv0, bdp, MX, maps, groups,
+                                   gstates, C, N, L, s);
+    default:
+      return -1;
+  }
 }
 
 template <typename T>
@@ -1614,26 +1825,25 @@ int launch_frev_maps(int J, const void* p, const void* U, const void* W,
 
 template <typename T>
 int launch_frev_states(int J, const void* p, const void* U, const void* W,
-                       const void* bv0, const void* bdp, const void* seeds,
-                       void* out, int C, int N, int L, cudaStream_t s) {
-  const int NB = (N + L - 1) / L;
-  const T *pp = (const T*)p, *Up = (const T*)U, *Wp = (const T*)W,
-          *gp = (const T*)bv0, *dp = (const T*)bdp, *sp = (const T*)seeds;
-  if (J == 1)
-    frev_states_kernel<T, 1><<<grid_for(C, NB), kThreads, 0, s>>>(
-        pp, Up, Wp, gp, dp, sp, (T*)out, C, N, L, NB);
-  else if (J == 2)
-    frev_states_kernel<T, 2><<<grid_for(C, NB), kThreads, 0, s>>>(
-        pp, Up, Wp, gp, dp, sp, (T*)out, C, N, L, NB);
-  else if (J == 3)
-    frev_states_kernel<T, 3><<<grid_for(C, NB), kThreads, 0, s>>>(
-        pp, Up, Wp, gp, dp, sp, (T*)out, C, N, L, NB);
-  else if (J == 4)
-    frev_states_kernel<T, 4><<<grid_for(C, NB), kThreads, 0, s>>>(
-        pp, Up, Wp, gp, dp, sp, (T*)out, C, N, L, NB);
-  else
-    return -1;
-  return (int)cudaGetLastError();
+                       const void* bv0, const void* bdp, const void* kmaps,
+                       void* MX, void* suffix, void* groups, void* gstates,
+                       int C, int N, int L, cudaStream_t s) {
+  switch (J) {
+    case 1:
+      return launch_frev_states_j<T, 1>(p, U, W, bv0, bdp, kmaps, MX, suffix,
+                                        groups, gstates, C, N, L, s);
+    case 2:
+      return launch_frev_states_j<T, 2>(p, U, W, bv0, bdp, kmaps, MX, suffix,
+                                        groups, gstates, C, N, L, s);
+    case 3:
+      return launch_frev_states_j<T, 3>(p, U, W, bv0, bdp, kmaps, MX, suffix,
+                                        groups, gstates, C, N, L, s);
+    case 4:
+      return launch_frev_states_j<T, 4>(p, U, W, bv0, bdp, kmaps, MX, suffix,
+                                        groups, gstates, C, N, L, s);
+    default:
+      return -1;
+  }
 }
 
 }  // namespace
@@ -1644,18 +1854,18 @@ int launch_frev_states(int J, const void* p, const void* U, const void* W,
 // after the launch (0 on success), or -1 for an unsupported J (K1, K2, K4,
 // K5: 1..4; K3: 1, 2).  Pointers are to contiguous device arrays of the
 // scalar type given by ``is_double``; shapes are (C, N, J) for per-row
-// vectors, (C, N) for per-row scalars, (C, N, E) for ``pre``,
-// (C, ceil(N / L), E) for ``maps``, (C, ceil(N / L), J^2) for ``seeds`` and
-// (C, N, J^2) for ``out``.
+// vectors, (C, N) for per-row scalars and (C, ceil(N / L), J^4 + J^2) for
+// K4's ``maps``.
 //
-// c2t_kalman_fwd and c2t_solve_rev launch the phases their rows need, on
-// NB = ceil(N / L) blocks in GB = ceil(NB / 32) groups: 0 with NB > 1, the
-// block maps (writes each block's prefix or suffix within its group,
-// ``maps`` (C, NB, E), and each group's map, ``groups`` (C, GB, E);
-// E = 3J^2 + 2J for K1, J^2 + J for K2); 1 with GB > 1, the scan over the
-// groups (writes ``gstates``, the state entering every group: (C, GB,
-// J^2 + J) and (C, GB, J)); 2 the rows (writes S (C, N, J, J) and
-// F (C, N, J), or R (C, N, J)).  The scratch arrays a call does not need
+// c2t_kalman_fwd, c2t_solve_rev, c2t_factor_rev and c2t_frev_states launch
+// the phases their rows need, on NB = ceil(N / L) blocks in GB = ceil(NB /
+// 32) groups: 0 with NB > 1, the block maps (writes each block's prefix or
+// suffix within its group, ``maps`` or ``suffix`` (C, NB, E), and each
+// group's map, ``groups`` (C, GB, E); E = 3J^2 + 2J for K1, J^2 + J for K2,
+// J^4 + J^2 for K3 and K5); 1 with GB > 1, the scan over the groups (writes
+// ``gstates``, the state entering every group: (C, GB, J^2 + J), (C, GB,
+// J), (C, GB, J^2)); 2 the rows (writes S (C, N, J, J) and F (C, N, J), R
+// (C, N, J), or MX (C, N, J, J)).  The scratch arrays a call does not need
 // may be null.
 
 extern "C" {
@@ -1683,13 +1893,14 @@ int c2t_solve_rev(int is_double, int J, const void* p, const void* U,
 }
 
 int c2t_factor_rev(int is_double, int J, const void* p, const void* U,
-                   const void* W, const void* bv0, const void* bdp, void* pre,
-                   void* maps, int C, int N, int L, void* stream) {
+                   const void* W, const void* bv0, const void* bdp, void* MX,
+                   void* maps, void* groups, void* gstates, int C, int N,
+                   int L, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  return is_double ? launch_factor<double>(J, p, U, W, bv0, bdp, pre, maps, C,
-                                           N, L, s)
-                   : launch_factor<float>(J, p, U, W, bv0, bdp, pre, maps, C,
-                                          N, L, s);
+  return is_double ? launch_factor<double>(J, p, U, W, bv0, bdp, MX, maps,
+                                           groups, gstates, C, N, L, s)
+                   : launch_factor<float>(J, p, U, W, bv0, bdp, MX, maps,
+                                          groups, gstates, C, N, L, s);
 }
 
 int c2t_frev_maps(int is_double, int J, const void* p, const void* U,
@@ -1704,13 +1915,14 @@ int c2t_frev_maps(int is_double, int J, const void* p, const void* U,
 
 int c2t_frev_states(int is_double, int J, const void* p, const void* U,
                     const void* W, const void* bv0, const void* bdp,
-                    const void* seeds, void* out, int C, int N, int L,
-                    void* stream) {
+                    const void* maps, void* MX, void* suffix, void* groups,
+                    void* gstates, int C, int N, int L, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  return is_double ? launch_frev_states<double>(J, p, U, W, bv0, bdp, seeds,
-                                                out, C, N, L, s)
-                   : launch_frev_states<float>(J, p, U, W, bv0, bdp, seeds,
-                                               out, C, N, L, s);
+  return is_double
+             ? launch_frev_states<double>(J, p, U, W, bv0, bdp, maps, MX,
+                                          suffix, groups, gstates, C, N, L, s)
+             : launch_frev_states<float>(J, p, U, W, bv0, bdp, maps, MX,
+                                         suffix, groups, gstates, C, N, L, s);
 }
 
 }  // extern "C"

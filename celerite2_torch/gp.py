@@ -141,10 +141,13 @@ def _loglik_core(kernel, t, resid, diag_v):
     c, a, U, V, resid = system
     d, _, z = ops.factor_solve(t.expand(C, N), c, a, U, V, resid[..., None])
     ok = (d > 0).all(-1)
-    safe_d = torch.where(d > 0, d, torch.ones_like(d))
+    # a chain that is not positive definite gives -inf and zero gradients:
+    # its rows leave the sums before they enter them, since a float32 z of
+    # such a chain can overflow z^2 / d, and 0 * inf in the backward is NaN
+    safe_d = torch.where(ok[..., None], d, torch.ones_like(d))
+    z = torch.where(ok[..., None], z[..., 0], torch.zeros_like(d))
     ll = -0.5 * (
-        torch.log(safe_d).sum(-1) + (z[..., 0] ** 2 / safe_d).sum(-1)
-        + N * LOG2PI
+        torch.log(safe_d).sum(-1) + (z**2 / safe_d).sum(-1) + N * LOG2PI
     )
     ll = torch.where(ok, ll, torch.full_like(ll, -math.inf))
     return ll.reshape(batch)

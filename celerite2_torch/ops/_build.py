@@ -30,6 +30,7 @@ __all__ = [
     "LAUNCHES",
     "build",
     "fused_block_len",
+    "factor_adjoint_block_len",
     "kalman_fwd_cuda",
     "solve_rev_cuda",
     "factor_rev_cuda",
@@ -166,20 +167,17 @@ def _library():
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
         P, I = ctypes.c_void_p, ctypes.c_int
-        # (is_double, J, inputs..., outputs..., C, N, L, stream)
+        # (is_double, J, inputs..., outputs..., scratch..., C, N, L, stream)
         for name, n_arrays in (
-            ("c2t_factor_rev", 7),
+            ("c2t_kalman_fwd", 10),
+            ("c2t_solve_rev", 8),
+            ("c2t_factor_rev", 9),
             ("c2t_frev_maps", 6),
-            ("c2t_frev_states", 7),
+            ("c2t_frev_states", 10),
         ):
             fn = getattr(lib, name)
             fn.argtypes = [I, I] + [P] * n_arrays + [I, I, I, P]
             fn.restype = I
-        # (is_double, J, inputs..., outputs..., scratch..., C, N, L, stream)
-        lib.c2t_kalman_fwd.argtypes = [I, I] + [P] * 10 + [I] * 3 + [P]
-        lib.c2t_kalman_fwd.restype = I
-        lib.c2t_solve_rev.argtypes = [I, I] + [P] * 8 + [I] * 3 + [P]
-        lib.c2t_solve_rev.restype = I
         # (is_double, J, inputs..., outputs..., C, N, stream)
         lib.c2t_factor_fwd.argtypes = [I, I] + [P] * 7 + [I, I, P]
         lib.c2t_factor_fwd.restype = I
@@ -226,41 +224,6 @@ def _check(name, tensors, shapes):
             raise ValueError(f"{name}: tensors must be contiguous")
 
 
-def _num_blocks(key, J, N, L):
-    """Blocks of L rows in N, after checking that the kernel is built for
-    width J and that L is a block length."""
-    if J not in WIDTHS[key]:
-        raise NotImplementedError(
-            f"{key}: J must be one of {WIDTHS[key]}, got {J}"
-        )
-    if L < 1:
-        raise ValueError(f"{key}: block length must be >= 1, got {L}")
-    return -(-N // L)
-
-
-def _launch(key, inputs, out_shapes, C, N, J, L):
-    """Launch ``c2t_<key>`` on ``inputs`` into new outputs of
-    ``out_shapes``; returns the outputs."""
-    x = inputs[0]
-    outs = [torch.empty(s, dtype=x.dtype, device=x.device) for s in out_shapes]
-    lib = _library()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = getattr(lib, f"c2t_{key}")(
-            int(x.dtype == torch.float64),
-            J,
-            *(t.data_ptr() for t in (*inputs, *outs)),
-            C,
-            N,
-            L,
-            stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"{key}: kernel launch failed (CUDA error {rc})")
-    LAUNCHES[key] += 1
-    return outs
-
-
 def _row_shapes(C, N, J, n_vec, n_scalar):
     return ((C, N, J),) * n_vec + ((C, N),) * n_scalar
 
@@ -277,20 +240,32 @@ def fused_block_len(N):
     return L
 
 
-# blocks of K1's and K2's rows in a group: the walks of one of their thread
-# blocks (csrc/fused_loglik.cu, kWalks)
+# Rows per block of the factor adjoint on the card (K3, and K4 with K5, which
+# starts each block from K4's map of the blocks after it): the rule of K1 and
+# K2, which ``chip_smoke.py --sweep`` holds against the other block lengths
+# (PERF.md), under a name of its own that the sweep can set apart.
+factor_adjoint_block_len = fused_block_len
+
+
+# blocks of the fused kernels' rows in a group: the walks of one of their
+# thread blocks (csrc/fused_loglik.cu, kWalks)
 FUSED_GROUP = 32
 
 
-def _two_level(key, J, inputs, outs, C, N, block_len, map_width, state_width):
-    """Launch K1 or K2 (``c2t_<key>``, one call): with more than one block,
-    the block maps; with more than one group of blocks, the scan over the
-    groups; the rows.  Each kernel counts in :data:`LAUNCHES`."""
-    if min(C, N) < 1:
-        raise ValueError(f"{key}: empty system (C={C}, N={N})")
-    L = fused_block_len(N) if block_len is None else int(block_len)
+def _block_len(key, block_len, N, rule):
+    L = rule(N) if block_len is None else int(block_len)
     if L < 1:
         raise ValueError(f"{key}: block length must be >= 1, got {L}")
+    return L
+
+
+def _two_level(key, J, inputs, outs, C, N, L, map_width, state_width):
+    """Launch K1, K2, K3 or K5 (``c2t_<key>``, one call) in blocks of L
+    rows: with more than one block, the block maps; with more than one
+    group of blocks, the scan over the groups; the rows.  Each kernel
+    counts in :data:`LAUNCHES`."""
+    if min(C, N) < 1:
+        raise ValueError(f"{key}: empty system (C={C}, N={N})")
     NB = -(-N // L)
     GB = -(-NB // FUSED_GROUP)
     x = inputs[0]
@@ -311,8 +286,9 @@ def kalman_fwd_cuda(p, U, V, ainv, y, block_len=None):
     inputs = (p, U, V, ainv, y)
     _check("kalman_fwd", inputs, _row_shapes(C, N, J, 3, 2))
     outs = (_empty(p, C, N, J, J), _empty(p, C, N, J))
-    _two_level("kalman_fwd", J, inputs, outs, C, N, block_len,
-               3 * J * J + 2 * J, J * J + J)
+    L = _block_len("kalman_fwd", block_len, N, fused_block_len)
+    _two_level("kalman_fwd", J, inputs, outs, C, N, L, 3 * J * J + 2 * J,
+               J * J + J)
     return outs
 
 
@@ -324,50 +300,61 @@ def solve_rev_cuda(p, U, W, bz, block_len=None):
     inputs = (p, U, W, bz)
     _check("solve_rev", inputs, _row_shapes(C, N, J, 3, 1))
     out = _empty(p, C, N, J)
-    _two_level("solve_rev", J, inputs, (out,), C, N, block_len, J * J + J, J)
+    L = _block_len("solve_rev", block_len, N, fused_block_len)
+    _two_level("solve_rev", J, inputs, (out,), C, N, L, J * J + J, J)
     return out
 
 
-def factor_rev_cuda(p, U, W, bv0, bdp, L):
-    """K3 on the card: per-row suffix maps ``(C, N, J^4+J^2)`` and block
-    maps ``(C, ceil(N/L), J^4+J^2)``."""
+def factor_rev_cuda(p, U, W, bv0, bdp, block_len=None):
+    """K3 on the card (J <= 2): the factor adjoint's state at every row,
+    ``MX (C, N, J, J)`` (the state entering row n for n >= 1, the state
+    after every step at row 0), in blocks of ``block_len`` rows (default
+    :func:`factor_adjoint_block_len`)."""
     C, N, J = U.shape
-    NB = _num_blocks("factor_rev", J, N, L)
     inputs = (p, U, W, bv0, bdp)
     _check("factor_rev", inputs, _row_shapes(C, N, J, 4, 1))
-    E = J**4 + J * J
-    return tuple(
-        _launch("factor_rev", inputs, ((C, N, E), (C, NB, E)), C, N, J, L)
-    )
+    MX = _empty(p, C, N, J, J)
+    L = _block_len("factor_rev", block_len, N, factor_adjoint_block_len)
+    D = J * J
+    _two_level("factor_rev", J, inputs, (MX,), C, N, L, D * D + D, D)
+    return MX
 
 
-def frev_maps_cuda(p, U, W, bv0, bdp, L):
+def frev_maps_cuda(p, U, W, bv0, bdp, block_len=None):
     """K4 on the card: each block's composed reverse-factor map
     ``(C, ceil(N/L), J^4+J^2)``, column k of its linear part at
-    ``[k J^2, (k+1) J^2)`` and its constant last."""
+    ``[k J^2, (k+1) J^2)`` and its constant last, in blocks of
+    ``block_len`` rows (default :func:`factor_adjoint_block_len`)."""
     C, N, J = U.shape
-    NB = _num_blocks("frev_maps", J, N, L)
     inputs = (p, U, W, bv0, bdp)
     _check("frev_maps", inputs, _row_shapes(C, N, J, 4, 1))
-    (maps,) = _launch("frev_maps", inputs, ((C, NB, J**4 + J * J),), C, N, J, L)
+    if min(C, N) < 1:
+        raise ValueError(f"frev_maps: empty system (C={C}, N={N})")
+    L = _block_len("frev_maps", block_len, N, factor_adjoint_block_len)
+    maps = _empty(p, C, -(-N // L), J**4 + J * J)
+    _launch_general("frev_maps", J, inputs, (maps,), (C, N, L))
     return maps
 
 
-def frev_states_cuda(p, U, W, bv0, bdp, seeds, L):
-    """K5 on the card: the reverse-factor state entering every row,
-    ``(C, N, J^2)``, each block started from its seed in ``seeds``
-    ``(C, ceil(N/L), J^2)``."""
+def frev_states_cuda(p, U, W, bv0, bdp, maps, block_len=None):
+    """K5 on the card: from K4's block maps ``maps (C, ceil(N/L),
+    J^4+J^2)``, the factor adjoint's state entering every row,
+    ``MX (C, N, J, J)``; the maps' blocks are of ``block_len`` rows
+    (default :func:`factor_adjoint_block_len`)."""
     C, N, J = U.shape
-    NB = _num_blocks("frev_states", J, N, L)
-    inputs = (p, U, W, bv0, bdp, seeds)
-    _check("frev_states", inputs, _row_shapes(C, N, J, 4, 1) + ((C, NB, J * J),))
-    (out,) = _launch("frev_states", inputs, ((C, N, J * J),), C, N, J, L)
-    return out
+    L = _block_len("frev_states", block_len, N, factor_adjoint_block_len)
+    D = J * J
+    inputs = (p, U, W, bv0, bdp, maps)
+    _check("frev_states", inputs,
+           _row_shapes(C, N, J, 4, 1) + ((C, -(-N // L), D * D + D),))
+    MX = _empty(p, C, N, J, J)
+    _two_level("frev_states", J, inputs, (MX,), C, N, L, D * D + D, D)
+    return MX
 
 
 def _launch_general(key, J, inputs, outs, ints, fn=None):
     """Launch ``c2t_<fn>`` (``fn`` defaults to ``key``; csrc/general_ops.cu,
-    csrc/assoc_prefix.cu, K1 and K2 of csrc/fused_loglik.cu) on ``inputs``
+    csrc/assoc_prefix.cu, csrc/fused_loglik.cu) on ``inputs``
     into ``outs`` (None for an array that is not given or not wanted: its
     pointer is null), with the
     trailing integer arguments ``ints``, and count it under ``key``.  ``J``

@@ -14,10 +14,11 @@ elements (the JAX module's docstring derives them), which
 * the adjoints: the solve adjoint on matrix-affine J x J maps, the matmul
   adjoint on diagonal-affine maps, and the factor adjoint on matrix-affine
   maps of the J^2 entries of its carry: per-row maps at J <= 2
-  (``_frev_suffix_states_dense``), per-block maps above, with phase B the
-  matrix-affine prefix at D = J^2 over them; phases A and C are the fused
-  path's kernels K4 and K5 at J = 3, 4 (``_frev_states_k45``) and loops in
-  PyTorch over the steps of a block, batched over blocks and chains, above
+  (``_frev_suffix_states_dense``), per-block maps above.  At J = 3, 4 the
+  fused path's kernels K4 and K5 run the three phases
+  (``_frev_states_k45``); above, phases A and C are loops in PyTorch over
+  the steps of a block, batched over blocks and chains, and phase B is the
+  matrix-affine prefix at D = J^2 over the block maps
   (``_frev_suffix_states``).
 
 Every function returns exactly what its scan-tier twin returns, caches
@@ -387,20 +388,11 @@ def _frev_suffix_states_dense(p, u, w, bv0, bdp):
 def _frev_states_k45(p, U, W, bv0, bdp):
     """The factor adjoint's carry at every row at J = 3, 4 through the
     fused path's kernels: K4 (``frev_maps``, phase A) for each block's map,
-    the matrix-affine prefix of those maps in reverse (phase B) for the
-    state entering each block, K5 (``frev_states``, phase C) for the rows.
-    Returns ``(C, N, J, J)``: the state entering step n at rows n >= 1, the
-    state after every step at row 0."""
-    C, N, J = U.shape
-    D = J * J
-    L = _fl.default_block_len(N)
-    maps = _fl.frev_maps(p, U, W, bv0, bdp, L)
-    A = maps[..., : D * D].reshape(C, -1, D, D).mT.contiguous()
-    after = pe.mat_affine_prefix(A, maps[..., D * D:, None].contiguous(),
-                                 reverse=True)
-    seeds = torch.cat([after[:, 1:, :, 0], maps.new_zeros(C, 1, D)], 1)
-    return _fl.frev_states(p, U, W, bv0, bdp, seeds.contiguous(), L).reshape(
-        C, N, J, J)
+    K5 (``frev_states``) for phase B, the state entering each block, and
+    phase C, the rows.  Returns ``(C, N, J, J)``: the state entering step n
+    at rows n >= 1, the state after every step at row 0."""
+    L = _fl.default_block_len(U.shape[1])
+    return _fl.factor_adjoint(p, U, W, bv0, bdp, L, structured=True)
 
 
 def factor_bwd(p, d, U, W, S_half, bd, bW):

@@ -18,11 +18,13 @@ not ported.  ``"auto"`` here:
 * CUDA tensors: ``"assoc"`` where the card's crossover table (PERF.md,
   ``chip_smoke.py`` phase "assoc") shows it faster than the row kernels,
   i.e. from ``ASSOC_MIN_ROWS[(dtype, J, C > 1)]`` rows; a missing entry
-  keeps the scan tier.  Float32 at J >= 16 never takes the assoc tier
-  (``benchmarks/RESULTS.md:87-98``: the JAX float32 assoc tier quietly
-  returns -inf at J = 16, N = 1e5);
+  keeps the scan tier.  Float32 from the J = 8 bucket on never takes the
+  assoc tier: the JAX float32 assoc tier quietly returns -inf there while
+  its scan tier is finite (at J = 16, N = 1e5: ``benchmarks/RESULTS.md:
+  87-98``; at J = 8 from N = 3000: ``tests/test_torch_assoc.py``), and the
+  port's with it;
 * ``Config.assoc_threshold`` replaces the table on the card: every system
-  of at least that many rows takes the assoc tier, float32 at J >= 16
+  of at least that many rows takes the assoc tier, float32 from J = 8
   still excepted.
 
 Systems of fewer than two rows always take the scan tier.
@@ -58,7 +60,7 @@ def _bucket(J):
 
 
 def _assoc_barred(J, dtype):
-    return dtype == torch.float32 and _bucket(J) >= 16
+    return dtype == torch.float32 and _bucket(J) >= 8
 
 
 def backend(device, C, N, J, dtype) -> str:

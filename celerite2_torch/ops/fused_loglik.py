@@ -12,12 +12,13 @@ value+gradient
 
 each run as a two-level scan over blocks of rows.
 
-K1 and K2 return the per-row states the glue uses (S and F of the
-forward, the solve adjoint's Rst).  On the card each is one CUDA kernel
-family (``csrc/fused_loglik.cu``) that runs the whole scan, its
-cross-block level included, in blocks of rows of its own choosing
-(``_build.fused_block_len``).  Their plain versions, below, run it in
-PyTorch in blocks of L rows:
+Each pass returns the per-row states the glue uses: S and F of the
+forward (K1), the solve adjoint's Rst (K2), the factor adjoint's MX (K3 at
+J <= 2; K4 and K5 at J = 3, 4).  On the card each is a CUDA kernel family
+(``csrc/fused_loglik.cu``) that runs the whole scan, its cross-block level
+included, in blocks of rows of its own choosing
+(``_build.fused_block_len``, ``_build.factor_adjoint_block_len``).  Their
+plain versions, below, run it in PyTorch in blocks of L rows:
 
 * within each block, the pass builds every row's element from the raw
   per-row data, composes the elements in order and emits per-row
@@ -26,14 +27,12 @@ PyTorch in blocks of L rows:
   Hillis-Steele prefix (``ops/elements.py``), and the distribute
   combines each row's prefix with its block's exclusive state.
 
-K3 on the card is the within-block pass only; the cross-block level and
-the distribute after it run in PyTorch on both routes.
-
 At J = 3, 4 the factor adjoint instead takes the JAX package's
 structured route (``_factor_adjoint_structured``): a dense J^2-affine
 element per row is J^4 + J^2 values, so only per-block maps are
-densified (K4), composed across blocks in torch, and each block is re-run
-from its incoming state (K5).
+densified (K4), composed across blocks (phase B), and each block is re-run
+from its incoming state (K5, which takes K4's maps and runs phase B
+itself on the card).
 
 The glue that turns the states into d, W, Z, the log-likelihood and the
 six cotangents is shared by the CUDA and CPU routes.
@@ -63,6 +62,7 @@ __all__ = [
     "solve_rev",
     "solve_rev_plain",
     "factor_rev",
+    "factor_rev_blocks",
     "factor_rev_plain",
     "frev_maps",
     "frev_maps_plain",
@@ -77,10 +77,9 @@ LAUNCHES = _build.LAUNCHES
 
 
 def default_block_len(N: int) -> int:
-    """Rows per block L of the plain versions and, on the card, of K3-K5
-    (one kernel thread, or in K4 one warp, walks one block of one chain).
-    Measured on an H100 at N = 1e5, C = 1: see PERF.md.  K1 and K2 take
-    their own on the card (``_build.fused_block_len``)."""
+    """Rows per block L of the plain versions.  The kernels take their own
+    on the card (``_build.fused_block_len``,
+    ``_build.factor_adjoint_block_len``)."""
     return max(1, min(N, 256))
 
 
@@ -275,11 +274,11 @@ def _factor_rev_element(p, u, w, bv0, bdp):
     return A, const.reshape(*p.shape[:-1], J * J, 1)
 
 
-def factor_rev_plain(p, U, W, bv0, bdp, L):
-    """Plain version of K3: the dense J^2-affine reverse-factor steps
-    (u = 0 at row 0 of every chain), composed as suffixes within each
-    block.  Returns per-row maps ``(C, N, J^4+J^2)`` and block maps
-    ``(C, NB, J^4+J^2)``."""
+def factor_rev_blocks(p, U, W, bv0, bdp, L):
+    """The within-block pass of the plain K3: the dense J^2-affine
+    reverse-factor steps (u = 0 at row 0 of every chain), composed as
+    suffixes within each block.  Returns per-row maps ``(C, N, J^4+J^2)``
+    and block maps ``(C, NB, J^4+J^2)``."""
     C, N, J = U.shape
     D = J * J
     pb = _blocks(p, L, 1.0)
@@ -298,11 +297,26 @@ def factor_rev_plain(p, U, W, bv0, bdp, L):
     return _plain_scan(steps, N, L, el.affine_combine, ident, D * D + D, True)
 
 
+def factor_rev_plain(p, U, W, bv0, bdp, L):
+    """Plain version of K3: the within-block pass
+    (:func:`factor_rev_blocks`), the cross-block level and the distribute
+    give the suffix state after every row, Mst; returns ``MX (C, N, J,
+    J)``: the state entering row n (Mst of row n + 1) for n >= 1, and Mst
+    of row 0, the state after every step."""
+    C, N, J = U.shape
+    pre, maps = factor_rev_blocks(p, U, W, bv0, bdp, L)
+    Mst = _complete(pre, maps, _AFFINE, J * J, L, reverse=True)[1][..., 0]
+    Mst = Mst.reshape(C, N, J, J)
+    row0 = torch.arange(N, device=U.device) == 0
+    return torch.where(row0[:, None, None], Mst, _shift_fwd(Mst))
+
+
 def factor_rev(p, U, W, bv0, bdp, L):
-    """K3: the CUDA kernel for CUDA tensors, the plain version on CPU."""
+    """K3: the CUDA kernels for CUDA tensors (in blocks of their own
+    length), the plain version in blocks of L rows on CPU."""
     if p.device.type == "cpu":
         return factor_rev_plain(p, U, W, bv0, bdp, L)
-    return _build.factor_rev_cuda(p, U, W, bv0, bdp, L)
+    return _build.factor_rev_cuda(p, U, W, bv0, bdp)
 
 
 # ============================= K4, K5: the structured factor adjoint
@@ -310,10 +324,9 @@ def factor_rev(p, U, W, bv0, bdp, L):
 # fused_slab._factor_adjoint_structured: the reverse-factor step applied
 # to a J x J state in O(J^2) (no dense J^2 x J^2 element per row).
 #   K4 (phase A) densifies each block's composed map,
-#   phase B composes the block maps (torch matmul), giving each block's
-#     incoming state (its seed),
-#   K5 (phase C) re-runs each block from its seed and emits the state
-#     entering every row.
+#   K5 composes the block maps (phase B), giving each block's incoming
+#     state (its seed), and re-runs each block from its seed (phase C),
+#     emitting the state entering every row.
 
 
 def _structured_apply(M, par, affine):
@@ -375,10 +388,11 @@ def frev_maps_plain(p, U, W, bv0, bdp, L):
 
 
 def frev_maps(p, U, W, bv0, bdp, L):
-    """K4: the CUDA kernel for CUDA tensors, the plain version on CPU."""
+    """K4: the CUDA kernel for CUDA tensors (in blocks of K5's length on
+    the card), the plain version in blocks of L rows on CPU."""
     if p.device.type == "cpu":
         return frev_maps_plain(p, U, W, bv0, bdp, L)
-    return _build.frev_maps_cuda(p, U, W, bv0, bdp, L)
+    return _build.frev_maps_cuda(p, U, W, bv0, bdp)
 
 
 def frev_seeds(maps, J):
@@ -406,12 +420,14 @@ def frev_seeds(maps, J):
     return torch.cat([S[:, 1:, :D, D], maps.new_zeros(C, 1, D)], 1).contiguous()
 
 
-def frev_states_plain(p, U, W, bv0, bdp, seeds, L):
-    """Plain version of K5: per (chain, block), the affine steps from
-    the block's seed, rows descending, recording the state entering each
-    row.  Returns ``(C, N, J^2)``."""
+def frev_states_plain(p, U, W, bv0, bdp, maps, L):
+    """Plain version of K5: phase B (:func:`frev_seeds`) on K4's block
+    maps, then per (chain, block) the affine steps from the block's seed,
+    rows descending, recording the state entering each row.  Returns
+    ``MX (C, N, J, J)``."""
     C, N, J = U.shape
     D = J * J
+    seeds = frev_seeds(maps, J)
     par, valid = _frev_steps(p, U, W, bv0, bdp, L)
     NB = valid.shape[0]
     M = seeds.reshape(C, NB, 1, J, J)
@@ -421,14 +437,17 @@ def frev_states_plain(p, U, W, bv0, bdp, seeds, L):
         rows[l] = M.reshape(C, NB, D)
         new = _structured_apply(M, tuple(x[:, :, l] for x in par), affine)
         M = torch.where(valid[:, l, None, None, None], new, M)
-    return torch.stack(rows, 2).reshape(C, NB * L, D)[:, :N].contiguous()
+    out = torch.stack(rows, 2).reshape(C, NB * L, D)[:, :N].contiguous()
+    return out.reshape(C, N, J, J)
 
 
-def frev_states(p, U, W, bv0, bdp, seeds, L):
-    """K5: the CUDA kernel for CUDA tensors, the plain version on CPU."""
+def frev_states(p, U, W, bv0, bdp, maps, L):
+    """K5: the CUDA kernels for CUDA tensors (in blocks of their own
+    length, those of ``maps``), the plain version in blocks of L rows on
+    CPU."""
     if p.device.type == "cpu":
-        return frev_states_plain(p, U, W, bv0, bdp, seeds, L)
-    return _build.frev_states_cuda(p, U, W, bv0, bdp, seeds, L)
+        return frev_states_plain(p, U, W, bv0, bdp, maps, L)
+    return _build.frev_states_cuda(p, U, W, bv0, bdp, maps)
 
 
 # ======================================= cross-block level + distribute
@@ -497,26 +516,19 @@ def factor_adjoint(p, U, W, bv0, bdp, L, *, structured=None, record=None):
     for J = 3, 4), as ``fused_slab._backward`` routes.  Both compute the
     same affine recursion.  ``record`` (a dict) receives the kernels'
     inputs."""
-    C, N, J = U.shape
+    J = U.shape[-1]
     if structured is None:
         structured = J > 2
     if structured:
         if record is not None:
             record["frev_maps"] = (p, U, W, bv0, bdp)
-        seeds = frev_seeds(frev_maps(p, U, W, bv0, bdp, L), J)
+        maps = frev_maps(p, U, W, bv0, bdp, L)
         if record is not None:
-            record["frev_states"] = (p, U, W, bv0, bdp, seeds)
-        # K5 emits the state entering every row, row 0 included
-        return frev_states(p, U, W, bv0, bdp, seeds, L).reshape(C, N, J, J)
+            record["frev_states"] = (p, U, W, bv0, bdp, maps)
+        return frev_states(p, U, W, bv0, bdp, maps, L)
     if record is not None:
         record["factor_rev"] = (p, U, W, bv0, bdp)
-    pre, maps = factor_rev(p, U, W, bv0, bdp, L)
-    Mst = _complete(pre, maps, _AFFINE, J * J, L, reverse=True)[1][..., 0]
-    Mst = Mst.reshape(C, N, J, J)
-    # row n >= 1 uses the state ENTERING step n; row 0 the state after
-    # all the steps
-    row0 = torch.arange(N, device=U.device) == 0
-    return torch.where(row0[:, None, None], Mst, _shift_fwd(Mst))
+    return factor_rev(p, U, W, bv0, bdp, L)
 
 
 def _backward(c, saved, bll, L, record=None, structured=None):

@@ -6,7 +6,7 @@ paths through them and checks each against the plain route on the CPU in
 float64:
 
 * J = 2: the value and theta-gradient of ``gp_loglik`` for a SHOTerm at
-  N = 100,000 (kernels K1, K2 and the dense factor adjoint K3);
+  N = 100,000 (kernels K1, K2 and the factor adjoint K3);
 * J = 4: the same for benchmarks/configs.py config5's SHO mixture and for
   a RotationTerm at N = 100,000 (K1, K2 and the structured factor adjoint
   K4, K5);
@@ -31,12 +31,12 @@ tier its launch counts and times assume.
 
 It then times chained sampler steps on the J = 2, 4 and 8 paths, config5's
 J = 4 model at its own size N = 1e6, and profiles the J = 2, 4 and 8
-paths.  K1 and K2 are also held at the edges of their blocks and tiles,
-in float32 and on rows that are not positive definite.  Run from the root
-of the repository:
+paths.  K1, K2, K3 and K5 are also held at the edges of their blocks and
+tiles and in float32, K1 on rows that are not positive definite.  Run from
+the root of the repository:
 
     python3 chip_smoke.py            # the smoke test (a few minutes)
-    python3 chip_smoke.py --sweep    # also time K1, K2 and evals/s per block length
+    python3 chip_smoke.py --sweep    # also time the fused kernels and evals/s per block length
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``,
@@ -104,14 +104,18 @@ PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 33.5e12}
 # SHO mixture), except the dense factor adjoint K3, which serves J <= 2
 REPORT_J = {"kalman_fwd": 4, "solve_rev": 4, "factor_rev": 2,
             "frev_maps": 4, "frev_states": 4}
-# K1 and K2 take their rows per block on the card themselves
-# (_build.fused_block_len); the other fused kernels take the plain route's L
-OWN_BLOCKS = ("kalman_fwd", "solve_rev")
+# The fused kernels take their rows per block on the card themselves: K1
+# and K2 _build.fused_block_len, the factor adjoint (K3; K4 with K5, whose
+# input is K4's block maps) _build.factor_adjoint_block_len.  Their plain
+# versions take the plain route's L, or for K4 and K5 the card's.
+K12 = ("kalman_fwd", "solve_rev")
+CARD_BLOCKS = ("frev_maps", "frev_states")
 # the device kernels of one value+gradient evaluation at N = 1e5, float64,
 # under torch.profiler, at the parent commit (PERF.md, PR 10), and the fall
-# each must show now that K1 and K2 run their cross-block level on the card
-PARENT_KERNELS_PER_EVAL = {"J = 2": 1141, "J = 4": 1682}
-KERNELS_FALL = {"J = 2": 450, "J = 4": 800}
+# each must show now that the factor adjoint runs its cross-block level on
+# the card
+PARENT_KERNELS_PER_EVAL = {"J = 2": 461, "J = 4": 596}
+KERNELS_FALL = {"J = 2": 50, "J = 4": 18}
 THETA0 = np.log([1.0, 5.0, 3.0])
 THETA4 = np.zeros(5)  # config5's J4 starting point
 THETA_ROT = np.log([1.0, 3.5, 2.0, 1.0, 0.3])  # config2's RotationTerm
@@ -192,11 +196,18 @@ def cuda_ms(fn, reps, warmup=2):
     return start.elapsed_time(end) / reps
 
 
-def kernel_call(name, inputs, L):
-    """Launch the fused kernel ``name`` on ``inputs``: in blocks of L rows,
-    or, for K1 and K2, of their own length on the card."""
-    kernel = KERNELS[name][1]
-    return kernel(*inputs) if name in OWN_BLOCKS else kernel(*inputs, L)
+def kernel_call(name, inputs, rows=None):
+    """Launch the fused kernel ``name`` on ``inputs`` in blocks of ``rows``
+    rows, by default of its own length on the card."""
+    return KERNELS[name][1](*inputs, rows)
+
+
+def plain_len(name, N):
+    """The rows per block of the plain version of the fused kernel
+    ``name`` held against the kernel at its own length on the card."""
+    if name in CARD_BLOCKS:
+        return _build.factor_adjoint_block_len(N)
+    return fl.default_block_len(N)
 
 
 def bound_ms(arrays, flops):
@@ -211,13 +222,17 @@ def bound_ms(arrays, flops):
 
 
 def kernel_flops(name, C, N, J, K=1):
-    """Operations of one launch (of K1's and K2's three), counted from the
-    recursions: per row, K1's rank-one composition into its block's map
-    and its rank-one state step, and K2's the same for the affine maps,
-    plus per block of ``_build.fused_block_len`` rows two combines of whole
-    maps (the scan over the blocks and the distribute); per row the
-    element's build and one combine with the running value (K3), one
-    structured step on J^2 + 1 states (K4) or on one (K5), the rank-one
+    """Operations of one call (of the fused kernels' three launches),
+    counted from the recursions: per row, K1's rank-one composition into its
+    block's map and its rank-one state step, and K2's the same for the
+    affine maps, plus per block of ``_build.fused_block_len`` rows two
+    combines of whole maps (the scan over the blocks and the distribute);
+    per row one structured step on J^2 + 1 states and on one (K3), on
+    J^2 + 1 (K4) or on one (K5), plus per block of
+    ``_build.factor_adjoint_block_len`` rows K3's six D-affine combines
+    (D = J^2: the warp scan, the scan over the groups) and one map applied,
+    K5's mat-vec of each of the D + 1 columns of its group's running map
+    and one map applied; the rank-one
     update, transport and product of the factor, the transport, projection
     and feed of a sweep, one multiply-add of the affine prefix; for the
     adjoints, the factor's rank-one update, the reads of bS's row and
@@ -227,13 +242,16 @@ def kernel_flops(name, C, N, J, K=1):
     and the row step of the apply walk (Riccati, Kalman); the product of the
     block's J x J maps and the two walks (matrix-affine, D = J)."""
     D = J * J
-    blocks = C * -(-N // _build.fused_block_len(N))
+    L = (_build.fused_block_len if name in K12 else _build.factor_adjoint_block_len)(N)
+    blocks = C * -(-N // L)
     per_block = {"kalman_fwd": 2 * (12 * J**3 + 10 * D),
-                 "solve_rev": 2 * (2 * J**3 + 2 * D)}.get(name, 0)
+                 "solve_rev": 2 * (2 * J**3 + 2 * D),
+                 "factor_rev": 6 * (2 * D**3 + 2 * D * D) + 2 * D * D,
+                 "frev_states": (D + 2) * 2 * D * D}.get(name, 0)
     per_row = {
         "kalman_fwd": (10 * D + 15 * J + 3) + (4 * D + 11 * J + 3),
         "solve_rev": (5 * D + 5 * J) + (5 * J + 1),
-        "factor_rev": 2 * D**3 + 12 * D * D,
+        "factor_rev": (D + 2) * 10 * D,
         "frev_maps": (D + 1) * 10 * D,
         "frev_states": 10 * D,
         "factor_fwd": 7 * D + 4 * J,
@@ -283,9 +301,14 @@ def phase_device():
     return smi
 
 
-# the kernels of K1 and K2 (ptxas names), which must not spill
-K12_KERNELS = ("kalman_maps", "kalman_states", "solve_maps", "solve_states",
-               "block_scan")
+# the kernels of K1, K2, K3 and K5 (ptxas names), which must not spill: K1
+# and K2 two row kernels each and the scan over the blocks' maps; K3 its
+# block maps (with K2's scan at D = J^2); K5 the groups' maps and their
+# scan; the rows of K3 and K5; at J = 1..4 (K3's maps J = 1, 2) in two types
+FUSED_KERNELS = ("kalman_maps", "kalman_states", "solve_maps", "solve_states",
+                 "block_scan", "factor_maps", "frev_groups", "frev_scan",
+                 "frev_rows")
+FUSED_KERNEL_COUNT = (6 * 4 + 2 + 3 * 4) * 2
 
 
 def phase_build():
@@ -293,7 +316,7 @@ def phase_build():
     lib = _build.build()
     seconds = time.perf_counter() - start
     log("build", f"{lib.name} ready in {seconds:.1f} s")
-    name, spills, k12 = "?", "?", []
+    name, spills, fused = "?", "?", []
     for line in lib.with_suffix(".log").read_text().splitlines():
         if line.startswith("build_seconds"):
             log("build", f"nvcc took {line.split()[1]} s")
@@ -305,17 +328,16 @@ def phase_build():
                     + (f", J={width[1]}>" if width else ">"))
         elif "spill stores" in line:
             spills = line.split(",")[1].strip()
-            if name.split("<")[0] in K12_KERNELS:
-                k12.append((name, spills))
+            if name.split("<")[0] in FUSED_KERNELS:
+                fused.append((name, spills))
         elif m := re.search(r"Used (\d+) registers", line):
             log("build", f"{name}: {m[1]} registers, {spills}")
-    # K1 and K2: two row kernels each and the scan over the blocks' maps, at
-    # J = 1..4 in two types
-    assert len(k12) == 6 * 4 * 2, f"K1/K2 kernels in the build log: {len(k12)}"
-    spilled = [n for n, sp in k12 if not sp.startswith("0 bytes")]
-    assert not spilled, f"K1/K2 kernels that spill: {spilled}"
-    log("build", f"K1, K2: {len(k12)} kernels (J = 1..4, float and double), "
-        "0 bytes spilled")
+    assert len(fused) == FUSED_KERNEL_COUNT, (
+        f"K1-K3, K5 kernels in the build log: {len(fused)}")
+    spilled = [n for n, sp in fused if not sp.startswith("0 bytes")]
+    assert not spilled, f"K1-K3, K5 kernels that spill: {spilled}"
+    log("build", f"K1, K2, K3, K5: {len(fused)} kernels (J = 1..4, K3 J = 1, 2; "
+        "float and double), 0 bytes spilled")
 
 
 # kernels of each system kind: J = 1 RealTerm, 2 SHOTerm, 3 RealTerm +
@@ -351,39 +373,58 @@ KINDS = (("real", 1), ("sho", 2), ("real_sho", 3), ("sho_mixture", 4),
 GEOMETRIES = ((130, 1), (1040, 1), (N_MAIN, 1), (3001, 8))
 
 
-# K1 and K2 at their edges (N, C, block length on the card, None for their
-# own): one row, one row below and past a tile of rows and a block, a
+# K1, K2, K3 and K5 at their edges (N, C, block length on the card, None for
+# their own): one row, one row below and past a tile of rows and a block, a
 # ragged last block, 3 and 64 chains, many groups of 32 blocks (a ragged
-# last one), and 301 groups, more than the 128 threads of the scan over
-# the groups, so that each thread composes a run of three (a ragged last)
+# last one), and 301 groups, more than the 128 threads of the scan over the
+# groups, so that each thread composes a run of three (a ragged last)
 K12_EDGES = ((1, 3, None), (7, 3, None), (9, 3, None), (63, 3, 64), (65, 3, 64),
              (300, 3, 32), (1000, 64, 32), (3001, 3, 8), (5000, 3, None),
              (9601, 3, 1))
 
 
+def edge_calls(inputs, N, rows):
+    """(name, the card route, the plain route) of K1, K2, K3 and K5 on the
+    fused path's ``inputs`` (those of ``structured=True`` add K4's), in
+    blocks of ``rows`` on the card (None: their own) and of 16 rows in the
+    plain versions, K4's and K5's of the card's: K5 from K4's maps."""
+    L5 = _build.factor_adjoint_block_len(N) if rows is None else rows
+    calls = [(name, lambda x, n=name: KERNELS[n][1](*x, rows),
+              lambda x, n=name: KERNELS[n][0](*x, 16), name)
+             for name in (*K12, "factor_rev") if name in inputs]
+    calls.append(("frev_states",
+                  lambda x: _build.frev_states_cuda(
+                      *x, _build.frev_maps_cuda(*x, L5), L5),
+                  lambda x: fl.frev_states_plain(
+                      *x, fl.frev_maps_plain(*x, L5), L5), "frev_maps"))
+    return calls
+
+
 def k12_edges(dev):
-    """K1 and K2 against their plain versions at the edges of their blocks
-    and tiles, in float64 (1e-10) and float32 (within 1e-4 or twice the
-    plain float32 version's error, against the float64 plain version), and
-    on a system whose diagonal turns negative at row N // 3: finite states
-    that agree with the plain version's up to that row and the same verdict
-    d > 0 per chain."""
+    """K1, K2, K3 (J <= 2) and K5 (from K4's maps) against their plain
+    versions at the edges of their blocks and tiles, in float64 (1e-10) and
+    float32 (within 1e-4 or twice the plain float32 version's error, against
+    the float64 plain version), and K1 on a system whose diagonal turns
+    negative at row N // 3: finite states that agree with the plain
+    version's up to that row and the same verdict d > 0 per chain."""
     worst = {"float64": 0.0, "float32": 0.0}
     for kind, J in KINDS[:4]:
         for N, C, rows in K12_EDGES:
-            inputs = fl.pass_inputs(*system(kind, N, C, dev, seed=N + J))
-            for name in OWN_BLOCKS:
-                inp = inputs[name]
-                got = _tuple(KERNELS[name][1](*inp, rows))
-                want = _tuple(KERNELS[name][0](*inp, 16))
+            args = system(kind, N, C, dev, seed=N + J)
+            inputs = fl.pass_inputs(*args)
+            inputs["frev_maps"] = fl.pass_inputs(*args, structured=True)["frev_maps"]
+            for name, card, plain, key in edge_calls(inputs, N, rows):
+                inp = inputs[key]
+                got = _tuple(card(inp))
+                want = _tuple(plain(inp))
                 for g, w in zip(got, want):
                     assert g.shape == w.shape, (name, kind, N, C)
                     err = scaled_err(g, w) if w.abs().max() else g.abs().max().item()
                     assert math.isfinite(err) and err < 1e-10, (name, kind, N, C, err)
                     worst["float64"] = max(worst["float64"], err)
                 inp32 = [x.float() for x in inp]
-                got32 = _tuple(KERNELS[name][1](*inp32, rows))
-                want32 = _tuple(KERNELS[name][0](*inp32, 16))
+                got32 = _tuple(card(inp32))
+                want32 = _tuple(plain(inp32))
                 for g, w32, w in zip(got32, want32, want):
                     if not w.abs().max():  # the states of a single row
                         assert not g.abs().max(), (name, kind, N, C)
@@ -403,10 +444,11 @@ def k12_edges(dev):
         rows = slice(0, int((dp <= 0).int().argmax(-1).min()) + 1)
         err = max(scaled_err(S[:, rows], Sp[:, rows]), scaled_err(F[:, rows], Fp[:, rows]))
         assert err < 1e-10, (kind, err)
-    log("kernels", f"K1, K2 at their edges (N = 1, a tile of rows and a block "
-        f"+-1, ragged blocks, C = 3, 64; J = 1..4): worst relative error "
+    log("kernels", f"K1, K2, K3, K5 at their edges (N = 1, a tile of rows and a "
+        f"block +-1, ragged blocks, runs of three groups a scan thread, C = 3, "
+        f"64; J = 1..4, K3 J = 1, 2): worst relative error "
         f"{worst['float64']:.3e} in float64, {worst['float32']:.3e} in float32; "
-        "non-PD rows: finite, the same verdict d > 0")
+        "K1 on non-PD rows: finite, the same verdict d > 0")
 
 
 def _tuple(x):
@@ -416,24 +458,23 @@ def _tuple(x):
 def phase_kernels(dev):
     """Each kernel against its plain version on the card, float64, at
     J = 1..4 (K3 at J <= 2; K4, K5 at J = 2..4); at J = 2 also the
-    structured route's MX against K3's; K1 and K2 at their edges.  Then
-    each kernel's time."""
+    structured route's MX against K3's; K1, K2, K3 and K5 at their edges.
+    Then each kernel's time."""
     worst = {name: (0.0, set()) for name in KERNELS}
     worst_mx = 0.0
     main_abs, main_inputs = {}, {}
     for kind, J in KINDS:
         for N, C in GEOMETRIES:
             args = system(kind, N, C, dev, seed=N + J)
-            L = fl.default_block_len(N)
             inputs = fl.pass_inputs(*args)
             if J == 2:
                 inputs.update(fl.pass_inputs(*args, structured=True))
             for name, inp in inputs.items():
-                got = _tuple(kernel_call(name, inp, L))
-                want = _tuple(KERNELS[name][0](*inp, L))
-                # K1 and K2 run the whole scan: over 1e5 rows they hold to
-                # 1e-9, as the factor kernels do
-                tol = 1e-9 if name in OWN_BLOCKS and N > 10_000 else 1e-10
+                got = _tuple(kernel_call(name, inp))
+                want = _tuple(KERNELS[name][0](*inp, plain_len(name, N)))
+                # the kernels that run a whole scan over 1e5 rows hold to
+                # 1e-9, as the factor kernels do; K4's block maps to 1e-10
+                tol = 1e-9 if name != "frev_maps" and N > 10_000 else 1e-10
                 for g, w in zip(got, want):
                     assert g.shape == w.shape, (name, kind, N, C)
                     err = scaled_err(g, w)
@@ -447,10 +488,11 @@ def phase_kernels(dev):
                     main_inputs[name] = inp
             if J == 2:
                 fin = inputs["frev_maps"]
+                L = fl.default_block_len(N)
                 dense = fl.factor_adjoint(*fin, L, structured=False)
                 structured = fl.factor_adjoint(*fin, L, structured=True)
                 err = scaled_err(structured, dense)
-                assert err < 1e-10, ("MX", N, C, err)
+                assert err < (1e-9 if N > 10_000 else 1e-10), ("MX", N, C, err)
                 worst_mx = max(worst_mx, err)
     for name, (err, Js) in worst.items():
         log("kernels", f"{name}: worst relative error {err:.3e} (J = "
@@ -460,24 +502,25 @@ def phase_kernels(dev):
         f"the card: worst relative error {worst_mx:.3e}")
     k12_edges(dev)
     times = {}
-    L = fl.default_block_len(N_MAIN)
     for name, (plain, kernel) in KERNELS.items():
         inp = main_inputs[name]
-        ms = cuda_ms(lambda: kernel_call(name, inp, L), reps=20)
+        L = plain_len(name, N_MAIN)
+        ms = cuda_ms(lambda: kernel_call(name, inp), reps=20)
         plain_ms = cuda_ms(lambda: plain(*inp, L), reps=2, warmup=1)
-        out = _tuple(kernel_call(name, inp, L))
+        out = _tuple(kernel_call(name, inp))
         J = REPORT_J[name]
         bound, by = bound_ms((*inp, *out), kernel_flops(name, 1, N_MAIN, J))
         times[name] = (ms, plain_ms, bound, by)
-        rows = (f"{_build.fused_block_len(N_MAIN)} rows a block on the card"
-                if name in OWN_BLOCKS else f"L = {L}")
-        log("kernels", f"{name}: {ms:.4f} ms (plain {plain_ms:.2f} ms, bound "
-            f"{bound:.4f} ms by {by}) at N = 1e5, J = {J}, {rows}, float64")
+        rows = (_build.fused_block_len if name in K12
+                else _build.factor_adjoint_block_len)(N_MAIN)
+        log("kernels", f"{name}: {ms:.4f} ms (plain {plain_ms:.2f} ms at L = {L}, "
+            f"bound {bound:.4f} ms by {by}) at N = 1e5, J = {J}, {rows} rows a "
+            "block on the card, float64")
     # the J = 2 path's K1, K2
     j2 = fl.pass_inputs(*system("sho", N_MAIN, 1, dev, seed=N_MAIN + 2))
-    for name in OWN_BLOCKS:
-        ms = cuda_ms(lambda: kernel_call(name, j2[name], L), reps=20)
-        out = _tuple(kernel_call(name, j2[name], L))
+    for name in K12:
+        ms = cuda_ms(lambda: kernel_call(name, j2[name]), reps=20)
+        out = _tuple(kernel_call(name, j2[name]))
         bound, by = bound_ms((*j2[name], *out), kernel_flops(name, 1, N_MAIN, 2))
         log("kernels", f"{name}: {ms:.4f} ms (bound {bound:.4f} ms by {by}) at "
             "N = 1e5, J = 2, float64")
@@ -1158,14 +1201,29 @@ def gp_data(N):
 # --------------------------------------------- the CPU's plain route, aside
 
 
+# the float32 J = 8 fleet on the assoc tier (C5): its chains and rows, its
+# theta spread, and the chains the CPU's plain route runs for comparison
+# (every eighth; chain 48's float32 z overflows z^2 / d)
+C5_CHAINS, C5_ROWS = 64, 30_000
+C5_CPU_CHAINS = list(range(0, C5_CHAINS, 8))
+
+
+def c5_thetas(device, dtype):
+    noise = np.random.default_rng(17).normal(size=(C5_CHAINS, 3))
+    return (torch.tensor(THETA0, device=device, dtype=dtype)
+            + 0.1 * torch.tensor(noise, device=device, dtype=dtype))
+
+
 def cpu_references(N):
     """What the GP path and the training path are held against, on the
-    CPU's plain route in float64 at N rows, as numpy: per GP model the
-    state's d, W and each call's (result, seconds); for the training path
+    CPU's plain route at N rows, as numpy: per GP model the state's d, W and
+    each call's (result, seconds) in float64; for the training path
     gp_loglik's value and theta-gradient for wide8 at THETA0 on bench's
-    data, and its seconds, on the scan tier ("train") and on the assoc
-    tier ("train assoc"); for the J = 8 model also the state and three
-    calls on the assoc tier ("J=8 assoc")."""
+    data, and its seconds, on the scan tier in float64 ("train") and in
+    float32 ("train f32"), and on the assoc tier ("train assoc"); for the
+    J = 8 model also the state and three calls on the assoc tier ("J=8
+    assoc"); and the value and gradient of the float32 fleet of C5 on the
+    assoc tier at C5_CPU_CHAINS ("assoc f32 fleet")."""
     ct.set_config(device="cpu")
     torch.set_num_threads(2)
     t, y, t_new, t_var = gp_data(N)
@@ -1179,6 +1237,10 @@ def cpu_references(N):
     start = time.perf_counter()
     v, g = value_and_grad(torch.tensor(THETA0), tt, yy, wide8)
     out["train"] = (v.numpy(), g.numpy(), time.perf_counter() - start)
+    t32, y32 = bench_data(N, "cpu", torch.float32)
+    start = time.perf_counter()
+    v, g = value_and_grad(torch.tensor(THETA0, dtype=torch.float32), t32, y32, wide8)
+    out["train f32"] = (v.numpy(), g.numpy(), time.perf_counter() - start)
     # the same on the CPU's plain assoc route (the doublings): how far the
     # assoc algorithm itself lies from the sequential one at this size
     ct.set_config(backend="assoc")
@@ -1192,6 +1254,9 @@ def cpu_references(N):
     start = time.perf_counter()
     v, g = value_and_grad(torch.tensor(THETA0), tt, yy, wide8)
     out["train assoc"] = (v.numpy(), g.numpy(), time.perf_counter() - start)
+    t5, y5 = bench_data(C5_ROWS, "cpu", torch.float32)
+    v, g = value_and_grad(c5_thetas("cpu", torch.float32)[C5_CPU_CHAINS], t5, y5, wide8)
+    out["assoc f32 fleet"] = (v.numpy(), g.numpy())
     return out
 
 
@@ -1367,6 +1432,20 @@ def phase_train_j8(dev, smi, refs):
         f"{launches}")
     for name in TRAIN_KERNELS:
         assert launches[name] == 1, f"{name}: {launches[name]} launches per eval"
+
+    # float32 against the same float64 reference, within 1e-3 or 1.5 times
+    # the CPU's float32 plain route's own error, whichever is larger (the
+    # J = 4 path's float32 gate)
+    v32c, g32c, seconds = refs.get()["train f32"]
+    cpu_ev = scaled_err(torch.from_numpy(v32c), ref[0])
+    cpu_eg = scaled_err(torch.from_numpy(g32c), ref[1])
+    tol_v, tol_g = max(F32_RTOL, 1.5 * cpu_ev), max(F32_RTOL, 1.5 * cpu_eg)
+    log("train J=8", f"float32 plain route on the CPU ({seconds:.1f} s): value err "
+        f"{cpu_ev:.2e}, grad err {cpu_eg:.2e}")
+    t32, y32 = bench_data(N_MAIN, dev, torch.float32)
+    _check_path("train J=8", {"gp_loglik float32": value_and_grad(
+        thd.float(), t32, y32, wide8)}, {"gp_loglik float32": ref},
+        {"gp_loglik float32": (tol_v, tol_g)}, 3)
 
     # the same gradient through the state API: compute, log_likelihood
     thg = thd.clone().requires_grad_(True)
@@ -1643,8 +1722,12 @@ def general_value_and_grad(theta, t, y, model):
         t, y = t.expand(C, N), y.expand(C, N)
         a, U, V = a.expand(C, N), U.expand(C, N, -1), V.expand(C, N, -1)
     d, _, z = ct.ops.factor_solve(t, c, a, U, V, y[..., None])
-    ll = -0.5 * (torch.log(d).sum(-1) + (z[..., 0] ** 2 / d).sum(-1)
+    ok = (d > 0).all(-1)  # gp_loglik's quiet -inf with zero gradients
+    d = torch.where(ok[..., None], d, 1.0)
+    z = torch.where(ok[..., None], z[..., 0], 0.0)
+    ll = -0.5 * (torch.log(d).sum(-1) + (z**2 / d).sum(-1)
                  + t.shape[-1] * math.log(2 * math.pi))
+    ll = torch.where(ok, ll, -math.inf)
     (g,) = torch.autograd.grad(ll.sum(), theta)
     return ll.detach(), g
 
@@ -1656,7 +1739,10 @@ def phase_assoc_path(dev, smi, refs):
     theta-gradient against the training phase's: each to 1e-9 (the
     gradient 1e-8 scaled), or to 1.5 times the error of the CPU's plain
     assoc route against the same reference if that is larger; launches per
-    call; non-PD; 8 chains against a loop; float32."""
+    call; non-PD; 8 chains against a loop; float32, one chain at N = 1e5
+    and the fleet of C5 (64 chains at N = 3e4): every chain's value finite,
+    or -inf with zero gradients, never NaN, on the card and on the CPU's
+    plain route (every eighth chain)."""
     t, y, _, _ = gp_data(N_MAIN)
     ref_d, ref_W, ref = refs.get()["J=8"]
     cpu_d, cpu_W, cpu_calls = refs.get()["J=8 assoc"]
@@ -1750,6 +1836,29 @@ def phase_assoc_path(dev, smi, refs):
         log("assoc path", f"float32, N = 1e5, J = 8: value err {ev:.2e}, grad err "
             f"{eg:.2e} against the float64 reference: the value "
             f"{'passes' if ok32 else 'fails'} the float32 gate {F32_RTOL:g}")
+        t5, y5 = bench_data(C5_ROWS, dev, torch.float32)
+        th5 = c5_thetas(dev, torch.float32)
+        v5, g5 = value_and_grad(th5, t5, y5, wide8)
+    with tier("scan"):
+        v64 = value_and_grad(th5.double(), t5.double(), y5.double(), wide8)[0]
+    v5, g5, v64 = v5.cpu(), g5.cpu(), v64.cpu()
+    v5c, g5c = (torch.from_numpy(x) for x in refs.get()["assoc f32 fleet"])
+    for where, v, g in (("card", v5, g5), ("CPU", v5c, g5c)):
+        quiet = v == -math.inf
+        assert not (torch.isnan(v).any() or torch.isnan(g).any()), where
+        assert (torch.isfinite(v) | quiet).all(), where
+        assert torch.isfinite(g).all() and (g[quiet] == 0).all(), where
+    fin = torch.isfinite(v5)
+    err = (((v5 - v64).abs() / v64.abs())[fin].max().item() if fin.any()
+           else float("nan"))
+    same = int(((v5[C5_CPU_CHAINS] == -math.inf) == (v5c == -math.inf)).sum())
+    log("assoc path", f"float32 fleet, J = 8, C = {C5_CHAINS}, N = {C5_ROWS}: "
+        f"card {int(fin.sum())} finite (largest relative distance from the "
+        f"float64 scan tier {err:.2e}), {int((~fin).sum())} -inf with zero "
+        f"gradients; CPU's plain route on chains {C5_CPU_CHAINS}: "
+        f"{int(torch.isfinite(v5c).sum())} finite, "
+        f"{int((v5c == -math.inf).sum())} -inf with zero gradients, the same "
+        f"verdict as the card's on {same}; no NaN")
     if not ok32:
         assert (torch.float32, 8, False) not in dispatch.ASSOC_MIN_ROWS, (
             "auto sends float32 at J = 8 to the assoc tier, which fails its gate")
@@ -1944,22 +2053,15 @@ def phase_quiet_failure(dev):
         assert ll.item() == -math.inf and torch.all(g == 0)
 
 
-def steps_per_s(dev, dtype, n_steps=20, block_len=None, model=sho,
-                theta0=THETA0, data=None):
+def steps_per_s(dev, dtype, n_steps=20, model=sho, theta0=THETA0, data=None):
     """Chained value+grad evaluations theta <- theta + 1e-9 g through
-    gp_loglik (or, given ``block_len``, through loglik_fused with that
-    block length), after two warm-up steps; ``data`` is (t, y) on the
-    device (default: bench_data at N = 1e5)."""
+    gp_loglik, after two warm-up steps; ``data`` is (t, y) on the device
+    (default: bench_data at N = 1e5)."""
     t, y = bench_data(N_MAIN, dev, dtype) if data is None else data
 
     def step(theta):
         theta = theta.detach().requires_grad_(True)
-        if block_len is None:
-            ll = ct.gp_loglik(model(theta), t, y, yerr=0.25)
-        else:
-            c, a, U, V = model(theta).get_celerite_matrices(t, 0.0625)
-            ll = fl.loglik_fused(t, c[None], a[None], U[None], V[None],
-                                 y[None], block_len=block_len)
+        ll = ct.gp_loglik(model(theta), t, y, yerr=0.25)
         (g,) = torch.autograd.grad(ll.sum(), theta)
         return theta + 1e-9 * g
 
@@ -2029,29 +2131,45 @@ def phase_steps(dev):
     assert ev < 1e-9 and eg < 1e-9, (ev, eg)
 
 
-# the kernels of K1 and K2 as the profiler names them, by wrapper
-K12_PARTS = {"kalman_fwd": ("kalman_maps_kernel", "kalman_states_kernel",
-                            "KalmanMaps"),
-             "solve_rev": ("solve_maps_kernel", "solve_states_kernel",
-                           "AffineMaps")}
+# the kernels of the fused passes as the profiler names them, by wrapper; the
+# scan over the groups' maps serves K1 (KalmanMaps), K2 (AffineMaps of width
+# J) and K3 (AffineMaps of width J^2), the rows of the factor adjoint K3
+# (J <= 2) and K5 (J = 3, 4)
+FUSED_PARTS = {"kalman_fwd": ("kalman_maps_kernel", "kalman_states_kernel",
+                              "KalmanMaps"),
+               "solve_rev": ("solve_maps_kernel", "solve_states_kernel"),
+               "factor_rev": ("factor_maps_kernel",),
+               "frev_states": ("frev_groups_kernel", "frev_scan_kernel")}
 
 
-def ours(name):
+def ours(name, J):
     """The wrapper in this repository that launched the device kernel
-    ``name``, or None."""
-    for key, parts in K12_PARTS.items():
+    ``name`` in an evaluation at width J, or None."""
+    if m := re.search(r"AffineMaps<\w+, (\d+)>", name):
+        return "solve_rev" if int(m[1]) == J else "factor_rev"
+    if "frev_rows_kernel" in name:
+        return "factor_rev" if J <= 2 else "frev_states"
+    for key, parts in FUSED_PARTS.items():
         if any(part in name for part in parts):
             return key
     return next((k for k in (*KERNELS, *GENERAL) if f"{k}_kernel" in name), None)
 
 
-def profile_eval(dev, model, theta0, n=3):
+def part_name(name):
+    """A device kernel's function name, with the width of its maps."""
+    m = re.search(r"(\w+_kernel)", name)
+    width = re.search(r"(Kalman|Affine)Maps<\w+, (\d+)>", name)
+    return (m[1] if m else name[:60]) + (f"<{width[1]}, {width[2]}>" if width else "")
+
+
+def profile_eval(dev, model, theta0, J, n=3):
     """torch.profiler over ``n`` value+gradient evaluations at N = 1e5,
-    float64, after one outside it.  Returns None when the trace holds no
-    device events, else per evaluation: device kernels, device busy and
-    span ms, the idle share, and (calls, device ms) by kernel, this
-    repository's kernels under the name of the wrapper that launched
-    them (:func:`ours`)."""
+    float64, of the model of width J, after one outside it.  Returns None
+    when the trace holds no device events, else per evaluation: device
+    kernels, device busy and span ms, the idle share, (calls, device ms) by
+    kernel, this repository's kernels under the name of the wrapper that
+    launched them (:func:`ours`), and by device kernel for those
+    (``parts``)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -2069,22 +2187,27 @@ def profile_eval(dev, model, theta0, n=3):
     busy = sum(e.time_range.end - e.time_range.start for e in kernels) / n
     span = (max(e.time_range.end for e in kernels)
             - min(e.time_range.start for e in kernels)) / n
-    by_name = {}
+    by_name, parts = {}, {}
     for e in kernels:
-        name = ours(e.name) or e.name[:60]
-        calls, us = by_name.get(name, (0, 0.0))
-        by_name[name] = (calls + 1, us + e.time_range.end - e.time_range.start)
+        mine = ours(e.name, J)
+        for table, name in ((by_name, mine or e.name[:60]),
+                            (parts, part_name(e.name) if mine else None)):
+            if name is not None:
+                calls, us = table.get(name, (0, 0.0))
+                table[name] = (calls + 1, us + e.time_range.end - e.time_range.start)
+    per_eval = lambda table: {k: (c / n, us / n / 1000)  # noqa: E731
+                              for k, (c, us) in table.items()}
     return {"kernels_per_eval": len(kernels) / n, "busy_ms": busy / 1000,
             "span_ms": span / 1000, "idle_share": 1 - busy / span,
-            "by_name": {k: (c / n, us / n / 1000) for k, (c, us) in by_name.items()}}
+            "by_name": per_eval(by_name), "parts": per_eval(parts)}
 
 
-def phase_profile(dev, label, model, theta0):
+def phase_profile(dev, label, model, theta0, J):
     """The profile of :func:`profile_eval`: device kernels per evaluation,
     device busy time, idle share and device time by kernel; on the fused
     path (J <= 4) the fall in device kernels per evaluation from the
     parent commit's count."""
-    prof = profile_eval(dev, model, theta0)
+    prof = profile_eval(dev, model, theta0, J)
     if prof is None:
         log("profile", "no device events in the trace: not measured")
         return
@@ -2099,6 +2222,8 @@ def phase_profile(dev, label, model, theta0):
     log("profile", f"{label}: per eval, this repo's kernels: " + ", ".join(
         f"{k} x{by_name[k][0]:.0f} {by_name[k][1]:.4f} ms"
         for k in (*KERNELS, *GENERAL) if k in by_name))
+    log("profile", f"{label}: per eval, by device kernel: " + ", ".join(
+        f"{k} x{c:.0f} {ms:.4f} ms" for k, (c, ms) in prof["parts"].items()))
     if label in PARENT_KERNELS_PER_EVAL:
         fall = PARENT_KERNELS_PER_EVAL[label] - per_eval
         log("profile", f"{label}: {per_eval:.0f} device kernels per eval, "
@@ -2108,23 +2233,33 @@ def phase_profile(dev, label, model, theta0):
 
 
 @contextmanager
-def k12_block_len(rows):
-    """K1 and K2 in blocks of ``rows`` rows on the card, whatever
-    ``_build.fused_block_len`` would choose."""
-    saved = _build.fused_block_len
-    _build.fused_block_len = lambda N: rows
+def card_block_len(name, rows):
+    """``_build.<name>`` (``fused_block_len``: K1 and K2;
+    ``factor_adjoint_block_len``: K3, K4 and K5) gives ``rows`` rows a
+    block, whatever it would choose."""
+    saved = getattr(_build, name)
+    setattr(_build, name, lambda N: rows)
     try:
         yield
     finally:
-        _build.fused_block_len = saved
+        setattr(_build, name, saved)
+
+
+SWEEP_ROWS = (16, 32, 64, 128, 256, 512, 1024)
 
 
 def phase_sweep(dev):
-    """K1's and K2's time per block length on the card (float64; one chain:
-    J = 2 and 4 at N = 1e5, J = 4 at N = 1e6; 64 chains: J = 2 and 4 at
-    N = 3e4, J = 4 at N = 1e5, with the evals/s of the 64 chains' value and
-    gradient when K1 and K2 take that block length), and the J = 2 evals/s
-    per block length L of K3 (both dtypes)."""
+    """The fused kernels' time per block length on the card, float64:
+
+    * K1 and K2 (one chain: J = 2 and 4 at N = 1e5, J = 4 at N = 1e6; 64
+      chains: J = 2 and 4 at N = 3e4, J = 4 at N = 1e5, with the evals/s of
+      the 64 chains' value and gradient when K1 and K2 take that block
+      length);
+    * the factor adjoint, K3 (J = 2) and K4 with K5 (J = 4), at N = 1e5 and
+      1e6 with one chain and at N = 1e5 with 64, with the evals/s when it
+      takes that block length and the relative error of that evaluation's
+      value and gradient against the plain route on the card (in blocks of
+      ``fl.default_block_len`` rows)."""
     models = {2: (sho, THETA0), 4: (sho_mixture, THETA4)}
     rng = np.random.default_rng(17)
     for J, kind, N, C in ((2, "sho", N_MAIN, 1), (4, "sho_mixture", N_MAIN, 1),
@@ -2136,29 +2271,53 @@ def phase_sweep(dev):
             model, theta0 = models[J]
             theta0 = theta0 + 0.1 * rng.normal(size=(C, len(theta0)))
             data = bench_data(N, dev, torch.float64, seed=8)
-        for rows in (16, 32, 64, 128, 256, 512, 1024):
+        for rows in SWEEP_ROWS:
             ms = {name: cuda_ms(lambda: KERNELS[name][1](*inputs[name], rows),
-                                reps=20) for name in OWN_BLOCKS}
+                                reps=20) for name in K12}
             line = (f"J = {J}, N = {N}, C = {C}, {rows} rows a block (NB = "
                     f"{-(-N // rows)}): kalman_fwd {ms['kalman_fwd']:.4f} ms, "
                     f"solve_rev {ms['solve_rev']:.4f} ms")
             if C > 1:
-                with k12_block_len(rows):
+                with card_block_len("fused_block_len", rows):
                     rate = steps_per_s(dev, torch.float64, n_steps=10,
                                        model=model, theta0=theta0, data=data)
                 line += f", {rate:.2f} evals/s of the {C} chains"
             if rows == _build.fused_block_len(N):
                 line += " (the default)"
             log("sweep", line)
-    inputs = fl.pass_inputs(*system("sho", N_MAIN, 1, dev))
-    for L in (32, 64, 128, 256, 512, 1024, 2048):
-        ms = cuda_ms(lambda: KERNELS["factor_rev"][1](*inputs["factor_rev"], L),
-                     reps=20)
-        r64 = steps_per_s(dev, torch.float64, block_len=L)
-        r32 = steps_per_s(dev, torch.float32, block_len=L)
-        log("sweep", f"L = {L} (NB = {-(-N_MAIN // L)}): factor_rev {ms:.4f} ms, "
-            f"float64 {r64:.2f} evals/s, float32 {r32:.2f} evals/s "
-            "(N = 1e5, C = 1, J = 2)")
+    for J, N, C in ((2, N_MAIN, 1), (4, N_MAIN, 1), (2, 1_000_000, 1),
+                    (4, 1_000_000, 1), (2, N_MAIN, 64), (4, N_MAIN, 64)):
+        model, theta0 = models[J]
+        theta = torch.tensor(theta0, device=dev)
+        if C > 1:
+            theta = theta + 0.1 * torch.tensor(rng.normal(size=(C, len(theta0))),
+                                               device=dev)
+        data = (bench_data(N, dev, torch.float64) if N == N_MAIN else
+                bench_data(N, dev, torch.float64, seed=11, span=10_000.0))
+        with plain_route():
+            ref = value_and_grad(theta, *data, model)
+        fin = fl.pass_inputs(*system("sho" if J == 2 else "sho_mixture", N, C, dev),
+                             structured=True)["frev_maps"]
+        for rows in SWEEP_ROWS:
+            if J == 2:
+                ms = cuda_ms(lambda: _build.factor_rev_cuda(*fin, rows), reps=20)
+                line = f"factor_rev {ms:.4f} ms"
+            else:
+                ms4 = cuda_ms(lambda: _build.frev_maps_cuda(*fin, rows), reps=20)
+                maps = _build.frev_maps_cuda(*fin, rows)
+                ms5 = cuda_ms(lambda: _build.frev_states_cuda(*fin, maps, rows),
+                              reps=20)
+                line = f"frev_maps {ms4:.4f} ms, frev_states {ms5:.4f} ms"
+            with card_block_len("factor_adjoint_block_len", rows):
+                got = value_and_grad(theta, *data, model)
+                rate = steps_per_s(dev, torch.float64, n_steps=10, model=model,
+                                   theta0=theta.cpu().numpy(), data=data)
+            ev, eg = scaled_err(got[0], ref[0]), scaled_err(got[1], ref[1])
+            default = rows == _build.factor_adjoint_block_len(N)
+            log("sweep", f"factor adjoint, J = {J}, N = {N}, C = {C}, {rows} rows a "
+                f"block (NB = {-(-N // rows)}): {line}; {rate:.2f} evals/s; "
+                f"against the plain route value err {ev:.2e}, grad err {eg:.2e}"
+                + (" (the default)" if default else ""))
 
 
 def main(argv=None):
@@ -2204,9 +2363,9 @@ def main(argv=None):
     timed(phase_chains, dev)
     timed(phase_quiet_failure, dev)
     timed(phase_steps, dev)
-    timed(phase_profile, dev, "J = 2", sho, THETA0)
-    timed(phase_profile, dev, "J = 4", sho_mixture, THETA4)
-    timed(phase_profile, dev, "J = 8", wide8, THETA0)
+    timed(phase_profile, dev, "J = 2", sho, THETA0, 2)
+    timed(phase_profile, dev, "J = 4", sho_mixture, THETA4, 4)
+    timed(phase_profile, dev, "J = 8", wide8, THETA0, 8)
     if args.sweep:
         timed(phase_sweep, dev)
     log("done", f"{time.perf_counter() - start:.1f} s")

@@ -53,7 +53,7 @@ def turn(root):
         for dtype in (torch.float64, torch.float32):
             res[f"evals_per_s_J{J}_{str(dtype)[6:]}"] = cs.steps_per_s(
                 dev, dtype, model=model, theta0=theta0)
-        prof = cs.profile_eval(dev, model, theta0)
+        prof = cs.profile_eval(dev, model, theta0, J)
         if prof is not None:
             mine = {k: v for k, v in prof["by_name"].items()
                     if k in cs.KERNELS or k in cs.GENERAL}

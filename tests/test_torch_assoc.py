@@ -459,14 +459,69 @@ def test_forcing_assoc_on_the_cpu_runs_the_plain_prefixes(monkeypatch):
                      "kalman_prefix_plain"]
 
 
-def test_float32_at_j16_never_takes_the_assoc_tier():
-    """Float32 at J >= 16 stays on the scan tier under "auto", whatever the
-    threshold (the JAX float32 assoc tier's quiet -inf at J = 16)."""
+@pytest.mark.parametrize("J", [8, 9, 16, 32])
+def test_float32_at_j16_never_takes_the_assoc_tier(J):
+    """Float32 from the J = 8 bucket on stays on the scan tier under
+    "auto", whatever the threshold (both packages' float32 assoc tier
+    returns -inf at J = 8: the test below; at J = 16 the JAX one's does at
+    N = 1e5), while float64 takes the assoc tier."""
     with _backend("auto"):
         ct.set_config(assoc_threshold=2)
-        for J in (9, 16, 32):
-            assert dispatch.backend("cuda", 1, 10**5, J, torch.float32) == "scan"
-        assert dispatch.backend("cuda", 1, 10**5, 8, torch.float32) == "assoc"
-        assert dispatch.backend("cuda", 1, 10**5, 16, torch.float64) == "assoc"
+        assert dispatch.backend("cuda", 1, 10**5, J, torch.float32) == "scan"
+        assert dispatch.backend("cuda", 1, 10**5, J, torch.float64) == "assoc"
     with pytest.raises(ValueError, match="backend"):
         ct.set_config(backend="pallas")
+
+
+def test_float32_assoc_tier_at_j8_is_quiet_in_both_packages():
+    """Float32 at J = 8 (wide8 at theta = log[1, 5, 3] on the benchmark's
+    data, seed 42, N = 3000): the assoc tier of both packages returns -inf,
+    the port's with zero gradients, while both scan tiers are finite.  The
+    JAX side runs jitted with x64 off (with it on, the JAX package takes
+    these float32 inputs to float64)."""
+    from celerite2_tpu.gp import gp_loglik as jax_gp_loglik
+    from celerite2_tpu import terms as jt
+
+    rng = np.random.default_rng(42)
+    t = np.sort(rng.uniform(0, 1000.0, 3000))
+    y = np.sin(0.7 * t) + 0.25 * rng.normal(size=3000)
+    theta = np.log([1.0, 5.0, 3.0])
+    for tier in ("scan", "assoc"):
+        with jax_config(backend=tier), jax.enable_x64(False):
+            fn = jax.jit(jax.value_and_grad(lambda th, t, y: jax_gp_loglik(
+                _wide8(jt, th), t, y, yerr=0.25)))
+            jv, jg = fn(*(jnp.asarray(x, jnp.float32) for x in (theta, t, y)))
+        assert jv.dtype == jnp.float32
+        with _backend(tier):
+            th = torch.tensor(theta, dtype=torch.float32, requires_grad=True)
+            ll = ct.gp_loglik(_wide8(ct, th),
+                              torch.tensor(t, dtype=torch.float32),
+                              torch.tensor(y, dtype=torch.float32), yerr=0.25)
+            (g,) = torch.autograd.grad(ll, th)
+        if tier == "scan":
+            assert np.isfinite(float(jv)) and np.all(np.isfinite(jg))
+            assert torch.isfinite(ll) and torch.isfinite(g).all()
+            assert abs(ll.item() - float(jv)) < 1e-3 * abs(float(jv))
+        else:
+            assert float(jv) == -np.inf
+            assert ll.item() == -np.inf and torch.all(g == 0)
+
+
+def test_float32_quiet_failure_has_zero_gradients():
+    """gp_loglik at J > 4 masks a chain that is not positive definite out of
+    its sums before they are taken: wide8 at chip_smoke.py's C5 theta of
+    chain 48, float32 on the assoc tier at N = 3e4, gives -inf with zero
+    gradients, where z^2 / d overflows float32 (the JAX package's gradient
+    is NaN there: ROADMAP D4)."""
+    rng = np.random.default_rng(42)
+    t = np.sort(rng.uniform(0, 1000.0, 30_000))
+    y = np.sin(0.7 * t) + 0.25 * rng.normal(size=30_000)
+    noise = np.random.default_rng(17).normal(size=(64, 3))[[0, 48]]
+    theta = torch.tensor(np.log([1.0, 5.0, 3.0]) + 0.1 * noise,
+                         dtype=torch.float32, requires_grad=True)
+    with _backend("assoc"):
+        ll = ct.gp_loglik(_wide8(ct, theta.T),
+                          torch.tensor(t, dtype=torch.float32),
+                          torch.tensor(y, dtype=torch.float32), yerr=0.25)
+        (g,) = torch.autograd.grad(ll.sum(), theta)
+    assert torch.all(ll == -np.inf) and torch.all(g == 0)

@@ -41,7 +41,9 @@ def cuda():
 
 
 def _kernel(J, sigma):
-    """J = 2 SHOTerm, 3 RealTerm + SHOTerm, 4 an SHO mixture."""
+    """J = 1 RealTerm, 2 SHOTerm, 3 RealTerm + SHOTerm, 4 an SHO mixture."""
+    if J == 1:
+        return ct.RealTerm(a=sigma, c=0.7)
     sho = ct.SHOTerm(sigma=sigma, rho=3.4, tau=2.9)
     if J == 2:
         return sho
@@ -66,18 +68,21 @@ def _as_tuple(x):
 
 def _check_kernel(cuda, name, J):
     """Kernel ``name`` against its plain version at N = 300 in blocks of
-    16 (a ragged last block), C = 3, float64.  K1 and K2 take the block
-    length on the card too, and launch two kernels there (the block maps,
-    the rows: 19 blocks are one group, which needs no scan)."""
+    16 (a ragged last block), C = 3, float64, on the card too.  K1, K2, K3
+    and K5 launch two kernels there (the block maps, the rows: 19 blocks
+    are one group, which needs no scan); K5 takes K4's maps of those
+    blocks."""
     args = [x.to(cuda) for x in _system(300, 3, J=J)]
     # K4, K5 at every J (the default route takes them only at J > 2)
     structured = name.startswith("frev")
     inputs = fl.pass_inputs(*args, block_len=16,
                             structured=structured or None)[name]
+    if name == "frev_states":
+        inputs = (*inputs[:5], KERNEL["frev_maps"](*inputs[:5], 16))
     before = _build.LAUNCHES[name]
     got = _as_tuple(KERNEL[name](*inputs, 16))
     torch.cuda.synchronize()
-    launches = 2 if name in ("kalman_fwd", "solve_rev") else 1
+    launches = 1 if name == "frev_maps" else 2
     assert _build.LAUNCHES[name] == before + launches
     want = _as_tuple(PLAIN[name](*inputs, 16))
     for g, w in zip(got, want):
@@ -111,12 +116,12 @@ def test_structured_route_matches_dense_on_card(cuda):
     assert ((structured - dense).abs().max() / scale).item() < 1e-10
 
 
-# K1 and K2 (each the whole two-level scan on the card): one row, one row
-# below and past a tile of rows and a block, a ragged last block, 3 and 64
-# chains, many groups of blocks (a ragged last one), more groups than the
-# threads of the scan over them (301 groups of 32 one-row blocks: runs of
-# three groups a thread, a ragged last), float32, and the card's own block
-# length at N = 5000
+# K1, K2, K3 and K5 (each the whole two-level scan on the card): one row,
+# one row below and past a tile of rows and a block, a ragged last block, 3
+# and 64 chains, many groups of blocks (a ragged last one), more groups than
+# the threads of the scan over them (301 groups of 32 one-row blocks: runs
+# of three groups a thread, a ragged last), float32, and the card's own
+# block length at N = 5000
 K12_EDGES = {
     "one_row": (1, 3, None, torch.float64),
     "tile_minus_one": (7, 3, None, torch.float64),
@@ -151,6 +156,32 @@ def test_fused_k12_edges_match_plain(cuda, name, J, edge):
     _hold(got, want64, want)
 
 
+@pytest.mark.parametrize("edge", list(K12_EDGES))
+@pytest.mark.parametrize("name, J", [("factor_rev", 1), ("factor_rev", 2)]
+                         + [("frev_states", J) for J in (1, 2, 3, 4)])
+def test_factor_adjoint_edges_match_plain(cuda, name, J, edge):
+    """K3 and K5 against their plain versions at K1's and K2's edges: the
+    card route (K5 from K4's maps) against the plain route (the plain K5
+    from the plain K4's maps), K3's plain version in blocks of 16 rows."""
+    N, C, block_len, dtype = K12_EDGES[edge]
+    args = [x.to(cuda) for x in _system(N, C, seed=N + J, J=J)]
+    structured = name == "frev_states"
+    inputs = fl.pass_inputs(*args, structured=structured)
+    fin = [x.to(dtype) for x in inputs["frev_maps" if structured else name]]
+    if structured:
+        L = _build.factor_adjoint_block_len(N) if block_len is None else block_len
+        got = KERNEL[name](*fin, KERNEL["frev_maps"](*fin, L), L)
+
+        def plain(xs):
+            return PLAIN[name](*xs, PLAIN["frev_maps"](*xs, L), L)
+    else:
+        got = KERNEL[name](*fin, block_len)
+
+        def plain(xs):
+            return PLAIN[name](*xs, 16)
+    _hold((got,), (plain([x.double() for x in fin]),), (plain(fin),))
+
+
 @pytest.mark.parametrize("J", [1, 2, 3, 4])
 def test_kalman_fwd_nonpositive_pivots(cuda, J):
     """A diagonal that turns negative from row N // 3 on: K1's states are
@@ -173,18 +204,16 @@ def test_kalman_fwd_nonpositive_pivots(cuda, J):
 
 
 @pytest.mark.parametrize("model", ["sho", "sho_mixture"])
-def test_card_route_runs_no_cross_block_level_for_k1_k2(cuda, monkeypatch,
-                                                       model):
-    """The CUDA route of loglik_fused leaves the Kalman and the J-affine
-    cross-block level to K1 and K2: elements.exclusive_block_states, patched
-    to raise for those two families, is never called on the card (K3's
-    J^2-affine level at J = 2 still runs in PyTorch), and the value and
-    gradient equal the CPU route's."""
+def test_card_route_runs_no_cross_block_level(cuda, monkeypatch, model):
+    """The CUDA route of loglik_fused leaves every cross-block level to its
+    kernels, K1, K2 and K3 (J = 2) or K5 (J = 4): elements.
+    exclusive_block_states and fused_loglik.frev_seeds, patched to raise,
+    are never called on the card, and the value and gradient equal the CPU
+    route's."""
     from celerite2_torch.ops import elements as el
 
     fn, theta = {"sho": (_sho, [0.0, 1.2, 1.0]),
                  "sho_mixture": (_sho_mixture, [0.0, 1.2, 1.0, -0.5, 0.1])}[model]
-    J = 2 if model == "sho" else 4
     t = torch.tensor(np.sort(np.random.default_rng(1).uniform(0, 100, 3000)))
     y = torch.sin(t)
 
@@ -196,14 +225,12 @@ def test_card_route_runs_no_cross_block_level_for_k1_k2(cuda, monkeypatch,
         return ll.detach().cpu(), g.cpu()
 
     v0, g0 = value_and_grad("cpu")
-    real = el.exclusive_block_states
 
-    def guarded(maps, combine, identity, *, reverse):
-        if combine is el.kalman_combine or maps[0].shape[-1] == J:
-            raise AssertionError("K1/K2's cross-block level ran in PyTorch")
-        return real(maps, combine, identity, reverse=reverse)
+    def guarded(*args, **kwargs):
+        raise AssertionError("a cross-block level ran in PyTorch")
 
     monkeypatch.setattr(el, "exclusive_block_states", guarded)
+    monkeypatch.setattr(fl, "frev_seeds", guarded)
     v1, g1 = value_and_grad(cuda)
     assert abs((v1 - v0) / v0).item() < 1e-10
     assert _rel(g1, g0) < 1e-9
@@ -843,6 +870,49 @@ def test_assoc_tier_nonpd_is_quiet_on_card(cuda):
     finally:
         ct.set_config(**prior.__dict__)
     assert ll.item() == -np.inf and g.item() == 0.0
+
+
+def _wide8(theta):
+    """chip_smoke.py's J = 8 model: four SHOTerms as a function of theta =
+    log[sigma, rho, tau], the last at Q = 0.5."""
+    e = theta.exp()
+    k = ct.SHOTerm(sigma=e[..., 0], rho=e[..., 1], tau=e[..., 2])
+    for j in range(3):
+        k = k + ct.SHOTerm(sigma=e[..., 0] * (0.5 + 0.2 * j),
+                           rho=e[..., 1] * (1.7 + j), Q=0.3 + 0.1 * j)
+    return k
+
+
+def test_assoc_tier_float32_fleet_at_j8_is_quiet_on_card(cuda):
+    """Float32 at J = 8 on the assoc tier, 64 chains of wide8 around
+    theta = log[1, 5, 3] at N = 3e4 (chip_smoke.py's fleet of ROADMAP C5):
+    every chain's value is finite, or -inf with zero gradients, never NaN,
+    on the card and on the CPU's plain route for chains 0 and 48 (chain
+    48's float32 z^2 / d overflows on the CPU)."""
+    rng = np.random.default_rng(42)
+    t = np.sort(rng.uniform(0, 1000.0, 30_000))
+    y = np.sin(0.7 * t) + 0.25 * rng.normal(size=30_000)
+    noise = np.random.default_rng(17).normal(size=(64, 3))
+    theta = np.log([1.0, 5.0, 3.0]) + 0.1 * noise
+    prior = ct.get_config()
+    results = []
+    try:
+        ct.set_config(backend="assoc")
+        for device, chains in ((cuda, slice(None)), ("cpu", [0, 48])):
+            th = torch.tensor(theta[chains], dtype=torch.float32, device=device,
+                              requires_grad=True)
+            ll = ct.gp_loglik(_wide8(th), torch.tensor(t, dtype=torch.float32,
+                                                       device=device),
+                              torch.tensor(y, dtype=torch.float32, device=device),
+                              yerr=0.25)
+            (g,) = torch.autograd.grad(ll.sum(), th)
+            results.append((ll.detach().cpu(), g.cpu()))
+    finally:
+        ct.set_config(**prior.__dict__)
+    for ll, g in results:
+        quiet = ll == -np.inf
+        assert (torch.isfinite(ll) | quiet).all()
+        assert torch.isfinite(g).all() and (g[quiet] == 0).all()
 
 
 def test_auto_routes_by_the_measured_rule(cuda):

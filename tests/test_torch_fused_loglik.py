@@ -21,6 +21,7 @@ from celerite2_tpu.ops import fused_slab
 from celerite2_tpu.ops.fused_slab import loglik_slab
 from torch_parity import (
     assert_rel_close,
+    check_factor_adjoint_against_recursion,
     check_kalman_states_against_factor,
     check_parity,
     check_solve_rev_against_recursion,
@@ -78,6 +79,15 @@ def test_kalman_states_against_factor(N, J, block_len):
 @pytest.mark.parametrize("J", [1, 2])
 def test_solve_rev_states_against_recursion(N, J, block_len):
     check_solve_rev_against_recursion(fused_system(N, J=J), block_len)
+
+
+# the factor adjoint's states MX from its plain routes (K3; K4 and K5)
+# against the row recursion
+@pytest.mark.parametrize("block_len", [None, 16])
+@pytest.mark.parametrize("N", [65, 130, 1040])
+@pytest.mark.parametrize("J", [1, 2])
+def test_factor_adjoint_states_against_recursion(N, J, block_len):
+    check_factor_adjoint_against_recursion(fused_system(N, J=J), block_len)
 
 
 @pytest.fixture(scope="module")

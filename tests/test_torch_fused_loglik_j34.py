@@ -21,6 +21,7 @@ from celerite2_tpu.ops import planes
 from torch_parity import (
     COTANGENTS,
     assert_scaled_close,
+    check_factor_adjoint_against_recursion,
     check_kalman_states_against_factor,
     check_parity,
     check_solve_rev_against_recursion,
@@ -151,7 +152,7 @@ def test_structured_matches_dense(J, L):
     assert_scaled_close(structured.numpy(), dense.numpy(), 1e-12, "MX")
 
     D = J * J
-    _, k3_maps = fl.factor_rev_plain(*inputs, L)
+    _, k3_maps = fl.factor_rev_blocks(*inputs, L)
     k4_maps = fl.frev_maps_plain(*inputs, L)
     C, NB = k4_maps.shape[:2]
     k4_linear = k4_maps[..., : D * D].reshape(C, NB, D, D).mT
@@ -210,3 +211,12 @@ def test_kalman_states_against_factor(N, J, block_len):
 @pytest.mark.parametrize("J", [3, 4])
 def test_solve_rev_states_against_recursion(N, J, block_len):
     check_solve_rev_against_recursion(fused_system(N, J=J), block_len)
+
+
+# the factor adjoint's states MX from its plain routes (K3; K4 and K5)
+# against the row recursion
+@pytest.mark.parametrize("block_len", [None, 16])
+@pytest.mark.parametrize("N", [65, 130, 1040])
+@pytest.mark.parametrize("J", [3, 4])
+def test_factor_adjoint_states_against_recursion(N, J, block_len):
+    check_factor_adjoint_against_recursion(fused_system(N, J=J), block_len)

@@ -219,3 +219,32 @@ def check_solve_rev_against_recursion(args, block_len=None, rtol=1e-10):
         R = p[n] * (R - u * (W[n] @ R + bz[n]))
         want[n] = R
     assert_rel_close(got, want, rtol, "Rst")
+
+
+def check_factor_adjoint_against_recursion(args, block_len=None, rtol=1e-10):
+    """The plain factor adjoint's states ``MX`` of one system against its
+    row recursion in numpy, for each plain route there is at its width
+    (K3 at J <= 2; K4 and K5 at every J): from M = 0 past the last row,
+    M_n = p_n (.) [M - u_n (x) bv - ba u_n (x) u_n] (.) p_n with bv =
+    (M + M^T) w_n + bv0_n, ba = bdp_n - w_n^T M w_n and u_0 = 0; MX holds
+    the state entering row n for n >= 1 and the state after row 0's step
+    at row 0."""
+    from celerite2_torch.ops.fused_loglik import factor_adjoint
+
+    L = 256 if block_len is None else block_len
+    inputs = fused_pass_inputs(args, block_len)
+    fin = inputs["factor_rev"] if "factor_rev" in inputs else inputs["frev_maps"]
+    p, U, W, bv0, bdp = (x[0].numpy() for x in fin)
+    N, J = U.shape
+    want = np.empty((N, J, J))
+    M = np.zeros((J, J))
+    for n in range(N - 1, -1, -1):
+        u = U[n] if n else np.zeros(J)
+        bv = (M + M.T) @ W[n] + bv0[n]
+        ba = bdp[n] - W[n] @ M @ W[n]
+        after = p[n][:, None] * (M - np.outer(u, bv) - ba * np.outer(u, u)) * p[n]
+        want[n] = M if n else after
+        M = after
+    for structured in ((False, True) if J <= 2 else (True,)):
+        got = factor_adjoint(*fin, L, structured=structured)[0].numpy()
+        assert_rel_close(got, want, rtol, f"MX structured={structured}")
