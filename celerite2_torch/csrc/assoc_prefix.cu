@@ -1,8 +1,7 @@
 // The blocked prefix kernels of the assoc tier (ops/assoc.py), written for
 // Hopper (sm_90a): the inclusive prefix over the rows of a long sequence of
-// three element families, split into blocks of L rows that run side by side.
-// Built with nvcc into the shared library of celerite2_torch/ops/_build.py
-// and bound with ctypes.
+// three element families.  Built with nvcc into the shared library of
+// celerite2_torch/ops/_build.py and bound with ctypes.
 //
 // They replace, each for its element family, the in-block prefix kernel of
 // the TPU's prefix engine,
@@ -10,7 +9,7 @@
 //   (pallas_call at :311, body _kernel at :117),
 // with the block maps it emits and the distribute that the engine runs after
 // it:
-//   * riccati_*   the Riccati family (planes.riccati_spec, assoc.py
+//   * ric_*       the Riccati family (planes.riccati_spec, assoc.py
 //                 _riccati_combine): (A, Q, R) acting on the factor's carry
 //                 S -> Q + A S (I + R S)^{-1} A^T; assoc.factor_assoc;
 //   * the same kernels with K right-hand sides, the Kalman family
@@ -21,19 +20,6 @@
 //                 b (D, K); the solves, the solve adjoint and phase B of the
 //                 factor adjoint (D = J^2, K = 1).
 // The diagonal-affine family is affine_prefix_kernel in general_ops.cu.
-//
-// Shape of every family, three launches (one when the rows fit one block):
-//   1. maps:  each (chain, block of L rows) composes its elements into the
-//             block's map;
-//   2. carry: the same prefix over the block maps (one sequential walk per
-//             chain over ceil(N / L) maps) gives the state entering every
-//             block;
-//   3. apply: each block walks its rows again from the state entering it
-//             and writes the state after every row.
-// The TPU kernel walks a sequential grid over an (8, 128) tile of blocks
-// and carries in VMEM; here blocks are independent thread blocks, so they
-// run in parallel and in no order, and only step 2 is sequential over
-// blocks.
 //
 // Riccati and Kalman elements are built in the kernel from the row data
 // (p, a, u, v, y): element n >= 1 from row n - 1 and p_n, element 0 the
@@ -46,27 +32,52 @@
 //     R <- R - g g^T / delta,        b <- diag(p) (b + w z^T),
 //     eta <- eta - g z^T / delta,
 // so a row costs O(J^2), not O(J^3), and the state part (Q, b) is the
-// factor's and the lower solve's own row recursion.  That is what step 3
-// runs.  Step 2 composes whole maps and needs the general inverse: a
-// Gauss-Jordan solve of (I + S R) X = [S | F + S eta] with partial
-// pivoting.  A non-positive pivot delta divides by 1, as the row kernels
-// do, so a system that is not positive definite gives finite values and
-// the caller's check d > 0 decides (the quiet -inf).
+// factor's and the lower solve's own row recursion.  Whole maps are composed
+// only above the rows, with the general combine and its inverse: a
+// Gauss-Jordan solve of (I + Q1 R2) X = [A1 | Q1 | b1 + Q1 eta2] (of
+// (I + S R) X = [S | F + S eta] to apply a map to a state) with partial
+// pivoting.  A non-positive pivot delta divides by 1, as the row kernels do,
+// so a system that is not positive definite gives finite values and the
+// caller's check d > 0 decides (the quiet -inf).
 //
-// What bounds these kernels on this card: each block's walk is a chain of
-// dependent row steps of a few shared-memory sums and three block-wide
-// barriers, and the carry walk a chain of ceil(N / L) Gauss-Jordan solves;
-// the bytes moved (the rows read twice, the states written once) take a
-// small fraction of that time.  The design therefore spreads the rows over
-// ceil(N / L) blocks times the chains, so that neither chain is long (L
-// about 4 sqrt(N) for the Riccati and Kalman families, whose carry steps
-// cost more and lose more digits than their row steps; about sqrt(N) for
-// the matrix-affine one), and keeps the J x J matrices of a block in shared
-// memory, one entry per thread and step.
+// The Riccati and Kalman families: a two-level scan over blocks of L rows
+// (the wrapper's choice, ops/_build.py kalman_block_len) in groups of
+// kGroup blocks, in five launches (three with one group, one with one
+// block), each a warp a thread block:
+//   (a) ric_maps:   each block's rows composed into the block's map;
+//   (b) ric_groups: a warp a group composes its blocks' maps in order into
+//                   the group's map;
+//   (c) ric_scan:   a warp a chain carries the state over the groups' maps,
+//                   the state entering every group;
+//   (d) ric_enter:  a warp a group carries the state entering it over its
+//                   blocks' maps, the state entering every block;
+//   (e) ric_apply:  each block's rows again from the state entering it,
+//                   the state after every row, stored by tiles.
+// What bounds them on this card: the chains of dependent steps, L rows in
+// (a) and (e), kGroup combines in (b), ceil(N / (kGroup L)) map applications
+// in (c) and kGroup in (d); the bytes (the rows read twice, S and F written
+// once) take a small fraction of that time at one chain.  So the rows are
+// cut into many short blocks, and
+//   * the walks of (a) and (e) are the rank-one steps above, by a team of
+//     ric_team(J) lanes a block: at J <= 4 one lane holds the whole map
+//     (3 J^2 + 2 J KC values) in registers, and a warp walks 32 blocks; from
+//     J = 8 lane i of a team of J holds column i of A and row i of Q, R, b,
+//     eta (of S, F in (e)), x and g are its own sums, and u^T x, b^T u and
+//     the vectors w, g each lane needs are warp shuffles within the team: no
+//     barrier on the row chain;
+//   * the rows pass through shared memory by tiles of every walk of the
+//     warp, copied with cp.async one tile ahead (a lane a row, the index
+//     arithmetic paid once a row), and (e) stores each tile of S and F with
+//     consecutive lanes on consecutive values;
+//   * the levels (b)-(d) compose whole maps in shared memory, a warp each:
+//     the Gauss-Jordan elimination takes its pivot by a warp reduction and
+//     eliminates an entry a lane, a barrier of the warp between steps.
 
 #include <cuda_runtime.h>
 
 #include <cfloat>
+
+#include "device_common.cuh"
 
 namespace {
 
@@ -86,310 +97,808 @@ __device__ __forceinline__ T safe_pos(T x) {
   return x > T(0) ? x : T(1);
 }
 
-// right-hand sides of the Kalman family per thread block (more are split
-// over blockIdx.y, each chunk redoing the Riccati part)
-constexpr int kCols = 16;
-
-__host__ __device__ constexpr int ric_threads(int J) {
-  return J <= 4 ? 32 : (J <= 8 ? 64 : 256);
-}
-
 // ===================================================== Riccati / Kalman
 //
 // Layouts: p, U, V (C, N, J); a (C, N); Y (C, N, K); the outputs S (C, N, J,
-// J) and F (C, N, J, K); the block maps tA, tQ, tR (C, NB, J, J) and tb,
-// teta (C, NB, J, K); the states entering each block cS (C, NB, J, J) and
-// cF (C, NB, J, K).  KAL = false is the Riccati family (no Y, F, b, eta).
+// J) and F (C, N, J, K).  The right-hand sides are split into chunks of KC
+// columns over blockIdx.y, each chunk redoing the Riccati part.  Scratch, per
+// (chain, chunk) cc = chain * chunks + chunk: the block maps (C, chunks, NB,
+// E), the group maps (C, chunks, GB, E), the states entering every group
+// (C, chunks, GB, ST) and block (C, chunks, NB, ST).  A map is [A | Q | R |
+// b | eta] (J x J row-major, then J x KC), a state [S | F].  KAL = false is
+// the Riccati family (no Y, F, b, eta).
 
-// Loads the row that element n is built from (row n - 1) and p_n.
-template <typename T, int J, bool KAL>
-__device__ __forceinline__ void load_row(const T* p, const T* a, const T* U,
-                                         const T* V, const T* Y, size_t r,
-                                         int K, int k0, int KC, T* su, T* sv,
-                                         T* sp, T* sy, T* sa) {
-  const int tid = threadIdx.x;
-  if (tid < J) {
-    su[tid] = U[r * J + tid];
-    sv[tid] = V[r * J + tid];
-    sp[tid] = p[(r + 1) * J + tid];
-  } else if (KAL && tid < J + KC) {
-    sy[tid - J] = Y[r * K + k0 + tid - J];
-  }
-  if (tid == 0) *sa = safe_pos(a[r]);
+constexpr int kGroup = 32;  // blocks of rows in a group
+constexpr unsigned kFull = 0xffffffffu;
+
+// lanes that walk one block of rows together
+__host__ __device__ constexpr int ric_team(int J) { return J <= 4 ? 1 : J; }
+
+// right-hand sides of the Kalman family a chunk: what a lane's registers hold
+// beside the J x J part of the map it walks
+__host__ __device__ constexpr int ric_cols(int J) {
+  return J == 1 ? 8 : J == 2 ? 4 : J == 4 ? 2 : J == 8 ? 8 : J == 16 ? 4 : 2;
 }
 
-// u^T x for every thread (J multiply-adds from shared memory, no barrier)
-template <typename T, int J>
-__device__ __forceinline__ T dot_shared(const T* x, const T* y) {
-  T s = T(0);
+template <int J, bool KAL>
+struct Ric {
+  static constexpr int P = ric_team(J);    // lanes a block
+  static constexpr int NW = 32 / P;        // blocks (walks) a warp
+  static constexpr int R = J / P;          // rows of the J x J parts a lane holds
+  static constexpr int KC = KAL ? ric_cols(J) : 0;
+  static constexpr int KR = KC > 0 ? KC : 1;  // register arrays' width
+  static constexpr int JJ = J * J;
+  static constexpr int E = 3 * JJ + 2 * J * KC;  // a map
+  static constexpr int ST = JJ + J * KC;         // a state
+  // a staged row: p of row n, then u, v, a, y of row n - 1
+  static constexpr int IP = 0, IU = J, IV = 2 * J, IA = 3 * J, IY = 3 * J + 1;
+  static constexpr int WIN = 3 * J + 1 + KC;
+  static constexpr int TR = (P == 1 || J == 32) ? 4 : 8;  // rows a tile
+  static constexpr int PITCH = NW == 1 ? 1 : NW + 1;      // value f of row l of
+  // walk k at (l * WIDTH + f) * PITCH + k
+  static constexpr int TILE = TR * WIN * PITCH;
+  static constexpr int OUT = TR * ST * PITCH;
+  // the static shared memory of a walk kernel (ric_walks' arrays), which
+  // counts with the dynamic toward the 48 KB a kernel gets without opting in
+  static constexpr size_t WALK_STATIC = NW * (sizeof(long long) + 3 * sizeof(int));
+  static_assert(32 % TR == 0, "a lane copies whole rows of a tile");
+};
+
+// The walks of one warp of (a) or (e): NW consecutive blocks of one chain;
+// walk k is block wb * NW + k, the rows [first[k], first[k] + len[k]) of the
+// chain, row start[k] of the (C * N)-row arrays; walks past the chain's last
+// block have len 0.  Returns the chain.
+template <int NW>
+__device__ __forceinline__ long long ric_walks(int N, int L, int NB,
+                                               long long* start, int* len,
+                                               int* first, int* block) {
+  const int WB = (NB + NW - 1) / NW;
+  const long long chain = blockIdx.x / WB;
+  const int wb = blockIdx.x % WB;
+  if (threadIdx.x < NW) {
+    const int k = threadIdx.x, b = wb * NW + k;
+    const bool live = b < NB;
+    first[k] = live ? b * L : 0;
+    start[k] = chain * N + first[k];
+    len[k] = live ? min(L, N - b * L) : 0;
+    block[k] = b;
+  }
+  __syncwarp();
+  return chain;
+}
+
+// Copies rows [s TR, (s + 1) TR) of every walk into a tile: p of each row,
+// u, v, a and the chunk's columns of y of the row before it (not for row 0
+// of a chain, whose element is the identity).  Lane j copies row j % TR of
+// the walks j / TR, j / TR + 32 / TR, ...
+template <typename T, int J, bool KAL>
+__device__ __forceinline__ void ric_stage(
+    T* tile, const T* __restrict__ p, const T* __restrict__ a,
+    const T* __restrict__ U, const T* __restrict__ V, const T* __restrict__ Y,
+    int K, int k0, int kc, const long long* start, const int* len,
+    const int* first, int s) {
+  using G = Ric<J, KAL>;
+  constexpr int PI = G::PITCH;
+  const int l = threadIdx.x % G::TR, n = s * G::TR + l;
+  for (int k = threadIdx.x / G::TR; k < G::NW; k += 32 / G::TR) {
+    if (n >= len[k]) continue;
+    const long long r = start[k] + n;
+    T* dst = tile + l * G::WIN * PI + k;
 #pragma unroll
-  for (int i = 0; i < J; ++i) s += x[i] * y[i];
-  return s;
-}
-
-template <typename T, int J, bool KAL>
-__global__ void __launch_bounds__(ric_threads(J))
-    riccati_maps_kernel(const T* __restrict__ p, const T* __restrict__ a,
-                        const T* __restrict__ U, const T* __restrict__ V,
-                        const T* __restrict__ Y, T* __restrict__ tA,
-                        T* __restrict__ tQ, T* __restrict__ tR,
-                        T* __restrict__ tb, T* __restrict__ teta, int N, int K,
-                        int L, int NB) {
-  constexpr int NT = ric_threads(J);
-  constexpr int KM = KAL ? kCols : 1;
-  __shared__ T sA[J * J], sQ[J * J], sR[J * J], sb[J * KM], se[J * KM];
-  __shared__ T su[J], sv[J], sp[J], sy[KM], sx[J], sg[J], sz[KM], sa;
-  const int tid = threadIdx.x;
-  const int blk = blockIdx.x % NB;
-  const long long chain = blockIdx.x / NB;
-  const int k0 = blockIdx.y * kCols;
-  const int KC = KAL ? min(kCols, K - k0) : 0;
-  const int lo = blk * L, hi = min(N, lo + L);
-  for (int e = tid; e < J * J; e += NT) {
-    sA[e] = (e / J == e % J) ? T(1) : T(0);
-    sQ[e] = T(0);
-    sR[e] = T(0);
-  }
-  for (int e = tid; e < J * KM; e += NT) sb[e] = se[e] = T(0);
-  __syncthreads();
-  for (int n = max(lo, 1); n < hi; ++n) {
-    const size_t r = (size_t)chain * N + n - 1;
-    load_row<T, J, KAL>(p, a, U, V, Y, r, K, k0, KC, su, sv, sp, sy, &sa);
-    __syncthreads();
-    if (tid < J) {
-      T x = T(0);
-      for (int k = 0; k < J; ++k) x += sQ[tid * J + k] * su[k];
-      sx[tid] = x;
-    } else if (tid < 2 * J) {
-      const int j = tid - J;
-      T g = T(0);
-      for (int i = 0; i < J; ++i) g += sA[i * J + j] * su[i];
-      sg[j] = g;
-    } else if (KAL && tid < 2 * J + KC) {
-      const int k = tid - 2 * J;
-      T z = sy[k];
-      for (int i = 0; i < J; ++i) z -= sb[i * KM + k] * su[i];
-      sz[k] = z;
+    for (int f = 0; f < J; ++f)
+      cp_async_elem(dst + (G::IP + f) * PI, p + r * J + f);
+    if (first[k] + n == 0) continue;
+#pragma unroll
+    for (int f = 0; f < J; ++f) {
+      cp_async_elem(dst + (G::IU + f) * PI, U + (r - 1) * J + f);
+      cp_async_elem(dst + (G::IV + f) * PI, V + (r - 1) * J + f);
     }
-    __syncthreads();
-    const T delta = sa - dot_shared<T, J>(su, sx);
-    const T inv = T(1) / safe_pos(delta);
-    for (int e = tid; e < J * J; e += NT) {
-      const int i = e / J, j = e % J;
-      const T wi = (sv[i] - sx[i]) * inv, wj = (sv[j] - sx[j]) * inv;
-      sA[e] = sp[i] * (sA[e] - wi * sg[j]);
-      sQ[e] = (sp[i] * sp[j]) * (sQ[e] + delta * (wi * wj));
-      sR[e] = sR[e] - (sg[i] * sg[j]) * inv;
-    }
-    if (KAL) {
-      for (int e = tid; e < J * KC; e += NT) {
-        const int i = e / KC, k = e % KC, s = i * KM + k;
-        const T wi = (sv[i] - sx[i]) * inv;
-        sb[s] = sp[i] * (sb[s] + wi * sz[k]);
-        se[s] = se[s] - sg[i] * sz[k] * inv;
-      }
-    }
-    __syncthreads();
-  }
-  const size_t m = (size_t)chain * NB + blk;
-  if (blockIdx.y == 0) {
-    for (int e = tid; e < J * J; e += NT) {
-      tA[m * J * J + e] = sA[e];
-      tQ[m * J * J + e] = sQ[e];
-      tR[m * J * J + e] = sR[e];
-    }
-  }
-  if (KAL) {
-    for (int e = tid; e < J * KC; e += NT) {
-      const int i = e / KC, k = e % KC;
-      tb[(m * J + i) * K + k0 + k] = sb[i * KM + k];
-      teta[(m * J + i) * K + k0 + k] = se[i * KM + k];
-    }
-  }
-}
-
-// One walk per (chain, chunk of columns) over the NB block maps: writes the
-// state entering every block, then applies the block's map,
-//   X = (I + S R)^{-1} [S | F + S eta],  S <- sym(Q + A X_S A^T),
-//   F <- b + A X_F,
-// with the inverse by Gauss-Jordan elimination with partial pivoting on the
-// augmented J x (2 J + KC) matrix in shared memory.
-template <typename T, int J, bool KAL>
-__global__ void __launch_bounds__(ric_threads(J))
-    riccati_carry_kernel(const T* __restrict__ tA, const T* __restrict__ tQ,
-                         const T* __restrict__ tR, const T* __restrict__ tb,
-                         const T* __restrict__ teta, T* __restrict__ cS,
-                         T* __restrict__ cF, int K, int NB) {
-  constexpr int NT = ric_threads(J);
-  constexpr int KM = KAL ? kCols : 1;
-  constexpr int W = 2 * J + KM;  // [I + S R | S | F + S eta]
-  __shared__ T sS[J * J], sF[J * KM], sT[J * J], aug[J * W], sf[J];
-  __shared__ T spinv;
-  const int tid = threadIdx.x;
-  const long long chain = blockIdx.x;
-  const int k0 = blockIdx.y * kCols;
-  const int KC = KAL ? min(kCols, K - k0) : 0;
-  for (int e = tid; e < J * J; e += NT) sS[e] = T(0);
-  for (int e = tid; e < J * KM; e += NT) sF[e] = T(0);
-  __syncthreads();
-  for (int b = 0; b < NB; ++b) {
-    const size_t m = (size_t)chain * NB + b;
-    if (blockIdx.y == 0)
-      for (int e = tid; e < J * J; e += NT) cS[m * J * J + e] = sS[e];
+    cp_async_elem(dst + G::IA * PI, a + r - 1);
     if (KAL)
-      for (int e = tid; e < J * KC; e += NT)
-        cF[(m * J + e / KC) * K + k0 + e % KC] = sF[(e / KC) * KM + e % KC];
-    if (b == NB - 1) break;
-    const T* A = tA + m * J * J;
-    const T* Q = tQ + m * J * J;
-    const T* R = tR + m * J * J;
-    for (int e = tid; e < J * J; e += NT) {
-      const int i = e / J, j = e % J;
-      T s = (i == j) ? T(1) : T(0);
-      for (int k = 0; k < J; ++k) s += sS[i * J + k] * R[k * J + j];
-      aug[i * W + j] = s;
-      aug[i * W + J + j] = sS[e];
+      for (int f = 0; f < kc; ++f)
+        cp_async_elem(dst + (G::IY + f) * PI, Y + (r - 1) * K + k0 + f);
+  }
+  cp_async_commit();
+}
+
+// One staged row as a walk reads it (x at value 0 of the row of the lane's
+// walk).  A row that is not live (past the walk's end, or row 0 of a chain)
+// reads as the identity element: p = 1, u = v = y = 0, a = 1, which leaves a
+// map or a state as it is.
+template <typename T, int J, bool KAL>
+struct RicRow {
+  using G = Ric<J, KAL>;
+  const T* x;
+  bool live;
+  int kc;
+  __device__ T p(int j) const { return live ? x[(G::IP + j) * G::PITCH] : T(1); }
+  __device__ T u(int j) const { return live ? x[(G::IU + j) * G::PITCH] : T(0); }
+  __device__ T v(int j) const { return live ? x[(G::IV + j) * G::PITCH] : T(0); }
+  __device__ T a() const { return live ? safe_pos(x[G::IA * G::PITCH]) : T(1); }
+  __device__ T y(int k) const {
+    return live && k < kc ? x[(G::IY + k) * G::PITCH] : T(0);
+  }
+};
+
+// sum over the team's lanes (every lane gets the same bits)
+template <int P, typename T>
+__device__ __forceinline__ T team_sum(T v) {
+#pragma unroll
+  for (int off = P / 2; off > 0; off /= 2) v += __shfl_xor_sync(kFull, v, off);
+  return v;
+}
+
+// entry j of a vector the team holds R entries a lane of (lane t of the
+// team entries t, t + P, ...)
+template <int P, int R, typename T>
+__device__ __forceinline__ T team_get(const T (&x)[R], int j) {
+  if constexpr (P == 1)
+    return x[j];
+  else
+    return __shfl_sync(kFull, x[j / P], j % P, P);
+}
+
+// The running map of a walk of (a): lane t of its team holds, for its rows
+// i_m = t + P m, column i_m of A (A[m][j] = A[j][i_m]) and row i_m of Q, R,
+// b, eta.
+template <typename T, int J, bool KAL>
+struct RicMap {
+  using G = Ric<J, KAL>;
+  static constexpr int P = G::P, R = G::R, KC = G::KC, KR = G::KR;
+  T A[R][J], Q[R][J], Rm[R][J], b[R][KR], e[R][KR];
+
+  __device__ void identity(int t) {
+#pragma unroll
+    for (int m = 0; m < R; ++m) {
+#pragma unroll
+      for (int j = 0; j < J; ++j) {
+        A[m][j] = j == t + P * m ? T(1) : T(0);
+        Q[m][j] = Rm[m][j] = T(0);
+      }
+#pragma unroll
+      for (int k = 0; k < KR; ++k) b[m][k] = e[m][k] = T(0);
     }
-    if (KAL) {
-      for (int e = tid; e < J * KC; e += NT) {
-        const int i = e / KC, k = e % KC;
-        T s = sF[i * KM + k];
-        for (int l = 0; l < J; ++l)
-          s += sS[i * J + l] * teta[(m * J + l) * K + k0 + k];
-        aug[i * W + 2 * J + k] = s;
+  }
+
+  __device__ void step(const RicRow<T, J, KAL>& w, int t) {
+    T x[R], g[R], wv[R];
+    T s = T(0), zs[KR];
+#pragma unroll
+    for (int k = 0; k < KR; ++k) zs[k] = T(0);
+#pragma unroll
+    for (int m = 0; m < R; ++m) {
+      T xi = T(0), gi = T(0);
+#pragma unroll
+      for (int j = 0; j < J; ++j) {
+        const T uj = w.u(j);
+        xi += Q[m][j] * uj;
+        gi += A[m][j] * uj;
+      }
+      x[m] = xi;
+      g[m] = gi;
+      const T ui = w.u(t + P * m);
+      s += ui * xi;
+#pragma unroll
+      for (int k = 0; k < KC; ++k) zs[k] += b[m][k] * ui;
+    }
+    s = team_sum<P>(s);
+    T z[KR];
+#pragma unroll
+    for (int k = 0; k < KC; ++k) z[k] = w.y(k) - team_sum<P>(zs[k]);
+    const T delta = w.a() - s;
+    const T inv = T(1) / safe_pos(delta);
+#pragma unroll
+    for (int m = 0; m < R; ++m) wv[m] = (w.v(t + P * m) - x[m]) * inv;
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+      const T wj = team_get<P, R>(wv, j), gj = team_get<P, R>(g, j);
+      const T pj = w.p(j);
+#pragma unroll
+      for (int m = 0; m < R; ++m) {
+        const T pi = w.p(t + P * m);
+        A[m][j] = pj * (A[m][j] - wj * g[m]);
+        Q[m][j] = (pi * pj) * (Q[m][j] + delta * (wv[m] * wj));
+        Rm[m][j] = Rm[m][j] - (g[m] * gj) * inv;
       }
     }
-    __syncthreads();
+#pragma unroll
+    for (int m = 0; m < R; ++m) {
+      const T pi = w.p(t + P * m);
+#pragma unroll
+      for (int k = 0; k < KC; ++k) {
+        b[m][k] = pi * (b[m][k] + wv[m] * z[k]);
+        e[m][k] = e[m][k] - g[m] * z[k] * inv;
+      }
+    }
+  }
+
+  __device__ void store(T* out, int t) const {
+    constexpr int JJ = G::JJ;
+#pragma unroll
+    for (int m = 0; m < R; ++m) {
+      const int i = t + P * m;
+#pragma unroll
+      for (int j = 0; j < J; ++j) {
+        out[j * J + i] = A[m][j];
+        out[JJ + i * J + j] = Q[m][j];
+        out[2 * JJ + i * J + j] = Rm[m][j];
+      }
+#pragma unroll
+      for (int k = 0; k < KC; ++k) {
+        out[3 * JJ + i * KC + k] = b[m][k];
+        out[3 * JJ + J * KC + i * KC + k] = e[m][k];
+      }
+    }
+  }
+};
+
+// The state (S, F) of a walk of (e), rows i_m of S and F a lane: the
+// factor's and the lower solve's row step S <- p (S + delta w w^T) p,
+// F <- p (F + w z^T).
+template <typename T, int J, bool KAL>
+struct RicState {
+  using G = Ric<J, KAL>;
+  static constexpr int P = G::P, R = G::R, KC = G::KC, KR = G::KR;
+  T S[R][J], F[R][KR];
+
+  // from st = [S | F] (null: zero)
+  __device__ void load(const T* st, int t) {
+#pragma unroll
+    for (int m = 0; m < R; ++m) {
+      const int i = t + P * m;
+#pragma unroll
+      for (int j = 0; j < J; ++j) S[m][j] = st ? st[i * J + j] : T(0);
+#pragma unroll
+      for (int k = 0; k < KR; ++k)
+        F[m][k] = st && k < KC ? st[G::JJ + i * KC + k] : T(0);
+    }
+  }
+
+  __device__ void step(const RicRow<T, J, KAL>& w, int t) {
+    T x[R], wv[R];
+    T s = T(0), zs[KR];
+#pragma unroll
+    for (int k = 0; k < KR; ++k) zs[k] = T(0);
+#pragma unroll
+    for (int m = 0; m < R; ++m) {
+      T xi = T(0);
+#pragma unroll
+      for (int j = 0; j < J; ++j) xi += S[m][j] * w.u(j);
+      x[m] = xi;
+      const T ui = w.u(t + P * m);
+      s += ui * xi;
+#pragma unroll
+      for (int k = 0; k < KC; ++k) zs[k] += F[m][k] * ui;
+    }
+    s = team_sum<P>(s);
+    T z[KR];
+#pragma unroll
+    for (int k = 0; k < KC; ++k) z[k] = w.y(k) - team_sum<P>(zs[k]);
+    const T delta = w.a() - s;
+    const T inv = T(1) / safe_pos(delta);
+#pragma unroll
+    for (int m = 0; m < R; ++m) wv[m] = (w.v(t + P * m) - x[m]) * inv;
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+      const T wj = team_get<P, R>(wv, j), pj = w.p(j);
+#pragma unroll
+      for (int m = 0; m < R; ++m)
+        S[m][j] = (w.p(t + P * m) * pj) * (S[m][j] + delta * (wv[m] * wj));
+    }
+#pragma unroll
+    for (int m = 0; m < R; ++m) {
+      const T pi = w.p(t + P * m);
+#pragma unroll
+      for (int k = 0; k < KC; ++k) F[m][k] = pi * (F[m][k] + wv[m] * z[k]);
+    }
+  }
+
+  // into row l of the output tile of walk k (o at value 0 of that row)
+  __device__ void put(T* o, int t) const {
+    constexpr int PI = G::PITCH;
+#pragma unroll
+    for (int m = 0; m < R; ++m) {
+      const int i = t + P * m;
+#pragma unroll
+      for (int j = 0; j < J; ++j) o[(i * J + j) * PI] = S[m][j];
+#pragma unroll
+      for (int k = 0; k < KC; ++k) o[(G::JJ + i * KC + k) * PI] = F[m][k];
+    }
+  }
+};
+
+// Stores the output tile of rows [s TR, (s + 1) TR) of every walk: S (if
+// not null) and the chunk's columns of F.  A walk's rows of S in the tile
+// are TR J^2 consecutive values of S, and consecutive lanes take
+// consecutive values; of F, consecutive lanes take consecutive rows of its
+// TR J rows of K values.  Several walks a store where a walk has fewer
+// than 32, and every divisor is a constant.
+template <typename T, int J, bool KAL>
+__device__ __forceinline__ void ric_unstage(T* __restrict__ S,
+                                            T* __restrict__ F, const T* out,
+                                            const long long* start,
+                                            const int* len, int s, int K,
+                                            int k0, int kc) {
+  using G = Ric<J, KAL>;
+  constexpr int JJ = G::JJ, PI = G::PITCH, KC = G::KC;
+  constexpr int LS = G::TR * JJ < 32 ? G::TR * JJ : 32;  // lanes a walk: S
+  const int lane = threadIdx.x;
+  if (S != nullptr)
+    for (int k = lane / LS; k < G::NW; k += 32 / LS) {
+      const int n = min(G::TR, len[k] - s * G::TR) * JJ;
+      const long long base = (start[k] + s * G::TR) * JJ;
+      for (int e = lane % LS; e < n; e += LS)
+        S[base + e] = out[((e / JJ) * G::ST + e % JJ) * PI + k];
+    }
+  if constexpr (KAL) {  // a lane a row i of F in a row: its kc columns
+    constexpr int LF = G::TR * J < 32 ? G::TR * J : 32;
+    for (int k = lane / LF; k < G::NW; k += 32 / LF) {
+      const int n = min(G::TR, len[k] - s * G::TR) * J;
+      const long long r0 = start[k] + s * G::TR;
+      for (int e = lane % LF; e < n; e += LF) {
+        T* dst = F + (r0 * J + e) * K + k0;
+        const T* src = out + ((e / J) * G::ST + JJ + (e % J) * KC) * PI + k;
+        for (int c = 0; c < kc; ++c) dst[c] = src[c * PI];
+      }
+    }
+  }
+}
+
+// (a): the map of every block (one warp: NW blocks of one chain and chunk).
+template <typename T, int J, bool KAL>
+__global__ void __launch_bounds__(32, 1)
+    ric_maps_kernel(const T* __restrict__ p, const T* __restrict__ a,
+                    const T* __restrict__ U, const T* __restrict__ V,
+                    const T* __restrict__ Y, T* __restrict__ maps, int N,
+                    int K, int L, int NB) {
+  using G = Ric<J, KAL>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* tiles = reinterpret_cast<T*>(smem_raw);
+  __shared__ long long start[G::NW];
+  __shared__ int len[G::NW], first[G::NW], block[G::NW];
+  const long long chain = ric_walks<G::NW>(N, L, NB, start, len, first, block);
+  const int k0 = blockIdx.y * G::KC, kc = KAL ? min(G::KC, K - k0) : 0;
+  const int lane = threadIdx.x, t = lane % G::P, k = lane / G::P;
+  const int mine = len[k], n0 = first[k];
+
+  RicMap<T, J, KAL> acc;
+  acc.identity(t);
+  const int ntiles = (min(L, N) + G::TR - 1) / G::TR;
+  ric_stage<T, J, KAL>(tiles, p, a, U, V, Y, K, k0, kc, start, len, first, 0);
+  for (int s = 0; s < ntiles; ++s) {
+    if (s + 1 < ntiles) {
+      ric_stage<T, J, KAL>(tiles + ((s + 1) & 1) * G::TILE, p, a, U, V, Y, K,
+                           k0, kc, start, len, first, s + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncwarp();
+    const T* tile = tiles + (s & 1) * G::TILE + k;
+    if constexpr (G::P == 1) {
+#pragma unroll 1
+      for (int l = 0; l < G::TR && s * G::TR + l < mine; ++l)
+        if (n0 + s * G::TR + l > 0)
+          acc.step({tile + l * G::WIN * G::PITCH, true, kc}, t);
+    } else {  // the team's shuffles need every lane: dead rows are identities
+#pragma unroll 1
+      for (int l = 0; l < G::TR; ++l) {
+        const int n = s * G::TR + l;
+        acc.step({tile + l * G::WIN * G::PITCH, n < mine && n0 + n > 0, kc}, t);
+      }
+    }
+    __syncwarp();
+  }
+  if (mine > 0)
+    acc.store(maps + ((chain * gridDim.y + blockIdx.y) * NB + block[k]) * G::E,
+              t);
+}
+
+// (e): the state after every row, from the state entering each block (cS,
+// (C, chunks, NB, ST); zero when null).  S is written by chunk 0 only.
+template <typename T, int J, bool KAL>
+__global__ void __launch_bounds__(32, 1)
+    ric_apply_kernel(const T* __restrict__ p, const T* __restrict__ a,
+                     const T* __restrict__ U, const T* __restrict__ V,
+                     const T* __restrict__ Y, const T* __restrict__ cS,
+                     T* __restrict__ S, T* __restrict__ F, int N, int K, int L,
+                     int NB) {
+  using G = Ric<J, KAL>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* tiles = reinterpret_cast<T*>(smem_raw);
+  T* out = tiles + 2 * G::TILE;
+  __shared__ long long start[G::NW];
+  __shared__ int len[G::NW], first[G::NW], block[G::NW];
+  const long long chain = ric_walks<G::NW>(N, L, NB, start, len, first, block);
+  const int k0 = blockIdx.y * G::KC, kc = KAL ? min(G::KC, K - k0) : 0;
+  const int lane = threadIdx.x, t = lane % G::P, k = lane / G::P;
+  const int mine = len[k], n0 = first[k];
+  T* Sout = blockIdx.y == 0 ? S : nullptr;
+
+  RicState<T, J, KAL> st;
+  st.load(cS != nullptr && mine > 0
+              ? cS + ((chain * gridDim.y + blockIdx.y) * NB + block[k]) * G::ST
+              : nullptr,
+          t);
+  const int ntiles = (min(L, N) + G::TR - 1) / G::TR;
+  ric_stage<T, J, KAL>(tiles, p, a, U, V, Y, K, k0, kc, start, len, first, 0);
+  for (int s = 0; s < ntiles; ++s) {
+    if (s + 1 < ntiles) {
+      ric_stage<T, J, KAL>(tiles + ((s + 1) & 1) * G::TILE, p, a, U, V, Y, K,
+                           k0, kc, start, len, first, s + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncwarp();
+    const T* tile = tiles + (s & 1) * G::TILE + k;
+    if constexpr (G::P == 1) {
+#pragma unroll 1
+      for (int l = 0; l < G::TR && s * G::TR + l < mine; ++l) {
+        if (n0 + s * G::TR + l > 0)
+          st.step({tile + l * G::WIN * G::PITCH, true, kc}, t);
+        st.put(out + l * G::ST * G::PITCH + k, t);
+      }
+    } else {
+#pragma unroll 1
+      for (int l = 0; l < G::TR; ++l) {
+        const int n = s * G::TR + l;
+        st.step({tile + l * G::WIN * G::PITCH, n < mine && n0 + n > 0, kc}, t);
+        st.put(out + l * G::ST * G::PITCH + k, t);
+      }
+    }
+    __syncwarp();
+    ric_unstage<T, J, KAL>(Sout, F, out, start, len, s, K, k0, kc);
+    __syncwarp();
+  }
+}
+
+// The levels' algebra on maps and states in shared memory, by the NT
+// threads of a level kernel: one warp up to J = 8, eight from J = 16, where
+// a combine's O(J^3) products and eliminations outweigh the barriers.
+template <typename T, int J, bool KAL>
+struct RicLevel {
+  using G = Ric<J, KAL>;
+  static constexpr int NT = J >= 16 ? 256 : 32;
+  static constexpr int JJ = G::JJ, KC = G::KC, E = G::E, ST = G::ST;
+  static constexpr int WC = 3 * J + KC;  // [I + Q1 R2 | A1 | Q1 | b1 + Q1 eta2]
+  static constexpr int WD = 2 * J + KC;  // [I + S R | S | F + S eta]
+  static constexpr int SCRATCH = J * WC + 4 * JJ + 3 * J * KC + J;
+  // a level kernel's shared memory: four maps, a state, the scratch
+  static constexpr size_t SMEM = (4 * E + ST + SCRATCH) * sizeof(T);
+
+  __device__ static void sync() {
+    if constexpr (NT == 32)
+      __syncwarp();
+    else
+      __syncthreads();
+  }
+
+  // Gauss-Jordan elimination with partial pivoting on the J x W augmented
+  // matrix aug: the pivot of column c is the first largest |aug[r][c]|,
+  // r >= c (a reduction over the first J lanes of warp 0), its magnitude
+  // floored at the smallest normal number; one entry a thread in the
+  // elimination.
+  template <int W>
+  __device__ static void gauss_jordan(T* aug, T* sf) {
+    __shared__ int spiv;
+    const int tid = threadIdx.x;
     for (int c = 0; c < J; ++c) {
-      if (tid == 0) {
-        int piv = c;
-        T best = fabs(aug[c * W + c]);
-        for (int r = c + 1; r < J; ++r) {
-          const T v = fabs(aug[r * W + c]);
-          if (v > best) {
-            best = v;
-            piv = r;
+      int piv = c;
+      if (tid < 32) {
+        T best = T(-1);
+        int at = J;
+        if (tid >= c && tid < J) {
+          best = fabs(aug[tid * W + c]);
+          at = tid;
+        }
+#pragma unroll
+        for (int off = J / 2; off > 0; off /= 2) {
+          const T ob = __shfl_xor_sync(kFull, best, off);
+          const int oa = __shfl_xor_sync(kFull, at, off);
+          if (ob > best || (ob == best && oa < at)) {
+            best = ob;
+            at = oa;
           }
         }
-        if (piv != c)
-          for (int q = 0; q < 2 * J + KC; ++q) {
-            const T tmp = aug[c * W + q];
-            aug[c * W + q] = aug[piv * W + q];
-            aug[piv * W + q] = tmp;
-          }
-        T pv = aug[c * W + c];
-        if (fabs(pv) < Tiny<T>::value()) pv = Tiny<T>::value();
-        spinv = T(1) / pv;
+        at = __shfl_sync(kFull, at, 0);
+        piv = at < J ? at : c;
+        if (NT > 32 && tid == 0) spiv = piv;
       }
-      __syncthreads();
-      for (int q = tid; q < 2 * J + KC; q += NT) aug[c * W + q] *= spinv;
+      if constexpr (NT > 32) {
+        __syncthreads();
+        piv = spiv;
+      }
+      if (piv != c)
+        for (int q = tid; q < W; q += NT) {
+          const T tmp = aug[c * W + q];
+          aug[c * W + q] = aug[piv * W + q];
+          aug[piv * W + q] = tmp;
+        }
+      sync();
+      T pv = aug[c * W + c];
+      if (fabs(pv) < Tiny<T>::value()) pv = Tiny<T>::value();
+      const T inv = T(1) / pv;
+      sync();
+      for (int q = tid; q < W; q += NT) aug[c * W + q] *= inv;
       for (int r = tid; r < J; r += NT) sf[r] = (r == c) ? T(0) : aug[r * W + c];
-      __syncthreads();
-      for (int e = tid; e < J * (2 * J + KC); e += NT) {
-        const int r = e / (2 * J + KC), q = e % (2 * J + KC);
+      sync();
+      for (int e = tid; e < J * W; e += NT) {
+        const int r = e / W, q = e % W;
         if (r != c) aug[r * W + q] -= sf[r] * aug[c * W + q];
       }
-      __syncthreads();
+      sync();
     }
-    // T = A X_S;  F <- b + A X_F
-    for (int e = tid; e < J * J; e += NT) {
+  }
+
+  // out = the map m1 (earlier) composed with m2 (later):
+  //   X = (I + Q1 R2)^{-1} [A1 | Q1 | b1 + Q1 eta2],
+  //   A = A2 X_A,  Q = sym(Q2 + A2 X_Q A2^T),  R = sym(R1 + A1^T R2 X_A),
+  //   b = b2 + A2 X_b,  eta = eta1 + A1^T (vE - R2 X_Q vE),  vE = eta2 - R2 b1
+  // (elements.kalman_combine).  out aliases neither.
+  __device__ static void combine(const T* m1, const T* m2, T* out, T* scr) {
+    const int tid = threadIdx.x;
+    const T *A1 = m1, *Q1 = m1 + JJ, *R1 = m1 + 2 * JJ, *b1 = m1 + 3 * JJ;
+    const T *A2 = m2, *Q2 = m2 + JJ, *R2 = m2 + 2 * JJ, *b2 = m2 + 3 * JJ;
+    const T *e1 = b1 + J * KC, *e2 = b2 + J * KC;
+    T *aug = scr, *T1 = aug + J * WC, *T2 = T1 + JJ, *T3 = T2 + JJ,
+      *T4 = T3 + JJ, *v1 = T4 + JJ, *v2 = v1 + J * KC, *v3 = v2 + J * KC,
+      *sf = v3 + J * KC;
+    for (int e = tid; e < JJ; e += NT) {
+      const int i = e / J, j = e % J;
+      T s = (i == j) ? T(1) : T(0);
+      for (int k = 0; k < J; ++k) s += Q1[i * J + k] * R2[k * J + j];
+      aug[i * WC + j] = s;
+      aug[i * WC + J + j] = A1[e];
+      aug[i * WC + 2 * J + j] = Q1[e];
+    }
+    for (int e = tid; e < J * KC; e += NT) {
+      const int i = e / KC, k = e % KC;
+      T s = b1[e];
+      for (int l = 0; l < J; ++l) s += Q1[i * J + l] * e2[l * KC + k];
+      aug[i * WC + 3 * J + k] = s;
+    }
+    sync();
+    gauss_jordan<WC>(aug, sf);
+    const T *XA = aug + J, *XQ = aug + 2 * J, *Xb = aug + 3 * J;
+    for (int e = tid; e < JJ; e += NT) {
+      const int i = e / J, j = e % J;
+      T sa = T(0), st = T(0), su = T(0);
+      for (int k = 0; k < J; ++k) {
+        sa += A2[i * J + k] * XA[k * WC + j];
+        st += A2[i * J + k] * XQ[k * WC + j];
+        su += R2[i * J + k] * XA[k * WC + j];
+      }
+      out[e] = sa;
+      T1[e] = st;
+      T2[e] = su;
+    }
+    for (int e = tid; e < J * KC; e += NT) {
+      const int i = e / KC, k = e % KC;
+      T sb = b2[e], sv = e2[e];
+      for (int l = 0; l < J; ++l) {
+        sb += A2[i * J + l] * Xb[l * WC + k];
+        sv -= R2[i * J + l] * b1[l * KC + k];
+      }
+      out[3 * JJ + e] = sb;
+      v1[e] = sv;
+    }
+    sync();
+    for (int e = tid; e < JJ; e += NT) {
+      const int i = e / J, j = e % J;
+      T sq = Q2[e], sr = R1[e];
+      for (int k = 0; k < J; ++k) {
+        sq += T1[i * J + k] * A2[j * J + k];
+        sr += A1[k * J + i] * T2[k * J + j];
+      }
+      T3[e] = sq;
+      T4[e] = sr;
+    }
+    for (int e = tid; e < J * KC; e += NT) {
+      const int i = e / KC, k = e % KC;
+      T s = T(0);
+      for (int l = 0; l < J; ++l) s += XQ[i * WC + l] * v1[l * KC + k];
+      v2[e] = s;
+    }
+    sync();
+    for (int e = tid; e < JJ; e += NT) {
+      const int i = e / J, j = e % J;
+      out[JJ + e] = T(0.5) * (T3[i * J + j] + T3[j * J + i]);
+      out[2 * JJ + e] = T(0.5) * (T4[i * J + j] + T4[j * J + i]);
+    }
+    for (int e = tid; e < J * KC; e += NT) {
+      const int i = e / KC, k = e % KC;
+      T s = v1[e];
+      for (int l = 0; l < J; ++l) s -= R2[i * J + l] * v2[l * KC + k];
+      v3[e] = s;
+    }
+    sync();
+    for (int e = tid; e < J * KC; e += NT) {
+      const int i = e / KC, k = e % KC;
+      T s = e1[e];
+      for (int l = 0; l < J; ++l) s += A1[l * J + i] * v3[l * KC + k];
+      out[3 * JJ + J * KC + e] = s;
+    }
+    sync();
+  }
+
+  // the state st = [S | F] after the map m, in place
+  // (elements.kalman_distribute):
+  //   X = (I + S R)^{-1} [S | F + S eta],  S <- sym(Q + A X_S A^T),
+  //   F <- b + A X_F
+  __device__ static void apply(T* st, const T* m, T* scr) {
+    const int tid = threadIdx.x;
+    const T *A = m, *Q = m + JJ, *R = m + 2 * JJ, *b = m + 3 * JJ,
+            *eta = b + J * KC;
+    T *S = st, *F = st + JJ;
+    T *aug = scr, *T1 = aug + J * WC, *T2 = T1 + JJ, *sf = T2 + JJ;
+    for (int e = tid; e < JJ; e += NT) {
+      const int i = e / J, j = e % J;
+      T s = (i == j) ? T(1) : T(0);
+      for (int k = 0; k < J; ++k) s += S[i * J + k] * R[k * J + j];
+      aug[i * WD + j] = s;
+      aug[i * WD + J + j] = S[e];
+    }
+    for (int e = tid; e < J * KC; e += NT) {
+      const int i = e / KC, k = e % KC;
+      T s = F[e];
+      for (int l = 0; l < J; ++l) s += S[i * J + l] * eta[l * KC + k];
+      aug[i * WD + 2 * J + k] = s;
+    }
+    sync();
+    gauss_jordan<WD>(aug, sf);
+    for (int e = tid; e < JJ; e += NT) {
       const int i = e / J, j = e % J;
       T s = T(0);
-      for (int k = 0; k < J; ++k) s += A[i * J + k] * aug[k * W + J + j];
-      sT[e] = s;
+      for (int k = 0; k < J; ++k) s += A[i * J + k] * aug[k * WD + J + j];
+      T1[e] = s;
     }
-    if (KAL) {
-      for (int e = tid; e < J * KC; e += NT) {
-        const int i = e / KC, k = e % KC;
-        T s = tb[(m * J + i) * K + k0 + k];
-        for (int l = 0; l < J; ++l) s += A[i * J + l] * aug[l * W + 2 * J + k];
-        sF[i * KM + k] = s;
-      }
+    for (int e = tid; e < J * KC; e += NT) {
+      const int i = e / KC, k = e % KC;
+      T s = b[e];
+      for (int l = 0; l < J; ++l) s += A[i * J + l] * aug[l * WD + 2 * J + k];
+      F[e] = s;
     }
-    __syncthreads();
-    // Q + T A^T into the (now free) first block of aug, then symmetrise
-    for (int e = tid; e < J * J; e += NT) {
+    sync();
+    for (int e = tid; e < JJ; e += NT) {
       const int i = e / J, j = e % J;
       T s = Q[e];
-      for (int k = 0; k < J; ++k) s += sT[i * J + k] * A[j * J + k];
-      aug[i * W + j] = s;
+      for (int k = 0; k < J; ++k) s += T1[i * J + k] * A[j * J + k];
+      T2[e] = s;
     }
-    __syncthreads();
-    for (int e = tid; e < J * J; e += NT) {
+    sync();
+    for (int e = tid; e < JJ; e += NT) {
       const int i = e / J, j = e % J;
-      sS[e] = T(0.5) * (aug[i * W + j] + aug[j * W + i]);
+      S[e] = T(0.5) * (T2[i * J + j] + T2[j * J + i]);
     }
-    __syncthreads();
+    sync();
+  }
+
+  // copies n values global -> shared, asynchronously (one commit group)
+  __device__ static void fetch(T* dst, const T* src, int n) {
+    for (int e = threadIdx.x; e < n; e += NT) cp_async_elem(dst + e, src + e);
+    cp_async_commit();
+  }
+
+  // dst = src, n values, by every thread (no barrier)
+  __device__ static void copy(T* dst, const T* src, int n) {
+    for (int e = threadIdx.x; e < n; e += NT) dst[e] = src[e];
+  }
+};
+
+// The walk of a level kernel over ``count`` maps (from ``maps``, each E
+// values, one map ahead in the two buffers ``buf``): body(i, map) for each
+// in order.
+template <typename T, int J, bool KAL, class Body>
+__device__ __forceinline__ void ric_over_maps(const T* maps, int count,
+                                              T* buf, Body body) {
+  using V = RicLevel<T, J, KAL>;
+  constexpr int E = V::E;
+  if (count <= 0) return;
+  V::fetch(buf, maps, E);
+  for (int i = 0; i < count; ++i) {
+    if (i + 1 < count) {
+      V::fetch(buf + ((i + 1) & 1) * E, maps + (long long)(i + 1) * E, E);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    V::sync();
+    body(i, buf + (i & 1) * E);
+    V::sync();
   }
 }
 
-// Each (chain, block, chunk of columns) walks its rows from the state
-// entering it (cS, cF; zero for the first block or when cS is null) with
-// the factor's and the lower solve's row recursion and writes the state
-// after every row: S (C, N, J, J) and F (C, N, J, K).
+// The shared memory of a level kernel: X and O (two maps), the two map
+// buffers of ric_over_maps, a state, the scratch.
 template <typename T, int J, bool KAL>
-__global__ void __launch_bounds__(ric_threads(J))
-    riccati_apply_kernel(const T* __restrict__ p, const T* __restrict__ a,
-                         const T* __restrict__ U, const T* __restrict__ V,
-                         const T* __restrict__ Y, const T* __restrict__ cS,
-                         const T* __restrict__ cF, T* __restrict__ S,
-                         T* __restrict__ F, int N, int K, int L, int NB) {
-  constexpr int NT = ric_threads(J);
-  constexpr int KM = KAL ? kCols : 1;
-  __shared__ T sS[J * J], sF[J * KM];
-  __shared__ T su[J], sv[J], sp[J], sy[KM], sx[J], sz[KM], sa;
-  const int tid = threadIdx.x;
-  const int blk = blockIdx.x % NB;
-  const long long chain = blockIdx.x / NB;
-  const int k0 = blockIdx.y * kCols;
-  const int KC = KAL ? min(kCols, K - k0) : 0;
-  const int lo = blk * L, hi = min(N, lo + L);
-  const size_t m = (size_t)chain * NB + blk;
-  for (int e = tid; e < J * J; e += NT)
-    sS[e] = cS != nullptr ? cS[m * J * J + e] : T(0);
-  if (KAL)
-    for (int e = tid; e < J * KC; e += NT)
-      sF[(e / KC) * KM + e % KC] =
-          cF != nullptr ? cF[(m * J + e / KC) * K + k0 + e % KC] : T(0);
-  __syncthreads();
-  for (int n = lo; n < hi; ++n) {
-    const size_t row = (size_t)chain * N + n;
-    if (n >= 1) {
-      load_row<T, J, KAL>(p, a, U, V, Y, row - 1, K, k0, KC, su, sv, sp, sy,
-                          &sa);
-      __syncthreads();
-      if (tid < J) {
-        T x = T(0);
-        for (int k = 0; k < J; ++k) x += sS[tid * J + k] * su[k];
-        sx[tid] = x;
-      } else if (KAL && tid < J + KC) {
-        const int k = tid - J;
-        T z = sy[k];
-        for (int i = 0; i < J; ++i) z -= sF[i * KM + k] * su[i];
-        sz[k] = z;
-      }
-      __syncthreads();
-      const T delta = sa - dot_shared<T, J>(su, sx);
-      const T inv = T(1) / safe_pos(delta);
-      for (int e = tid; e < J * J; e += NT) {
-        const int i = e / J, j = e % J;
-        const T wi = (sv[i] - sx[i]) * inv, wj = (sv[j] - sx[j]) * inv;
-        sS[e] = (sp[i] * sp[j]) * (sS[e] + delta * (wi * wj));
-      }
-      if (KAL) {
-        for (int e = tid; e < J * KC; e += NT) {
-          const int i = e / KC, k = e % KC, s = i * KM + k;
-          sF[s] = sp[i] * (sF[s] + (sv[i] - sx[i]) * inv * sz[k]);
-        }
-      }
-      __syncthreads();
-    }
-    if (blockIdx.y == 0)
-      for (int e = tid; e < J * J; e += NT) S[row * J * J + e] = sS[e];
-    if (KAL)
-      for (int e = tid; e < J * KC; e += NT)
-        F[(row * J + e / KC) * K + k0 + e % KC] = sF[(e / KC) * KM + e % KC];
+struct RicLevelSmem {
+  using V = RicLevel<T, J, KAL>;
+  T *X, *O, *buf, *st, *scr;
+  __device__ explicit RicLevelSmem(unsigned char* raw) {
+    X = reinterpret_cast<T*>(raw);
+    O = X + V::E;
+    buf = O + V::E;
+    st = buf + 2 * V::E;
+    scr = st + V::ST;
   }
+};
+
+// (b): a (chain, chunk, group) composes the group's block maps in order
+// into the group's map, ``totals`` (C, chunks, GB, E).
+template <typename T, int J, bool KAL>
+__global__ void __launch_bounds__(RicLevel<T, J, KAL>::NT, 1)
+    ric_groups_kernel(const T* __restrict__ maps, T* __restrict__ totals,
+                      int NB, int GB) {
+  using V = RicLevel<T, J, KAL>;
+  constexpr int E = V::E;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const RicLevelSmem<T, J, KAL> sm(smem_raw);
+  T *X = sm.X, *O = sm.O, *scr = sm.scr;
+  const long long cc = (blockIdx.x / GB) * gridDim.y + blockIdx.y;
+  const int g = blockIdx.x % GB, b0 = g * kGroup, b1 = min(NB, b0 + kGroup);
+  ric_over_maps<T, J, KAL>(maps + (cc * NB + b0) * E, b1 - b0, sm.buf,
+                           [&](int i, const T* m) {
+                             if (i == 0) {
+                               V::copy(X, m, E);
+                             } else {
+                               V::combine(X, m, O, scr);
+                               T* tmp = X;
+                               X = O;
+                               O = tmp;
+                             }
+                           });
+  V::copy(totals + (cc * GB + g) * E, X, E);
+}
+
+// (c): a (chain, chunk) carries the state over the groups' maps and writes
+// the state entering every group, ``gstates`` (C, chunks, GB, ST).
+template <typename T, int J, bool KAL>
+__global__ void __launch_bounds__(RicLevel<T, J, KAL>::NT, 1)
+    ric_scan_kernel(const T* __restrict__ totals, T* __restrict__ gstates,
+                    int GB) {
+  using V = RicLevel<T, J, KAL>;
+  constexpr int E = V::E, ST = V::ST;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const RicLevelSmem<T, J, KAL> sm(smem_raw);
+  T *st = sm.st, *scr = sm.scr;
+  const long long cc = (long long)blockIdx.x * gridDim.y + blockIdx.y;
+  for (int e = threadIdx.x; e < ST; e += V::NT) st[e] = T(0);
+  V::sync();
+  T* cs = gstates + cc * GB * ST;
+  ric_over_maps<T, J, KAL>(totals + cc * GB * E, GB - 1, sm.buf,
+                           [&](int g, const T* m) {
+                             V::copy(cs + (long long)g * ST, st, ST);
+                             V::apply(st, m, scr);
+                           });
+  V::copy(cs + (long long)(GB - 1) * ST, st, ST);
+}
+
+// (d): a (chain, chunk, group) carries the state entering its group
+// (``gstates``; zero when null) over the group's block maps and writes the
+// state entering every block, ``cS`` (C, chunks, NB, ST).
+template <typename T, int J, bool KAL>
+__global__ void __launch_bounds__(RicLevel<T, J, KAL>::NT, 1)
+    ric_enter_kernel(const T* __restrict__ maps,
+                     const T* __restrict__ gstates, T* __restrict__ cS, int NB,
+                     int GB) {
+  using V = RicLevel<T, J, KAL>;
+  constexpr int E = V::E, ST = V::ST;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const RicLevelSmem<T, J, KAL> sm(smem_raw);
+  T *st = sm.st, *scr = sm.scr;
+  const long long cc = (blockIdx.x / GB) * gridDim.y + blockIdx.y;
+  const int g = blockIdx.x % GB, b0 = g * kGroup, b1 = min(NB, b0 + kGroup);
+  const T* gs = gstates != nullptr ? gstates + (cc * GB + g) * ST : nullptr;
+  for (int e = threadIdx.x; e < ST; e += V::NT) st[e] = gs ? gs[e] : T(0);
+  V::sync();
+  T* cs = cS + (cc * NB + b0) * ST;
+  ric_over_maps<T, J, KAL>(maps + (cc * NB + b0) * E, b1 - b0 - 1, sm.buf,
+                           [&](int i, const T* m) {
+                             V::copy(cs + (long long)i * ST, st, ST);
+                             V::apply(st, m, scr);
+                           });
+  V::copy(cs + (long long)(b1 - b0 - 1) * ST, st, ST);
 }
 
 // ======================================================== matrix-affine
@@ -492,53 +1001,113 @@ __global__ void __launch_bounds__(kAffineThreads)
 
 // ------------------------------------------------------------ launchers
 
-template <typename T, int J, bool KAL>
-int launch_riccati_j(int phase, const void* p, const void* a, const void* U,
-                     const void* V, const void* Y, void* S, void* F, void* tA,
-                     void* tQ, void* tR, void* tb, void* teta, void* cS,
-                     void* cF, int C, int N, int K, int L, cudaStream_t s) {
-  const int NB = (N + L - 1) / L;
-  const unsigned chunks = KAL ? (unsigned)((K + kCols - 1) / kCols) : 1u;
-  constexpr int NT = ric_threads(J);
-  if (phase == 0) {
-    riccati_maps_kernel<T, J, KAL><<<dim3((unsigned)(C * NB), chunks), NT, 0,
-                                     s>>>(
-        (const T*)p, (const T*)a, (const T*)U, (const T*)V, (const T*)Y,
-        (T*)tA, (T*)tQ, (T*)tR, (T*)tb, (T*)teta, N, K, L, NB);
-  } else if (phase == 1) {
-    riccati_carry_kernel<T, J, KAL><<<dim3((unsigned)C, chunks), NT, 0, s>>>(
-        (const T*)tA, (const T*)tQ, (const T*)tR, (const T*)tb,
-        (const T*)teta, (T*)cS, (T*)cF, K, NB);
-  } else {
-    riccati_apply_kernel<T, J, KAL><<<dim3((unsigned)(C * NB), chunks), NT, 0,
-                                      s>>>(
-        (const T*)p, (const T*)a, (const T*)U, (const T*)V, (const T*)Y,
-        (const T*)cS, (const T*)cF, (T*)S, (T*)F, N, K, L, NB);
+// the blocks, groups and chunks of a Riccati or Kalman call, and its scratch
+template <int J, bool KAL>
+struct RicPlan {
+  long long C;
+  int NB, GB, chunks;
+  RicPlan(int C_, int N, int K, int L)
+      : C(C_),
+        NB((N + L - 1) / L),
+        GB((NB + kGroup - 1) / kGroup),
+        chunks(KAL ? (K + Ric<J, KAL>::KC - 1) / Ric<J, KAL>::KC : 1) {}
+  // scratch values: the maps and states of the blocks and of the groups
+  long long work() const {
+    using G = Ric<J, KAL>;
+    return NB > 1 ? C * chunks * (long long)(NB + GB) * (G::E + G::ST) : 0;
   }
+};
+
+template <typename T, int J, bool KAL>
+int launch_riccati_j(const void* p, const void* a, const void* U,
+                     const void* V, const void* Y, void* S, void* F,
+                     void* work, int C, int N, int K, int L, cudaStream_t s) {
+  using G = Ric<J, KAL>;
+  using Lv = RicLevel<T, J, KAL>;
+  const RicPlan<J, KAL> plan(C, N, K, L);
+  const int NB = plan.NB, GB = plan.GB;
+  const unsigned chunks = (unsigned)plan.chunks;
+  const long long cc = plan.C * plan.chunks;
+  T* maps = (T*)work;
+  T* totals = maps + cc * NB * G::E;
+  T* gstates = totals + cc * GB * G::E;
+  T* cS = gstates + cc * GB * G::ST;
+  const T *pp = (const T*)p, *ap = (const T*)a, *Up = (const T*)U,
+          *Vp = (const T*)V, *Yp = (const T*)Y;
+  const dim3 walks((unsigned)(plan.C * ((NB + G::NW - 1) / G::NW)), chunks);
+  int err;
+  if (NB > 1) {
+    const size_t smem = 2 * G::TILE * sizeof(T);
+    static size_t maps_allowed = 0;
+    if ((err = allow_smem(ric_maps_kernel<T, J, KAL>, smem + G::WALK_STATIC,
+                          &maps_allowed)))
+      return err;
+    ric_maps_kernel<T, J, KAL><<<walks, 32, smem, s>>>(pp, ap, Up, Vp, Yp,
+                                                        maps, N, K, L, NB);
+    if ((err = (int)cudaGetLastError())) return err;
+    static size_t level_allowed[3] = {0, 0, 0};
+    // (gauss_jordan's pivot index is static shared memory)
+    const size_t level = Lv::SMEM + sizeof(int);
+    if ((err = allow_smem(ric_groups_kernel<T, J, KAL>, level,
+                          &level_allowed[0])) ||
+        (err = allow_smem(ric_scan_kernel<T, J, KAL>, level,
+                          &level_allowed[1])) ||
+        (err = allow_smem(ric_enter_kernel<T, J, KAL>, level,
+                          &level_allowed[2])))
+      return err;
+    const dim3 groups((unsigned)(plan.C * GB), chunks);
+    if (GB > 1) {
+      ric_groups_kernel<T, J, KAL><<<groups, Lv::NT, Lv::SMEM, s>>>(maps, totals,
+                                                                NB, GB);
+      if ((err = (int)cudaGetLastError())) return err;
+      ric_scan_kernel<T, J, KAL><<<dim3((unsigned)plan.C, chunks), Lv::NT,
+                                   Lv::SMEM, s>>>(totals, gstates, GB);
+      if ((err = (int)cudaGetLastError())) return err;
+    }
+    ric_enter_kernel<T, J, KAL><<<groups, Lv::NT, Lv::SMEM, s>>>(
+        maps, GB > 1 ? gstates : nullptr, cS, NB, GB);
+    if ((err = (int)cudaGetLastError())) return err;
+  }
+  const size_t smem = (2 * G::TILE + G::OUT) * sizeof(T);
+  static size_t apply_allowed = 0;
+  if ((err = allow_smem(ric_apply_kernel<T, J, KAL>, smem + G::WALK_STATIC,
+                        &apply_allowed)))
+    return err;
+  ric_apply_kernel<T, J, KAL><<<walks, 32, smem, s>>>(
+      pp, ap, Up, Vp, Yp, NB > 1 ? cS : nullptr, (T*)S, (T*)F, N, K, L, NB);
   return (int)cudaGetLastError();
 }
 
+// the widths the Riccati and Kalman kernels are built for
+#define C2T_WIDTHS(X) X(1) X(2) X(4) X(8) X(16) X(32)
+
 template <typename T, bool KAL>
-int launch_riccati(int J, int phase, const void* p, const void* a,
-                   const void* U, const void* V, const void* Y, void* S,
-                   void* F, void* tA, void* tQ, void* tR, void* tb, void* teta,
-                   void* cS, void* cF, int C, int N, int K, int L,
-                   cudaStream_t s) {
-#define C2T_RICCATI(JJ)                                                        \
-  case JJ:                                                                     \
-    return launch_riccati_j<T, JJ, KAL>(phase, p, a, U, V, Y, S, F, tA, tQ,    \
-                                        tR, tb, teta, cS, cF, C, N, K, L, s)
+int launch_riccati(int J, const void* p, const void* a, const void* U,
+                   const void* V, const void* Y, void* S, void* F, void* work,
+                   int C, int N, int K, int L, cudaStream_t s) {
   switch (J) {
-    C2T_RICCATI(1);
-    C2T_RICCATI(2);
-    C2T_RICCATI(4);
-    C2T_RICCATI(8);
-    C2T_RICCATI(16);
-    C2T_RICCATI(32);
+#define C2T_CASE(JJ)                                                      \
+  case JJ:                                                                \
+    return launch_riccati_j<T, JJ, KAL>(p, a, U, V, Y, S, F, work, C, N, \
+                                        K, L, s);
+    C2T_WIDTHS(C2T_CASE)
+#undef C2T_CASE
     default:
       return -1;
   }
-#undef C2T_RICCATI
+}
+
+template <bool KAL>
+long long riccati_work(int J, int C, int N, int K, int L) {
+  switch (J) {
+#define C2T_CASE(JJ) \
+  case JJ:           \
+    return RicPlan<JJ, KAL>(C, N, K, L).work();
+    C2T_WIDTHS(C2T_CASE)
+#undef C2T_CASE
+    default:
+      return -1;
+  }
 }
 
 template <typename T>
@@ -574,15 +1143,16 @@ int launch_mat_affine(int phase, const void* A, const void* b,
 
 // ------------------------------------------------------ C interface
 //
-// Each function launches one kernel on ``stream`` and returns
-// cudaGetLastError() after the launch (0 on success), or -1 for a width
-// that is not one of 1, 2, 4, 8, 16, 32.  Pointers are to contiguous device
-// arrays of the scalar type given by ``is_double``.
+// Each function returns cudaGetLastError() after its launches (0 on
+// success), or -1 for a width that is not one of 1, 2, 4, 8, 16, 32.
+// Pointers are to contiguous device arrays of the scalar type given by
+// ``is_double``.
 //
-// c2t_riccati_prefix: K = 0 is the Riccati family (Y, F, tb, teta, cF
-// unused), K >= 1 the Kalman family with K right-hand sides.  phase 0 maps
-// (writes tA, tQ, tR, tb, teta), 1 carry (reads them, writes cS, cF), 2
-// apply (reads cS, cF, null for one block, writes S, F).
+// c2t_riccati_prefix: K = 0 is the Riccati family (Y, F unused), K >= 1 the
+// Kalman family with K right-hand sides.  Launches the phases (a)-(e) its
+// blocks of L rows need: (e) alone for one block, (a), (d), (e) for one
+// group, all five above; ``work`` holds c2t_riccati_work(J, C, N, K, L)
+// values of scratch (null for none).
 //
 // c2t_mat_affine_prefix: phase 0 product (writes P from A, using Pw), 1
 // walk (reads A, b and ``carry``, null for zero; writes F and/or ``last``,
@@ -590,25 +1160,24 @@ int launch_mat_affine(int phase, const void* A, const void* b,
 
 extern "C" {
 
+long long c2t_riccati_work(int J, int C, int N, int K, int L) {
+  return K == 0 ? riccati_work<false>(J, C, N, K, L)
+                : riccati_work<true>(J, C, N, K, L);
+}
+
 int c2t_riccati_prefix(int is_double, int J, const void* p, const void* a,
                        const void* U, const void* V, const void* Y, void* S,
-                       void* F, void* tA, void* tQ, void* tR, void* tb,
-                       void* teta, void* cS, void* cF, int C, int N, int K,
-                       int L, int phase, void* stream) {
+                       void* F, void* work, int C, int N, int K, int L,
+                       void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (K == 0)
-    return is_double
-               ? launch_riccati<double, false>(J, phase, p, a, U, V, Y, S, F,
-                                               tA, tQ, tR, tb, teta, cS, cF, C,
-                                               N, K, L, s)
-               : launch_riccati<float, false>(J, phase, p, a, U, V, Y, S, F,
-                                              tA, tQ, tR, tb, teta, cS, cF, C,
-                                              N, K, L, s);
-  return is_double ? launch_riccati<double, true>(J, phase, p, a, U, V, Y, S,
-                                                  F, tA, tQ, tR, tb, teta, cS,
-                                                  cF, C, N, K, L, s)
-                   : launch_riccati<float, true>(J, phase, p, a, U, V, Y, S, F,
-                                                 tA, tQ, tR, tb, teta, cS, cF,
+    return is_double ? launch_riccati<double, false>(J, p, a, U, V, Y, S, F,
+                                                     work, C, N, K, L, s)
+                     : launch_riccati<float, false>(J, p, a, U, V, Y, S, F,
+                                                    work, C, N, K, L, s);
+  return is_double ? launch_riccati<double, true>(J, p, a, U, V, Y, S, F,
+                                                  work, C, N, K, L, s)
+                   : launch_riccati<float, true>(J, p, a, U, V, Y, S, F, work,
                                                  C, N, K, L, s);
 }
 

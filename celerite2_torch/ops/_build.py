@@ -195,10 +195,12 @@ def _library():
         #  stream)
         lib.c2t_affine_prefix.argtypes = [I, I] + [P] * 6 + [I] * 5 + [P]
         lib.c2t_affine_prefix.restype = I
-        # (is_double, J, p, a, U, V, Y, S, F, tA, tQ, tR, tb, teta, cS, cF,
-        #  C, N, K, L, phase, stream)
-        lib.c2t_riccati_prefix.argtypes = [I, I] + [P] * 14 + [I] * 5 + [P]
+        # (is_double, J, p, a, U, V, Y, S, F, work, C, N, K, L, stream)
+        lib.c2t_riccati_prefix.argtypes = [I, I] + [P] * 8 + [I] * 4 + [P]
         lib.c2t_riccati_prefix.restype = I
+        # (J, C, N, K, L) -> values of scratch
+        lib.c2t_riccati_work.argtypes = [I] * 5
+        lib.c2t_riccati_work.restype = ctypes.c_longlong
         # (is_double, A, b, carry, F, last, P, Pw, C, M, D, K, L, reverse,
         #  phase, stream)
         lib.c2t_mat_affine_prefix.argtypes = [I] + [P] * 7 + [I] * 7 + [P]
@@ -519,17 +521,35 @@ def affine_prefix_cuda(phi, G, reverse=False, block_len=None):
     return F
 
 
-def kalman_block_len(N):
-    """Rows per block of the Riccati and Kalman prefixes: the power of two
-    at or above 4 sqrt(N) (at least 32).  Fewer, longer blocks than
-    :func:`prefix_block_len`: each block map the carry walk composes costs a
-    Gauss-Jordan solve and loses digits (at N = 1e4, J = 8, blocks of 128
-    rows put the solve state 1e-10 from the row recursion, blocks of 512
-    2e-11), while a row of the apply walk costs three barriers."""
+def kalman_block_len(N, J):
+    """Rows per block of the Riccati and Kalman prefixes on the card, for
+    digits first, time second (``chip_smoke.py --sweep`` on an H100 80GB
+    HBM3 at 700 W, float64, K = 1).
+
+    * J >= 8: 512 rows.  Each block map composed above the rows loses
+      digits at wide8's stiff Q = 0.5 term (ROADMAP C4): with blocks of
+      32 to 256 rows S lies 1.8e-9 to 8.1e-9 from the row recursion at
+      N = 1e5 and 1e6 and F up to 3.9e-8, past the 1e-9 gate; from 512 rows
+      S lies 3.7e-10 to 5.1e-10 away (F 5.5e-10 to 1.1e-9).  At N = 1e4
+      every length keeps 1e-10.  Of the lengths that keep the gate, 512
+      rows are the fastest at one chain (0.874 ms at N = 1e5, 1.45 at
+      1e6), and within 2% of the fastest at 64 chains.
+    * J <= 4: no digits lost at any length (S within 3.3e-14), so the
+      power of two at or above sqrt(N) / 5, at least 32: 64 rows at
+      N = 1e5 (0.439 ms at one chain against 0.505 at 32 and 0.502 at
+      128), 256 at N = 1e6 (1.02 ms against 1.13 at 128 and 1.36 at
+      512)."""
+    if J >= 8:
+        return 512
     L = 32
-    while L * L < 16 * N:
+    while 25 * L * L < N:
         L *= 2
     return L
+
+
+# blocks of the Riccati and Kalman prefixes' rows in a group
+# (csrc/assoc_prefix.cu, kGroup)
+ASSOC_GROUP = 32
 
 
 def kalman_prefix_cuda(p, a, U, V, Y=None, block_len=None):
@@ -540,10 +560,13 @@ def kalman_prefix_cuda(p, a, U, V, Y=None, block_len=None):
     identity; returns the state after every row applied to zero: ``S (C,
     N, J, J)``, and with ``Y (C, N, K)`` also ``F (C, N, J, K)``.
 
-    Up to ``block_len`` rows (default :func:`kalman_block_len`) one launch
-    walks them; above, three: the map of every block, the walk over the
-    block maps for the state entering every block, and every block's rows
-    from that state."""
+    The rows go in blocks of ``block_len`` (default
+    :func:`kalman_block_len`), the blocks in groups of
+    :data:`ASSOC_GROUP`: one launch walks the rows of one block; with more
+    blocks, five (three with one group) run the two-level scan: the map of
+    every block, the map of every group, the state entering every group,
+    the state entering every block, and every block's rows from that
+    state."""
     C, N, J = U.shape
     kalman = Y is not None
     K = Y.shape[-1] if kalman else 0
@@ -553,23 +576,17 @@ def kalman_prefix_cuda(p, a, U, V, Y=None, block_len=None):
            shapes + ([(C, N, K)] if kalman else []))
     if min(C, N) < 1 or (kalman and K < 1):
         raise ValueError(f"{key}: empty system (C={C}, N={N}, K={K})")
-    L = kalman_block_len(N) if block_len is None else int(block_len)
+    L = kalman_block_len(N, J) if block_len is None else int(block_len)
     if L < 1:
         raise ValueError(f"{key}: block length must be >= 1, got {L}")
-    NB = -(-N // L)
     S = _empty(p, C, N, J, J)
     F = _empty(p, C, N, J, K) if kalman else None
-    maps = [None] * 5
-    carry = [None, None]
-    if NB > 1:
-        maps = [_empty(p, C, NB, J, J) for _ in range(3)]
-        maps += [_empty(p, C, NB, J, K) if kalman else None for _ in range(2)]
-        carry = [_empty(p, C, NB, J, J), _empty(p, C, NB, J, K) if kalman else None]
-        for phase in (0, 1):
-            _launch_general(key, J, (p, a, U, V, Y), (None, None, *maps, *carry),
-                            (C, N, K, L, phase), "riccati_prefix")
-    _launch_general(key, J, (p, a, U, V, Y), (S, F, *maps, *carry),
-                    (C, N, K, L, 2), "riccati_prefix")
+    n_work = _library().c2t_riccati_work(J, C, N, K, L)  # -1 for another J
+    work = _empty(p, n_work) if n_work > 0 else None
+    _launch_general(key, J, (p, a, U, V, Y), (S, F, work), (C, N, K, L),
+                    "riccati_prefix")
+    NB = -(-N // L)
+    LAUNCHES[key] += 2 * (NB > 1) + 2 * (NB > ASSOC_GROUP)
     return (S, F) if kalman else S
 
 

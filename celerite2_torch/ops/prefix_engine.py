@@ -26,8 +26,10 @@ combine along the rows (``elements.riccati_combine``, ``kalman_combine``,
 ``scan.affine_prefix_plain`` does for the diagonal family: the CPU route,
 and what the kernels are held against.  Without a suffix, the CUDA kernels
 of ``csrc/assoc_prefix.cu`` for CUDA tensors (blocks of rows composed side
-by side, a walk over the block maps, then every block's rows from the state
+by side, a scan over the block maps, then every block's rows from the state
 entering it) and the plain doubling for CPU tensors.
+:func:`kalman_prefix_blocked` composes the Riccati and Kalman elements in
+the order of their kernels, for the tests on the CPU.
 
 The doubling composes full (C, N, J, J) elements with ``torch.matmul``; on
 the card keep TF32 off (``torch.backends.cuda.matmul.allow_tf32 = False``,
@@ -50,6 +52,7 @@ __all__ = [
     "riccati_prefix_plain",
     "kalman_prefix",
     "kalman_prefix_plain",
+    "kalman_prefix_blocked",
     "mat_affine_prefix",
     "mat_affine_prefix_plain",
 ]
@@ -120,6 +123,73 @@ def kalman_prefix_plain(p, a, U, V, Y):
     leaves of the inclusive prefix of :func:`kalman_elements`."""
     out = _doubling(el.kalman_combine, kalman_elements(p, a, U, V, Y))
     return out[1], out[3]
+
+
+def _identity(elems, C, M):
+    """The identity element, ``(C, M, ...)`` leaves shaped as ``elems``'."""
+    A = elems[0]
+    eye = torch.eye(A.shape[-1], dtype=A.dtype, device=A.device)
+    return (eye.expand(C, M, *A.shape[2:]),) + tuple(
+        x.new_zeros(C, M, *x.shape[2:]) for x in elems[1:])
+
+
+def _grouped(elems, size):
+    """``(C, M, ...)`` leaves padded with the identity to a multiple of
+    ``size`` rows and viewed as ``(C, ceil(M / size), size, ...)``."""
+    C, M = elems[0].shape[:2]
+    pad = -M % size
+    elems = tuple(torch.cat([x, i], 1)
+                  for x, i in zip(elems, _identity(elems, C, pad)))
+    return tuple(x.reshape(C, -1, size, *x.shape[2:]) for x in elems)
+
+
+def kalman_prefix_blocked(p, a, U, V, Y=None, *, block_len):
+    """The Riccati (``Y`` None) or Kalman prefix composed in the order of
+    the CUDA kernels (``_build.kalman_prefix_cuda``), with the plain
+    combines of ``ops/elements.py``: the elements of every block of
+    ``block_len`` rows composed in order into the block's map; the maps of
+    every group of ``_build.ASSOC_GROUP`` blocks composed in order into the
+    group's map; the state carried over the groups' maps from zero, then
+    over each group's block maps from the state entering the group; every
+    block's rows again from the state entering it.  Returns what
+    :func:`riccati_prefix_plain` or :func:`kalman_prefix_plain` returns.  A
+    plain version of the kernels' order, for the tests on the CPU; nothing
+    on the card's path calls it."""
+    kalman = Y is not None
+    if kalman:
+        elems = kalman_elements(p, a, U, V, Y)
+        combine, apply = el.kalman_combine, el.kalman_distribute
+    else:
+        elems = riccati_elements(p, a, U, V)
+        combine, apply = el.riccati_combine, el.riccati_distribute
+    C, N = U.shape[:2]
+
+    def compose(seq):  # the in-order composition along dim 2
+        out = tuple(x[:, :, 0] for x in seq)
+        for k in range(1, seq[0].shape[2]):
+            out = combine(out, tuple(x[:, :, k] for x in seq))
+        return out
+
+    def walk(state, seq):  # the state entering every step along dim 2
+        states = []
+        for k in range(seq[0].shape[2]):
+            states.append(state)
+            state = apply(state, tuple(x[:, :, k] for x in seq))
+        return tuple(torch.stack(x, 2) for x in zip(*states)), state
+
+    rows = _grouped(elems, block_len)
+    groups = _grouped(compose(rows), _build.ASSOC_GROUP)
+    totals = tuple(x[:, None] for x in compose(groups))
+    entering, _ = walk(_identity(elems, C, 1), totals)
+    entering, _ = walk(tuple(x[:, 0] for x in entering), groups)
+    entering = tuple(x.flatten(1, 2)[:, :rows[0].shape[1]] for x in entering)
+    after = []
+    state = entering
+    for k in range(block_len):
+        state = apply(state, tuple(x[:, :, k] for x in rows))
+        after.append(state)
+    out = tuple(torch.stack(x, 2).flatten(1, 2)[:, :N] for x in zip(*after))
+    return (out[1], out[3]) if kalman else out[1]
 
 
 def mat_affine_prefix_plain(A, b, *, reverse=False):

@@ -24,7 +24,10 @@ float64:
   training calls at J = 8, N = 100,000 through the blocked prefix kernels
   ``riccati_prefix``, ``kalman_prefix`` and ``mat_affine_prefix`` (and
   ``affine_prefix``), each held against its plain version, timed against
-  its bound, and the crossover between the two tiers that sets "auto".
+  its bound (the Riccati and Kalman prefixes at J = 2, 4 and 8), the J = 4
+  ``GaussianProcess`` path under ``backend="auto"`` (the route a user
+  gets, through ``riccati_prefix``) beside ``backend="scan"``, and the
+  crossover between the two tiers that sets "auto".
 
 Every phase before the assoc phase pins ``backend="scan"``, the sequential
 tier its launch counts and times assume.
@@ -36,7 +39,9 @@ tiles and in float32, K1 on rows that are not positive definite.  Run from
 the root of the repository:
 
     python3 chip_smoke.py            # the smoke test (a few minutes)
-    python3 chip_smoke.py --sweep    # also time the fused kernels and evals/s per block length
+    python3 chip_smoke.py --sweep    # also time the fused kernels, evals/s and the
+                                     # assoc tier's Riccati and Kalman prefixes per
+                                     # block length
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``,
@@ -309,6 +314,9 @@ FUSED_KERNELS = ("kalman_maps", "kalman_states", "solve_maps", "solve_states",
                  "block_scan", "factor_maps", "frev_groups", "frev_scan",
                  "frev_rows")
 FUSED_KERNEL_COUNT = (6 * 4 + 2 + 3 * 4) * 2
+# csrc/assoc_prefix.cu's ric_{maps,groups,scan,enter,apply}_kernel at six
+# widths, two families and two scalar types
+RIC_KERNEL_COUNT = 5 * 6 * 2 * 2
 
 
 def phase_build():
@@ -316,7 +324,7 @@ def phase_build():
     lib = _build.build()
     seconds = time.perf_counter() - start
     log("build", f"{lib.name} ready in {seconds:.1f} s")
-    name, spills, fused = "?", "?", []
+    name, spills, fused, ric = "?", "?", [], []
     for line in lib.with_suffix(".log").read_text().splitlines():
         if line.startswith("build_seconds"):
             log("build", f"nvcc took {line.split()[1]} s")
@@ -330,6 +338,8 @@ def phase_build():
             spills = line.split(",")[1].strip()
             if name.split("<")[0] in FUSED_KERNELS:
                 fused.append((name, spills))
+            elif name.startswith("ric_"):
+                ric.append((name, spills))
         elif m := re.search(r"Used (\d+) registers", line):
             log("build", f"{name}: {m[1]} registers, {spills}")
     assert len(fused) == FUSED_KERNEL_COUNT, (
@@ -338,6 +348,12 @@ def phase_build():
     assert not spilled, f"K1-K3, K5 kernels that spill: {spilled}"
     log("build", f"K1, K2, K3, K5: {len(fused)} kernels (J = 1..4, K3 J = 1, 2; "
         "float and double), 0 bytes spilled")
+    assert len(ric) == RIC_KERNEL_COUNT, f"ric_* kernels in the build log: {len(ric)}"
+    spilled = [n for n, sp in ric if not sp.startswith("0 bytes")]
+    assert not spilled, f"Riccati and Kalman kernels that spill: {spilled}"
+    log("build", f"the Riccati and Kalman prefixes: {len(ric)} kernels (five "
+        "phases, J = 1, 2, 4, 8, 16, 32, both families, float and double), "
+        "0 bytes spilled")
 
 
 # kernels of each system kind: J = 1 RealTerm, 2 SHOTerm, 3 RealTerm +
@@ -1561,6 +1577,15 @@ def sequential_prefix(name, inputs, reverse=False):
     return (S,) if len(inputs) == 4 else (S, p[..., :, None] * F)
 
 
+def row_prefix(p, a, U, V, Y):
+    """S and F after every row by the row recursion on the card: the scan
+    tier's factor_fwd and sweep_fwd (a lower solve) with their caches, held
+    against the plain row loop in phase "general kernels"."""
+    _, W, S_half = _build.factor_fwd_cuda(p, a, U, V, want_cache=True)
+    _, F = _build.sweep_fwd_cuda(p, U, W, Y, True, False, want_cache=True)
+    return S_half * p[..., None, :], p[..., :, None] * F
+
+
 def hold_prefix(checks, worst, tol=1e-10):
     """``checks``: (name, kernel outputs, doubling outputs, row-by-row
     outputs).  Each kernel output is held to ``tol`` relative against the
@@ -1588,8 +1613,13 @@ def phase_assoc_kernels(dev):
     J = 16) on the card, float64, against their plain doublings and the
     row-by-row recursion (``hold_prefix``, 1e-10): J = 1, 2, 3 -> 4, 8, 16,
     32; N = 130, 1040, 1e4; C = 8, and C = 1 as the first of those chains.
-    Then their times at N = 1e5, J = 8, K = 1, C = 1 and 64, and at C = 1
-    the same checks at 1e-9."""
+    Then their times at N = 1e5, K = 1, C = 1 and 64 (the Riccati and
+    Kalman prefixes at J = 2, 4, 8, the matrix-affine one at J = 8), and
+    at C = 1 the same checks at 1e-9 (the row recursion: the plain loop at
+    J = 8, the row kernels below it); the Riccati and Kalman prefixes at
+    N = 1e6, J = 4 and 8, against the row kernels and the doubling at
+    1e-9; in float32 (J = 2, 4, 8, N = 1040) within max(1e-4, 2 x the
+    float32 doubling's error) of the float64 row recursion."""
     worst = {name: (0.0, 0.0, 0.0) for name in ASSOC}
     first = lambda xs: [x[:1] for x in xs]  # noqa: E731
     for J in (1, 2, 3, 8, 16, 32):
@@ -1649,51 +1679,98 @@ def phase_assoc_kernels(dev):
             ("; forward and reverse; D = J^2 at M = 130, 1040 for J <= 8, 130 "
              "at J = 16" if name == "mat_affine_prefix" else "") + ")")
 
-    # times at the assoc path's shapes: N = 1e5, J = 8, K = 1, float64
+    # float32: the Riccati and Kalman prefixes at J = 2, 4, 8, N = 1040 in
+    # blocks of 8 rows (five launches), C = 3, K = 1, against the float64 row
+    # recursion within max(1e-4, 2 x the float32 doubling's error)
+    for J in (2, 4, 8):
+        p, a, U, V, Y = prefix_inputs(J, 1040, 3, 1, dev, seed=J)
+        rows = sequential_prefix("kalman_prefix", (p, a, U, V, Y))
+        x32 = [x.float() for x in (p, a, U, V, Y)]
+        got = (_build.riccati_prefix_cuda(*x32[:4], block_len=8),
+               *_build.kalman_prefix_cuda(*x32, block_len=8))
+        plain = pe.kalman_prefix_plain(*x32)
+        errs = []
+        for g, d, r in zip(got, (plain[0],) + plain, (rows[0],) + rows):
+            err, tol = scaled_err(g, r), max(1e-4, 2 * scaled_err(d, r))
+            assert torch.isfinite(g).all() and err < tol, (J, err, tol)
+            errs.append(f"{err:.2e} (tol {tol:.2e})")
+        log("assoc", f"float32, J = {J}, N = 1040, L = 8: riccati_prefix S, "
+            f"kalman_prefix S, F against the float64 row recursion: "
+            + ", ".join(errs))
+
+    # times at N = 1e5, K = 1, float64: the Riccati and Kalman prefixes at
+    # J = 2, 4 (the route "auto" takes) and 8 (the assoc path's), the
+    # matrix-affine prefix at J = 8; C = 1 and 64.  The kernels line keeps
+    # J = 8, C = 1.
     main_abs, times = {}, {}
-    for C in (1, 64):
-        p, a, U, V, Y = prefix_inputs(8, N_MAIN, C, 1, dev, seed=8)
-        fin = (p, a, U, V)
-        W = _build.factor_fwd_cuda(*fin)[1]
-        A, b = assoc.solve_elements(p, U, W, Y)
-        runs = {
-            "riccati_prefix": (lambda: (_build.riccati_prefix_cuda(*fin),),
-                               lambda: (pe.riccati_prefix_plain(*fin),), fin),
-            "kalman_prefix": (lambda: _build.kalman_prefix_cuda(*fin, Y),
-                              lambda: pe.kalman_prefix_plain(*fin, Y), fin + (Y,)),
-            "mat_affine_prefix": (lambda: (_build.mat_affine_prefix_cuda(A, b),),
-                                  lambda: (pe.mat_affine_prefix_plain(A, b),),
-                                  (A, b)),
-        }
-        if C == 1:
-            # one row loop serves the Riccati and Kalman families
-            _, _, _, S_half, F = scan.factor_solve_plain(*fin, Y)
-            S = S_half * p[..., None, :]
-            rows = {"riccati_prefix": (S,), "kalman_prefix": (S, p[..., :, None] * F),
-                    "mat_affine_prefix": sequential_prefix("mat_affine_prefix", (A, b))}
-        for name, (kernel, plain, inputs) in runs.items():
-            before = _build.LAUNCHES[name]
-            got = kernel()
-            torch.cuda.synchronize()
-            per_call = _build.LAUNCHES[name] - before
-            ms = cuda_ms(kernel, reps=5, warmup=1)
-            bound, by = bound_ms((*inputs, *got), kernel_flops(name, C, N_MAIN, 8))
-            L = (_build.prefix_block_len if name == "mat_affine_prefix"
-                 else _build.kalman_block_len)(N_MAIN)
-            log("assoc", f"{name}: {ms:.4f} ms (bound {bound:.4f} ms by {by}; "
-                f"{per_call} launches, L = {L}) at N = 1e5, J = 8, K = 1, "
-                f"C = {C}, float64")
+    for J in (2, 4, 8):
+        for C in (1, 64):
+            p, a, U, V, Y = prefix_inputs(J, N_MAIN, C, 1, dev, seed=J)
+            fin = (p, a, U, V)
+            runs = {
+                "riccati_prefix": (lambda: (_build.riccati_prefix_cuda(*fin),),
+                                   lambda: (pe.riccati_prefix_plain(*fin),), fin),
+                "kalman_prefix": (lambda: _build.kalman_prefix_cuda(*fin, Y),
+                                  lambda: pe.kalman_prefix_plain(*fin, Y), fin + (Y,)),
+            }
+            if J == 8:
+                W = _build.factor_fwd_cuda(*fin)[1]
+                A, b = assoc.solve_elements(p, U, W, Y)
+                runs["mat_affine_prefix"] = (
+                    lambda: (_build.mat_affine_prefix_cuda(A, b),),
+                    lambda: (pe.mat_affine_prefix_plain(A, b),), (A, b))
             if C == 1:
-                dbl, plain_ms = timed_plain(plain)
-                log("assoc", f"{name}: plain version {plain_ms:.1f} ms (one run)")
-                main = {name: (0.0, 0.0, 0.0)}
-                hold_prefix([(name, got, dbl, rows[name])], main, tol=LONG_RTOL)
-                log("assoc", f"{name} at N = 1e5: relative error {main[name][0]:.3e} "
-                    f"against the row recursion, {main[name][1]:.3e} against the "
-                    f"doubling (its own distance {main[name][2]:.3e})")
-                main_abs[name] = max((g - d).abs().max().item()
-                                     for g, d in zip(got, dbl))
-                times[name] = (ms, plain_ms, bound, by)
+                # one row recursion serves the Riccati and Kalman families:
+                # the plain loop at J = 8, the row kernels below it
+                S, F = (sequential_prefix("kalman_prefix", fin + (Y,)) if J == 8
+                        else row_prefix(*fin, Y))
+                rows = {"riccati_prefix": (S,), "kalman_prefix": (S, F)}
+                if J == 8:
+                    rows["mat_affine_prefix"] = sequential_prefix(
+                        "mat_affine_prefix", (A, b))
+            for name, (kernel, plain, inputs) in runs.items():
+                before = _build.LAUNCHES[name]
+                got = kernel()
+                torch.cuda.synchronize()
+                per_call = _build.LAUNCHES[name] - before
+                ms = cuda_ms(kernel, reps=5, warmup=1)
+                bound, by = bound_ms((*inputs, *got), kernel_flops(name, C, N_MAIN, J))
+                L = (_build.prefix_block_len(N_MAIN) if name == "mat_affine_prefix"
+                     else _build.kalman_block_len(N_MAIN, J))
+                log("assoc", f"{name}: {ms:.4f} ms (bound {bound:.4f} ms by {by}; "
+                    f"{per_call} launches, L = {L}) at N = 1e5, J = {J}, K = 1, "
+                    f"C = {C}, float64")
+                if C == 1:
+                    dbl, plain_ms = timed_plain(plain)
+                    log("assoc", f"{name}: plain version {plain_ms:.1f} ms (one run)")
+                    main = {name: (0.0, 0.0, 0.0)}
+                    hold_prefix([(name, got, dbl, rows[name])], main, tol=LONG_RTOL)
+                    log("assoc", f"{name} at N = 1e5, J = {J}: relative error "
+                        f"{main[name][0]:.3e} against the row recursion, "
+                        f"{main[name][1]:.3e} against the doubling (its own "
+                        f"distance {main[name][2]:.3e})")
+                    if J == 8:
+                        main_abs[name] = max((g - d).abs().max().item()
+                                             for g, d in zip(got, dbl))
+                        times[name] = (ms, plain_ms, bound, by)
+            del p, a, U, V, Y, fin, runs, got
+            torch.cuda.empty_cache()
+    # N = 1e6, J = 4 and 8, one chain: against the row kernels and the
+    # doubling at 1e-9
+    for J in (4, 8):
+        p, a, U, V, Y = prefix_inputs(J, 1_000_000, 1, 1, dev, seed=J)
+        fin = (p, a, U, V)
+        S, F = row_prefix(*fin, Y)
+        dS, dF = pe.kalman_prefix_plain(*fin, Y)
+        main = {"riccati_prefix": (0.0, 0.0, 0.0), "kalman_prefix": (0.0, 0.0, 0.0)}
+        hold_prefix([("riccati_prefix", (_build.riccati_prefix_cuda(*fin),), (dS,), (S,)),
+                     ("kalman_prefix", _build.kalman_prefix_cuda(*fin, Y), (dS, dF),
+                      (S, F))], main, tol=LONG_RTOL)
+        log("assoc", f"N = 1e6, J = {J}, C = 1 (L = {_build.kalman_block_len(10**6, J)}):"
+            f" relative errors (against the row kernels, the doubling, the "
+            f"doubling's own) {main}")
+        del p, a, U, V, Y, fin, S, F, dS, dF
+        torch.cuda.empty_cache()
     # the shape of the factor adjoint's phase B at N = 1e5, J = 8, C = 1:
     # the prefix of ceil(N / L) maps of 64 x 64 (contracting random maps:
     # the adjoint's own maps are checked above, and on the path)
@@ -1863,6 +1940,47 @@ def phase_assoc_path(dev, smi, refs):
         assert (torch.float32, 8, False) not in dispatch.ASSOC_MIN_ROWS, (
             "auto sends float32 at J = 8 to the assoc tier, which fails its gate")
     return launches, ok32
+
+
+def phase_auto_path(dev, smi):
+    """The J = 4 GaussianProcess path (config5's SHO mixture) at N = 1e5,
+    float64, one chain, under backend="auto", the route a user gets: the
+    card's crossover (dispatch.ASSOC_MIN_ROWS) sends it to the assoc tier,
+    so compute launches riccati_prefix.  Each call's time (CUDA events, 1
+    warm-up, 5 runs) beside the same call on backend="scan", and the
+    state d, W and each call's result against the scan tier's to 1e-9."""
+    t, y, _, _ = gp_data(N_MAIN)
+    calls = {
+        "compute": lambda gp, ys: ct.GaussianProcess(GP_MODELS["J=4"](), t,
+                                                     yerr=0.25, mean=0.1),
+        "log_likelihood": lambda gp, ys: gp.log_likelihood(ys),
+        "apply_inverse": lambda gp, ys: gp.apply_inverse(ys),
+        "predict(y)": lambda gp, ys: gp.predict(ys),
+    }
+    out, ms, launches = {}, {}, {}
+    for name in ("auto", "scan"):
+        with tier(name), torch.no_grad():
+            reset_launches()
+            gp = calls["compute"](None, None)
+            ys = gp.state.t.new_tensor(y)
+            out[name] = {"state d": gp.state.d, "state W": gp.state.W}
+            out[name].update({k: fn(gp, ys) for k, fn in calls.items()
+                              if k != "compute"})
+            torch.cuda.synchronize()
+            launches[name] = {k: v for k, v in _build.LAUNCHES.items() if v}
+            for k, fn in calls.items():
+                ms[name, k] = cuda_ms(lambda: fn(gp, ys), reps=5, warmup=1)
+    log("auto path", f"J = 4, N = 1e5, float64, C = 1 | {smi}")
+    for k in calls:
+        log("auto path", f"{k}: auto {ms['auto', k]:.3f} ms, scan "
+            f"{ms['scan', k]:.3f} ms")
+    for k, res in out["auto"].items():
+        err = scaled_err(res, out["scan"][k])
+        log("auto path", f"{k}: auto against scan {err:.2e}")
+        assert res.is_cuda and torch.isfinite(res).all() and err < 1e-9, (k, err)
+    log("auto path", f"launches: auto {launches['auto']}; scan {launches['scan']}")
+    assert launches["auto"].get("riccati_prefix", 0) >= 1, launches["auto"]
+    assert launches["auto"].get("factor_fwd", 0) == 0, launches["auto"]
 
 
 CROSS_MODELS = {2: (sho, THETA0), 4: (sho_mixture, THETA4), 8: (wide8, THETA0)}
@@ -2235,10 +2353,11 @@ def phase_profile(dev, label, model, theta0, J):
 @contextmanager
 def card_block_len(name, rows):
     """``_build.<name>`` (``fused_block_len``: K1 and K2;
-    ``factor_adjoint_block_len``: K3, K4 and K5) gives ``rows`` rows a
-    block, whatever it would choose."""
+    ``factor_adjoint_block_len``: K3, K4 and K5; ``kalman_block_len``: the
+    Riccati and Kalman prefixes) gives ``rows`` rows a block, whatever it
+    would choose."""
     saved = getattr(_build, name)
-    setattr(_build, name, lambda N: rows)
+    setattr(_build, name, lambda *args: rows)
     try:
         yield
     finally:
@@ -2246,6 +2365,7 @@ def card_block_len(name, rows):
 
 
 SWEEP_ROWS = (16, 32, 64, 128, 256, 512, 1024)
+PREFIX_SWEEP_ROWS = (32, 64, 128, 256, 512, 1024, 2048)
 
 
 def phase_sweep(dev):
@@ -2320,10 +2440,39 @@ def phase_sweep(dev):
                 + (" (the default)" if default else ""))
 
 
+def phase_prefix_sweep(dev):
+    """The assoc tier's Riccati and Kalman prefixes (K = 1) per rows a
+    block on the card, float64: J = 4 and 8, N = 1e5 and 1e6, C = 1 and 64,
+    with the relative error of S and F against the row recursion
+    (``row_prefix``; of the first chain at C = 64)."""
+    for J, N, C in ((4, N_MAIN, 1), (8, N_MAIN, 1), (4, 1_000_000, 1),
+                    (8, 1_000_000, 1), (4, N_MAIN, 64), (8, N_MAIN, 64),
+                    (4, 1_000_000, 64), (8, 1_000_000, 64)):
+        p, a, U, V, Y = prefix_inputs(J, N, C, 1, dev, seed=J)
+        fin = (p, a, U, V)
+        rows_ref = row_prefix(*first_chain(fin + (Y,)))
+        for rows in PREFIX_SWEEP_ROWS:
+            with card_block_len("kalman_block_len", rows):
+                ms_r = cuda_ms(lambda: _build.riccati_prefix_cuda(*fin), reps=3, warmup=1)
+                ms_k = cuda_ms(lambda: _build.kalman_prefix_cuda(*fin, Y), reps=3,
+                               warmup=1)
+                S, F = _build.kalman_prefix_cuda(*first_chain(fin + (Y,)))
+            default = rows == _build.kalman_block_len(N, J)
+            log("sweep", f"prefix, J = {J}, N = {N}, C = {C}, {rows} rows a block "
+                f"(NB = {-(-N // rows)}): riccati_prefix {ms_r:.4f} ms, "
+                f"kalman_prefix {ms_k:.4f} ms; against the row recursion S "
+                f"{scaled_err(S, rows_ref[0]):.2e}, F {scaled_err(F, rows_ref[1]):.2e}"
+                + (" (the default)" if default else ""))
+            del S, F
+        del p, a, U, V, Y, fin, rows_ref
+        torch.cuda.empty_cache()
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--sweep", action="store_true",
-                        help="also time evals/s for several block lengths")
+                        help="also time the fused kernels, evals/s and the "
+                        "Riccati and Kalman prefixes for several block lengths")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -2359,6 +2508,7 @@ def main(argv=None):
         launches_assoc, ok32 = timed(phase_assoc_path, dev, smi, refs)
     finally:
         refs.stop()
+    timed(phase_auto_path, dev, smi)
     timed(phase_crossover, dev, ok32)
     timed(phase_chains, dev)
     timed(phase_quiet_failure, dev)
@@ -2368,6 +2518,7 @@ def main(argv=None):
     timed(phase_profile, dev, "J = 8", wide8, THETA0, 8)
     if args.sweep:
         timed(phase_sweep, dev)
+        timed(phase_prefix_sweep, dev)
     log("done", f"{time.perf_counter() - start:.1f} s")
     # each kernel's launches on the path that runs it: K3 on the J = 2
     # path, K1, K2, K4, K5 on the J = 4 path, the general forward kernels on

@@ -69,7 +69,11 @@ def turn(root):
     return res
 
 
-def main(argv=None):
+def main(argv=None, script=Path(__file__).resolve(), turn=turn, out=OUT):
+    """Run ``script`` (this file, or another with its own ``turn`` and
+    ``out``) as one worker process per turn, other, this, this, other;
+    ``argv`` holds the other checkout's root."""
+    name = script.stem
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("other", help="root of the other checkout")
     parser.add_argument("--worker", help=argparse.SUPPRESS)
@@ -80,27 +84,26 @@ def main(argv=None):
     import torch
 
     if not torch.cuda.is_available():
-        print("fused_turns: no CUDA device; nothing was run", file=sys.stderr)
+        print(f"{name}: no CUDA device; nothing was run", file=sys.stderr)
         return 1
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
     print(smi, flush=True)
-    OUT.parent.mkdir(exist_ok=True)
+    out.parent.mkdir(exist_ok=True)
     other = Path(args.other).resolve()
     for k, root in enumerate((other, HERE, HERE, other)):
         start = time.perf_counter()
         proc = subprocess.run(
-            [sys.executable, str(HERE / "fused_turns.py"), str(other),
-             "--worker", str(root)],
+            [sys.executable, str(script), str(other), "--worker", str(root)],
             capture_output=True, text=True, timeout=1500)
         if proc.returncode != 0:
             print(proc.stdout[-4000:], proc.stderr[-8000:], flush=True)
             return proc.returncode
         res = json.loads(proc.stdout.strip().splitlines()[-1])
         res.update(turn=k, card=smi, seconds=time.perf_counter() - start)
-        with OUT.open("a") as f:
+        with out.open("a") as f:
             f.write(json.dumps(res) + "\n")
         print(json.dumps(res), flush=True)
     return 0

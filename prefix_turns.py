@@ -1,0 +1,65 @@
+"""Times the assoc tier's Riccati and Kalman prefix kernels of this checkout
+against another checkout of the repository on one NVIDIA GPU, in turns.
+
+Each checkout runs in its own process, in the order other, this, this,
+other; the other is usually the parent commit, unpacked with ``git
+archive`` into a directory git ignores (``_checkout/``).  A turn imports
+that checkout's ``celerite2_torch`` and times its
+``_build.riccati_prefix_cuda`` and ``_build.kalman_prefix_cuda`` (K = 1,
+and K = 5 at J = 16, 32) with CUDA events, at the block length each
+checkout chooses, on this checkout's ``chip_smoke.prefix_inputs`` (float64):
+J = 2, 4, 8 at N = 1e5 with C = 1 and 64 chains, and J = 16, 32 at
+``chip_smoke.py``'s own shape for them, N = 1e4 with C = 8.
+
+    python3 prefix_turns.py _checkout/parent
+
+Writes one JSON object per turn to ``chiprun_out/prefix_turns.jsonl`` and
+prints each (``fused_turns.main`` runs the turns).
+"""
+
+import importlib.util
+import os
+import sys
+from pathlib import Path
+
+import fused_turns
+
+HERE = Path(__file__).resolve().parent
+OUT = HERE / "chiprun_out" / "prefix_turns.jsonl"
+SHAPES = [(J, 100_000, C, (1,)) for C in (1, 64) for J in (2, 4, 8)]
+SHAPES += [(J, 10_000, 8, (1, 5)) for J in (16, 32)]
+
+
+def turn(root):
+    """One turn: the times of ``root``'s prefix kernels, as a dict."""
+    sys.path.insert(0, str(root))
+    os.chdir(root)
+    spec = importlib.util.spec_from_file_location("chip_smoke", HERE / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    torch, b = cs.torch, cs._build
+    assert Path(cs.ct.__file__).resolve().is_relative_to(root), cs.ct.__file__
+    b.build()
+    dev = torch.device("cuda", 0)
+    res = {"root": str(root), "device": torch.cuda.get_device_name(0)}
+    for J, N, C, Ks in SHAPES:
+        p, a, U, V, Y = cs.prefix_inputs(J, N, C, max(Ks), dev, seed=J)
+        reps = 5 if C * J >= 64 or J >= 16 else 20
+        key = f"J{J}_N{N}_C{C}"
+        res[f"riccati_{key}"] = cs.cuda_ms(lambda: b.riccati_prefix_cuda(p, a, U, V),
+                                           reps=reps)
+        for K in Ks:
+            Yk = Y[..., :K].contiguous()
+            res[f"kalman_K{K}_{key}"] = cs.cuda_ms(
+                lambda: b.kalman_prefix_cuda(p, a, U, V, Yk), reps=reps)
+        del p, a, U, V, Y
+        torch.cuda.empty_cache()
+    return res
+
+
+def main(argv=None):
+    return fused_turns.main(argv, Path(__file__).resolve(), turn, OUT)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -28,6 +28,7 @@ from celerite2_torch.ops import elements as el
 from celerite2_torch.ops import prefix_engine as pe
 from celerite2_torch.ops import scan as tscan
 from celerite2_tpu import ops as jops
+from celerite2_tpu import terms as jt
 from celerite2_tpu.ops import assoc as jassoc
 from torch_parity import (
     assert_rel_close, assert_scaled_close, jax_config, t64, wide_system,
@@ -168,6 +169,65 @@ def test_family_entry_points_match_their_leaves():
     A, b = (t64(x)[None] for x in _elements("mat_affine", 3, N=40))
     assert torch.equal(pe.mat_affine_prefix(A, b, reverse=True),
                        pe.mat_affine_prefix_plain(A, b, reverse=True))
+
+
+# ---------------------------------------------- the prefix kernels' order
+
+BLOCKED_L = 4  # rows a block: 32 blocks are one group of the CUDA kernels
+
+
+def _stiff_system(J, N, nonpd):
+    """One system of width J = 2, 4 or 8 with wide8's stiff term (the
+    SHOTerm at Q = 0.5): alone at J = 2, beside wide8's first term at
+    J = 4, wide8 at theta = log[1, 5, 3] at J = 8; t ~ U(0, N / 10).
+    ``nonpd`` cuts row N - 2's diagonal to 5%, so that its pivot d is
+    negative in one of the last rows (C7)."""
+    rng = np.random.default_rng(J + N)
+    t = np.sort(rng.uniform(0, N / 10, N))
+    terms = [jt.SHOTerm(sigma=1.0, rho=5.0, tau=3.0)] + [
+        jt.SHOTerm(sigma=0.5 + 0.2 * j, rho=5.0 * (1.7 + j), Q=0.3 + 0.1 * j)
+        for j in range(3)]
+    kernel = {2: terms[3], 4: terms[0] + terms[3], 8: jt.TermSum(*terms)}[J]
+    c, a, U, V = kernel.get_celerite_matrices(t, np.full(N, 0.0625))
+    a = np.array(a)
+    if nonpd:
+        a[N - 2] *= 0.05
+    Y = rng.normal(size=(N, 1))
+    return tuple(np.asarray(x) for x in (t, c, a, U, V, Y))
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_factor_solve(J, N, nonpd):
+    """The system and the JAX package's factor_solve_assoc of it."""
+    sys_ = _stiff_system(J, N, nonpd)
+    out = _jit(jassoc.factor_solve_assoc)(*map(jnp.asarray, sys_))
+    return sys_, tuple(np.asarray(x) for x in out)
+
+
+@pytest.mark.parametrize("nonpd", [False, True])
+@pytest.mark.parametrize("N", [32 * BLOCKED_L - 1, 32 * BLOCKED_L, 32 * BLOCKED_L + 1])
+@pytest.mark.parametrize("J", [2, 4, 8])
+@pytest.mark.parametrize("family", ["riccati", "kalman"])
+def test_kernel_order_matches_jax(monkeypatch, family, J, N, nonpd):
+    """The Riccati and Kalman prefixes in the order of the CUDA kernels
+    (pe.kalman_prefix_blocked: blocks of 4 rows, groups of 32 blocks; N at
+    one group and a row either side) under the assoc tier's factor and
+    factor_solve, against the JAX package's factor_solve_assoc (jitted,
+    float64), 1e-9 relative (test_forward_ops_match_jax's tolerance)."""
+    sys_, want = _jax_factor_solve(J, N, nonpd)
+    if nonpd:
+        assert want[0][N - 2] < 0 < want[0][:N - 2].min()
+    monkeypatch.setattr(pe, "riccati_prefix", lambda p, a, U, V: (
+        pe.kalman_prefix_blocked(p, a, U, V, block_len=BLOCKED_L)))
+    monkeypatch.setattr(pe, "kalman_prefix", lambda p, a, U, V, Y: (
+        pe.kalman_prefix_blocked(p, a, U, V, Y, block_len=BLOCKED_L)))
+    args = tuple(t64(x)[None] for x in sys_)
+    if family == "riccati":
+        got, want = tassoc.factor_assoc(*args[:5]), [want[i] for i in (0, 1, 3)]
+    else:
+        got = tassoc.factor_solve_assoc(*args)
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert_rel_close(g[0].numpy(), w, 1e-9, f"{family} output {i}")
 
 
 # ---------------------------------------------------------- forward ops

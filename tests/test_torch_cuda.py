@@ -755,33 +755,114 @@ def _hold_prefix(got, dbl, rows, tol=1e-10):
         assert rel(g, d) < max(tol, 1.5 * rel(d, r)), (rel(g, d), rel(d, r))
 
 
-@pytest.mark.parametrize("N, block_len", [(1, None), (130, None), (1040, None),
-                                          (301, 7), (5000, None)])
+def _prefix_launches(N, L):
+    """Launches of one Riccati or Kalman prefix call: the rows of one
+    block; with more blocks, the block maps, the states entering them and
+    the rows; with more than one group, also the group maps and the scan
+    over them."""
+    NB = -(-N // L)
+    return 1 if NB == 1 else 3 if NB <= _build.ASSOC_GROUP else 5
+
+
+def _prefix_rows(p, a, U, V, Y):
+    """S and F after every row by the factor and lower solve's row loop."""
+    _, _, _, S_half, F = scan.factor_solve_plain(p, a, U, V, Y)
+    return S_half * p[..., None, :], p[..., :, None] * F
+
+
+# (N, block_len): one row; below one block; 43 blocks (two groups); one
+# group of 32 blocks of 4 rows and a row either side; 9601 one-row blocks
+# (301 groups); the rules' own lengths
+PREFIX_ROWS = [(1, None), (130, None), (1040, None), (301, 7), (5000, None),
+               (127, 4), (128, 4), (129, 4), (9601, 1)]
+
+
+@pytest.mark.parametrize("N, block_len", PREFIX_ROWS)
 @pytest.mark.parametrize("J", [1, 2, 3, 8, 16, 32])
 def test_riccati_and_kalman_prefix_match_plain(cuda, J, N, block_len):
     """The Riccati and Kalman prefix kernels against their plain doublings
     and the factor and lower solve's row loop, C = 3, float64, to 1e-10
-    relative (``_hold_prefix``): one launch up to one block of rows, three
-    above it (block_len = 7 at N = 301: 43 blocks)."""
+    relative (``_hold_prefix``), without right-hand sides and with K = 1,
+    16, 17, 20 and 40 (column chunks of csrc/assoc_prefix.cu ric_cols);
+    launches per call (``_prefix_launches``)."""
     from celerite2_torch.ops import prefix_engine as pe
 
-    p, a, U, V, Y = _riccati_inputs(N, 3, J, 20, cuda, seed=J)
-    L = block_len or _build.kalman_block_len(N)
-    launches = 1 if N <= L else 3
-    for key, Yk in (("riccati_prefix", None), ("kalman_prefix", Y[..., :1].contiguous()),
-                    ("kalman_prefix", Y)):
+    p, a, U, V, Y = _riccati_inputs(N, 3, J, 40, cuda, seed=J)
+    L = block_len or _build.kalman_block_len(N, U.shape[-1])
+    # each right-hand side's leaves depend on its own column only: one
+    # doubling and one row loop at K = 40 serve every K
+    rows = _prefix_rows(p, a, U, V, Y)
+    dbl = pe.kalman_prefix_plain(p, a, U, V, Y)
+    for K in (0, 1, 16, 17, 20, 40):
+        key = "kalman_prefix" if K else "riccati_prefix"
         before = _build.LAUNCHES[key]
-        got = _build.kalman_prefix_cuda(p, a, U, V, Yk, block_len)
+        got = _build.kalman_prefix_cuda(p, a, U, V, Y[..., :K].contiguous()
+                                        if K else None, block_len)
         torch.cuda.synchronize()
-        assert _build.LAUNCHES[key] == before + launches
-        _, _, _, S_half, F = scan.factor_solve_plain(
-            p, a, U, V, Y[..., :1] if Yk is None else Yk)
-        rows = (S_half * p[..., None, :], p[..., :, None] * F)
-        if Yk is None:
-            got, dbl, rows = (got,), (pe.riccati_prefix_plain(p, a, U, V),), rows[:1]
+        assert _build.LAUNCHES[key] == before + _prefix_launches(N, L), K
+        if K:
+            _hold_prefix(got, (dbl[0], dbl[1][..., :K]), (rows[0], rows[1][..., :K]))
         else:
-            dbl = pe.kalman_prefix_plain(p, a, U, V, Yk)
-        _hold_prefix(got, dbl, rows)
+            _hold_prefix((got,), dbl[:1], rows[:1])
+
+
+@pytest.mark.parametrize("C", [64, 1023])
+def test_riccati_and_kalman_prefix_at_many_chains(cuda, C):
+    """C = 64 and 1023 chains at J = 4, N = 300 in blocks of 16 rows (19
+    blocks), K = 1, against the row loop and the doubling (1e-10)."""
+    from celerite2_torch.ops import prefix_engine as pe
+
+    p, a, U, V, Y = _riccati_inputs(300, C, 4, 1, cuda, seed=C)
+    S, F = _build.kalman_prefix_cuda(p, a, U, V, Y, 16)
+    S0 = _build.riccati_prefix_cuda(p, a, U, V, 16)
+    torch.cuda.synchronize()
+    rows = _prefix_rows(p, a, U, V, Y)
+    dbl = pe.kalman_prefix_plain(p, a, U, V, Y)
+    _hold_prefix((S, F, S0), dbl + dbl[:1], rows + rows[:1])
+
+
+@pytest.mark.parametrize("J", [2, 8])
+def test_riccati_and_kalman_prefix_nonpositive_pivot(cuda, J):
+    """Row N - 2 of N = 200 with its diagonal cut to 5%, so that its pivot
+    d is negative, in the last of 13 blocks of 16 rows (C7): every value
+    finite; the rows up to that pivot as the plain doubling's (1e-10); and
+    every row as the row loop's, which divides by 1 where d <= 0 as the
+    kernels do (the doubling divides by d)."""
+    from celerite2_torch.ops import prefix_engine as pe
+
+    N = 200
+    p, a, U, V, Y = _riccati_inputs(N, 3, J, 2, cuda, seed=J)
+    a = a.clone()
+    a[:, N - 2] *= 0.05
+    d = scan.factor_solve_plain(p, a, U, V, Y)[0]
+    assert (d[:, N - 2] < 0).all() and (d[:, : N - 2] > 0).all()
+    S, F = _build.kalman_prefix_cuda(p, a, U, V, Y, 16)
+    torch.cuda.synchronize()
+    assert torch.isfinite(S).all() and torch.isfinite(F).all()
+    rows = _prefix_rows(p, a, U, V, Y)
+    dbl = pe.kalman_prefix_plain(p, a, U, V, Y)
+    before = lambda xs: [x[:, : N - 1] for x in xs]  # noqa: E731
+    _hold_prefix(before((S, F)), before(dbl), before(rows))
+    for g, r in zip((S, F), rows):
+        assert _rel(g, r) < 1e-10
+
+
+@pytest.mark.parametrize("J", [2, 8])
+def test_riccati_and_kalman_prefix_float32(cuda, J):
+    """Float32 at J = 2, 8, N = 1040 in blocks of 8 (five launches), K = 1,
+    against the float64 row loop: within max(1e-4, 2 x the float32 plain
+    doubling's error against it), the float32 gate of the kernels
+    (PERF.md, PR 8)."""
+    from celerite2_torch.ops import prefix_engine as pe
+
+    p, a, U, V, Y = _riccati_inputs(1040, 3, J, 1, cuda, seed=J)
+    rows = _prefix_rows(p, a, U, V, Y)
+    x32 = [x.float() for x in (p, a, U, V, Y)]
+    got = _build.kalman_prefix_cuda(*x32, block_len=8)
+    plain = pe.kalman_prefix_plain(*x32)
+    for g, d, r in zip(got, plain, rows):
+        tol = max(1e-4, 2 * _rel(d.double(), r))
+        assert torch.isfinite(g).all() and _rel(g.double(), r) < tol
 
 
 @pytest.mark.parametrize("reverse", [False, True])
