@@ -42,36 +42,47 @@
 //
 // The Riccati and Kalman families: a two-level scan over blocks of L rows
 // (the wrapper's choice, ops/_build.py kalman_block_len) in groups of
-// kGroup blocks, in five launches (three with one group, one with one
-// block), each a warp a thread block:
-//   (a) ric_maps:   each block's rows composed into the block's map;
-//   (b) ric_groups: a warp a group composes its blocks' maps in order into
-//                   the group's map;
-//   (c) ric_scan:   a warp a chain carries the state over the groups' maps,
-//                   the state entering every group;
-//   (d) ric_enter:  a warp a group carries the state entering it over its
-//                   blocks' maps, the state entering every block;
-//   (e) ric_apply:  each block's rows again from the state entering it,
-//                   the state after every row, stored by tiles.
-// What bounds them on this card: the chains of dependent steps, L rows in
-// (a) and (e), kGroup combines in (b), ceil(N / (kGroup L)) map applications
-// in (c) and kGroup in (d); the bytes (the rows read twice, S and F written
-// once) take a small fraction of that time at one chain.  So the rows are
-// cut into many short blocks, and
-//   * the walks of (a) and (e) are the rank-one steps above, by a team of
-//     ric_team(J) lanes a block: at J <= 4 one lane holds the whole map
-//     (3 J^2 + 2 J KC values) in registers, and a warp walks 32 blocks; from
-//     J = 8 lane i of a team of J holds column i of A and row i of Q, R, b,
-//     eta (of S, F in (e)), x and g are its own sums, and u^T x, b^T u and
-//     the vectors w, g each lane needs are warp shuffles within the team: no
-//     barrier on the row chain;
-//   * the rows pass through shared memory by tiles of every walk of the
-//     warp, copied with cp.async one tile ahead (a lane a row, the index
-//     arithmetic paid once a row), and (e) stores each tile of S and F with
-//     consecutive lanes on consecutive values;
-//   * the levels (b)-(d) compose whole maps in shared memory, a warp each:
-//     the Gauss-Jordan elimination takes its pivot by a warp reduction and
-//     eliminates an entry a lane, a barrier of the warp between steps.
+// kGroup blocks, each group's blocks walked by one warp.  What bounds them on
+// this card is the chains of dependent steps: the rows of a block, twice,
+// and the combines above them; the bytes (the rows read twice, S and F
+// written once) take a small fraction of that time at one chain.  So the
+// rows are cut into many short blocks, and the walks of (a) and (e) below
+// are the rank-one steps above:
+//   * at J <= 4 a lane walks a block and holds its whole map (3 J^2 + 2 J KC
+//     values) in registers, and the levels compose in registers too, each
+//     thread a whole combine (the Gauss-Jordan elimination of the combine
+//     unrolled over the J rows), in three launches (two with one group, one
+//     with one block):
+//       (a) ric_maps:   each block's rows composed into the block's map,
+//                       then a Kogge-Stone scan over the warp's lanes: the
+//                       prefix map of every block within its group, and the
+//                       group's map;
+//       (b) ric_carry:  a thread block a chain, reduce-then-scan over
+//                       the groups' maps (kScanThreads threads, each a run of
+//                       groups), the state entering every group;
+//       (e) ric_apply:  each lane's state entering its block, the state
+//                       entering its group carried over the prefix map of
+//                       the blocks before it, then the block's rows again;
+//   * from J = 8 a map (208 values at J = 8) does not fit a lane: a team of
+//     J lanes walks a block, lane i holding column i of A and row i of Q, R,
+//     b, eta (of S, F in (e)); x and g are its own sums, and u^T x, b^T u
+//     and the vectors w, g each lane needs are warp shuffles within the
+//     team, with no barrier on the row chain.  The levels compose whole maps
+//     in shared memory, a warp each (eight from J = 16): the Gauss-Jordan
+//     elimination takes its pivot by a warp reduction and eliminates an
+//     entry a thread, a barrier between steps.  Five launches (three with
+//     one group, one with one block):
+//       (a) ric_maps:   each block's rows composed into the block's map;
+//       (b) ric_groups: a warp a group composes its blocks' maps in order;
+//       (c) ric_scan:   a warp a chain carries the state over the groups'
+//                       maps, the state entering every group;
+//       (d) ric_enter:  a warp a group carries the state entering it over
+//                       its blocks' maps, the state entering every block;
+//       (e) ric_apply:  each block's rows again from that state.
+// In both, the rows pass through shared memory by tiles of every walk of the
+// warp, copied with cp.async one tile ahead (a lane a row, the index
+// arithmetic paid once a row), and (e) stores each tile of S and F with
+// consecutive lanes on consecutive values.
 
 #include <cuda_runtime.h>
 
@@ -104,7 +115,7 @@ __device__ __forceinline__ T safe_pos(T x) {
 // columns over blockIdx.y, each chunk redoing the Riccati part.  Scratch, per
 // (chain, chunk) cc = chain * chunks + chunk: the block maps (C, chunks, NB,
 // E), the group maps (C, chunks, GB, E), the states entering every group
-// (C, chunks, GB, ST) and block (C, chunks, NB, ST).  A map is [A | Q | R |
+// (C, chunks, GB, ST) and, from J = 8, every block (C, chunks, NB, ST).  A map is [A | Q | R |
 // b | eta] (J x J row-major, then J x KC), a state [S | F].  KAL = false is
 // the Riccati family (no Y, F, b, eta).
 
@@ -130,6 +141,10 @@ struct Ric {
   static constexpr int JJ = J * J;
   static constexpr int E = 3 * JJ + 2 * J * KC;  // a map
   static constexpr int ST = JJ + J * KC;         // a state
+  // a map's slot in the levels' shared memory at J <= 4, one a thread: an
+  // odd stride, so that threads reading the same entry of their maps hit
+  // different banks
+  static constexpr int SLOT = E | 1;
   // a staged row: p of row n, then u, v, a, y of row n - 1
   static constexpr int IP = 0, IU = J, IV = 2 * J, IA = 3 * J, IY = 3 * J + 1;
   static constexpr int WIN = 3 * J + 1 + KC;
@@ -145,26 +160,31 @@ struct Ric {
 };
 
 // The walks of one warp of (a) or (e): NW consecutive blocks of one chain;
-// walk k is block wb * NW + k, the rows [first[k], first[k] + len[k]) of the
-// chain, row start[k] of the (C * N)-row arrays; walks past the chain's last
-// block have len 0.  Returns the chain.
+// walk k is block group * NW + k, the rows [first[k], first[k] + len[k]) of
+// the chain, row start[k] of the (C * N)-row arrays; walks past the chain's
+// last block have len 0.  At J <= 4 (NW = kGroup) the warp's walks are a
+// group.
+struct RicWarp {
+  long long chain;
+  int group;
+};
+
 template <int NW>
-__device__ __forceinline__ long long ric_walks(int N, int L, int NB,
-                                               long long* start, int* len,
-                                               int* first, int* block) {
+__device__ __forceinline__ RicWarp ric_walks(int N, int L, int NB,
+                                             long long* start, int* len,
+                                             int* first, int* block) {
   const int WB = (NB + NW - 1) / NW;
-  const long long chain = blockIdx.x / WB;
-  const int wb = blockIdx.x % WB;
+  const RicWarp w{blockIdx.x / WB, (int)(blockIdx.x % WB)};
   if (threadIdx.x < NW) {
-    const int k = threadIdx.x, b = wb * NW + k;
+    const int k = threadIdx.x, b = w.group * NW + k;
     const bool live = b < NB;
     first[k] = live ? b * L : 0;
-    start[k] = chain * N + first[k];
+    start[k] = w.chain * N + first[k];
     len[k] = live ? min(L, N - b * L) : 0;
     block[k] = b;
   }
   __syncwarp();
-  return chain;
+  return w;
 }
 
 // Copies rows [s TR, (s + 1) TR) of every walk into a tile: p of each row,
@@ -444,25 +464,250 @@ __device__ __forceinline__ void ric_unstage(T* __restrict__ S,
   }
 }
 
-// (a): the map of every block (one warp: NW blocks of one chain and chunk).
-template <typename T, int J, bool KAL>
-__global__ void __launch_bounds__(32, 1)
-    ric_maps_kernel(const T* __restrict__ p, const T* __restrict__ a,
-                    const T* __restrict__ U, const T* __restrict__ V,
-                    const T* __restrict__ Y, T* __restrict__ maps, int N,
-                    int K, int L, int NB) {
-  using G = Ric<J, KAL>;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* tiles = reinterpret_cast<T*>(smem_raw);
-  __shared__ long long start[G::NW];
-  __shared__ int len[G::NW], first[G::NW], block[G::NW];
-  const long long chain = ric_walks<G::NW>(N, L, NB, start, len, first, block);
-  const int k0 = blockIdx.y * G::KC, kc = KAL ? min(G::KC, K - k0) : 0;
-  const int lane = threadIdx.x, t = lane % G::P, k = lane / G::P;
-  const int mine = len[k], n0 = first[k];
+// Gauss-Jordan elimination with partial pivoting on the J x W augmented
+// matrix aug in registers, the rule of RicLevel::gauss_jordan: the pivot of
+// column c is the first largest |aug[r][c]|, r >= c, its magnitude floored
+// at the smallest normal number.  Every index is a constant once unrolled.
+template <typename T, int J, int W>
+__device__ __forceinline__ void gauss_jordan_regs(T (&aug)[J][W]) {
+#pragma unroll
+  for (int c = 0; c < J; ++c) {
+    int piv = c;
+    T best = fabs(aug[c][c]);
+#pragma unroll
+    for (int r = c + 1; r < J; ++r)
+      if (fabs(aug[r][c]) > best) {
+        best = fabs(aug[r][c]);
+        piv = r;
+      }
+#pragma unroll
+    for (int r = c + 1; r < J; ++r)
+      if (piv == r)
+#pragma unroll
+        for (int q = 0; q < W; ++q) {
+          const T tmp = aug[c][q];
+          aug[c][q] = aug[r][q];
+          aug[r][q] = tmp;
+        }
+    T pv = aug[c][c];
+    if (fabs(pv) < Tiny<T>::value()) pv = Tiny<T>::value();
+    const T inv = T(1) / pv;
+#pragma unroll
+    for (int q = 0; q < W; ++q) aug[c][q] *= inv;
+#pragma unroll
+    for (int r = 0; r < J; ++r) {
+      if (r == c) continue;
+      const T f = aug[r][c];
+#pragma unroll
+      for (int q = 0; q < W; ++q) aug[r][q] -= f * aug[c][q];
+    }
+  }
+}
 
-  RicMap<T, J, KAL> acc;
-  acc.identity(t);
+// The levels' algebra at J <= 4, one thread a combine or an application,
+// in registers: RicLevel's combine and apply (elements.kalman_combine,
+// kalman_distribute), term for term.  A map is E values [A | Q | R | b |
+// eta] anywhere in memory, a state ST values [S | F] in registers.
+template <typename T, int J, bool KAL>
+struct RicRegs {
+  using G = Ric<J, KAL>;
+  static constexpr int JJ = G::JJ, KC = G::KC, KR = G::KR, E = G::E,
+                       ST = G::ST;
+
+  __device__ static void identity(T* m) {
+    for (int e = 0; e < E; ++e) m[e] = (e < JJ && e / J == e % J) ? T(1) : T(0);
+  }
+
+  // out = the map m1 (earlier) composed with m2 (later); out aliases neither
+  __device__ static void combine(const T* m1, const T* m2, T* out) {
+    const T *A1 = m1, *Q1 = m1 + JJ, *R1 = m1 + 2 * JJ, *b1 = m1 + 3 * JJ;
+    const T *A2 = m2, *Q2 = m2 + JJ, *R2 = m2 + 2 * JJ, *b2 = m2 + 3 * JJ;
+    const T *e1 = b1 + J * KC, *e2 = b2 + J * KC;
+    constexpr int WC = 3 * J + KC;  // [I + Q1 R2 | A1 | Q1 | b1 + Q1 eta2]
+    T X[J][WC];
+#pragma unroll
+    for (int i = 0; i < J; ++i) {
+#pragma unroll
+      for (int j = 0; j < J; ++j) {
+        T s = (i == j) ? T(1) : T(0);
+#pragma unroll
+        for (int k = 0; k < J; ++k) s += Q1[i * J + k] * R2[k * J + j];
+        X[i][j] = s;
+        X[i][J + j] = A1[i * J + j];
+        X[i][2 * J + j] = Q1[i * J + j];
+      }
+#pragma unroll
+      for (int k = 0; k < KC; ++k) {
+        T s = b1[i * KC + k];
+#pragma unroll
+        for (int l = 0; l < J; ++l) s += Q1[i * J + l] * e2[l * KC + k];
+        X[i][3 * J + k] = s;
+      }
+    }
+    gauss_jordan_regs<T, J, WC>(X);
+    T T1[J][J], T2[J][J], v1[J][KR];  // A2 X_Q, R2 X_A, eta2 - R2 b1
+#pragma unroll
+    for (int i = 0; i < J; ++i) {
+#pragma unroll
+      for (int j = 0; j < J; ++j) {
+        T sa = T(0), st = T(0), su = T(0);
+#pragma unroll
+        for (int k = 0; k < J; ++k) {
+          sa += A2[i * J + k] * X[k][J + j];
+          st += A2[i * J + k] * X[k][2 * J + j];
+          su += R2[i * J + k] * X[k][J + j];
+        }
+        out[i * J + j] = sa;
+        T1[i][j] = st;
+        T2[i][j] = su;
+      }
+#pragma unroll
+      for (int k = 0; k < KC; ++k) {
+        T sb = b2[i * KC + k], sv = e2[i * KC + k];
+#pragma unroll
+        for (int l = 0; l < J; ++l) {
+          sb += A2[i * J + l] * X[l][3 * J + k];
+          sv -= R2[i * J + l] * b1[l * KC + k];
+        }
+        out[3 * JJ + i * KC + k] = sb;
+        v1[i][k] = sv;
+      }
+    }
+    T T3[J][J], T4[J][J];  // Q2 + T1 A2^T, R1 + A1^T T2
+#pragma unroll
+    for (int i = 0; i < J; ++i)
+#pragma unroll
+      for (int j = 0; j < J; ++j) {
+        T sq = Q2[i * J + j], sr = R1[i * J + j];
+#pragma unroll
+        for (int k = 0; k < J; ++k) {
+          sq += T1[i][k] * A2[j * J + k];
+          sr += A1[k * J + i] * T2[k][j];
+        }
+        T3[i][j] = sq;
+        T4[i][j] = sr;
+      }
+#pragma unroll
+    for (int i = 0; i < J; ++i)
+#pragma unroll
+      for (int j = 0; j < J; ++j) {
+        out[JJ + i * J + j] = T(0.5) * (T3[i][j] + T3[j][i]);
+        out[2 * JJ + i * J + j] = T(0.5) * (T4[i][j] + T4[j][i]);
+      }
+    if constexpr (KC > 0) {  // eta = eta1 + A1^T (v1 - R2 X_Q v1)
+      T v2[J][KC], v3[J][KC];
+#pragma unroll
+      for (int i = 0; i < J; ++i)
+#pragma unroll
+        for (int k = 0; k < KC; ++k) {
+          T s = T(0);
+#pragma unroll
+          for (int l = 0; l < J; ++l) s += X[i][2 * J + l] * v1[l][k];
+          v2[i][k] = s;
+        }
+#pragma unroll
+      for (int i = 0; i < J; ++i)
+#pragma unroll
+        for (int k = 0; k < KC; ++k) {
+          T s = v1[i][k];
+#pragma unroll
+          for (int l = 0; l < J; ++l) s -= R2[i * J + l] * v2[l][k];
+          v3[i][k] = s;
+        }
+#pragma unroll
+      for (int i = 0; i < J; ++i)
+#pragma unroll
+        for (int k = 0; k < KC; ++k) {
+          T s = e1[i * KC + k];
+#pragma unroll
+          for (int l = 0; l < J; ++l) s += A1[l * J + i] * v3[l][k];
+          out[3 * JJ + J * KC + i * KC + k] = s;
+        }
+    }
+  }
+
+  // the state [S | F] after the map m:
+  //   X = (I + S R)^{-1} [S | F + S eta],  S <- sym(Q + A X_S A^T),
+  //   F <- b + A X_F
+  __device__ static void apply(const T* m, T (&st)[ST]) {
+    const T *A = m, *Q = m + JJ, *R = m + 2 * JJ, *b = m + 3 * JJ,
+            *eta = b + J * KC;
+    constexpr int WD = 2 * J + KC;  // [I + S R | S | F + S eta]
+    T X[J][WD];
+#pragma unroll
+    for (int i = 0; i < J; ++i) {
+#pragma unroll
+      for (int j = 0; j < J; ++j) {
+        T s = (i == j) ? T(1) : T(0);
+#pragma unroll
+        for (int k = 0; k < J; ++k) s += st[i * J + k] * R[k * J + j];
+        X[i][j] = s;
+        X[i][J + j] = st[i * J + j];
+      }
+#pragma unroll
+      for (int k = 0; k < KC; ++k) {
+        T s = st[JJ + i * KC + k];
+#pragma unroll
+        for (int l = 0; l < J; ++l) s += st[i * J + l] * eta[l * KC + k];
+        X[i][2 * J + k] = s;
+      }
+    }
+    gauss_jordan_regs<T, J, WD>(X);
+    T T1[J][J], T2[J][J];  // A X_S, Q + T1 A^T
+#pragma unroll
+    for (int i = 0; i < J; ++i) {
+#pragma unroll
+      for (int j = 0; j < J; ++j) {
+        T s = T(0);
+#pragma unroll
+        for (int k = 0; k < J; ++k) s += A[i * J + k] * X[k][J + j];
+        T1[i][j] = s;
+      }
+#pragma unroll
+      for (int k = 0; k < KC; ++k) {
+        T s = b[i * KC + k];
+#pragma unroll
+        for (int l = 0; l < J; ++l) s += A[i * J + l] * X[l][2 * J + k];
+        st[JJ + i * KC + k] = s;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < J; ++i)
+#pragma unroll
+      for (int j = 0; j < J; ++j) {
+        T s = Q[i * J + j];
+#pragma unroll
+        for (int k = 0; k < J; ++k) s += T1[i][k] * A[j * J + k];
+        T2[i][j] = s;
+      }
+#pragma unroll
+    for (int i = 0; i < J; ++i)
+#pragma unroll
+      for (int j = 0; j < J; ++j) st[i * J + j] = T(0.5) * (T2[i][j] + T2[j][i]);
+  }
+
+  // the state after m from zero: (Q, b)
+  __device__ static void state_of(const T* m, T (&st)[ST]) {
+#pragma unroll
+    for (int e = 0; e < JJ; ++e) st[e] = m[JJ + e];
+#pragma unroll
+    for (int e = 0; e < J * KC; ++e) st[JJ + e] = m[3 * JJ + e];
+  }
+};
+
+// The row walk of (a) and (e), one warp: the rows of its walks staged by
+// tiles (cp.async, one tile ahead of the walk), then row(l, w) for row l of
+// the tile of the lane's walk, in order, and end(s) after the rows of tile
+// s.  A team's shuffles need every lane, so there the rows past a walk's end
+// read as the identity (RicRow), as row 0 of a chain does everywhere.
+template <typename T, int J, bool KAL, class Row, class End>
+__device__ __forceinline__ void ric_over_rows(
+    T* tiles, const T* __restrict__ p, const T* __restrict__ a,
+    const T* __restrict__ U, const T* __restrict__ V, const T* __restrict__ Y,
+    int N, int K, int L, int k0, int kc, const long long* start,
+    const int* len, const int* first, Row row, End end) {
+  using G = Ric<J, KAL>;
+  const int k = threadIdx.x / G::P, mine = len[k], n0 = first[k];
   const int ntiles = (min(L, N) + G::TR - 1) / G::TR;
   ric_stage<T, J, KAL>(tiles, p, a, U, V, Y, K, k0, kc, start, len, first, 0);
   for (int s = 0; s < ntiles; ++s) {
@@ -475,81 +720,197 @@ __global__ void __launch_bounds__(32, 1)
     }
     __syncwarp();
     const T* tile = tiles + (s & 1) * G::TILE + k;
-    if constexpr (G::P == 1) {
+    const int rows = G::P == 1 ? min(G::TR, mine - s * G::TR) : G::TR;
 #pragma unroll 1
-      for (int l = 0; l < G::TR && s * G::TR + l < mine; ++l)
-        if (n0 + s * G::TR + l > 0)
-          acc.step({tile + l * G::WIN * G::PITCH, true, kc}, t);
-    } else {  // the team's shuffles need every lane: dead rows are identities
-#pragma unroll 1
-      for (int l = 0; l < G::TR; ++l) {
-        const int n = s * G::TR + l;
-        acc.step({tile + l * G::WIN * G::PITCH, n < mine && n0 + n > 0, kc}, t);
-      }
+    for (int l = 0; l < rows; ++l) {
+      const int n = s * G::TR + l;
+      row(l, RicRow<T, J, KAL>{tile + l * G::WIN * G::PITCH,
+                               n < mine && n0 + n > 0, kc});
     }
     __syncwarp();
+    end(s);
   }
-  if (mine > 0)
-    acc.store(maps + ((chain * gridDim.y + blockIdx.y) * NB + block[k]) * G::E,
-              t);
 }
 
-// (e): the state after every row, from the state entering each block (cS,
-// (C, chunks, NB, ST); zero when null).  S is written by chunk 0 only.
+// (a): the map of every block (one warp: NW blocks of one chain and chunk),
+// into ``maps`` (C, chunks, NB, E).  At J <= 4 the warp's blocks are a
+// group, and ``maps`` gets each block's prefix within its group (the
+// composition of the group's blocks up to it) and ``totals`` (C, chunks,
+// GB, E) the group's map.
+template <typename T, int J, bool KAL>
+__global__ void __launch_bounds__(32, 1)
+    ric_maps_kernel(const T* __restrict__ p, const T* __restrict__ a,
+                    const T* __restrict__ U, const T* __restrict__ V,
+                    const T* __restrict__ Y, T* __restrict__ maps,
+                    T* __restrict__ totals, int N, int K, int L, int NB,
+                    int GB) {
+  using G = Ric<J, KAL>;
+  constexpr int E = G::E;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* tiles = reinterpret_cast<T*>(smem_raw);
+  __shared__ long long start[G::NW];
+  __shared__ int len[G::NW], first[G::NW], block[G::NW];
+  const RicWarp w = ric_walks<G::NW>(N, L, NB, start, len, first, block);
+  const long long cc = w.chain * gridDim.y + blockIdx.y;
+  const int k0 = blockIdx.y * G::KC, kc = KAL ? min(G::KC, K - k0) : 0;
+  const int lane = threadIdx.x, t = lane % G::P, k = lane / G::P;
+
+  RicMap<T, J, KAL> acc;
+  acc.identity(t);
+  ric_over_rows<T, J, KAL>(
+      tiles, p, a, U, V, Y, N, K, L, k0, kc, start, len, first,
+      [&](int, const RicRow<T, J, KAL>& row) { acc.step(row, t); },
+      [](int) {});
+  if constexpr (G::P == 1) {
+    // Kogge-Stone over the lanes in the tiles (every lane is done with
+    // them); a lane past the chain's last block holds the identity
+    using X = RicRegs<T, J, KAL>;
+    constexpr int SL = G::SLOT;
+    T* src = tiles;
+    T* dst = tiles + kGroup * SL;
+    acc.store(src + lane * SL, 0);
+    __syncwarp();
+    for (int d = 1; d < kGroup; d *= 2) {
+      if (lane >= d)
+        X::combine(src + (lane - d) * SL, src + lane * SL, dst + lane * SL);
+      else
+        for (int e = 0; e < E; ++e) dst[lane * SL + e] = src[lane * SL + e];
+      __syncwarp();
+      T* tmp = src;
+      src = dst;
+      dst = tmp;
+    }
+    const T* mine = src + lane * SL;
+    if (len[lane] > 0) {
+      T* o = maps + (cc * NB + block[lane]) * E;
+      for (int e = 0; e < E; ++e) o[e] = mine[e];
+    }
+    if (lane == kGroup - 1) {
+      T* o = totals + (cc * GB + w.group) * E;
+      for (int e = 0; e < E; ++e) o[e] = mine[e];
+    }
+  } else if (len[k] > 0) {
+    acc.store(maps + (cc * NB + block[k]) * E, t);
+  }
+}
+
+// (e): the state after every row, from the state entering each block.  At
+// J <= 4 that is ``states`` (C, chunks, GB, ST), the state entering the
+// group (zero when null), carried over ``maps``' prefix of the blocks before
+// it in the group; from J = 8 ``states`` (C, chunks, NB, ST) holds it (zero
+// when null).  S is written by chunk 0 only.
 template <typename T, int J, bool KAL>
 __global__ void __launch_bounds__(32, 1)
     ric_apply_kernel(const T* __restrict__ p, const T* __restrict__ a,
                      const T* __restrict__ U, const T* __restrict__ V,
-                     const T* __restrict__ Y, const T* __restrict__ cS,
-                     T* __restrict__ S, T* __restrict__ F, int N, int K, int L,
-                     int NB) {
+                     const T* __restrict__ Y, const T* __restrict__ maps,
+                     const T* __restrict__ states, T* __restrict__ S,
+                     T* __restrict__ F, int N, int K, int L, int NB, int GB) {
   using G = Ric<J, KAL>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* tiles = reinterpret_cast<T*>(smem_raw);
   T* out = tiles + 2 * G::TILE;
   __shared__ long long start[G::NW];
   __shared__ int len[G::NW], first[G::NW], block[G::NW];
-  const long long chain = ric_walks<G::NW>(N, L, NB, start, len, first, block);
+  const RicWarp w = ric_walks<G::NW>(N, L, NB, start, len, first, block);
+  const long long cc = w.chain * gridDim.y + blockIdx.y;
   const int k0 = blockIdx.y * G::KC, kc = KAL ? min(G::KC, K - k0) : 0;
   const int lane = threadIdx.x, t = lane % G::P, k = lane / G::P;
-  const int mine = len[k], n0 = first[k];
   T* Sout = blockIdx.y == 0 ? S : nullptr;
 
   RicState<T, J, KAL> st;
-  st.load(cS != nullptr && mine > 0
-              ? cS + ((chain * gridDim.y + blockIdx.y) * NB + block[k]) * G::ST
-              : nullptr,
-          t);
-  const int ntiles = (min(L, N) + G::TR - 1) / G::TR;
-  ric_stage<T, J, KAL>(tiles, p, a, U, V, Y, K, k0, kc, start, len, first, 0);
-  for (int s = 0; s < ntiles; ++s) {
-    if (s + 1 < ntiles) {
-      ric_stage<T, J, KAL>(tiles + ((s + 1) & 1) * G::TILE, p, a, U, V, Y, K,
-                           k0, kc, start, len, first, s + 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncwarp();
-    const T* tile = tiles + (s & 1) * G::TILE + k;
-    if constexpr (G::P == 1) {
-#pragma unroll 1
-      for (int l = 0; l < G::TR && s * G::TR + l < mine; ++l) {
-        if (n0 + s * G::TR + l > 0)
-          st.step({tile + l * G::WIN * G::PITCH, true, kc}, t);
+  if constexpr (G::P == 1) {
+    T x[G::ST];
+    const T* gs = states != nullptr ? states + (cc * GB + w.group) * G::ST
+                                    : nullptr;
+#pragma unroll
+    for (int e = 0; e < G::ST; ++e) x[e] = gs ? gs[e] : T(0);
+    if (lane > 0 && len[lane] > 0)
+      RicRegs<T, J, KAL>::apply(maps + (cc * NB + block[lane] - 1) * G::E, x);
+    st.load(x, 0);
+  } else {
+    st.load(states != nullptr && len[k] > 0
+                ? states + (cc * NB + block[k]) * G::ST
+                : nullptr,
+            t);
+  }
+  ric_over_rows<T, J, KAL>(
+      tiles, p, a, U, V, Y, N, K, L, k0, kc, start, len, first,
+      [&](int l, const RicRow<T, J, KAL>& row) {
+        st.step(row, t);
         st.put(out + l * G::ST * G::PITCH + k, t);
-      }
-    } else {
-#pragma unroll 1
-      for (int l = 0; l < G::TR; ++l) {
-        const int n = s * G::TR + l;
-        st.step({tile + l * G::WIN * G::PITCH, n < mine && n0 + n > 0, kc}, t);
-        st.put(out + l * G::ST * G::PITCH + k, t);
-      }
-    }
-    __syncwarp();
-    ric_unstage<T, J, KAL>(Sout, F, out, start, len, s, K, k0, kc);
-    __syncwarp();
+      },
+      [&](int s) {
+        ric_unstage<T, J, KAL>(Sout, F, out, start, len, s, K, k0, kc);
+        __syncwarp();
+      });
+}
+
+// (b) at J <= 4: one thread block a (chain, chunk) over its GB group maps
+// (``totals``), writing the state entering every group, ``gstates``
+// (C, chunks, GB, ST).  Thread t takes the run of groups [t per, (t + 1)
+// per): it composes the run's maps, a Kogge-Stone scan in shared memory (two
+// slots a thread) composes the runs, and the thread carries the state
+// entering its run over the run's maps.
+constexpr int kScanThreads = 128;
+
+template <typename T, int J, bool KAL>
+__global__ void __launch_bounds__(kScanThreads, 1)
+    ric_carry_kernel(const T* __restrict__ totals, T* __restrict__ gstates,
+                     int GB) {
+  using X = RicRegs<T, J, KAL>;
+  constexpr int E = X::E, ST = X::ST, SL = Ric<J, KAL>::SLOT;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* buf = reinterpret_cast<T*>(smem_raw);
+  const int tid = threadIdx.x;
+  const long long cc = (long long)blockIdx.x * gridDim.y + blockIdx.y;
+  const T* cm = totals + cc * GB * E;
+  T* cs = gstates + cc * GB * ST;
+  const int per = (GB + kScanThreads - 1) / kScanThreads;
+  const int lo = min(GB, tid * per), hi = min(GB, lo + per);
+
+  T* mine = buf + tid * SL;
+  T* cur = mine;
+  T* nxt = buf + (kScanThreads + tid) * SL;
+  if (lo < hi)
+    for (int e = 0; e < E; ++e) cur[e] = cm[(long long)lo * E + e];
+  else
+    X::identity(cur);
+  for (int q = lo + 1; q < hi; ++q) {
+    X::combine(cur, cm + (long long)q * E, nxt);
+    T* tmp = cur;
+    cur = nxt;
+    nxt = tmp;
+  }
+  if (cur != mine)
+    for (int e = 0; e < E; ++e) mine[e] = cur[e];
+  __syncthreads();
+
+  T* src = buf;
+  T* dst = buf + kScanThreads * SL;
+  for (int d = 1; d < kScanThreads; d *= 2) {
+    if (tid >= d)
+      X::combine(src + (tid - d) * SL, src + tid * SL, dst + tid * SL);
+    else
+      for (int e = 0; e < E; ++e) dst[tid * SL + e] = src[tid * SL + e];
+    __syncthreads();
+    T* tmp = src;
+    src = dst;
+    dst = tmp;
+  }
+
+  T st[ST];
+  if (tid == 0) {
+#pragma unroll
+    for (int e = 0; e < ST; ++e) st[e] = T(0);
+  } else {
+    X::state_of(src + (tid - 1) * SL, st);
+  }
+  for (int q = lo; q < hi; ++q) {
+    T* o = cs + (long long)q * ST;
+#pragma unroll
+    for (int e = 0; e < ST; ++e) o[e] = st[e];
+    if (q + 1 < hi) X::apply(cm + (long long)q * E, st);
   }
 }
 
@@ -1018,12 +1379,16 @@ struct RicPlan {
   }
 };
 
+// The phases of a Riccati or Kalman call at width J, in order; *launched
+// counts the kernels launched.
 template <typename T, int J, bool KAL>
 int launch_riccati_j(const void* p, const void* a, const void* U,
                      const void* V, const void* Y, void* S, void* F,
-                     void* work, int C, int N, int K, int L, cudaStream_t s) {
+                     void* work, int C, int N, int K, int L, int* launched,
+                     cudaStream_t s) {
   using G = Ric<J, KAL>;
   using Lv = RicLevel<T, J, KAL>;
+  static_assert(G::P > 1 || G::NW == kGroup, "a warp's lanes walk a group");
   const RicPlan<J, KAL> plan(C, N, K, L);
   const int NB = plan.NB, GB = plan.GB;
   const unsigned chunks = (unsigned)plan.chunks;
@@ -1035,18 +1400,38 @@ int launch_riccati_j(const void* p, const void* a, const void* U,
   const T *pp = (const T*)p, *ap = (const T*)a, *Up = (const T*)U,
           *Vp = (const T*)V, *Yp = (const T*)Y;
   const dim3 walks((unsigned)(plan.C * ((NB + G::NW - 1) / G::NW)), chunks);
+  const dim3 groups((unsigned)(plan.C * GB), chunks);
+  const dim3 per_chain((unsigned)plan.C, chunks);
   int err;
   if (NB > 1) {
-    const size_t smem = 2 * G::TILE * sizeof(T);
+    // (a); at J <= 4 its scan over the lanes reuses the tiles
+    size_t smem = 2 * G::TILE * sizeof(T);
+    if (G::P == 1 && smem < 2 * kGroup * G::SLOT * sizeof(T))
+      smem = 2 * kGroup * G::SLOT * sizeof(T);
     static size_t maps_allowed = 0;
     if ((err = allow_smem(ric_maps_kernel<T, J, KAL>, smem + G::WALK_STATIC,
                           &maps_allowed)))
       return err;
-    ric_maps_kernel<T, J, KAL><<<walks, 32, smem, s>>>(pp, ap, Up, Vp, Yp,
-                                                        maps, N, K, L, NB);
+    ric_maps_kernel<T, J, KAL><<<walks, 32, smem, s>>>(
+        pp, ap, Up, Vp, Yp, maps, totals, N, K, L, NB, GB);
     if ((err = (int)cudaGetLastError())) return err;
+    ++*launched;
+  }
+  if constexpr (G::P == 1) {
+    if (GB > 1) {  // (b) at J <= 4
+      const size_t smem = 2 * (size_t)kScanThreads * G::SLOT * sizeof(T);
+      static size_t scan_allowed = 0;
+      if ((err = allow_smem(ric_carry_kernel<T, J, KAL>, smem,
+                            &scan_allowed)))
+        return err;
+      ric_carry_kernel<T, J, KAL><<<per_chain, kScanThreads, smem, s>>>(
+          totals, gstates, GB);
+      if ((err = (int)cudaGetLastError())) return err;
+      ++*launched;
+    }
+  } else if (NB > 1) {
+    // (b)-(d) from J = 8 (gauss_jordan's pivot index is static shared memory)
     static size_t level_allowed[3] = {0, 0, 0};
-    // (gauss_jordan's pivot index is static shared memory)
     const size_t level = Lv::SMEM + sizeof(int);
     if ((err = allow_smem(ric_groups_kernel<T, J, KAL>, level,
                           &level_allowed[0])) ||
@@ -1055,27 +1440,35 @@ int launch_riccati_j(const void* p, const void* a, const void* U,
         (err = allow_smem(ric_enter_kernel<T, J, KAL>, level,
                           &level_allowed[2])))
       return err;
-    const dim3 groups((unsigned)(plan.C * GB), chunks);
     if (GB > 1) {
-      ric_groups_kernel<T, J, KAL><<<groups, Lv::NT, Lv::SMEM, s>>>(maps, totals,
-                                                                NB, GB);
+      ric_groups_kernel<T, J, KAL><<<groups, Lv::NT, Lv::SMEM, s>>>(
+          maps, totals, NB, GB);
       if ((err = (int)cudaGetLastError())) return err;
-      ric_scan_kernel<T, J, KAL><<<dim3((unsigned)plan.C, chunks), Lv::NT,
-                                   Lv::SMEM, s>>>(totals, gstates, GB);
+      ++*launched;
+      ric_scan_kernel<T, J, KAL><<<per_chain, Lv::NT, Lv::SMEM, s>>>(
+          totals, gstates, GB);
       if ((err = (int)cudaGetLastError())) return err;
+      ++*launched;
     }
     ric_enter_kernel<T, J, KAL><<<groups, Lv::NT, Lv::SMEM, s>>>(
         maps, GB > 1 ? gstates : nullptr, cS, NB, GB);
     if ((err = (int)cudaGetLastError())) return err;
+    ++*launched;
   }
+  // (e): the states entering the groups (J <= 4) or the blocks (from J = 8)
+  const T* states = G::P == 1 ? (GB > 1 ? gstates : nullptr)
+                              : (NB > 1 ? cS : nullptr);
   const size_t smem = (2 * G::TILE + G::OUT) * sizeof(T);
   static size_t apply_allowed = 0;
   if ((err = allow_smem(ric_apply_kernel<T, J, KAL>, smem + G::WALK_STATIC,
                         &apply_allowed)))
     return err;
   ric_apply_kernel<T, J, KAL><<<walks, 32, smem, s>>>(
-      pp, ap, Up, Vp, Yp, NB > 1 ? cS : nullptr, (T*)S, (T*)F, N, K, L, NB);
-  return (int)cudaGetLastError();
+      pp, ap, Up, Vp, Yp, NB > 1 ? maps : nullptr, states, (T*)S, (T*)F, N,
+      K, L, NB, GB);
+  if ((err = (int)cudaGetLastError())) return err;
+  ++*launched;
+  return 0;
 }
 
 // the widths the Riccati and Kalman kernels are built for
@@ -1084,12 +1477,12 @@ int launch_riccati_j(const void* p, const void* a, const void* U,
 template <typename T, bool KAL>
 int launch_riccati(int J, const void* p, const void* a, const void* U,
                    const void* V, const void* Y, void* S, void* F, void* work,
-                   int C, int N, int K, int L, cudaStream_t s) {
+                   int C, int N, int K, int L, int* launched, cudaStream_t s) {
   switch (J) {
 #define C2T_CASE(JJ)                                                      \
   case JJ:                                                                \
     return launch_riccati_j<T, JJ, KAL>(p, a, U, V, Y, S, F, work, C, N, \
-                                        K, L, s);
+                                        K, L, launched, s);
     C2T_WIDTHS(C2T_CASE)
 #undef C2T_CASE
     default:
@@ -1149,16 +1542,20 @@ int launch_mat_affine(int phase, const void* A, const void* b,
 // ``is_double``.
 //
 // c2t_riccati_prefix: K = 0 is the Riccati family (Y, F unused), K >= 1 the
-// Kalman family with K right-hand sides.  Launches the phases (a)-(e) its
-// blocks of L rows need: (e) alone for one block, (a), (d), (e) for one
-// group, all five above; ``work`` holds c2t_riccati_work(J, C, N, K, L)
-// values of scratch (null for none).
+// Kalman family with K right-hand sides.  Launches the phases its blocks of
+// L rows need (the header comment: at J <= 4 (e) alone for one block, (a)
+// and (e) for one group, (a), (b), (e) above; from J = 8 (e), then (a), (d),
+// (e), then all five) and adds their number to *launched; ``work`` holds
+// c2t_riccati_work(J, C, N, K, L) values of scratch (null for none).
+// c2t_riccati_group: the blocks of a group, kGroup.
 //
 // c2t_mat_affine_prefix: phase 0 product (writes P from A, using Pw), 1
 // walk (reads A, b and ``carry``, null for zero; writes F and/or ``last``,
 // either may be null).  Any D >= 1 and K >= 1.
 
 extern "C" {
+
+int c2t_riccati_group() { return kGroup; }
 
 long long c2t_riccati_work(int J, int C, int N, int K, int L) {
   return K == 0 ? riccati_work<false>(J, C, N, K, L)
@@ -1168,17 +1565,18 @@ long long c2t_riccati_work(int J, int C, int N, int K, int L) {
 int c2t_riccati_prefix(int is_double, int J, const void* p, const void* a,
                        const void* U, const void* V, const void* Y, void* S,
                        void* F, void* work, int C, int N, int K, int L,
-                       void* stream) {
+                       int* launched, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (K == 0)
-    return is_double ? launch_riccati<double, false>(J, p, a, U, V, Y, S, F,
-                                                     work, C, N, K, L, s)
-                     : launch_riccati<float, false>(J, p, a, U, V, Y, S, F,
-                                                    work, C, N, K, L, s);
-  return is_double ? launch_riccati<double, true>(J, p, a, U, V, Y, S, F,
-                                                  work, C, N, K, L, s)
+    return is_double
+               ? launch_riccati<double, false>(J, p, a, U, V, Y, S, F, work, C,
+                                               N, K, L, launched, s)
+               : launch_riccati<float, false>(J, p, a, U, V, Y, S, F, work, C,
+                                              N, K, L, launched, s);
+  return is_double ? launch_riccati<double, true>(J, p, a, U, V, Y, S, F, work,
+                                                  C, N, K, L, launched, s)
                    : launch_riccati<float, true>(J, p, a, U, V, Y, S, F, work,
-                                                 C, N, K, L, s);
+                                                 C, N, K, L, launched, s);
 }
 
 int c2t_mat_affine_prefix(int is_double, const void* A, const void* b,

@@ -195,9 +195,13 @@ def _library():
         #  stream)
         lib.c2t_affine_prefix.argtypes = [I, I] + [P] * 6 + [I] * 5 + [P]
         lib.c2t_affine_prefix.restype = I
-        # (is_double, J, p, a, U, V, Y, S, F, work, C, N, K, L, stream)
-        lib.c2t_riccati_prefix.argtypes = [I, I] + [P] * 8 + [I] * 4 + [P]
+        # (is_double, J, p, a, U, V, Y, S, F, work, C, N, K, L, launched,
+        #  stream)
+        lib.c2t_riccati_prefix.argtypes = ([I, I] + [P] * 8 + [I] * 4
+                                           + [ctypes.POINTER(I), P])
         lib.c2t_riccati_prefix.restype = I
+        lib.c2t_riccati_group.argtypes = []
+        lib.c2t_riccati_group.restype = I
         # (J, C, N, K, L) -> values of scratch
         lib.c2t_riccati_work.argtypes = [I] * 5
         lib.c2t_riccati_work.restype = ctypes.c_longlong
@@ -354,13 +358,15 @@ def frev_states_cuda(p, U, W, bv0, bdp, maps, block_len=None):
     return MX
 
 
-def _launch_general(key, J, inputs, outs, ints, fn=None):
+def _launch_general(key, J, inputs, outs, ints, fn=None, launched=None):
     """Launch ``c2t_<fn>`` (``fn`` defaults to ``key``; csrc/general_ops.cu,
     csrc/assoc_prefix.cu, csrc/fused_loglik.cu) on ``inputs``
     into ``outs`` (None for an array that is not given or not wanted: its
     pointer is null), with the
     trailing integer arguments ``ints``, and count it under ``key``.  ``J``
-    None is not passed (a kernel that takes its width from ``ints``)."""
+    None is not passed (a kernel that takes its width from ``ints``).  With
+    ``launched`` (a ``ctypes.c_int``), the function reports through it the
+    kernels it launched, and those are counted."""
     if J is not None and J not in WIDTHS.get(key, (J,)):
         raise NotImplementedError(
             f"{key}: J must be one of {WIDTHS[key]}, got {J}"
@@ -374,11 +380,12 @@ def _launch_general(key, J, inputs, outs, ints, fn=None):
             *(() if J is None else (J,)),
             *(None if t is None else t.data_ptr() for t in (*inputs, *outs)),
             *ints,
+            *(() if launched is None else (ctypes.byref(launched),)),
             stream,
         )
+    LAUNCHES[key] += 1 if launched is None else launched.value
     if rc != 0:
         raise RuntimeError(f"{key}: kernel launch failed (CUDA error {rc})")
-    LAUNCHES[key] += 1
 
 
 def _empty(like, *shape):
@@ -524,32 +531,32 @@ def affine_prefix_cuda(phi, G, reverse=False, block_len=None):
 def kalman_block_len(N, J):
     """Rows per block of the Riccati and Kalman prefixes on the card, for
     digits first, time second (``chip_smoke.py --sweep`` on an H100 80GB
-    HBM3 at 700 W, float64, K = 1).
+    HBM3 at 700 W, float64, K = 1, blocks of 16 to 4096 rows; errors of
+    chain 0, relative to the largest entry).
 
-    * J >= 8: 512 rows.  Each block map composed above the rows loses
-      digits at wide8's stiff Q = 0.5 term (ROADMAP C4): with blocks of
-      32 to 256 rows S lies 1.8e-9 to 8.1e-9 from the row recursion at
-      N = 1e5 and 1e6 and F up to 3.9e-8, past the 1e-9 gate; from 512 rows
-      S lies 3.7e-10 to 5.1e-10 away (F 5.5e-10 to 1.1e-9).  At N = 1e4
-      every length keeps 1e-10.  Of the lengths that keep the gate, 512
-      rows are the fastest at one chain (0.874 ms at N = 1e5, 1.45 at
-      1e6), and within 2% of the fastest at 64 chains.
-    * J <= 4: no digits lost at any length (S within 3.3e-14), so the
-      power of two at or above sqrt(N) / 5, at least 32: 64 rows at
-      N = 1e5 (0.439 ms at one chain against 0.505 at 32 and 0.502 at
-      128), 256 at N = 1e6 (1.02 ms against 1.13 at 128 and 1.36 at
-      512)."""
-    if J >= 8:
-        return 512
-    L = 32
-    while 25 * L * L < N:
-        L *= 2
-    return L
-
-
-# blocks of the Riccati and Kalman prefixes' rows in a group
-# (csrc/assoc_prefix.cu, kGroup)
-ASSOC_GROUP = 32
+    * J <= 4: no digits lost at any length (S and F within 1.3e-13 of the
+      row recursion, 7.5e-14 of the same recursion in long double), so
+      K1's rule, :func:`fused_block_len`: 32 rows at N = 1e5 (one chain,
+      J = 4: Riccati 0.158 ms, Kalman 0.164; 64 rows 0.177, 0.257), 128 at
+      N = 1e6 (0.36, 0.51; 64 rows 0.29, 0.54; 256 rows 0.55, 0.86).  At 64
+      chains the rule's lengths lie within 11% of the fastest swept one.
+    * J = 8: 2048 rows.  Short blocks lose digits at wide8's stiff
+      Q = 0.5 term (ROADMAP C4): from 16 to 256 rows S and F lie 1.8e-9 to
+      3.9e-8 from the long double recursion at N = 1e5 and 1e6.  From 512
+      rows they lie within 3.7e-10 (S) and 6.5e-10 (F) of it, as close as
+      the float64 row recursion itself (3.4e-10 to 4.0e-10, 4.7e-10 to
+      6.0e-10), so against that recursion the two errors add: 512 rows
+      reach 1.03e-9 (F at N = 1e6, the 64-chain data) and 1024 rows
+      1.10e-9, past the 1e-9 gate.  2048 and 4096 rows keep every swept
+      shape (1 and 64 chains, N = 1e5 and 1e6) under 8.5e-10 and 7.4e-10
+      against it; 2048 is the faster (2.05 ms at N = 1e5, one chain).
+    * J >= 16: 512 rows, measured at N = 1e5, one chain only: J = 16 S, F
+      within 2.5e-10 of the row recursion (1.77 ms; 128 rows 1.49 at
+      5.0e-10), J = 32 within 7.6e-11 (5.71 ms; 256 rows 5.17 at
+      1.8e-10)."""
+    if J <= 4:
+        return fused_block_len(N)
+    return 2048 if J == 8 else 512
 
 
 def kalman_prefix_cuda(p, a, U, V, Y=None, block_len=None):
@@ -561,12 +568,15 @@ def kalman_prefix_cuda(p, a, U, V, Y=None, block_len=None):
     N, J, J)``, and with ``Y (C, N, K)`` also ``F (C, N, J, K)``.
 
     The rows go in blocks of ``block_len`` (default
-    :func:`kalman_block_len`), the blocks in groups of
-    :data:`ASSOC_GROUP`: one launch walks the rows of one block; with more
-    blocks, five (three with one group) run the two-level scan: the map of
-    every block, the map of every group, the state entering every group,
-    the state entering every block, and every block's rows from that
-    state."""
+    :func:`kalman_block_len`), the blocks in groups (csrc/assoc_prefix.cu,
+    ``c2t_riccati_group``): one launch walks the rows of one block; with
+    more blocks, a two-level scan.  At J <= 4 that is three launches (two
+    with one group): each block's map and its prefix within the group, the
+    scan over the groups, and every block's rows again from the state
+    entering it.  From J = 8 five (three with one group): the map of every
+    block, the map of every group, the state entering every group, the
+    state entering every block, and the rows.  Each kernel launched counts
+    in :data:`LAUNCHES`."""
     C, N, J = U.shape
     kalman = Y is not None
     K = Y.shape[-1] if kalman else 0
@@ -584,9 +594,7 @@ def kalman_prefix_cuda(p, a, U, V, Y=None, block_len=None):
     n_work = _library().c2t_riccati_work(J, C, N, K, L)  # -1 for another J
     work = _empty(p, n_work) if n_work > 0 else None
     _launch_general(key, J, (p, a, U, V, Y), (S, F, work), (C, N, K, L),
-                    "riccati_prefix")
-    NB = -(-N // L)
-    LAUNCHES[key] += 2 * (NB > 1) + 2 * (NB > ASSOC_GROUP)
+                    "riccati_prefix", ctypes.c_int(0))
     return (S, F) if kalman else S
 
 

@@ -45,11 +45,12 @@ __all__ = ["ASSOC_MIN_ROWS", "backend", "tier"]
 # value+gradient, each within the float64 gates, in every run on an NVIDIA
 # H100 80GB HBM3 at 700 W (chip_smoke.py phase "crossover": J = 2, 4, 8;
 # N = 1e3, 1e4, 1e5; C = 1, 64; PERF.md, Findings).  Since the Riccati and
-# Kalman prefixes' redesign the assoc factor wins from N = 1e4 at every J
-# and chain count, but at N = 1e4 its solve_lower and gradient still lose
-# (the matrix-affine prefix); at J = 8 the assoc gradient is slower (its
-# factor adjoint's phases A and C are PyTorch loops), at 64 chains its
-# solves are, and in float32 its J = 8 value misses the float32 gate.
+# Kalman prefixes' redesign the assoc factor wins from N = 1e4 (at J = 8
+# with 64 chains from 1e5, its blocks being 2048 rows), but at N = 1e4 its
+# solve_lower and gradient still lose (the matrix-affine prefix); at J = 8
+# the assoc gradient is slower (its factor adjoint's phases A and C are
+# PyTorch loops), at 64 chains its solves are, and in float32 its J = 8
+# value misses the float32 gate.
 ASSOC_MIN_ROWS: dict = {
     (torch.float64, 2, False): 100_000,
     (torch.float64, 4, False): 100_000,

@@ -143,18 +143,34 @@ def _grouped(elems, size):
     return tuple(x.reshape(C, -1, size, *x.shape[2:]) for x in elems)
 
 
-def kalman_prefix_blocked(p, a, U, V, Y=None, *, block_len):
+# The Riccati and Kalman kernels' blocks a group and, at J <= 4, the threads
+# of their scan over the groups (csrc/assoc_prefix.cu kGroup, which the C
+# interface reports as c2t_riccati_group, and kScanThreads).
+KERNEL_GROUP = 32
+KERNEL_SCAN_THREADS = 128
+
+
+def kalman_prefix_blocked(p, a, U, V, Y=None, *, block_len,
+                          scan_threads=KERNEL_SCAN_THREADS):
     """The Riccati (``Y`` None) or Kalman prefix composed in the order of
     the CUDA kernels (``_build.kalman_prefix_cuda``), with the plain
-    combines of ``ops/elements.py``: the elements of every block of
-    ``block_len`` rows composed in order into the block's map; the maps of
-    every group of ``_build.ASSOC_GROUP`` blocks composed in order into the
-    group's map; the state carried over the groups' maps from zero, then
-    over each group's block maps from the state entering the group; every
-    block's rows again from the state entering it.  Returns what
-    :func:`riccati_prefix_plain` or :func:`kalman_prefix_plain` returns.  A
-    plain version of the kernels' order, for the tests on the CPU; nothing
-    on the card's path calls it."""
+    combines of ``ops/elements.py``.  The elements of every block of
+    ``block_len`` rows are composed in order into the block's map; the
+    blocks go in groups of :data:`KERNEL_GROUP`.  Then, at J <= 4:
+
+    * each block's prefix within its group, by doubling over the group;
+    * the groups' maps in runs of ceil(groups / ``scan_threads``): each run
+      composed in order, the runs' maps scanned by doubling, and each
+      run's groups walked from the state entering the run;
+    * the state entering each block: that entering its group carried over
+      its prefix of the blocks before it.
+
+    From J = 8 the maps of every group are composed in order, the state is
+    carried over the groups' maps from zero, then over each group's block
+    maps from the state entering the group.  Last, every block's rows again
+    from the state entering it.  Returns what :func:`riccati_prefix_plain`
+    or :func:`kalman_prefix_plain` returns.  A plain version of the kernels'
+    order, for the tests on the CPU; nothing on the card's path calls it."""
     kalman = Y is not None
     if kalman:
         elems = kalman_elements(p, a, U, V, Y)
@@ -162,7 +178,7 @@ def kalman_prefix_blocked(p, a, U, V, Y=None, *, block_len):
     else:
         elems = riccati_elements(p, a, U, V)
         combine, apply = el.riccati_combine, el.riccati_distribute
-    C, N = U.shape[:2]
+    C, N, J = U.shape
 
     def compose(seq):  # the in-order composition along dim 2
         out = tuple(x[:, :, 0] for x in seq)
@@ -175,14 +191,39 @@ def kalman_prefix_blocked(p, a, U, V, Y=None, *, block_len):
         for k in range(seq[0].shape[2]):
             states.append(state)
             state = apply(state, tuple(x[:, :, k] for x in seq))
-        return tuple(torch.stack(x, 2) for x in zip(*states)), state
+        return tuple(torch.stack(x, 2) for x in zip(*states))
+
+    def scan(seq):  # inclusive doubling along dim 2
+        B, M = seq[0].shape[:2]
+        out = _doubling(combine, tuple(x.flatten(0, 1) for x in seq))
+        return tuple(x.reshape(B, M, *x.shape[1:]) for x in out)
+
+    def shifted(seq):  # the identity, then all but the last along dim 1
+        return tuple(torch.cat([i, x[:, :-1]], 1)
+                     for i, x in zip(_identity(elems, C, 1), seq))
 
     rows = _grouped(elems, block_len)
-    groups = _grouped(compose(rows), _build.ASSOC_GROUP)
-    totals = tuple(x[:, None] for x in compose(groups))
-    entering, _ = walk(_identity(elems, C, 1), totals)
-    entering, _ = walk(tuple(x[:, 0] for x in entering), groups)
-    entering = tuple(x.flatten(1, 2)[:, :rows[0].shape[1]] for x in entering)
+    NB = rows[0].shape[1]
+    groups = _grouped(compose(rows), KERNEL_GROUP)
+    GB = groups[0].shape[1]
+    # a map serves as a state: apply reads its Q and b leaves only
+    if J <= 4:
+        within = scan(groups)
+        runs = _grouped(tuple(x[:, :, -1] for x in within),
+                        -(-GB // scan_threads))
+        at_runs = shifted(_doubling(combine, compose(runs)))
+        at_groups = walk(at_runs, runs)
+        at_groups = tuple(x.flatten(1, 2)[:, :GB] for x in at_groups)
+        before = tuple(
+            torch.cat([i[:, :, None].expand_as(x[:, :, :1]), x[:, :, :-1]], 2)
+            for i, x in zip(_identity(elems, C, GB), within))
+        entering = apply(tuple(x[:, :, None].expand_as(y)
+                               for x, y in zip(at_groups, before)), before)
+    else:
+        totals = tuple(x[:, None] for x in compose(groups))
+        at_groups = walk(_identity(elems, C, 1), totals)
+        entering = walk(tuple(x[:, 0] for x in at_groups), groups)
+    entering = tuple(x.flatten(1, 2)[:, :NB] for x in entering)
     after = []
     state = entering
     for k in range(block_len):

@@ -314,9 +314,10 @@ FUSED_KERNELS = ("kalman_maps", "kalman_states", "solve_maps", "solve_states",
                  "block_scan", "factor_maps", "frev_groups", "frev_scan",
                  "frev_rows")
 FUSED_KERNEL_COUNT = (6 * 4 + 2 + 3 * 4) * 2
-# csrc/assoc_prefix.cu's ric_{maps,groups,scan,enter,apply}_kernel at six
-# widths, two families and two scalar types
-RIC_KERNEL_COUNT = 5 * 6 * 2 * 2
+# csrc/assoc_prefix.cu's ric_{maps,carry,apply}_kernel at J = 1, 2, 4 and
+# ric_{maps,groups,scan,enter,apply}_kernel at J = 8, 16, 32, two families
+# and two scalar types
+RIC_KERNEL_COUNT = (3 * 3 + 5 * 3) * 2 * 2
 
 
 def phase_build():
@@ -351,9 +352,9 @@ def phase_build():
     assert len(ric) == RIC_KERNEL_COUNT, f"ric_* kernels in the build log: {len(ric)}"
     spilled = [n for n, sp in ric if not sp.startswith("0 bytes")]
     assert not spilled, f"Riccati and Kalman kernels that spill: {spilled}"
-    log("build", f"the Riccati and Kalman prefixes: {len(ric)} kernels (five "
-        "phases, J = 1, 2, 4, 8, 16, 32, both families, float and double), "
-        "0 bytes spilled")
+    log("build", f"the Riccati and Kalman prefixes: {len(ric)} kernels (three "
+        "phases at J = 1, 2, 4, five at J = 8, 16, 32; both families, float "
+        "and double), 0 bytes spilled")
 
 
 # kernels of each system kind: J = 1 RealTerm, 2 SHOTerm, 3 RealTerm +
@@ -1680,7 +1681,7 @@ def phase_assoc_kernels(dev):
              "at J = 16" if name == "mat_affine_prefix" else "") + ")")
 
     # float32: the Riccati and Kalman prefixes at J = 2, 4, 8, N = 1040 in
-    # blocks of 8 rows (five launches), C = 3, K = 1, against the float64 row
+    # blocks of 8 rows (130 blocks), C = 3, K = 1, against the float64 row
     # recursion within max(1e-4, 2 x the float32 doubling's error)
     for J in (2, 4, 8):
         p, a, U, V, Y = prefix_inputs(J, 1040, 3, 1, dev, seed=J)
@@ -1981,6 +1982,23 @@ def phase_auto_path(dev, smi):
     log("auto path", f"launches: auto {launches['auto']}; scan {launches['scan']}")
     assert launches["auto"].get("riccati_prefix", 0) >= 1, launches["auto"]
     assert launches["auto"].get("factor_fwd", 0) == 0, launches["auto"]
+    # where compute's time goes under "auto": each of 7 calls timed on its
+    # own (the spread), and a trace of 3
+    with tier("auto"), torch.no_grad():
+        each = sorted(cuda_ms(lambda: calls["compute"](None, None), reps=1,
+                              warmup=0) for _ in range(7))
+        prof = profile_calls(lambda: calls["compute"](None, None), 4)
+    log("auto path", "compute under auto, 7 calls each timed: " + ", ".join(
+        f"{ms:.3f}" for ms in each) + " ms")
+    if prof is None:
+        log("auto path", "no device events in the trace: not measured")
+        return
+    top = sorted(prof["by_name"].items(), key=lambda kv: -kv[1][1])[:8]
+    log("auto path", f"compute under auto, traced: {prof['kernels_per_eval']:.0f} "
+        f"device kernels a call, device busy {prof['busy_ms']:.3f} ms of a "
+        f"{prof['span_ms']:.3f} ms span (idle share {prof['idle_share']:.3f}); "
+        "device time by kernel (top 8): " + "; ".join(
+            f"{k} x{c:.0f} {ms:.4f} ms" for k, (c, ms) in top))
 
 
 CROSS_MODELS = {2: (sho, THETA0), 4: (sho_mixture, THETA4), 8: (wide8, THETA0)}
@@ -2280,24 +2298,21 @@ def part_name(name):
     return (m[1] if m else name[:60]) + (f"<{width[1]}, {width[2]}>" if width else "")
 
 
-def profile_eval(dev, model, theta0, J, n=3):
-    """torch.profiler over ``n`` value+gradient evaluations at N = 1e5,
-    float64, of the model of width J, after one outside it.  Returns None
-    when the trace holds no device events, else per evaluation: device
-    kernels, device busy and span ms, the idle share, (calls, device ms) by
-    kernel, this repository's kernels under the name of the wrapper that
-    launched them (:func:`ours`), and by device kernel for those
-    (``parts``)."""
+def profile_calls(fn, J, n=3):
+    """torch.profiler over ``n`` calls of ``fn`` (at width J), after one
+    outside it.  Returns None when the trace holds no device events, else
+    per call: device kernels, device busy and span ms, the idle share,
+    (calls, device ms) by kernel, this repository's kernels under the name
+    of the wrapper that launched them (:func:`ours`), and by device kernel
+    for those (``parts``)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    t, y = bench_data(N_MAIN, dev, torch.float64)
-    theta = torch.tensor(theta0, device=dev)
-    value_and_grad(theta, t, y, model)
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(n):
-            value_and_grad(theta, t, y, model)
+            fn()
         torch.cuda.synchronize()
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     if not kernels:
@@ -2318,6 +2333,14 @@ def profile_eval(dev, model, theta0, J, n=3):
     return {"kernels_per_eval": len(kernels) / n, "busy_ms": busy / 1000,
             "span_ms": span / 1000, "idle_share": 1 - busy / span,
             "by_name": per_eval(by_name), "parts": per_eval(parts)}
+
+
+def profile_eval(dev, model, theta0, J, n=3):
+    """:func:`profile_calls` over value+gradient evaluations at N = 1e5,
+    float64, of the model of width J."""
+    t, y = bench_data(N_MAIN, dev, torch.float64)
+    theta = torch.tensor(theta0, device=dev)
+    return profile_calls(lambda: value_and_grad(theta, t, y, model), J, n)
 
 
 def phase_profile(dev, label, model, theta0, J):
@@ -2365,7 +2388,7 @@ def card_block_len(name, rows):
 
 
 SWEEP_ROWS = (16, 32, 64, 128, 256, 512, 1024)
-PREFIX_SWEEP_ROWS = (32, 64, 128, 256, 512, 1024, 2048)
+PREFIX_SWEEP_ROWS = (16, 32, 64, 128, 256, 512, 1024, 2048, 4096)
 
 
 def phase_sweep(dev):
@@ -2440,32 +2463,83 @@ def phase_sweep(dev):
                 + (" (the default)" if default else ""))
 
 
+def longdouble_prefix(p, a, U, V, Y):
+    """S and F after every row of chain 0 by the factor and lower solve's
+    row recursion (``sequential_prefix``'s) in numpy's long double, rounded
+    to float64: the sweep's measure of what the float64 recursions lose.
+    None where long double is no wider than float64."""
+    ld = np.longdouble
+    if np.finfo(ld).eps >= np.finfo(np.float64).eps:
+        return None
+    P, A_, Uu, Vv, Yy = (x[0].cpu().numpy().astype(ld) for x in (p, a, U, V, Y))
+    N, J = Uu.shape
+    S, F = np.zeros((J, J), ld), np.zeros((J, Yy.shape[1]), ld)
+    d, w, z = ld(0), np.zeros(J, ld), np.zeros(Yy.shape[1], ld)
+    Ss = np.empty((N, J, J), np.float64)
+    Fs = np.empty((N, J, Yy.shape[1]), np.float64)
+    for n in range(N):
+        pn, un = P[n], Uu[n]
+        S = (S + d * np.outer(w, w)) * pn[:, None] * pn[None, :]
+        Ss[n] = S
+        tmp = S @ un
+        d = A_[n] - un @ tmp
+        F = pn[:, None] * (F + np.outer(w, z))
+        Fs[n] = F
+        z = Yy[n] - un @ F
+        w = (Vv[n] - tmp) / (d if d > 0 else ld(1))
+    return torch.from_numpy(Ss)[None], torch.from_numpy(Fs)[None]
+
+
+PREFIX_SWEEP = [(J, N, C) for J, N in ((2, N_MAIN), (4, N_MAIN), (8, N_MAIN),
+                                       (4, 1_000_000), (8, 1_000_000))
+                for C in (1, 64)] + [(16, N_MAIN, 1), (32, N_MAIN, 1)]
+
+
 def phase_prefix_sweep(dev):
     """The assoc tier's Riccati and Kalman prefixes (K = 1) per rows a
-    block on the card, float64: J = 4 and 8, N = 1e5 and 1e6, C = 1 and 64,
-    with the relative error of S and F against the row recursion
-    (``row_prefix``; of the first chain at C = 64)."""
-    for J, N, C in ((4, N_MAIN, 1), (8, N_MAIN, 1), (4, 1_000_000, 1),
-                    (8, 1_000_000, 1), (4, N_MAIN, 64), (8, N_MAIN, 64),
-                    (4, 1_000_000, 64), (8, 1_000_000, 64)):
+    block on the card, float64: J = 2, 4, 8 at N = 1e5 and J = 4, 8 at
+    N = 1e6 with C = 1 and 64, J = 16 and 32 at N = 1e5 with C = 1.  At
+    each, the relative error of S and F (of chain 0) against the float64
+    row recursion (``row_prefix``) and against the same recursion in long
+    double (``longdouble_prefix``), beside the float64 recursion's own
+    error against the long double one.  The default length's errors are
+    held to LONG_RTOL against both, after every line is logged."""
+    worst = {}
+    for J, N, C in PREFIX_SWEEP:
         p, a, U, V, Y = prefix_inputs(J, N, C, 1, dev, seed=J)
         fin = (p, a, U, V)
         rows_ref = row_prefix(*first_chain(fin + (Y,)))
+        # chain 0's Y depends on C (the data's draws): one truth a (J, N, C)
+        began = time.perf_counter()
+        truth = longdouble_prefix(*first_chain(fin + (Y,)))
+        if truth is not None:
+            own = tuple(scaled_err(r, t) for r, t in zip(rows_ref, truth))
+            log("sweep", f"prefix, J = {J}, N = {N}, C = {C}: the float64 row "
+                f"recursion against the long double one S {own[0]:.2e}, F "
+                f"{own[1]:.2e} ({time.perf_counter() - began:.1f} s)")
         for rows in PREFIX_SWEEP_ROWS:
             with card_block_len("kalman_block_len", rows):
                 ms_r = cuda_ms(lambda: _build.riccati_prefix_cuda(*fin), reps=3, warmup=1)
                 ms_k = cuda_ms(lambda: _build.kalman_prefix_cuda(*fin, Y), reps=3,
                                warmup=1)
-                S, F = _build.kalman_prefix_cuda(*first_chain(fin + (Y,)))
-            default = rows == _build.kalman_block_len(N, J)
-            log("sweep", f"prefix, J = {J}, N = {N}, C = {C}, {rows} rows a block "
-                f"(NB = {-(-N // rows)}): riccati_prefix {ms_r:.4f} ms, "
-                f"kalman_prefix {ms_k:.4f} ms; against the row recursion S "
-                f"{scaled_err(S, rows_ref[0]):.2e}, F {scaled_err(F, rows_ref[1]):.2e}"
-                + (" (the default)" if default else ""))
-            del S, F
-        del p, a, U, V, Y, fin, rows_ref
+                got = _build.kalman_prefix_cuda(*first_chain(fin + (Y,)))
+            errs = [scaled_err(g, r) for g, r in zip(got, rows_ref)]
+            line = (f"prefix, J = {J}, N = {N}, C = {C}, {rows} rows a block (NB = "
+                    f"{-(-N // rows)}): riccati_prefix {ms_r:.4f} ms, kalman_prefix "
+                    f"{ms_k:.4f} ms; against the row recursion S {errs[0]:.2e}, F "
+                    f"{errs[1]:.2e}")
+            if truth is not None:
+                errs += [scaled_err(g, t) for g, t in zip(got, truth)]
+                line += f"; against the long double S {errs[2]:.2e}, F {errs[3]:.2e}"
+            if rows == _build.kalman_block_len(N, J):
+                line += " (the default)"
+                worst[J, N, C] = max(errs)
+            log("sweep", line)
+            del got
+        del p, a, U, V, Y, fin, rows_ref, truth
         torch.cuda.empty_cache()
+    for shape, err in worst.items():
+        assert math.isfinite(err) and err < LONG_RTOL, (shape, err)
 
 
 def main(argv=None):

@@ -230,6 +230,33 @@ def test_kernel_order_matches_jax(monkeypatch, family, J, N, nonpd):
         assert_rel_close(g[0].numpy(), w, 1e-9, f"{family} output {i}")
 
 
+@pytest.mark.parametrize("scan_threads", [2, 4])
+@pytest.mark.parametrize("J", [2, 4])
+@pytest.mark.parametrize("family", ["riccati", "kalman"])
+def test_kernel_order_over_runs_of_groups_matches_jax(monkeypatch, family, J,
+                                                      scan_threads):
+    """The order of the J <= 4 kernels where their scan over the groups
+    gives a thread a run of several groups (as the card's 128 threads do
+    from 129 groups on): N = 129 in one-row blocks, five groups over 2 or
+    4 threads, against the JAX package's factor_solve_assoc (jitted,
+    float64), 1e-9 relative."""
+    N = 129
+    sys_, want = _jax_factor_solve(J, N, False)
+    monkeypatch.setattr(pe, "riccati_prefix", lambda p, a, U, V: (
+        pe.kalman_prefix_blocked(p, a, U, V, block_len=1,
+                                 scan_threads=scan_threads)))
+    monkeypatch.setattr(pe, "kalman_prefix", lambda p, a, U, V, Y: (
+        pe.kalman_prefix_blocked(p, a, U, V, Y, block_len=1,
+                                 scan_threads=scan_threads)))
+    args = tuple(t64(x)[None] for x in sys_)
+    if family == "riccati":
+        got, want = tassoc.factor_assoc(*args[:5]), [want[i] for i in (0, 1, 3)]
+    else:
+        got = tassoc.factor_solve_assoc(*args)
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert_rel_close(g[0].numpy(), w, 1e-9, f"{family} output {i}")
+
+
 # ---------------------------------------------------------- forward ops
 
 FORWARD = ["factor", "factor_solve"] + SWEEPS

@@ -755,13 +755,21 @@ def _hold_prefix(got, dbl, rows, tol=1e-10):
         assert rel(g, d) < max(tol, 1.5 * rel(d, r)), (rel(g, d), rel(d, r))
 
 
-def _prefix_launches(N, L):
+def _prefix_launches(N, L, J):
     """Launches of one Riccati or Kalman prefix call: the rows of one
-    block; with more blocks, the block maps, the states entering them and
-    the rows; with more than one group, also the group maps and the scan
-    over them."""
+    block.  With more blocks, at J <= 4 the block maps (with their scan
+    within each group) and the rows, and with more than one group the scan
+    over the groups too; from J = 8 the block maps, the states entering
+    them and the rows, and with more than one group the group maps and the
+    scan over them too."""
+    from celerite2_torch.ops import prefix_engine as pe
+
     NB = -(-N // L)
-    return 1 if NB == 1 else 3 if NB <= _build.ASSOC_GROUP else 5
+    if NB == 1:
+        return 1
+    if NB <= pe.KERNEL_GROUP:
+        return 2 if J <= 4 else 3
+    return 3 if J <= 4 else 5
 
 
 def _prefix_rows(p, a, U, V, Y):
@@ -784,9 +792,11 @@ def test_riccati_and_kalman_prefix_match_plain(cuda, J, N, block_len):
     and the factor and lower solve's row loop, C = 3, float64, to 1e-10
     relative (``_hold_prefix``), without right-hand sides and with K = 1,
     16, 17, 20 and 40 (column chunks of csrc/assoc_prefix.cu ric_cols);
-    launches per call (``_prefix_launches``)."""
+    launches per call (``_prefix_launches``); the group of the CPU's
+    plain version of the kernels' order is the kernels' own."""
     from celerite2_torch.ops import prefix_engine as pe
 
+    assert _build._library().c2t_riccati_group() == pe.KERNEL_GROUP
     p, a, U, V, Y = _riccati_inputs(N, 3, J, 40, cuda, seed=J)
     L = block_len or _build.kalman_block_len(N, U.shape[-1])
     # each right-hand side's leaves depend on its own column only: one
@@ -799,7 +809,7 @@ def test_riccati_and_kalman_prefix_match_plain(cuda, J, N, block_len):
         got = _build.kalman_prefix_cuda(p, a, U, V, Y[..., :K].contiguous()
                                         if K else None, block_len)
         torch.cuda.synchronize()
-        assert _build.LAUNCHES[key] == before + _prefix_launches(N, L), K
+        assert _build.LAUNCHES[key] == before + _prefix_launches(N, L, J), K
         if K:
             _hold_prefix(got, (dbl[0], dbl[1][..., :K]), (rows[0], rows[1][..., :K]))
         else:
@@ -849,7 +859,7 @@ def test_riccati_and_kalman_prefix_nonpositive_pivot(cuda, J):
 
 @pytest.mark.parametrize("J", [2, 8])
 def test_riccati_and_kalman_prefix_float32(cuda, J):
-    """Float32 at J = 2, 8, N = 1040 in blocks of 8 (five launches), K = 1,
+    """Float32 at J = 2, 8, N = 1040 in blocks of 8 (130 blocks), K = 1,
     against the float64 row loop: within max(1e-4, 2 x the float32 plain
     doubling's error against it), the float32 gate of the kernels
     (PERF.md, PR 8)."""
