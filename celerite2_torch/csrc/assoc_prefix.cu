@@ -1,6 +1,6 @@
 // The blocked prefix kernels of the assoc tier (ops/assoc.py), written for
 // Hopper (sm_90a): the inclusive prefix over the rows of a long sequence of
-// three element families.  Built with nvcc into the shared library of
+// four element families.  Built with nvcc into the shared library of
 // celerite2_torch/ops/_build.py and bound with ctypes.
 //
 // They replace, each for its element family, the in-block prefix kernel of
@@ -15,11 +15,14 @@
 //   * the same kernels with K right-hand sides, the Kalman family
 //                 (planes.kalman_spec, assoc._kalman_combine): (A, Q, R, b,
 //                 eta) acting on (S, F); assoc.factor_solve_assoc;
-//   * mat_affine_* the matrix-affine family (planes.mat_affine_spec,
+//   * ma_*        the matrix-affine family (planes.mat_affine_spec,
 //                 assoc._mat_affine_combine): x -> A x + b with A (D, D) and
 //                 b (D, K); the solves, the solve adjoint and phase B of the
-//                 factor adjoint (D = J^2, K = 1).
-// The diagonal-affine family is affine_prefix_kernel in general_ops.cu.
+//                 factor adjoint (D = J^2, K = 1);
+//   * affine_prefix_kernel  the diagonal-affine family
+//                 (planes.diag_affine_spec, assoc._diag_affine_scan): f ->
+//                 alpha f + beta entry by entry; the matmuls and the
+//                 rectangular products of a prediction at new points.
 //
 // Riccati and Kalman elements are built in the kernel from the row data
 // (p, a, u, v, y): element n >= 1 from row n - 1 and p_n, element 0 the
@@ -1264,100 +1267,822 @@ __global__ void __launch_bounds__(RicLevel<T, J, KAL>::NT, 1)
 
 // ======================================================== matrix-affine
 //
-// x -> A_m x + b_m over the rows m of A (C, M, D, D), b (C, M, D, K), rows
-// descending with ``reverse``.  Two kernels:
-//   * walk: each (chain, block, chunk of KC columns) walks its rows from the
-//     value leaving the block walked before it (``carry`` (C, NB, D, K),
-//     zero when null or for the first block) and writes the value after
-//     every row into F (if set) and the last one into ``last`` (if set);
-//   * product: each (chain, block) composes the linear parts of its rows,
-//     A_last ... A_first, into P (C, NB, D, D), ping-ponging with Pw.
-// The wrapper runs the walk from zero for the block totals, the same
-// prefix on those NB maps for the carries, and the walk from the carries
-// for F.  A thread keeps (D / blockDim) entries of the state; the state is
-// double-buffered in shared memory, one barrier per row.
-constexpr int kAffineThreads = 256;
-constexpr int kAffineEntries = 2048;  // D * KC per thread block
+// x -> A_m x + b_m over the rows m of A (C, M, D, D) and b (C, M, D, K), in
+// walk order (ascending rows, or descending with ``reverse``); F (C, M, D, K)
+// is the value after every row, from zero.  The combine of two maps,
+// (A2 A1, A2 b1 + b2), has no inverse, so the J <= 4 Riccati design carries
+// over with whole maps in place of the rank-one steps.  What bounds it on
+// this card: at one chain the chains of dependent row steps (a block's rows
+// composed, then walked again) and the level above them; at 64 chains the
+// bytes of A, which is read twice (a block's composition, then its walk).
+//
+// Up to D = 32 a two-level scan over blocks of L rows (the wrapper's choice,
+// ops/_build.py mat_affine_block_len), in three launches (two with one
+// group of blocks, one with one block).  D is padded to DP, the power of
+// two at or above it; the padded rows and columns of A and b read as zero:
+//   (a) ma_maps:  a thread block a group of GS blocks of one (chain, chunk
+//                 of KC columns): a walk composes its block's rows into the
+//                 block's map [P | q] (P the product of the rows' A, q the
+//                 value after them from zero), in one pass over the rows;
+//                 then a Kogge-Stone scan over the group's GS maps in
+//                 shared memory gives every block's prefix within its group
+//                 (``maps``) and the group's map (``totals``);
+//   (b) ma_carry: a thread block a (chain, chunk) carries the value over
+//                 the groups' maps, the value entering every group
+//                 (``gstates``);
+//   (c) ma_apply: each walk applies the prefix of the blocks before its
+//                 own to the value entering its group, then walks its
+//                 block's rows again and stores F.
+// A walk is one lane up to DP = 4 (32 walks a warp, the map in registers,
+// two warps a thread block: GS = 64 blocks in a group) and a team of DP
+// lanes from DP = 8 (eight warps a thread block, GS = 32 at DP = 8, 16 at
+// 16, 8 at 32).  In (a) a lane of a team holds one column of P and one of
+// q, so a row step reads the row's A (a broadcast from shared memory) and
+// needs no shuffle; in (c) lane i holds row i of the value, and the row
+// step takes the value's other rows by shuffles within the team.  The rows
+// pass through shared memory by tiles of every walk of the warp, copied with
+// cp.async one tile ahead; a barrier of the warp, never of the thread block,
+// lies on the row chain.
+//
+// Above D = 32 (phase B of the factor adjoint at J >= 8: D = J^2 and at
+// most 128 maps a chain) the rows are few and a map is large, so one launch
+// walks them all, a thread block a (chain, chunk of kWideCols columns): warp
+// w takes the rows w, w + 32, ... of the value, its lanes split each row's
+// sum, and a barrier separates the rows (ma_wide).  That is a route by
+// shape: those inputs have no rows enough to cut into blocks.
 
-template <typename T>
-__global__ void __launch_bounds__(kAffineThreads)
-    mat_affine_walk_kernel(const T* __restrict__ A, const T* __restrict__ b,
-                           const T* __restrict__ carry, T* __restrict__ F,
-                           T* __restrict__ last, int M, int D, int K, int KC,
-                           int L, int NB, int reverse) {
-  extern __shared__ unsigned char smem_raw[];
-  T* buf = reinterpret_cast<T*>(smem_raw);
-  const int tid = threadIdx.x;
-  const int blk = blockIdx.x % NB;
-  const long long chain = blockIdx.x / NB;
-  const int k0 = blockIdx.y * KC;
-  const int kc = min(KC, K - k0);
-  const int lo = blk * L, len = min(L, M - lo);
-  const int step = reverse ? -1 : 1;
-  const int first = reverse ? lo + len - 1 : lo;
-  const int before = blk - step;
-  T* cur = buf;
-  T* nxt = buf + D * KC;
-  for (int e = tid; e < D * kc; e += kAffineThreads) {
-    const int i = e / kc, k = e % kc;
-    cur[e] = (carry != nullptr && before >= 0 && before < NB)
-                 ? carry[(((size_t)chain * NB + before) * D + i) * K + k0 + k]
-                 : T(0);
-  }
-  __syncthreads();
-  for (int r = 0; r < len; ++r) {
-    const size_t row = (size_t)chain * M + first + step * r;
-    const T* Ar = A + row * D * D;
-    for (int e = tid; e < D * kc; e += kAffineThreads) {
-      const int i = e / kc, k = e % kc;
-      T s = b[(row * D + i) * K + k0 + k];
-      for (int j = 0; j < D; ++j) s += Ar[(size_t)i * D + j] * cur[j * kc + k];
-      nxt[e] = s;
-      if (F != nullptr) F[(row * D + i) * K + k0 + k] = s;
-    }
-    __syncthreads();
-    T* tmp = cur;
-    cur = nxt;
-    nxt = tmp;
-  }
-  if (last != nullptr)
-    for (int e = tid; e < D * kc; e += kAffineThreads) {
-      const int i = e / kc, k = e % kc;
-      last[(((size_t)chain * NB + blk) * D + i) * K + k0 + k] = cur[e];
-    }
+template <int DP>
+struct Ma {
+  static constexpr int P = DP <= 4 ? 1 : DP;  // lanes a walk
+  static constexpr int NW = 32 / P;           // walks a warp
+  static constexpr int WARPS = DP <= 4 ? 2 : 8;
+  static constexpr int NT = 32 * WARPS;  // threads a thread block
+  static constexpr int GS = NW * WARPS;  // blocks of rows a group
+  // columns of b a chunk: what a lane's registers hold beside P
+  static constexpr int KC = DP == 1 ? 8 : DP <= 4 ? 4 : DP == 32 ? 16 : DP;
+  static constexpr int TR = DP <= 2 ? 4 : DP <= 8 ? 2 : 1;  // rows a tile
+  static constexpr int STAGES = 2;  // tiles in a warp's ring
+  // value f of row l of walk k of a tile at (l * W + f) * PITCH + k, W the
+  // values of a staged row (DP^2 of A, then DP kc of b)
+  static constexpr int PITCH = NW == 1 ? 1 : NW + 1;
+  static constexpr int PAIRS = TR * NW;  // (row, walk) pairs of a tile
+  static constexpr int LP = PAIRS >= 32 ? 1 : 32 / PAIRS;  // lanes a pair
+  static constexpr int MW = DP * DP + DP * KC;  // a map in the scratch
+  static constexpr int ST = DP * KC;            // a value in the scratch
+  static constexpr int CH = DP <= 8 ? 32 : DP == 16 ? 8 : 4;  // maps a chunk of (b)
+};
+
+// what a chunk of a launch needs at run time
+struct MaRun {
+  int D, K, k0, kc, W, step;  // W = DP^2 + DP kc; step -1 with reverse
+};
+
+template <int DP>
+__device__ __forceinline__ MaRun ma_run(int D, int K, int reverse) {
+  const int k0 = blockIdx.y * Ma<DP>::KC, kc = min(Ma<DP>::KC, K - k0);
+  return MaRun{D, K, k0, kc, DP * DP + DP * kc, reverse ? -1 : 1};
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kAffineThreads)
-    mat_affine_product_kernel(const T* __restrict__ A, T* P, T* Pw, int M,
-                              int D, int L, int NB, int reverse) {
-  const int tid = threadIdx.x;
-  const int blk = blockIdx.x % NB;
-  const long long chain = blockIdx.x / NB;
-  const int lo = blk * L, len = min(L, M - lo);
-  const int step = reverse ? -1 : 1;
-  const int first = reverse ? lo + len - 1 : lo;
-  const size_t m = ((size_t)chain * NB + blk) * D * D;
-  const size_t DD = (size_t)D * D;
-  // after len rows the product lies in P: start in P for an even len
-  T* cur = (len % 2 == 0) ? P + m : Pw + m;
-  T* nxt = (len % 2 == 0) ? Pw + m : P + m;
-  for (size_t e = tid; e < DD; e += kAffineThreads)
-    cur[e] = (e / D == e % D) ? T(1) : T(0);
+// the values of a warp's ring of tiles
+template <int DP>
+__device__ __forceinline__ int ma_ring(const MaRun& r) {
+  return Ma<DP>::STAGES * Ma<DP>::TR * r.W * Ma<DP>::PITCH;
+}
+
+// The walks of thread block (chain, group g): walk s is block g GS + s, its
+// first row in walk order start[s] of the (C M)-row arrays, len[s] rows
+// (0 past the chain's last block).
+template <int DP>
+__device__ __forceinline__ void ma_walks(int M, int L, int NB, long long chain,
+                                         int g, int reverse, long long* start,
+                                         int* len) {
+  using G = Ma<DP>;
+  for (int s = threadIdx.x; s < G::GS; s += G::NT) {
+    const int b = g * G::GS + s;
+    const int lo = b < NB ? b * L : 0;
+    len[s] = b < NB ? min(L, M - lo) : 0;
+    start[s] = chain * M + (reverse ? M - 1 - lo : lo);
+  }
   __syncthreads();
-  for (int r = 0; r < len; ++r) {
-    const T* Ar = A + ((size_t)chain * M + first + step * r) * DD;
-    for (size_t e = tid; e < DD; e += kAffineThreads) {
-      const size_t i = e / D, j = e % D;
-      T s = T(0);
-      for (int k = 0; k < D; ++k) s += Ar[i * D + k] * cur[(size_t)k * D + j];
-      nxt[e] = s;
+}
+
+// Zeroes a warp's ring when D < DP: the padded values are never copied,
+// and read as zero.
+template <typename T, int DP>
+__device__ __forceinline__ void ma_zero_tiles(T* tiles, const MaRun& r) {
+  if (r.D == DP) return;
+  for (int e = threadIdx.x % 32; e < ma_ring<DP>(r); e += 32) tiles[e] = T(0);
+  __syncwarp();
+}
+
+// Copies rows [s TR, (s + 1) TR) of the warp's walks into a tile: each
+// row's A (D^2 contiguous values) and the chunk's columns of its b.  The
+// lanes share out the (row, walk) pairs, LP lanes a pair.  Commits one
+// group of copies, empty past the last tile.
+template <typename T, int DP>
+__device__ __forceinline__ void ma_stage(T* tile, const T* __restrict__ A,
+                                         const T* __restrict__ b,
+                                         const MaRun& r, const long long* start,
+                                         const int* len, int s) {
+  using G = Ma<DP>;
+  constexpr int PI = G::PITCH;
+  const int lane = threadIdx.x % 32, D = r.D, DD = r.D * r.D;
+  for (int q = lane / G::LP; q < G::PAIRS; q += 32 / G::LP) {
+    const int l = q % G::TR, k = q / G::TR, n = s * G::TR + l;
+    if (n >= len[k]) continue;
+    const long long row = start[k] + (long long)r.step * n;
+    T* dst = tile + l * r.W * PI + k;
+    const T* srcA = A + row * DD;
+    for (int e = lane % G::LP; e < DD; e += G::LP)
+      cp_async_elem(dst + (D == DP ? e : (e / D) * DP + e % D) * PI, srcA + e);
+    const T* srcb = b + row * D * r.K + r.k0;
+    for (int e = lane % G::LP; e < D * r.kc; e += G::LP) {
+      const int i = r.kc == 1 ? e : e / r.kc, c = e - i * r.kc;
+      cp_async_elem(dst + (DP * DP + e) * PI, srcb + (long long)i * r.K + c);
+    }
+  }
+  cp_async_commit();
+}
+
+// one staged row as a walk reads it (x at value 0 of the row of its walk)
+template <typename T, int DP>
+struct MaRow {
+  const T* x;
+  int kc;
+  __device__ T a(int i, int j) const { return x[(i * DP + j) * Ma<DP>::PITCH]; }
+  __device__ T b(int i, int c) const {
+    return x[(DP * DP + i * kc + c) * Ma<DP>::PITCH];
+  }
+};
+
+// The row walk of (a) and (c), one warp: the rows of its walks staged by
+// tiles through a ring of STAGES (cp.async, STAGES - 1 tiles ahead), then
+// row(n, row) for the lane's walk's rows n in order.  A team's lanes share
+// a walk, so they take the same rows.
+template <typename T, int DP, class Row>
+__device__ __forceinline__ void ma_over_rows(T* tiles, const T* __restrict__ A,
+                                             const T* __restrict__ b,
+                                             const MaRun& r,
+                                             const long long* start,
+                                             const int* len, Row row) {
+  using G = Ma<DP>;
+  constexpr int S = G::STAGES;
+  const int k = (threadIdx.x % 32) / G::P, mine = len[k];
+  int most = 0;
+#pragma unroll
+  for (int w = 0; w < G::NW; ++w) most = max(most, len[w]);
+  const int ntiles = (most + G::TR - 1) / G::TR;
+  const int TILE = G::TR * r.W * G::PITCH;
+#pragma unroll
+  for (int q = 0; q < S - 1; ++q)
+    ma_stage<T, DP>(tiles + q * TILE, A, b, r, start, len, q);
+  for (int s = 0; s < ntiles; ++s) {
+    cp_async_wait<S - 2>();  // tile s is in
+    __syncwarp();            // and every lane is done with tile s - 1
+    ma_stage<T, DP>(tiles + ((s + S - 1) % S) * TILE, A, b, r, start, len,
+                    s + S - 1);
+    const T* tile = tiles + (s % S) * TILE + k;
+    const int rows = min(G::TR, mine - s * G::TR);
+#pragma unroll 1
+    for (int l = 0; l < rows; ++l)
+      row(s * G::TR + l, MaRow<T, DP>{tile + l * r.W * G::PITCH, r.kc});
+    __syncwarp();
+  }
+  cp_async_wait<0>();
+}
+
+// The running map [P | q] of a walk of (a), from the identity.  One lane a
+// walk (DP <= 4): the whole map, X[i][c] with columns c < DP of P and
+// DP + c of q.  A team (from DP = 8): lane t column t of P (p) and of q
+// (q, zero for t >= kc).
+template <typename T, int DP, bool TEAM = (Ma<DP>::P > 1)>
+struct MaMap;
+
+template <typename T, int DP>
+struct MaMap<T, DP, false> {
+  static constexpr int KC = Ma<DP>::KC, NC = DP + KC;
+  T X[DP][NC];
+
+  __device__ void identity(int) {
+#pragma unroll
+    for (int i = 0; i < DP; ++i)
+#pragma unroll
+      for (int c = 0; c < NC; ++c) X[i][c] = (c == i) ? T(1) : T(0);
+  }
+
+  __device__ void step(const MaRow<T, DP>& w, int) {
+    T a[DP][DP];
+#pragma unroll
+    for (int i = 0; i < DP; ++i)
+#pragma unroll
+      for (int j = 0; j < DP; ++j) a[i][j] = w.a(i, j);
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      if (c >= DP + w.kc) break;
+      T y[DP];
+#pragma unroll
+      for (int i = 0; i < DP; ++i) {
+        T s = c >= DP ? w.b(i, c - DP) : T(0);
+#pragma unroll
+        for (int j = 0; j < DP; ++j) s += a[i][j] * X[j][c];
+        y[i] = s;
+      }
+#pragma unroll
+      for (int i = 0; i < DP; ++i) X[i][c] = y[i];
+    }
+  }
+
+  // into a map slot [P (DP x DP) | q (DP x kc)], row-major
+  __device__ void put(T* m, int kc, int) const {
+#pragma unroll
+    for (int i = 0; i < DP; ++i) {
+#pragma unroll
+      for (int c = 0; c < DP; ++c) m[i * DP + c] = X[i][c];
+#pragma unroll
+      for (int c = 0; c < KC; ++c)
+        if (c < kc) m[DP * DP + i * kc + c] = X[i][DP + c];
+    }
+  }
+};
+
+template <typename T, int DP>
+struct MaMap<T, DP, true> {
+  T p[DP], q[DP];
+
+  __device__ void identity(int t) {
+#pragma unroll
+    for (int i = 0; i < DP; ++i) {
+      p[i] = i == t ? T(1) : T(0);
+      q[i] = T(0);
+    }
+  }
+
+  // p <- A p and q <- A q + b[:, t]; both columns at once up to DP = 16,
+  // one after the other at 32, where two columns and their images would
+  // not fit the registers
+  __device__ void step(const MaRow<T, DP>& w, int t) {
+    const bool own = t < w.kc;
+    if constexpr (DP <= 16) {
+      T yp[DP], yq[DP];
+#pragma unroll
+      for (int i = 0; i < DP; ++i) {
+        T sp = T(0), sq = own ? w.b(i, t) : T(0);
+#pragma unroll
+        for (int j = 0; j < DP; ++j) {
+          const T aij = w.a(i, j);
+          sp += aij * p[j];
+          sq += aij * q[j];
+        }
+        yp[i] = sp;
+        yq[i] = sq;
+      }
+#pragma unroll
+      for (int i = 0; i < DP; ++i) {
+        p[i] = yp[i];
+        q[i] = yq[i];
+      }
+    } else {
+      T y[DP];
+#pragma unroll
+      for (int i = 0; i < DP; ++i) {
+        T s = T(0);
+#pragma unroll
+        for (int j = 0; j < DP; ++j) s += w.a(i, j) * p[j];
+        y[i] = s;
+      }
+#pragma unroll
+      for (int i = 0; i < DP; ++i) p[i] = y[i];
+#pragma unroll
+      for (int i = 0; i < DP; ++i) {
+        T s = own ? w.b(i, t) : T(0);
+#pragma unroll
+        for (int j = 0; j < DP; ++j) s += w.a(i, j) * q[j];
+        y[i] = s;
+      }
+#pragma unroll
+      for (int i = 0; i < DP; ++i) q[i] = y[i];
+    }
+  }
+
+  __device__ void put(T* m, int kc, int t) const {
+#pragma unroll
+    for (int i = 0; i < DP; ++i) {
+      m[i * DP + t] = p[i];
+      if (t < kc) m[DP * DP + i * kc + t] = q[i];
+    }
+  }
+};
+
+// entry e of the composition of the map m1 (earlier) with m2 (later), both
+// [P | q] slots of W = DP^2 + DP kc values: (P2 P1, P2 q1 + q2)
+template <typename T, int DP>
+__device__ __forceinline__ T ma_compose(const T* m1, const T* m2, int e,
+                                        int kc) {
+  if (e < DP * DP) {
+    const int i = e / DP, j = e % DP;
+    T s = T(0);
+#pragma unroll
+    for (int l = 0; l < DP; ++l) s += m2[i * DP + l] * m1[l * DP + j];
+    return s;
+  }
+  const int f = e - DP * DP, i = f / kc, c = f - i * kc;
+  T s = m2[e];
+#pragma unroll
+  for (int l = 0; l < DP; ++l) s += m2[i * DP + l] * m1[DP * DP + l * kc + c];
+  return s;
+}
+
+// (a): every block's map within its group, ``maps`` (C, chunks, NB, MW),
+// and the group's, ``totals`` (C, chunks, GB, MW).  Grid (C GB, chunks).
+template <typename T, int DP>
+__global__ void __launch_bounds__(Ma<DP>::NT, 1)
+    ma_maps_kernel(const T* __restrict__ A, const T* __restrict__ b,
+                   T* __restrict__ maps, T* __restrict__ totals, int M, int D,
+                   int K, int L, int NB, int GB, int reverse) {
+  using G = Ma<DP>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* sm = reinterpret_cast<T*>(smem_raw);
+  __shared__ long long start[G::GS];
+  __shared__ int len[G::GS];
+  const long long chain = blockIdx.x / GB;
+  const int g = blockIdx.x % GB;
+  const long long cc = chain * gridDim.y + blockIdx.y;
+  const MaRun r = ma_run<DP>(D, K, reverse);
+  ma_walks<DP>(M, L, NB, chain, g, reverse, start, len);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int t = lane % G::P, s = warp * G::NW + lane / G::P;
+  T* tiles = sm + warp * ma_ring<DP>(r);
+  ma_zero_tiles<T, DP>(tiles, r);
+
+  MaMap<T, DP> acc;
+  acc.identity(t);
+  ma_over_rows<T, DP>(tiles, A, b, r, start + warp * G::NW, len + warp * G::NW,
+                      [&](int, const MaRow<T, DP>& row) { acc.step(row, t); });
+  __syncthreads();  // every warp is done with its tiles
+  const int W = r.W;
+  T* src = sm;
+  T* dst = sm + G::GS * W;
+  acc.put(src + s * W, r.kc, t);  // a walk past the last block: the identity
+  __syncthreads();
+  for (int d = 1; d < G::GS; d *= 2) {
+    for (int o = threadIdx.x; o < G::GS * W; o += G::NT) {
+      const int k = o / W, e = o - k * W;
+      dst[o] = k < d ? src[o]
+                     : ma_compose<T, DP>(src + (k - d) * W, src + k * W, e, r.kc);
+    }
+    __syncthreads();
+    T* tmp = src;
+    src = dst;
+    dst = tmp;
+  }
+  for (int o = threadIdx.x; o < G::GS * W; o += G::NT) {
+    const int k = o / W, e = o - k * W, blk = g * G::GS + k;
+    if (blk < NB) maps[(cc * NB + blk) * G::MW + e] = src[o];
+    if (k == G::GS - 1) totals[(cc * GB + g) * G::MW + e] = src[o];
+  }
+}
+
+// (b): one thread block a (chain, chunk) carries the value over the GB
+// groups' maps (``totals``) from zero and writes the value entering every
+// group, ``gstates`` (C, chunks, GB, ST).  The maps come into shared memory
+// by chunks of CH (cp.async, the next chunk while the steps walk this
+// one).  A value of at most 32 entries (DP kc) takes one warp, lane o its
+// entry o, and a step takes the entries it needs by shuffles, with no
+// barrier; a wider one kMaCarryThreads threads and shared memory.
+constexpr int kMaCarryThreads = 128;
+
+template <typename T, int DP>
+__global__ void __launch_bounds__(kMaCarryThreads)
+    ma_carry_kernel(const T* __restrict__ totals, T* __restrict__ gstates,
+                    int K, int GB) {
+  using G = Ma<DP>;
+  constexpr int CH = G::CH;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* buf = reinterpret_cast<T*>(smem_raw);  // two chunks of maps, two values
+  T* cur = buf + 2 * CH * G::MW;
+  T* nxt = cur + G::ST;
+  const long long cc = (long long)blockIdx.x * gridDim.y + blockIdx.y;
+  const int kc = min(G::KC, K - (int)blockIdx.y * G::KC);
+  const int W = DP * DP + DP * kc, n = DP * kc, tid = threadIdx.x;
+  const int nt = blockDim.x;
+  const bool warp = nt == 32;
+  auto sync = [&] {
+    if (warp)
+      __syncwarp();
+    else
+      __syncthreads();
+  };
+  const T* tm = totals + cc * GB * G::MW;
+  T* gs = gstates + cc * GB * G::ST;
+  // the maps applied are those of groups 0 .. GB - 2
+  const int napply = GB - 1, nchunks = (napply + CH - 1) / CH;
+  auto fetch = [&](int c) {
+    T* dst = buf + (c & 1) * CH * G::MW;
+    const int q0 = c * CH, cnt = min(CH, napply - q0);
+    for (int e = tid; e < cnt * W; e += nt) {
+      const int q = e / W, f = e - q * W;
+      cp_async_elem(dst + q * G::MW + f, tm + (long long)(q0 + q) * G::MW + f);
+    }
+    cp_async_commit();
+  };
+  // one warp: this lane's entry (i, c) of the value, x
+  const int o = tid < n ? tid : 0, oi = o / kc, oc = o - oi * kc;
+  T x = T(0);
+  for (int e = tid; e < n; e += nt) cur[e] = T(0);
+  fetch(0);
+  for (int c = 0; c < nchunks; ++c) {
+    if (c + 1 < nchunks) {
+      fetch(c + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    sync();
+    const T* chunk = buf + (c & 1) * CH * G::MW;
+    const int q0 = c * CH, cnt = min(CH, napply - q0);
+    for (int q = 0; q < cnt; ++q) {
+      const T* m = chunk + q * G::MW;
+      T* out = gs + (long long)(q0 + q) * G::ST;
+      if (warp) {
+        if (tid < n) out[tid] = x;
+        T v = m[DP * DP + o];
+#pragma unroll
+        for (int j = 0; j < DP; ++j)
+          v += m[oi * DP + j] * __shfl_sync(kFull, x, j * kc + oc);
+        x = tid < n ? v : T(0);
+        continue;
+      }
+      for (int e = tid; e < n; e += nt) {
+        out[e] = cur[e];
+        const int i = e / kc, cl = e - i * kc;
+        T v = m[DP * DP + e];
+#pragma unroll
+        for (int j = 0; j < DP; ++j) v += m[i * DP + j] * cur[j * kc + cl];
+        nxt[e] = v;
+      }
+      sync();
+      T* tmp = cur;
+      cur = nxt;
+      nxt = tmp;
+    }
+    sync();  // every step is done with this chunk before it is refilled
+  }
+  T* out = gs + (long long)napply * G::ST;
+  if (warp) {
+    if (tid < n) out[tid] = x;
+  } else {
+    for (int e = tid; e < n; e += nt) out[e] = cur[e];
+  }
+}
+
+// (c): the value after every row, F, from the value entering each block:
+// that entering its group (``gstates``, zero when null) carried over the
+// prefix of the group's blocks before it (``maps``).  Grid (C GB, chunks).
+template <typename T, int DP>
+__global__ void __launch_bounds__(Ma<DP>::NT, 1)
+    ma_apply_kernel(const T* __restrict__ A, const T* __restrict__ b,
+                    const T* __restrict__ maps, const T* __restrict__ gstates,
+                    T* __restrict__ F, int M, int D, int K, int L, int NB,
+                    int GB, int reverse) {
+  using G = Ma<DP>;
+  constexpr int P = G::P, KC = G::KC;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* sm = reinterpret_cast<T*>(smem_raw);
+  __shared__ long long start[G::GS];
+  __shared__ int len[G::GS];
+  const long long chain = blockIdx.x / GB;
+  const int g = blockIdx.x % GB;
+  const long long cc = chain * gridDim.y + blockIdx.y;
+  const MaRun r = ma_run<DP>(D, K, reverse);
+  ma_walks<DP>(M, L, NB, chain, g, reverse, start, len);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int t = lane % P, s = warp * G::NW + lane / P, blk = g * G::GS + s;
+  T* tiles = sm + warp * ma_ring<DP>(r);
+  ma_zero_tiles<T, DP>(tiles, r);
+  const int kc = r.kc;
+  // x(i, c) of the value entering the group; the prefix map of the blocks
+  // before this one
+  const T* gx = gstates != nullptr ? gstates + (cc * GB + g) * G::ST : nullptr;
+  const T* pm = s > 0 && len[s] > 0 ? maps + (cc * NB + blk - 1) * G::MW : nullptr;
+  auto enter = [&](int i, int c) {
+    if (i >= D) return T(0);
+    if (pm == nullptr) return gx != nullptr ? gx[i * kc + c] : T(0);
+    T v = pm[DP * DP + i * kc + c];
+    if (gx != nullptr)
+      for (int j = 0; j < D; ++j) v += pm[i * DP + j] * gx[j * kc + c];
+    return v;
+  };
+  T* Fo = F + r.k0;
+  if constexpr (P == 1) {
+    T x[DP][KC];
+#pragma unroll
+    for (int i = 0; i < DP; ++i)
+#pragma unroll
+      for (int c = 0; c < KC; ++c) x[i][c] = c < kc ? enter(i, c) : T(0);
+    ma_over_rows<T, DP>(
+        tiles, A, b, r, start + warp * G::NW, len + warp * G::NW,
+        [&](int n, const MaRow<T, DP>& w) {
+          T a[DP][DP];
+#pragma unroll
+          for (int i = 0; i < DP; ++i)
+#pragma unroll
+            for (int j = 0; j < DP; ++j) a[i][j] = w.a(i, j);
+          T* o = Fo + (start[s] + (long long)r.step * n) * D * K;
+#pragma unroll
+          for (int c = 0; c < KC; ++c) {
+            if (c >= kc) break;
+            T y[DP];
+#pragma unroll
+            for (int i = 0; i < DP; ++i) {
+              T v = w.b(i, c);
+#pragma unroll
+              for (int j = 0; j < DP; ++j) v += a[i][j] * x[j][c];
+              y[i] = v;
+            }
+#pragma unroll
+            for (int i = 0; i < DP; ++i) {
+              x[i][c] = y[i];
+              if (i < D) o[(long long)i * K + c] = y[i];
+            }
+          }
+        });
+  } else {
+    // lane t: row t of the value; the team's other rows by shuffles
+    const unsigned team = P == 32 ? kFull : ((1u << P) - 1u) << (lane & ~(P - 1));
+    T x[KC];
+#pragma unroll
+    for (int c = 0; c < KC; ++c) x[c] = c < kc ? enter(t, c) : T(0);
+    ma_over_rows<T, DP>(
+        tiles, A, b, r, start + warp * G::NW, len + warp * G::NW,
+        [&](int n, const MaRow<T, DP>& w) {
+          T a[DP];
+#pragma unroll
+          for (int j = 0; j < DP; ++j) a[j] = w.a(t, j);
+          T* o = Fo + ((start[s] + (long long)r.step * n) * D + t) * K;
+#pragma unroll
+          for (int c = 0; c < KC; ++c) {
+            if (c >= kc) break;
+            T v = w.b(t, c);
+#pragma unroll
+            for (int j = 0; j < DP; ++j) v += a[j] * __shfl_sync(team, x[c], j, P);
+            x[c] = v;
+            if (t < D) o[c] = v;
+          }
+        });
+  }
+}
+
+// Above D = 32: a thread block of kWideThreads a (chain, chunk of kWideCols
+// columns) walks every row; warp w computes the rows w, w + 32, ... of the
+// value, each lane a share of the row's sum, reduced by shuffles; the value
+// is double-buffered in shared memory, a barrier between rows.
+constexpr int kWideThreads = 1024;
+constexpr int kWideCols = 4;
+
+template <typename T>
+__global__ void __launch_bounds__(kWideThreads, 1)
+    ma_wide_kernel(const T* __restrict__ A, const T* __restrict__ b,
+                   T* __restrict__ F, int M, int D, int K, int reverse) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* cur = reinterpret_cast<T*>(smem_raw);
+  const long long chain = blockIdx.x;
+  const int k0 = blockIdx.y * kWideCols, kc = min(kWideCols, K - k0);
+  T* nxt = cur + D * kc;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  for (int o = threadIdx.x; o < D * kc; o += kWideThreads) cur[o] = T(0);
+  __syncthreads();
+  for (int n = 0; n < M; ++n) {
+    const long long row = chain * M + (reverse ? M - 1 - n : n);
+    const T* Ar = A + row * D * D;
+    for (int i = warp; i < D; i += kWideThreads / 32) {
+      T acc[kWideCols];
+#pragma unroll
+      for (int c = 0; c < kWideCols; ++c) acc[c] = T(0);
+      for (int j = lane; j < D; j += 32) {
+        const T a = Ar[(long long)i * D + j];
+#pragma unroll
+        for (int c = 0; c < kWideCols; ++c)
+          if (c < kc) acc[c] += a * cur[j * kc + c];
+      }
+      T mine = T(0);
+#pragma unroll
+      for (int c = 0; c < kWideCols; ++c) {
+        T v = acc[c];
+#pragma unroll
+        for (int off = 16; off > 0; off /= 2) v += __shfl_xor_sync(kFull, v, off);
+        if (lane == c) mine = v;
+      }
+      if (lane < kc) {
+        const long long at = (row * D + i) * K + k0 + lane;
+        const T v = mine + b[at];
+        nxt[i * kc + lane] = v;
+        F[at] = v;
+      }
     }
     __syncthreads();
     T* tmp = cur;
     cur = nxt;
     nxt = tmp;
   }
+}
+
+// ===================================================== diagonal-affine
+//
+// F_m = phi_m F_prev + G_m for every (chain, entry e = (j, k)), over the M
+// rows in walk order (ascending, or descending with ``reverse``): phi
+// (C, M, J), G and F (C, M, J, K).  It replaces, for the diagonal-affine
+// family (planes.diag_affine_spec), the in-block prefix kernel of the TPU's
+// prefix engine, celerite2_tpu/ops/planes_engine.py _block_prefix_kernel
+// (pallas_call at :311), with the engine's level over the blocks.
+//
+// A single-pass scan with decoupled look-back (Merrill and Garland,
+// "Single-pass Parallel Prefix Scan with Decoupled Look-back", NVIDIA
+// 2016).  The function reads its inputs once and writes F once, so the
+// bytes bound it at 64 chains; at one chain the chain of dependent tiles.
+// A thread block takes a tile of 32 runs of ``run`` rows (the wrapper's
+// choice, ops/_build.py affine_run_len) of up to kDiagWarps entries
+// of one chain, tiles in the order of an atomic ticket, so that every
+// tile's predecessors are already running and none waits on a later one.
+// The tile is copied into shared memory (cp.async, coalesced over the
+// entries of a row), transposed so that warp w holds entry w and lane s
+// walks the rows [s run, (s + 1) run) of the tile.  Each lane
+// composes its run's (alpha, beta), a warp scan (Kogge-Stone) composes the
+// runs, and lane 31 publishes the tile's aggregate (status 1), looks back
+// over its predecessors (32 at a time, a lane each: their aggregates
+// composed up to the nearest inclusive value) for the value entering the
+// tile, and publishes the tile's inclusive value (status 2).  Each lane then
+// walks its run again from the value entering it, F goes back into the
+// shared tile and out with coalesced stores.  The wrapper gives the status
+// words and the ticket zeroed.
+constexpr int kDiagWarps = 8;
+constexpr int kDiagMaxRun = 32;  // rows a lane walks, at most
+
+__device__ __forceinline__ int ld_acquire(const int* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.b32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_release(int* p, int v) {
+  asm volatile("st.release.gpu.b32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
+}
+
+// the slot of row r of a tile in an entry's rows in shared memory: lane s's
+// run of 2^lg rows at s (2^lg + 1), an odd stride for lg > 0
+__device__ __forceinline__ int diag_slot(int r, int lg) {
+  return (r >> lg) * ((1 << lg) + 1) + (r & ((1 << lg) - 1));
+}
+
+// The value entering tile ``tile`` of a sequence whose status words, tile
+// aggregates and inclusive values start at ``at``: the predecessors'
+// aggregates composed, nearest last, down to the nearest inclusive value
+// (or the start, zero).  Every lane of the warp calls it and gets the value.
+template <typename T>
+__device__ T diag_lookback(const int* status, const T* agg_a, const T* agg_f,
+                           const T* incl, long long at, int tile) {
+  const int lane = threadIdx.x % 32;
+  T ra = T(1), rf = T(0);  // the map of the tiles looked at so far
+  for (int j = tile - 1;; j -= 32) {
+    const int q = j - lane;
+    int f = 2;
+    T a = T(0), v = T(0);  // before the first tile: the constant zero
+    if (q >= 0) {
+      do {
+        f = ld_acquire(status + at + q);
+      } while (f == 0);
+      if (f == 2) {
+        v = __ldcg(incl + at + q);
+      } else {
+        a = __ldcg(agg_a + at + q);
+        v = __ldcg(agg_f + at + q);
+      }
+    }
+    const unsigned stop = __ballot_sync(kFull, f == 2);
+    const int last = stop ? __ffs(stop) - 1 : 31;
+    if (lane > last) {
+      a = T(1);
+      v = T(0);
+    }
+    // lanes 0..last in order, lane 0 the nearest (applied last)
+#pragma unroll
+    for (int off = 1; off < 32; off *= 2) {
+      const T oa = __shfl_down_sync(kFull, a, off);
+      const T ov = __shfl_down_sync(kFull, v, off);
+      if (lane + off < 32) {
+        v = a * ov + v;
+        a = a * oa;
+      }
+    }
+    a = __shfl_sync(kFull, a, 0);
+    v = __shfl_sync(kFull, v, 0);
+    rf = ra * v + rf;
+    ra = ra * a;
+    if (stop) return rf;
+  }
+}
+
+// grid: C EC ntiles tiles of 32 runs of 2^lg rows, ntiles of each sequence
+// of (chain, chunk of up to kDiagWarps entries); the ticket orders them tile
+// by tile, the sequences within a tile, so that the tiles in flight spread
+// over the sequences
+template <typename T>
+__global__ void __launch_bounds__(kDiagWarps * 32)
+    affine_prefix_kernel(const T* __restrict__ phi, const T* __restrict__ G,
+                         T* __restrict__ F, int* status, T* agg_a, T* agg_f,
+                         T* incl, int* ticket, int M, int J, int K, int lg,
+                         int EC, int ntiles, int reverse) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int run = 1 << lg;
+  // an entry's rows in shared memory: an odd pitch, so that the threads
+  // copying one row's entries write to different banks
+  const int pitch = 32 * (run + 1) + 1;
+  T* sg = reinterpret_cast<T*>(smem_raw);  // kDiagWarps entries of ``pitch``
+  T* sp = sg + kDiagWarps * pitch;
+  __shared__ int s_ticket;
+  constexpr int NT = kDiagWarps * 32;
+  const int tid = threadIdx.x;
+  if (tid == 0) s_ticket = atomicAdd(ticket, 1);
+  __syncthreads();
+  const long long nseq = (long long)gridDim.x / ntiles, seq = s_ticket % nseq;
+  const int tile = (int)(s_ticket / nseq), chunk = (int)(seq % EC);
+  const long long chain = seq / EC;
+  const int E = J * K, e0 = chunk * kDiagWarps, ew = min(kDiagWarps, E - e0);
+  const int pos0 = tile * 32 * run, rows = min(32 * run, M - pos0);
+  auto row_of = [&](int r) {
+    const int pos = pos0 + r;
+    return chain * M + (reverse ? M - 1 - pos : pos);
+  };
+  // thread tid copies entry tid % kDiagWarps of the rows tid / kDiagWarps,
+  // + NT / kDiagWarps, ...: consecutive threads on consecutive entries
+  const int we = tid % kDiagWarps, e = e0 + we;
+  if (we < ew) {
+    const int j = e / K;
+    for (int r = tid / kDiagWarps; r < rows; r += NT / kDiagWarps) {
+      const long long row = row_of(r);
+      const int slot = we * pitch + diag_slot(r, lg);
+      cp_async_elem(sg + slot, G + row * E + e);
+      cp_async_elem(sp + slot, phi + row * J + j);
+    }
+  }
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+
+  const int w = tid / 32, lane = tid % 32;
+  if (w < ew) {
+    T* eg = sg + w * pitch;
+    const T* ep = sp + w * pitch;
+    const int base = lane * (run + 1), mine = max(0, min(run, rows - lane * run));
+    T a = T(1), f = T(0);
+    for (int r = 0; r < mine; ++r) {
+      const T ph = ep[base + r];
+      f = ph * f + eg[base + r];
+      a *= ph;
+    }
+#pragma unroll
+    for (int d = 1; d < 32; d *= 2) {  // inclusive over the lanes' runs
+      const T oa = __shfl_up_sync(kFull, a, d), of = __shfl_up_sync(kFull, f, d);
+      if (lane >= d) {
+        f = a * of + f;
+        a = a * oa;
+      }
+    }
+    const long long at = (chain * E + e0 + w) * ntiles;
+    const long long me = at + tile;
+    T x_in = T(0);
+    if (tile == 0) {
+      if (lane == 31) {
+        incl[me] = f;
+        st_release(status + me, 2);
+      }
+    } else {
+      if (lane == 31) {
+        agg_a[me] = a;
+        agg_f[me] = f;
+        st_release(status + me, 1);
+      }
+      x_in = diag_lookback(status, agg_a, agg_f, incl, at, tile);
+      if (lane == 31) {
+        incl[me] = a * x_in + f;
+        st_release(status + me, 2);
+      }
+    }
+    // the value entering this lane's run
+    T ea = __shfl_up_sync(kFull, a, 1), ef = __shfl_up_sync(kFull, f, 1);
+    if (lane == 0) {
+      ea = T(1);
+      ef = T(0);
+    }
+    T v = ea * x_in + ef;
+    for (int r = 0; r < mine; ++r) {
+      v = ep[base + r] * v + eg[base + r];
+      eg[base + r] = v;
+    }
+  }
+  __syncthreads();
+  if (we < ew)
+    for (int r = tid / kDiagWarps; r < rows; r += NT / kDiagWarps)
+      F[row_of(r) * E + e] = sg[we * pitch + diag_slot(r, lg)];
 }
 
 // ------------------------------------------------------------ launchers
@@ -1503,32 +2228,158 @@ long long riccati_work(int J, int C, int N, int K, int L) {
   }
 }
 
-template <typename T>
-int launch_mat_affine(int phase, const void* A, const void* b,
-                      const void* carry, void* F, void* last, void* P,
-                      void* Pw, int C, int M, int D, int K, int L, int reverse,
-                      cudaStream_t s) {
-  const int NB = (M + L - 1) / L;
-  if (phase == 0) {
-    mat_affine_product_kernel<T><<<(unsigned)(C * NB), kAffineThreads, 0, s>>>(
-        (const T*)A, (T*)P, (T*)Pw, M, D, L, NB, reverse);
-  } else {
-    int KC = kAffineEntries / D;
-    if (KC < 1) KC = 1;
-    if (KC > K) KC = K;
-    const size_t smem = 2 * (size_t)D * KC * sizeof(T);
-    if (smem > 48 * 1024) {
-      const cudaError_t e = cudaFuncSetAttribute(
-          mat_affine_walk_kernel<T>,
-          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-      if (e != cudaSuccess) return (int)e;
-    }
-    const unsigned chunks = (unsigned)((K + KC - 1) / KC);
-    mat_affine_walk_kernel<T><<<dim3((unsigned)(C * NB), chunks),
-                                kAffineThreads, smem, s>>>(
-        (const T*)A, (const T*)b, (const T*)carry, (T*)F, (T*)last, M, D, K,
-        KC, L, NB, reverse);
+// the blocks, groups and chunks of a matrix-affine call up to D = 32, and
+// its scratch: the maps of the blocks and of the groups, the values
+// entering the groups
+template <int DP>
+struct MaPlan {
+  long long C;
+  int NB, GB, chunks;
+  MaPlan(int C_, int M, int K, int L)
+      : C(C_),
+        NB((M + L - 1) / L),
+        GB((NB + Ma<DP>::GS - 1) / Ma<DP>::GS),
+        chunks((K + Ma<DP>::KC - 1) / Ma<DP>::KC) {}
+  long long work() const {
+    return NB > 1 ? C * chunks *
+                        ((long long)(NB + GB) * Ma<DP>::MW +
+                         (long long)GB * Ma<DP>::ST)
+                  : 0;
   }
+};
+
+template <typename T, int DP>
+int launch_mat_affine_dp(const void* A, const void* b, void* F, void* work,
+                         int C, int M, int D, int K, int L, int reverse,
+                         int* launched, cudaStream_t s) {
+  using G = Ma<DP>;
+  const MaPlan<DP> plan(C, M, K, L);
+  const int NB = plan.NB, GB = plan.GB;
+  const long long cc = plan.C * plan.chunks;
+  T* maps = (T*)work;
+  T* totals = maps + cc * NB * G::MW;
+  T* gstates = totals + cc * GB * G::MW;
+  const T *Ap = (const T*)A, *bp = (const T*)b;
+  const dim3 groups((unsigned)(plan.C * GB), (unsigned)plan.chunks);
+  // the widest chunk's staged row, and the tiles of every warp
+  const int W = DP * DP + DP * (K < G::KC ? K : G::KC);
+  const size_t tiles =
+      (size_t)G::WARPS * G::STAGES * G::TR * W * G::PITCH * sizeof(T);
+  constexpr size_t walk_static = G::GS * (sizeof(long long) + sizeof(int));
+  int err;
+  if (NB > 1) {  // (a); its scan over the group reuses the tiles
+    size_t smem = 2 * (size_t)G::GS * W * sizeof(T);
+    if (smem < tiles) smem = tiles;
+    static size_t maps_allowed = 0;
+    if ((err = allow_smem(ma_maps_kernel<T, DP>, smem + walk_static,
+                          &maps_allowed)))
+      return err;
+    ma_maps_kernel<T, DP><<<groups, G::NT, smem, s>>>(
+        Ap, bp, maps, totals, M, D, K, L, NB, GB, reverse);
+    if ((err = (int)cudaGetLastError())) return err;
+    ++*launched;
+  }
+  if (GB > 1) {  // (b)
+    const size_t smem = (2 * G::CH * G::MW + 2 * G::ST) * sizeof(T);
+    static size_t carry_allowed = 0;
+    if ((err = allow_smem(ma_carry_kernel<T, DP>, smem, &carry_allowed)))
+      return err;
+    const int threads = DP * (K < G::KC ? K : G::KC) <= 32 ? 32 : kMaCarryThreads;
+    ma_carry_kernel<T, DP>
+        <<<dim3((unsigned)plan.C, (unsigned)plan.chunks), threads, smem, s>>>(
+            totals, gstates, K, GB);
+    if ((err = (int)cudaGetLastError())) return err;
+    ++*launched;
+  }
+  static size_t apply_allowed = 0;  // (c)
+  if ((err = allow_smem(ma_apply_kernel<T, DP>, tiles + walk_static,
+                        &apply_allowed)))
+    return err;
+  ma_apply_kernel<T, DP><<<groups, G::NT, tiles, s>>>(
+      Ap, bp, NB > 1 ? maps : nullptr, GB > 1 ? gstates : nullptr, (T*)F, M,
+      D, K, L, NB, GB, reverse);
+  if ((err = (int)cudaGetLastError())) return err;
+  ++*launched;
+  return 0;
+}
+
+// the padded width of a matrix-affine call up to D = 32 (0 above)
+inline int ma_width(int D) {
+  int DP = 1;
+  while (DP < D) DP *= 2;
+  return DP <= 32 ? DP : 0;
+}
+
+template <typename T>
+int launch_mat_affine(const void* A, const void* b, void* F, void* work, int C,
+                      int M, int D, int K, int L, int reverse, int* launched,
+                      cudaStream_t s) {
+  switch (ma_width(D)) {
+#define C2T_CASE(DP)                                                       \
+  case DP:                                                                 \
+    return launch_mat_affine_dp<T, DP>(A, b, F, work, C, M, D, K, L,      \
+                                       reverse, launched, s);
+    C2T_WIDTHS(C2T_CASE)
+#undef C2T_CASE
+    default: {  // above D = 32: one walk a (chain, chunk)
+      const int kc = K < kWideCols ? K : kWideCols;
+      const size_t smem = 2 * (size_t)D * kc * sizeof(T);
+      static size_t wide_allowed = 0;
+      int err;
+      if ((err = allow_smem(ma_wide_kernel<T>, smem, &wide_allowed)))
+        return err;
+      ma_wide_kernel<T><<<dim3((unsigned)C, (unsigned)((K + kWideCols - 1) /
+                                                       kWideCols)),
+                          kWideThreads, smem, s>>>(
+          (const T*)A, (const T*)b, (T*)F, M, D, K, reverse);
+      if ((err = (int)cudaGetLastError())) return err;
+      ++*launched;
+      return 0;
+    }
+  }
+}
+
+long long mat_affine_work(int D, int C, int M, int K, int L) {
+  switch (ma_width(D)) {
+#define C2T_CASE(DP) \
+  case DP:           \
+    return MaPlan<DP>(C, M, K, L).work();
+    C2T_WIDTHS(C2T_CASE)
+#undef C2T_CASE
+    default:
+      return 0;
+  }
+}
+
+// the tiles, entries a thread block and chunks of entries of a
+// diagonal-affine call
+struct DiagPlan {
+  int EC, ntiles;
+  DiagPlan(int M, int E, int run)
+      : EC((E + kDiagWarps - 1) / kDiagWarps),
+        ntiles((M + 32 * run - 1) / (32 * run)) {}
+};
+
+template <typename T>
+int launch_affine_prefix(const void* phi, const void* G, void* F, void* status,
+                         void* values, int C, int M, int J, int K, int run,
+                         int reverse, cudaStream_t s) {
+  int lg = 0;
+  while ((1 << lg) < run) ++lg;
+  if ((1 << lg) != run || run > kDiagMaxRun) return -1;
+  const DiagPlan plan(M, J * K, run);
+  const long long n = (long long)C * J * K * plan.ntiles;
+  int* st = (int*)status;
+  T* v = (T*)values;
+  const size_t smem = 2 * (size_t)kDiagWarps * (32 * (run + 1) + 1) * sizeof(T);
+  static size_t allowed = 0;
+  int err;
+  if ((err = allow_smem(affine_prefix_kernel<T>, smem + sizeof(int), &allowed)))
+    return err;
+  affine_prefix_kernel<T>
+      <<<(unsigned)((long long)C * plan.EC * plan.ntiles), kDiagWarps * 32,
+         smem, s>>>((const T*)phi, (const T*)G, (T*)F, st, v, v + n, v + 2 * n,
+                    st + n, M, J, K, lg, plan.EC, plan.ntiles, reverse);
   return (int)cudaGetLastError();
 }
 
@@ -1549,9 +2400,20 @@ int launch_mat_affine(int phase, const void* A, const void* b,
 // c2t_riccati_work(J, C, N, K, L) values of scratch (null for none).
 // c2t_riccati_group: the blocks of a group, kGroup.
 //
-// c2t_mat_affine_prefix: phase 0 product (writes P from A, using Pw), 1
-// walk (reads A, b and ``carry``, null for zero; writes F and/or ``last``,
-// either may be null).  Any D >= 1 and K >= 1.
+// c2t_mat_affine_prefix: F, the value after every row from zero, of A (C,
+// M, D, D) and b (C, M, D, K), any D >= 1 and K >= 1, in blocks of L rows
+// up to D = 32 (the header comment: (c) alone for one block, (a) and (c)
+// for one group, all three above), in one walk above; adds the kernels
+// launched to *launched.  ``work`` holds c2t_mat_affine_work(D, C, M, K, L)
+// values of scratch (null for none).  c2t_mat_affine_group: the blocks of a
+// group at width D (0 above D = 32, which has no groups).
+//
+// c2t_affine_prefix: F (C, M, J, K) of the diagonal-affine recurrence, one
+// launch, in tiles of 32 runs of ``run`` rows (a power of two up to
+// kDiagMaxRun; -1 otherwise).  ``status`` holds c2t_affine_status(C, M, J, K, run) ints,
+// zeroed (the tiles' status words, then the ticket), ``values`` three times
+// as many values as there are status words before the ticket (the tiles'
+// aggregates and inclusive values).
 
 extern "C" {
 
@@ -1579,15 +2441,44 @@ int c2t_riccati_prefix(int is_double, int J, const void* p, const void* a,
                                                  C, N, K, L, launched, s);
 }
 
+int c2t_mat_affine_group(int D) {
+  switch (ma_width(D)) {
+#define C2T_CASE(DP) \
+  case DP:           \
+    return Ma<DP>::GS;
+    C2T_WIDTHS(C2T_CASE)
+#undef C2T_CASE
+    default:
+      return 0;
+  }
+}
+
+long long c2t_mat_affine_work(int D, int C, int M, int K, int L) {
+  return mat_affine_work(D, C, M, K, L);
+}
+
 int c2t_mat_affine_prefix(int is_double, const void* A, const void* b,
-                          const void* carry, void* F, void* last, void* P,
-                          void* Pw, int C, int M, int D, int K, int L,
-                          int reverse, int phase, void* stream) {
+                          void* F, void* work, int C, int M, int D, int K,
+                          int L, int reverse, int* launched, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  return is_double ? launch_mat_affine<double>(phase, A, b, carry, F, last, P,
-                                               Pw, C, M, D, K, L, reverse, s)
-                   : launch_mat_affine<float>(phase, A, b, carry, F, last, P,
-                                              Pw, C, M, D, K, L, reverse, s);
+  return is_double ? launch_mat_affine<double>(A, b, F, work, C, M, D, K, L,
+                                               reverse, launched, s)
+                   : launch_mat_affine<float>(A, b, F, work, C, M, D, K, L,
+                                              reverse, launched, s);
+}
+
+long long c2t_affine_status(int C, int M, int J, int K, int run) {
+  return (long long)C * J * K * DiagPlan(M, J * K, run).ntiles + 1;
+}
+
+int c2t_affine_prefix(int is_double, const void* phi, const void* G, void* F,
+                      void* status, void* values, int C, int M, int J, int K,
+                      int run, int reverse, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  return is_double ? launch_affine_prefix<double>(phi, G, F, status, values, C,
+                                                  M, J, K, run, reverse, s)
+                   : launch_affine_prefix<float>(phi, G, F, status, values, C,
+                                                 M, J, K, run, reverse, s);
 }
 
 }  // extern "C"

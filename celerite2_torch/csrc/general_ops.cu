@@ -1,8 +1,8 @@
 // The general semiseparable recursions at any celerite width J <= 32,
 // written for Hopper (sm_90a): the LDL^T factor, the four sweeps (lower and
-// upper solve, lower and upper matmul), their adjoints, and the blocked
-// prefix of the diagonal-affine recurrence.  Built with nvcc into the shared
-// library of celerite2_torch/ops/_build.py and bound with ctypes.
+// upper solve, lower and upper matmul) and their adjoints.  Built with nvcc
+// into the shared library of celerite2_torch/ops/_build.py and bound with
+// ctypes.
 //
 // factor_fwd_kernel replaces the TPU kernels
 //   celerite2_tpu/ops/pallas_kernels.py  _factor_kernel  (factor_pallas)
@@ -18,12 +18,8 @@
 //   celerite2_tpu/ops/pallas_kernels.py  _sweep_rev_kernel  (sweep_rev_pallas)
 //   celerite2_tpu/ops/pallas_packed.py   _sweep_rev_kernel  (sweep_rev_packed).
 // The tiled and the lane-packed TPU kernels differ in their TPU layout only,
-// so one kernel here is the counterpart of both.  affine_prefix_kernel
-// replaces, for the diagonal-affine element family (alpha, b), the in-block
-// prefix kernel of the TPU's prefix engine,
-//   celerite2_tpu/ops/planes_engine.py  _block_prefix_kernel,
-// which is what the rectangular products of a prediction at new points run
-// through (ops/api.py, _transported_cumulative); see that kernel below.
+// so one kernel here is the counterpart of both.  (The diagonal-affine
+// prefix of the rectangular products is in assoc_prefix.cu.)
 //
 // The recursions are sequential in the rows n and independent across the C
 // chains (and, for the sweeps, across the K right-hand sides).  What bounds
@@ -1512,83 +1508,6 @@ __global__ void __launch_bounds__(ring_threads(NC, NC))
   }
 }
 
-// ======================================================= affine prefix
-//
-// F_m = phi_m F_prev + G_m for every (chain, j, k), over the M rows in
-// ascending order (F_prev = F_{m-1}) or, with ``reverse``, in descending
-// order (F_prev = F_{m+1}); nothing enters the first row walked.  phi is
-// (C, M, J), G and F are (C, M, J, K).
-//
-// The recurrence composes the affine maps f -> alpha f + b, and composing is
-// associative, so the M rows are cut into NB blocks of L rows that run side
-// by side: one thread owns one entry (j, k) of one block of one chain and
-// walks the block's rows with its running value in a register.  A launch
-// does one of two things, by which pointers it is given:
-//   * totals (tot_a, tot_b set, F null): every block starts from zero and
-//     writes its composed map, the product of its phi (C, NB, J) and its
-//     last value (C, NB, J, K).  Those two arrays are themselves the (phi, G)
-//     of the same recurrence over the NB blocks, so the wrapper runs this
-//     kernel on them again to get the value leaving every block;
-//   * apply (F set): every block starts from the value leaving the block
-//     walked before it (``carry`` (C, NB, J, K), null when there is one
-//     block) and writes F for its rows.
-// The inputs are read twice and F is written once.  Rows are fetched eight at
-// a time before the eight dependent multiply-adds, so the memory latency is
-// paid once per eight rows; threads of one row's (j, k) entries are adjacent,
-// so loads of G and stores of F coalesce over min(J K, 32) values.
-constexpr int kPrefixThreads = 128;
-constexpr int kPrefixUnroll = 8;
-
-template <typename T>
-__global__ void affine_prefix_kernel(const T* __restrict__ phi,
-                                     const T* __restrict__ G,
-                                     const T* __restrict__ carry,
-                                     T* __restrict__ F, T* __restrict__ tot_a,
-                                     T* __restrict__ tot_b, long long total,
-                                     int M, int J, int K, int L, int NB,
-                                     int reverse) {
-  const long long gid = (long long)blockIdx.x * kPrefixThreads + threadIdx.x;
-  if (gid >= total) return;
-  const int E = J * K;
-  const int e = (int)(gid % E);
-  const int blk = (int)((gid / E) % NB);
-  const long long chain = gid / ((long long)E * NB);
-  const int j = e / K;
-  const int lo = blk * L;
-  const int len = min(L, M - lo);
-  const int step = reverse ? -1 : 1;
-  const int first = reverse ? lo + len - 1 : lo;
-  const size_t row0 = (size_t)chain * M;
-  const size_t blk0 = (size_t)chain * NB;
-
-  T f = T(0), alpha = T(1);
-  const int before = blk - step;  // the block walked before this one
-  if (carry != nullptr && before >= 0 && before < NB)
-    f = carry[(blk0 + before) * E + e];
-
-  for (int r0 = 0; r0 < len; r0 += kPrefixUnroll) {
-    T ph[kPrefixUnroll], g[kPrefixUnroll];
-#pragma unroll
-    for (int i = 0; i < kPrefixUnroll; ++i) {
-      const bool in = r0 + i < len;
-      const size_t row = row0 + first + step * (r0 + i);
-      ph[i] = in ? phi[row * J + j] : T(1);
-      g[i] = in ? G[row * E + e] : T(0);
-    }
-#pragma unroll
-    for (int i = 0; i < kPrefixUnroll; ++i) {
-      f = ph[i] * f + g[i];
-      alpha *= ph[i];
-      if (F != nullptr && r0 + i < len)
-        F[(row0 + first + step * (r0 + i)) * E + e] = f;
-    }
-  }
-  if (tot_b != nullptr) {
-    tot_b[(blk0 + blk) * E + e] = f;
-    if (e % K == 0) tot_a[(blk0 + blk) * J + j] = alpha;
-  }
-}
-
 // ------------------------------------------------------------ launchers
 
 template <typename T, int J>
@@ -1902,20 +1821,6 @@ int ring(int J, int kernel, int K, int C, int with_out, int* chains,
   }
 }
 
-template <typename T>
-int launch_affine_prefix(const void* phi, const void* G, const void* carry,
-                         void* F, void* tot_a, void* tot_b, int C, int M, int J,
-                         int K, int L, int reverse, cudaStream_t s) {
-  const int NB = (M + L - 1) / L;
-  const long long total = (long long)C * NB * J * K;
-  const unsigned grid =
-      (unsigned)((total + kPrefixThreads - 1) / kPrefixThreads);
-  affine_prefix_kernel<T><<<grid, kPrefixThreads, 0, s>>>(
-      (const T*)phi, (const T*)G, (const T*)carry, (T*)F, (T*)tot_a, (T*)tot_b,
-      total, M, J, K, L, NB, reverse);
-  return (int)cudaGetLastError();
-}
-
 }  // namespace
 
 // ------------------------------------------------------ C interface
@@ -1933,8 +1838,6 @@ int launch_affine_prefix(const void* phi, const void* G, const void* carry,
 // its cache or in a matmul), with its chains per block in ``chains`` and
 // its launch's dynamic shared memory in ``bytes`` (either may be null); 0
 // for a width that is not built, below 0 for a CUDA error.
-// c2t_affine_prefix takes any J >= 1 and blocks of L >= 1 rows; ``carry``,
-// ``F``, ``tot_a`` and ``tot_b`` may be null as its kernel describes.
 
 extern "C" {
 
@@ -1984,17 +1887,6 @@ int c2t_ring(int is_double, int J, int kernel, int K, int C, int with_out,
              int* chains, long long* bytes) {
   return is_double ? ring<double>(J, kernel, K, C, with_out, chains, bytes)
                    : ring<float>(J, kernel, K, C, with_out, chains, bytes);
-}
-
-int c2t_affine_prefix(int is_double, int J, const void* phi, const void* G,
-                      const void* carry, void* F, void* tot_a, void* tot_b,
-                      int C, int M, int K, int L, int reverse, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  return is_double ? launch_affine_prefix<double>(phi, G, carry, F, tot_a,
-                                                  tot_b, C, M, J, K, L,
-                                                  reverse, s)
-                   : launch_affine_prefix<float>(phi, G, carry, F, tot_a, tot_b,
-                                                 C, M, J, K, L, reverse, s);
 }
 
 }  // extern "C"

@@ -41,9 +41,11 @@ __all__ = [
     "factor_bwd_cuda",
     "sweep_bwd_cuda",
     "ring",
+    "affine_run_len",
     "affine_prefix_cuda",
     "riccati_prefix_cuda",
     "kalman_prefix_cuda",
+    "mat_affine_block_len",
     "mat_affine_prefix_cuda",
 ]
 
@@ -191,10 +193,13 @@ def _library():
         # (is_double, J, kernel, K, C, with_out, chains, bytes)
         lib.c2t_ring.argtypes = [I] * 6 + [P] * 2
         lib.c2t_ring.restype = I
-        # (is_double, J, phi, G, carry, F, tot_a, tot_b, C, M, K, L, reverse,
+        # (is_double, phi, G, F, status, values, C, M, J, K, run, reverse,
         #  stream)
-        lib.c2t_affine_prefix.argtypes = [I, I] + [P] * 6 + [I] * 5 + [P]
+        lib.c2t_affine_prefix.argtypes = [I] + [P] * 5 + [I] * 6 + [P]
         lib.c2t_affine_prefix.restype = I
+        # (C, M, J, K, run) -> status words, the ticket included
+        lib.c2t_affine_status.argtypes = [I] * 5
+        lib.c2t_affine_status.restype = ctypes.c_longlong
         # (is_double, J, p, a, U, V, Y, S, F, work, C, N, K, L, launched,
         #  stream)
         lib.c2t_riccati_prefix.argtypes = ([I, I] + [P] * 8 + [I] * 4
@@ -205,10 +210,16 @@ def _library():
         # (J, C, N, K, L) -> values of scratch
         lib.c2t_riccati_work.argtypes = [I] * 5
         lib.c2t_riccati_work.restype = ctypes.c_longlong
-        # (is_double, A, b, carry, F, last, P, Pw, C, M, D, K, L, reverse,
-        #  phase, stream)
-        lib.c2t_mat_affine_prefix.argtypes = [I] + [P] * 7 + [I] * 7 + [P]
+        # (is_double, A, b, F, work, C, M, D, K, L, reverse, launched,
+        #  stream)
+        lib.c2t_mat_affine_prefix.argtypes = ([I] + [P] * 4 + [I] * 6
+                                              + [ctypes.POINTER(I), P])
         lib.c2t_mat_affine_prefix.restype = I
+        # (D, C, M, K, L) -> values of scratch
+        lib.c2t_mat_affine_work.argtypes = [I] * 5
+        lib.c2t_mat_affine_work.restype = ctypes.c_longlong
+        lib.c2t_mat_affine_group.argtypes = [I]
+        lib.c2t_mat_affine_group.restype = I
         _lib = lib
     return _lib
 
@@ -487,44 +498,43 @@ def sweep_bwd_cuda(p, A, B, R, F, bZ, is_solve, upper):
     return outs
 
 
-def prefix_block_len(M):
-    """Rows per block of the affine prefix: the power of two at or above
-    sqrt(M) (at least 32), so that the blocks are at most as many as the
-    rows of one block and the recurrence over the blocks is one launch."""
-    L = 32
-    while L * L < M:
-        L *= 2
-    return L
+def affine_run_len(M):
+    """Rows a lane walks in the diagonal-affine prefix (a tile is 32 runs):
+    16, from ``chip_smoke.py --sweep`` on an H100 80GB HBM3 at 700 W
+    (float64, runs of 1 to 32 rows; PERF.md, PR 13).  Where the card is
+    full 16 rows were the fastest: M = 1e5, J = 8 with 64 chains (0.486 ms;
+    8 rows 0.541, 32 0.572) or K = 64 (0.470; 8 rows 0.513, 32 0.509), and
+    M = 1e6 (0.118; 8 rows 0.141).  At one chain and K = 1 a call takes the
+    host's launch time, 0.07-0.09 ms, at every length from 2 rows.  Every
+    length holds the row recurrence to 2.6e-15."""
+    return 16
 
 
 def affine_prefix_cuda(phi, G, reverse=False, block_len=None):
-    """The affine prefix on the card: ``F (C, M, J, K)`` with ``F[m] =
-    phi[m] F[m -+ 1] + G[m]`` over the rows (descending with ``reverse``).
+    """The diagonal-affine prefix on the card: ``F (C, M, J, K)`` with
+    ``F[m] = phi[m] F[m -+ 1] + G[m]`` over the rows (descending with
+    ``reverse``).
 
-    Up to ``block_len`` rows (default :func:`prefix_block_len`) it is one
-    launch.  Above, three: the composed map of every block of ``block_len``
-    rows, this function on those maps for the value leaving every block,
-    and the rows of every block from the value entering it."""
+    One launch (csrc/assoc_prefix.cu, ``affine_prefix_kernel``): a
+    single-pass scan with decoupled look-back over tiles of 32 runs of
+    ``block_len`` rows (default :func:`affine_run_len`; a power of two up
+    to 32), each lane a run.  The status words of the tiles and the
+    ticket that orders them are allocated here, zeroed, beside the tiles'
+    aggregates and inclusive values."""
     C, M, J, K = G.shape
     _check("affine_prefix", (phi, G), ((C, M, J), (C, M, J, K)))
     if min(C, M, J, K) < 1:
         raise ValueError(f"affine_prefix: empty system {tuple(G.shape)}")
-    L = prefix_block_len(M) if block_len is None else int(block_len)
-    if L < 1:
-        raise ValueError(f"affine_prefix: block length must be >= 1, got {L}")
-    def launch(carry, F, tot_a, tot_b, L):
-        _launch_general("affine_prefix", J, (phi, G), (carry, F, tot_a, tot_b),
-                        (C, M, K, L, int(reverse)))
-
+    run = affine_run_len(M) if block_len is None else int(block_len)
+    if run not in (1, 2, 4, 8, 16, 32):
+        raise ValueError(
+            f"affine_prefix: rows a run must be a power of two up to 32, got {run}")
+    n_status = _library().c2t_affine_status(C, M, J, K, run)
+    status = torch.zeros(n_status, dtype=torch.int32, device=G.device)
+    values = _empty(G, 3 * (n_status - 1))
     F = torch.empty_like(G)
-    if M <= L:
-        launch(None, F, None, None, M)
-        return F
-    NB = -(-M // L)
-    totals = (_empty(G, C, NB, J), _empty(G, C, NB, J, K))
-    launch(None, None, *totals, L)
-    carry = affine_prefix_cuda(*totals, reverse, L)
-    launch(carry, F, None, None, L)
+    _launch_general("affine_prefix", None, (phi, G), (F, status, values),
+                    (C, M, J, K, run, int(reverse)))
     return F
 
 
@@ -604,38 +614,55 @@ def riccati_prefix_cuda(p, a, U, V, block_len=None):
     return kalman_prefix_cuda(p, a, U, V, None, block_len)
 
 
+def mat_affine_block_len(M, D):
+    """Rows per block of the matrix-affine prefix on the card up to
+    D = 32, for digits first, time second (``chip_smoke.py --sweep`` on
+    the lower solve's elements, H100 80GB HBM3 at 700 W, float64, K = 1,
+    8 to 2048 rows; PERF.md, PR 13).
+
+    * D <= 4: K1's rule, :func:`fused_block_len` (32 rows at M = 1e5, 128
+      at 1e6): every length keeps 1.8e-15 of the row recursion, and the
+      rule's length was the fastest or within 10% of it at J = 2, 4 with
+      1 and 64 chains (J = 4, one chain, M = 1e5: 0.116 ms, 16 rows 0.108).
+    * 4 < D <= 8: the same, but at least 128 rows.  Short blocks lose
+      digits at wide8's stiff Q = 0.5 term: 6.0e-10 at 8 rows, 3.0e-10 at
+      32, 1.0e-10 at 64 and 3.7e-11 at 128 (M = 1e5; 4.0e-10 at 32 and
+      5.4e-11 at 128 at M = 1e6), against a float64 recursion 2.6e-12 to
+      4.4e-12 from the long double one; at M = 1e4, 32 rows miss the 1e-10
+      gate (1.4e-10).  128 rows cost time at one chain and M = 1e5 (0.281
+      ms, 32 rows 0.124) and are the fastest with 64 chains (2.918 ms) and
+      at M = 1e6 (0.560).
+    * D > 8: the rule (J = 16, M = 1e5: 5.2e-11 at 32 rows, 0.595 ms, 64
+      rows 0.475; J = 32, M = 1e4: 1.4e-13, 0.547 ms, 16 rows 0.479)."""
+    L = fused_block_len(M)
+    return max(L, 128) if 4 < D <= 8 else L
+
+
 def mat_affine_prefix_cuda(A, b, reverse=False, block_len=None):
     """The matrix-affine prefix on the card: the value ``x_m = A_m x_prev +
     b_m`` after every row of ``A (C, M, D, D)``, ``b (C, M, D, K)``,
     starting from zero; rows descending with ``reverse``.  Returns ``(C, M,
     D, K)``.
 
-    Up to ``block_len`` rows (default :func:`prefix_block_len`) it is one
-    launch.  Above, four: the product of every block's linear parts, every
-    block's walk from zero, this function on those block maps for the
-    value leaving every block, and every block's rows from the value
-    entering it."""
+    Up to D = 32 a two-level scan in one call of ``c2t_mat_affine_prefix``
+    (csrc/assoc_prefix.cu), in blocks of ``block_len`` rows (default
+    :func:`mat_affine_block_len`) and groups of blocks: one launch walks
+    the rows of one block; with more blocks, each block's map and its
+    prefix within its group, then (with more than one group) the scan over
+    the groups, then every block's rows from the value entering it.  Above
+    D = 32 one launch walks all the rows (phase B of the factor adjoint:
+    few rows, large maps).  Each kernel launched counts in
+    :data:`LAUNCHES`."""
     C, M, D, K = b.shape
     _check("mat_affine_prefix", (A, b), ((C, M, D, D), (C, M, D, K)))
     if min(C, M, D, K) < 1:
         raise ValueError(f"mat_affine_prefix: empty system {tuple(b.shape)}")
-    L = prefix_block_len(M) if block_len is None else int(block_len)
+    L = mat_affine_block_len(M, D) if block_len is None else int(block_len)
     if L < 1:
         raise ValueError(f"mat_affine_prefix: block length must be >= 1, got {L}")
-
-    def launch(phase, carry, F, last, P, Pw, L):
-        _launch_general("mat_affine_prefix", None, (A, b, carry),
-                        (F, last, P, Pw), (C, M, D, K, L, int(reverse), phase))
-
     F = torch.empty_like(b)
-    if M <= L:
-        launch(1, None, F, None, None, None, M)
-        return F
-    NB = -(-M // L)
-    P, Pw = _empty(b, C, NB, D, D), _empty(b, C, NB, D, D)
-    launch(0, None, None, None, P, Pw, L)
-    last = _empty(b, C, NB, D, K)
-    launch(1, None, None, last, None, None, L)
-    carry = mat_affine_prefix_cuda(P, last, reverse, L)
-    launch(1, carry, F, None, None, None, L)
+    n_work = _library().c2t_mat_affine_work(D, C, M, K, L)
+    work = _empty(b, n_work) if n_work > 0 else None
+    _launch_general("mat_affine_prefix", None, (A, b), (F, work),
+                    (C, M, D, K, L, int(reverse)), launched=ctypes.c_int(0))
     return F

@@ -44,15 +44,16 @@ __all__ = ["ASSOC_MIN_ROWS", "backend", "tier"]
 # tier beat the scan tier in factor, solve_lower and the log-likelihood's
 # value+gradient, each within the float64 gates, in every run on an NVIDIA
 # H100 80GB HBM3 at 700 W (chip_smoke.py phase "crossover": J = 2, 4, 8;
-# N = 1e3, 1e4, 1e5; C = 1, 64; PERF.md, Findings).  Since the Riccati and
-# Kalman prefixes' redesign the assoc factor wins from N = 1e4 (at J = 8
-# with 64 chains from 1e5, its blocks being 2048 rows), but at N = 1e4 its
-# solve_lower and gradient still lose (the matrix-affine prefix); at J = 8
-# the assoc gradient is slower (its factor adjoint's phases A and C are
-# PyTorch loops), at 64 chains its solves are, and in float32 its J = 8
-# value misses the float32 gate.
+# N = 1e3, 1e4, 1e5; C = 1, 64; PERF.md, Findings).  Since the prefixes'
+# redesigns the assoc factor wins from N = 1e4, and its solve_lower from
+# N = 1e5 at one chain, at 64 chains at J = 2 only (the matrix-affine
+# prefix); below N = 1e5 the solve and the gradient lose, at J = 8 the
+# assoc gradient is slower (its factor adjoint's phases A and C are
+# PyTorch loops), at J = 4 with 64 chains its solve_lower is (5.1 against
+# 4.5 ms), and in float32 its J = 8 value misses the float32 gate.
 ASSOC_MIN_ROWS: dict = {
     (torch.float64, 2, False): 100_000,
+    (torch.float64, 2, True): 100_000,
     (torch.float64, 4, False): 100_000,
 }
 

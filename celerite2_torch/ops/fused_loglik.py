@@ -543,8 +543,13 @@ def _backward(c, saved, bll, L, record=None, structured=None):
     smask = ~row0  # rows n >= 1 (every row of natural layout is valid)
 
     okf = (ok.to(dd.dtype) * bll)[:, None]
-    safe_dd = torch.where(dd > 0, dd, torch.ones_like(dd))
-    dinv = 1.0 / safe_dd
+    # a chain that is not positive definite takes d = 1 and Z = 0 before the
+    # products (as gp.py does at J > 4): its float32 Z^2 d^-2 can overflow,
+    # and okf's 0 times inf would be NaN
+    okc = ok[:, None]
+    dd = torch.where(okc & (dd > 0), dd, torch.ones_like(dd))
+    Z = torch.where(okc, Z, torch.zeros_like(Z))
+    dinv = 1.0 / dd
     bd = -0.5 * okf * (dinv - Z * Z * dinv * dinv)
     bZt = -okf * Z * dinv
 

@@ -18,7 +18,8 @@ state):
 * :func:`mat_affine_prefix`: ``x -> A x + b`` over given ``A (C, M, D, D)``
   and ``b (C, M, D, K)``, forward or reverse; returns the b leaf.
 
-(The diagonal-affine family is ``scan.affine_prefix``.)
+(The diagonal-affine family is ``scan.affine_prefix``, with its kernel's
+order in ``scan.affine_prefix_tiled``.)
 
 Each exists twice.  ``*_plain`` is a Hillis-Steele doubling of the family's
 combine along the rows (``elements.riccati_combine``, ``kalman_combine``,
@@ -28,8 +29,9 @@ and what the kernels are held against.  Without a suffix, the CUDA kernels
 of ``csrc/assoc_prefix.cu`` for CUDA tensors (blocks of rows composed side
 by side, a scan over the block maps, then every block's rows from the state
 entering it) and the plain doubling for CPU tensors.
-:func:`kalman_prefix_blocked` composes the Riccati and Kalman elements in
-the order of their kernels, for the tests on the CPU.
+:func:`kalman_prefix_blocked` and :func:`mat_affine_prefix_blocked`
+compose the elements in the order of their kernels, for the tests on the
+CPU.
 
 The doubling composes full (C, N, J, J) elements with ``torch.matmul``; on
 the card keep TF32 off (``torch.backends.cuda.matmul.allow_tf32 = False``,
@@ -53,8 +55,10 @@ __all__ = [
     "kalman_prefix",
     "kalman_prefix_plain",
     "kalman_prefix_blocked",
+    "mat_affine_group",
     "mat_affine_prefix",
     "mat_affine_prefix_plain",
+    "mat_affine_prefix_blocked",
 ]
 
 
@@ -231,6 +235,70 @@ def kalman_prefix_blocked(p, a, U, V, Y=None, *, block_len,
         after.append(state)
     out = tuple(torch.stack(x, 2).flatten(1, 2)[:, :N] for x in zip(*after))
     return (out[1], out[3]) if kalman else out[1]
+
+
+def mat_affine_group(D):
+    """The blocks of a group of the matrix-affine kernels at width D
+    (csrc/assoc_prefix.cu ``Ma<DP>::GS``, which the C interface reports as
+    c2t_mat_affine_group): 64 up to D = 4, 32 at D <= 8, 16 at D <= 16, 8
+    at D <= 32, 0 above, where one walk takes every row."""
+    DP = 1
+    while DP < D:
+        DP *= 2
+    return {8: 32, 16: 16, 32: 8}.get(DP, 64 if DP <= 4 else 0)
+
+
+def mat_affine_prefix_blocked(A, b, *, reverse=False, block_len):
+    """The matrix-affine prefix composed in the order of the CUDA kernels
+    (``_build.mat_affine_prefix_cuda``), with the plain combines of
+    ``ops/elements.py``.  Up to D = 32: the rows of every block of
+    ``block_len`` composed in order into the block's map; each group of
+    :func:`mat_affine_group` blocks scanned by doubling (each block's prefix
+    within its group, the group's map last); the value carried over the
+    groups' maps from zero, in order; the value entering each block, that
+    entering its group carried over the prefix of the blocks before it;
+    then every block's rows again from it.  Above D = 32, one walk over the
+    rows.  Returns what :func:`mat_affine_prefix_plain` returns.  A plain
+    version of the kernels' order, for the tests on the CPU; nothing on the
+    card's path calls it."""
+    C, M, D, K = b.shape
+    if reverse:
+        A, b = A.flip(1), b.flip(1)
+    GS = mat_affine_group(D)
+    if GS == 0:
+        x, out = b.new_zeros(C, D, K), []
+        for m in range(M):
+            x = A[:, m] @ x + b[:, m]
+            out.append(x)
+        F = torch.stack(out, 1)
+        return F.flip(1) if reverse else F
+
+    def compose(seq):  # the in-order composition along dim 2
+        out = tuple(x[:, :, 0] for x in seq)
+        for k in range(1, seq[0].shape[2]):
+            out = el.affine_combine(out, tuple(x[:, :, k] for x in seq))
+        return out
+
+    rows = _grouped((A, b), block_len)
+    NB = rows[0].shape[1]
+    groups = _grouped(compose(rows), GS)
+    GB = groups[0].shape[1]
+    within = tuple(x.reshape(C, GB, GS, *x.shape[2:]) for x in _doubling(
+        el.affine_combine, tuple(x.flatten(0, 1) for x in groups)))
+    x, at_groups = b.new_zeros(C, D, K), []
+    for g in range(GB):
+        at_groups.append(x)
+        x = within[0][:, g, -1] @ x + within[1][:, g, -1]
+    xg = torch.stack(at_groups, 1)[:, :, None]  # (C, GB, 1, D, K)
+    before = tuple(torch.cat([i[:, :, None].expand_as(y[:, :, :1]), y[:, :, :-1]], 2)
+                   for i, y in zip(_identity((A, b), C, GB), within))
+    entering = (before[0] @ xg + before[1]).flatten(1, 2)[:, :NB]
+    out, x = [], entering
+    for k in range(block_len):
+        x = rows[0][:, :, k] @ x + rows[1][:, :, k]
+        out.append(x)
+    F = torch.stack(out, 2).flatten(1, 2)[:, :M]
+    return F.flip(1) if reverse else F
 
 
 def mat_affine_prefix_plain(A, b, *, reverse=False):

@@ -25,7 +25,9 @@ So does the diagonal-affine prefix ``F_m = phi_m F_prev + G_m`` that the
 rectangular products of ``ops/api.py`` accumulate with (the JAX package's
 ``assoc._diag_affine_scan``, which its prefix engine runs on a TPU):
 ``affine_prefix_plain`` is a doubling in plain PyTorch, ``affine_prefix``
-the blocked CUDA kernel for CUDA tensors.
+the single-pass CUDA kernel of ``csrc/assoc_prefix.cu`` for CUDA tensors,
+``affine_prefix_tiled`` that kernel's order in plain PyTorch (for the
+tests on the CPU).
 
 The recursions take the transport ``p (C, N, J)`` where the JAX functions
 take ``(t, c)``; the ``*_scan`` functions are the JAX signatures on top of
@@ -50,6 +52,7 @@ __all__ = [
     "sweep_fwd_plain",
     "affine_prefix",
     "affine_prefix_plain",
+    "affine_prefix_tiled",
     "factor_bwd",
     "factor_bwd_plain",
     "sweep_bwd",
@@ -413,6 +416,57 @@ def affine_prefix_plain(phi, G, *, reverse=False):
         )
         k *= 2
     return b.flip(-3) if reverse else b
+
+
+# lanes a tile of the diagonal-affine kernel (csrc/assoc_prefix.cu
+# affine_prefix_kernel: a tile is 32 runs of rows, a lane each)
+KERNEL_RUNS = 32
+
+
+def affine_prefix_tiled(phi, G, *, reverse=False, run):
+    """The diagonal-affine prefix in the order of its CUDA kernel
+    (``_build.affine_prefix_cuda``): tiles of :data:`KERNEL_RUNS` runs of
+    ``run`` rows; each run's (alpha, beta) composed in order, a doubling
+    over the tile's runs, the value carried over the tiles' aggregates in
+    order (the kernel's look-back when every earlier tile has published its
+    inclusive value; otherwise the kernel composes the aggregates of the
+    tiles back to the nearest one that has), each run's rows again from the
+    value entering it.  Returns what :func:`affine_prefix_plain` returns.
+    A plain version of the kernel's order, for the tests on the CPU;
+    nothing on the card's path calls it."""
+    C, M, J, K = G.shape
+    alpha, beta = phi[..., None].expand_as(G), G
+    if reverse:
+        alpha, beta = alpha.flip(1), beta.flip(1)
+    tile = KERNEL_RUNS * run
+    pad = -M % tile
+    alpha = torch.cat([alpha, alpha.new_ones(C, pad, J, K)], 1)
+    beta = torch.cat([beta, beta.new_zeros(C, pad, J, K)], 1)
+    T = alpha.shape[1] // tile
+    alpha = alpha.reshape(C, T, KERNEL_RUNS, run, J, K)
+    beta = beta.reshape(C, T, KERNEL_RUNS, run, J, K)
+    a, f = alpha.new_ones(C, T, KERNEL_RUNS, J, K), beta.new_zeros(C, T, KERNEL_RUNS, J, K)
+    for r in range(run):
+        f = alpha[:, :, :, r] * f + beta[:, :, :, r]
+        a = alpha[:, :, :, r] * a
+    k = 1
+    while k < KERNEL_RUNS:  # inclusive over the runs of a tile
+        f = torch.cat([f[:, :, :k], a[:, :, k:] * f[:, :, :-k] + f[:, :, k:]], 2)
+        a = torch.cat([a[:, :, :k], a[:, :, k:] * a[:, :, :-k]], 2)
+        k *= 2
+    x, entering = f.new_zeros(C, J, K), []
+    for t in range(T):
+        entering.append(x)
+        x = a[:, t, -1] * x + f[:, t, -1]
+    x = torch.stack(entering, 1)[:, :, None]
+    ea = torch.cat([torch.ones_like(a[:, :, :1]), a[:, :, :-1]], 2)
+    ef = torch.cat([torch.zeros_like(f[:, :, :1]), f[:, :, :-1]], 2)
+    v, out = ea * x + ef, []
+    for r in range(run):
+        v = alpha[:, :, :, r] * v + beta[:, :, :, r]
+        out.append(v)
+    F = torch.stack(out, 3).reshape(C, T * tile, J, K)[:, :M]
+    return F.flip(1) if reverse else F
 
 
 def affine_prefix(phi, G, *, reverse=False):

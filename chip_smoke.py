@@ -24,10 +24,11 @@ float64:
   training calls at J = 8, N = 100,000 through the blocked prefix kernels
   ``riccati_prefix``, ``kalman_prefix`` and ``mat_affine_prefix`` (and
   ``affine_prefix``), each held against its plain version, timed against
-  its bound (the Riccati and Kalman prefixes at J = 2, 4 and 8), the J = 4
+  its bound (at J = 2, 4 and 8, 1 and 64 chains), the J = 4
   ``GaussianProcess`` path under ``backend="auto"`` (the route a user
-  gets, through ``riccati_prefix``) beside ``backend="scan"``, and the
-  crossover between the two tiers that sets "auto".
+  gets, through ``riccati_prefix`` and ``mat_affine_prefix``) beside
+  ``backend="scan"``, and the crossover between the two tiers that sets
+  "auto".
 
 Every phase before the assoc phase pins ``backend="scan"``, the sequential
 tier its launch counts and times assume.
@@ -40,8 +41,7 @@ the root of the repository:
 
     python3 chip_smoke.py            # the smoke test (a few minutes)
     python3 chip_smoke.py --sweep    # also time the fused kernels, evals/s and the
-                                     # assoc tier's Riccati and Kalman prefixes per
-                                     # block length
+                                     # assoc tier's prefixes per block length
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``,
@@ -99,7 +99,8 @@ GENERAL = ("factor_fwd", "sweep_fwd", "factor_bwd", "sweep_bwd", "affine_prefix"
 ASSOC = ("riccati_prefix", "kalman_prefix", "mat_affine_prefix")
 SOURCE = dict.fromkeys(KERNELS, "celerite2_torch/csrc/fused_loglik.cu")
 SOURCE.update(dict.fromkeys(GENERAL, "celerite2_torch/csrc/general_ops.cu"))
-SOURCE.update(dict.fromkeys(ASSOC, "celerite2_torch/csrc/assoc_prefix.cu"))
+SOURCE.update(dict.fromkeys(ASSOC + ("affine_prefix",),
+                            "celerite2_torch/csrc/assoc_prefix.cu"))
 # Peak rates of one H100 SXM for the bound of each kernel: 3.35 TB/s of
 # device memory; 67 TFLOP/s in float32 outside the tensor cores, and half
 # of that in float64 (NVIDIA's data sheet: 34 TFLOP/s).
@@ -244,8 +245,10 @@ def kernel_flops(name, C, N, J, K=1):
     column, its transport and the deferrals, and the sweep's projection,
     feed and three sums per right-hand side.  The assoc tier's prefixes:
     per row, the rank-one composition of the block maps (A, Q, R; b, eta)
-    and the row step of the apply walk (Riccati, Kalman); the product of the
-    block's J x J maps and the two walks (matrix-affine, D = J)."""
+    and the row step of the apply walk (Riccati, Kalman); per row the
+    composition of the row's J x J map into its block's map with the value
+    from zero, and the walk again from the value entering the block
+    (matrix-affine, D = J)."""
     D = J * J
     L = (_build.fused_block_len if name in K12 else _build.factor_adjoint_block_len)(N)
     blocks = C * -(-N // L)
@@ -883,11 +886,49 @@ def prefix_rows(phi, G, reverse):
     return torch.stack(rows, 1)
 
 
+def prefix_rows_np(phi, G, reverse=False):
+    """``prefix_rows`` of chain 0 on the CPU in numpy, float64 (fast enough
+    for a million rows)."""
+    P, Gn = phi[0].cpu().numpy(), G[0].cpu().numpy()
+    F, out = np.zeros(Gn.shape[1:]), np.empty_like(Gn)
+    for m in range(Gn.shape[0] - 1, -1, -1) if reverse else range(Gn.shape[0]):
+        F = P[m][:, None] * F + Gn[m]
+        out[m] = F
+    return torch.from_numpy(out)[None]
+
+
+def log_device_ms(phase, label, fn, J):
+    """The device time of each kernel a call of ``fn`` launches
+    (``profile_calls`` over 3 calls), beside its span: where a kernel's own
+    time goes, and how much of a call's time the host takes."""
+    prof = profile_calls(fn, J)
+    if prof is None:
+        log(phase, f"{label}: no device events in the trace: not measured")
+        return
+    log(phase, f"{label}: device busy {prof['busy_ms']:.4f} ms of a "
+        f"{prof['span_ms']:.4f} ms span a call; " + "; ".join(
+            f"{k} {ms:.4f} ms" for k, (_, ms) in prof["by_name"].items()))
+
+
+def rect_inputs(J, N, C, K, dev, seed):
+    """``(phi, G)`` of a rectangular product on ``wide_system``: the
+    transport and G = V y^T, what ``ops.general_matmul_*`` hands the
+    diagonal-affine prefix."""
+    t, c, _, _, V, Y = wide_system(J, N, C, K, dev, seed=seed)
+    return scan.transport(t, c), (V[..., None] * Y[..., None, :]).contiguous()
+
+
 def phase_prefix_kernel(dev):
-    """affine_prefix against its plain version (the doubling) on the card,
-    float64, to 1e-10 relative, in both directions, and against the
-    row-by-row recurrence at M <= 1040; then its time at the shape the GP
-    path gives it: M = 1e5 source rows, J = 8, K = 1."""
+    """affine_prefix (the diagonal-affine prefix) against its plain version
+    (the doubling) on the card, float64, to 1e-10 relative, in both
+    directions, and against the row-by-row recurrence at M <= 1040; in
+    float32 (J = 8, M = 1e4) within max(1e-4, 2 x the float32 doubling's
+    error) of the float64 recurrence.  Then at the shapes the GP path gives
+    it, M = 1e5 source rows, K = 1: its time beside its bound and its
+    launches per call at J = 2, 4, 8 with C = 1 and 64 (and K = 64 with
+    one chain at J = 8), and at C = 1 the same checks at 1e-9 (the
+    recurrence of chain 0 in numpy); at M = 1e6, J = 2, 4, 8, one chain,
+    against the doubling and the recurrence at 1e-9."""
     worst = worst_rows = 0.0
     for J in (1, 3, 8, 32):
         for M in (1, 130, 1040, 10_000):
@@ -910,26 +951,55 @@ def phase_prefix_kernel(dev):
         f"the doubling, {worst_rows:.3e} against the row-by-row recurrence "
         "(J = 1, 3 -> 4, 8, 32; M = 1, 130, 1040, 1e4; C, K = 1, 1 and 8, 5; "
         "both directions)")
-    for C, K in ((1, 1), (64, 1), (1, 64)):
-        t, c, _, _, V, Y = wide_system(8, N_MAIN, C, K, dev, seed=8)
-        G = (V[..., None] * Y[..., None, :]).contiguous()
-        phi = scan.transport(t, c)
+    phi, G = rect_inputs(8, 10_000, 3, 1, dev, seed=8)
+    rows = prefix_rows(phi, G, False)
+    got = _build.affine_prefix_cuda(phi.float(), G.float())
+    err32 = scaled_err(got, rows)
+    tol32 = max(1e-4, 2 * scaled_err(scan.affine_prefix_plain(phi.float(), G.float()), rows))
+    log("kernels", f"affine_prefix float32, J = 8, M = 1e4, C = 3: {err32:.2e} against "
+        f"the float64 recurrence (tol {tol32:.2e})")
+    assert torch.isfinite(got).all() and err32 < tol32, (err32, tol32)
+    main_abs, times = {}, {}
+    for J in (2, 4, 8):
+        for C, K in ((1, 1), (64, 1)) + (((1, 64),) if J == 8 else ()):
+            phi, G = rect_inputs(J, N_MAIN, C, K, dev, seed=J)
+            before = _build.LAUNCHES["affine_prefix"]
+            got = _build.affine_prefix_cuda(phi, G)
+            torch.cuda.synchronize()
+            per_call = _build.LAUNCHES["affine_prefix"] - before
+            want = scan.affine_prefix_plain(phi, G)
+            err = scaled_err(got, want)
+            assert math.isfinite(err) and err < 1e-10, ("affine_prefix", J, C, K, err)
+            ms = cuda_ms(lambda: _build.affine_prefix_cuda(phi, G), reps=20)
+            plain_ms = cuda_ms(lambda: scan.affine_prefix_plain(phi, G), reps=5)
+            bound, by = bound_ms((phi, G, got),
+                                 kernel_flops("affine_prefix", C, N_MAIN, J, K))
+            line = (f"affine_prefix: {ms:.4f} ms (plain {plain_ms:.4f} ms, bound "
+                    f"{bound:.4f} ms by {by}; relative error {err:.3e} against the "
+                    f"doubling) at M = 1e5, J = {J}, K = {K}, C = {C}, "
+                    f"{_build.affine_run_len(N_MAIN)} rows a run, {per_call} "
+                    "launches, float64")
+            if C == 1 and K == 1:
+                e_rows = scaled_err(got[:1], prefix_rows_np(phi, G))
+                assert e_rows < LONG_RTOL, ("affine_prefix rows", J, e_rows)
+                line += f"; {e_rows:.3e} against the row recurrence"
+            log("kernels", line)
+            if J == 8 and K == 1:
+                log_device_ms("kernels", f"affine_prefix, J = 8, C = {C}",
+                              lambda: _build.affine_prefix_cuda(phi, G), J)
+            if (J, C, K) == (8, 1, 1):
+                main_abs["affine_prefix"] = (got - want).abs().max().item()
+                times["affine_prefix"] = (ms, plain_ms, bound, by)
+    for J in (2, 4, 8):
+        phi, G = rect_inputs(J, 1_000_000, 1, 1, dev, seed=J)
         got = _build.affine_prefix_cuda(phi, G)
-        want = scan.affine_prefix_plain(phi, G)
-        err = scaled_err(got, want)
-        assert math.isfinite(err) and err < 1e-10, ("affine_prefix", C, K, err)
-        ms = cuda_ms(lambda: _build.affine_prefix_cuda(phi, G), reps=20)
-        plain_ms = cuda_ms(lambda: scan.affine_prefix_plain(phi, G), reps=5)
-        bound, by = bound_ms((phi, G, got),
-                             kernel_flops("affine_prefix", C, N_MAIN, 8, K))
-        log("kernels", f"affine_prefix: {ms:.4f} ms (plain {plain_ms:.4f} ms, "
-            f"bound {bound:.4f} ms by {by}; relative error {err:.3e}) at "
-            f"M = 1e5, J = 8, K = {K}, C = {C}, L = "
-            f"{_build.prefix_block_len(N_MAIN)}, 3 launches, float64")
-        if (C, K) == (1, 1):
-            main_abs = (got - want).abs().max().item()
-            times = (ms, plain_ms, bound, by)
-    return {"affine_prefix": main_abs}, {"affine_prefix": times}
+        e_dbl = scaled_err(got, scan.affine_prefix_plain(phi, G))
+        e_rows = scaled_err(got, prefix_rows_np(phi, G))
+        log("kernels", f"affine_prefix at M = 1e6, J = {J}, K = 1, C = 1: relative "
+            f"error {e_rows:.3e} against the row recurrence, {e_dbl:.3e} against "
+            "the doubling")
+        assert e_rows < LONG_RTOL and e_dbl < LONG_RTOL, (J, e_rows, e_dbl)
+    return main_abs, times
 
 
 # ------------------------------------------- the adjoint kernels (training)
@@ -1349,10 +1419,10 @@ def phase_gp_path(dev, smi, refs):
         assert not any(plain_calls.values()), plain_calls
         # compute 1 factor; log_likelihood 1 sweep, apply_inverse 2,
         # predict 2 + 2 + (2 + 2), sample 1; each predict at new points
-        # two rectangular products (its mean) of 3 prefix launches each
+        # two rectangular products (its mean) of one prefix launch each
         assert launches[label]["factor_fwd"] == 1, launches[label]
         assert launches[label]["sweep_fwd"] == 12, launches[label]
-        assert launches[label]["affine_prefix"] == 12, launches[label]
+        assert launches[label]["affine_prefix"] == 4, launches[label]
 
         log("gp_path", f"{label}, N = 1e5, float64 | {smi}")
         log("gp_path", f"{label}: compute {1e3 * compute_s:.2f} ms; state d, W "
@@ -1614,13 +1684,15 @@ def phase_assoc_kernels(dev):
     J = 16) on the card, float64, against their plain doublings and the
     row-by-row recursion (``hold_prefix``, 1e-10): J = 1, 2, 3 -> 4, 8, 16,
     32; N = 130, 1040, 1e4; C = 8, and C = 1 as the first of those chains.
-    Then their times at N = 1e5, K = 1, C = 1 and 64 (the Riccati and
-    Kalman prefixes at J = 2, 4, 8, the matrix-affine one at J = 8), and
-    at C = 1 the same checks at 1e-9 (the row recursion: the plain loop at
-    J = 8, the row kernels below it); the Riccati and Kalman prefixes at
-    N = 1e6, J = 4 and 8, against the row kernels and the doubling at
-    1e-9; in float32 (J = 2, 4, 8, N = 1040) within max(1e-4, 2 x the
-    float32 doubling's error) of the float64 row recursion."""
+    Then their times at N = 1e5, K = 1, C = 1 and 64, J = 2, 4, 8 (the
+    matrix-affine one on the lower solve's elements), each beside its bound
+    and with its launches per call, and at C = 1 the same checks at 1e-9
+    (the row recursion: the plain loop at J = 8, the row kernels below
+    it); at N = 1e6 against the row kernels and the doubling at 1e-9 (the
+    Riccati and Kalman prefixes at J = 4 and 8, the matrix-affine one at
+    J = 2, 4, 8); in float32 (J = 2, 4, 8, N = 1040) within max(1e-4, 2 x
+    the float32 doubling's error) of the float64 row recursion; the
+    matrix-affine prefix at phase B's shape (98 maps of 64 x 64)."""
     worst = {name: (0.0, 0.0, 0.0) for name in ASSOC}
     first = lambda xs: [x[:1] for x in xs]  # noqa: E731
     for J in (1, 2, 3, 8, 16, 32):
@@ -1699,10 +1771,9 @@ def phase_assoc_kernels(dev):
             f"kalman_prefix S, F against the float64 row recursion: "
             + ", ".join(errs))
 
-    # times at N = 1e5, K = 1, float64: the Riccati and Kalman prefixes at
-    # J = 2, 4 (the route "auto" takes) and 8 (the assoc path's), the
-    # matrix-affine prefix at J = 8; C = 1 and 64.  The kernels line keeps
-    # J = 8, C = 1.
+    # times at N = 1e5, K = 1, float64: J = 2, 4 (the route "auto" takes)
+    # and 8 (the assoc path's); C = 1 and 64.  The kernels line keeps J = 8,
+    # C = 1.
     main_abs, times = {}, {}
     for J in (2, 4, 8):
         for C in (1, 64):
@@ -1714,21 +1785,19 @@ def phase_assoc_kernels(dev):
                 "kalman_prefix": (lambda: _build.kalman_prefix_cuda(*fin, Y),
                                   lambda: pe.kalman_prefix_plain(*fin, Y), fin + (Y,)),
             }
-            if J == 8:
-                W = _build.factor_fwd_cuda(*fin)[1]
-                A, b = assoc.solve_elements(p, U, W, Y)
-                runs["mat_affine_prefix"] = (
-                    lambda: (_build.mat_affine_prefix_cuda(A, b),),
-                    lambda: (pe.mat_affine_prefix_plain(A, b),), (A, b))
+            W = _build.factor_fwd_cuda(*fin)[1]
+            A, b = assoc.solve_elements(p, U, W, Y)
+            runs["mat_affine_prefix"] = (
+                lambda: (_build.mat_affine_prefix_cuda(A, b),),
+                lambda: (pe.mat_affine_prefix_plain(A, b),), (A, b))
             if C == 1:
                 # one row recursion serves the Riccati and Kalman families:
                 # the plain loop at J = 8, the row kernels below it
                 S, F = (sequential_prefix("kalman_prefix", fin + (Y,)) if J == 8
                         else row_prefix(*fin, Y))
-                rows = {"riccati_prefix": (S,), "kalman_prefix": (S, F)}
-                if J == 8:
-                    rows["mat_affine_prefix"] = sequential_prefix(
-                        "mat_affine_prefix", (A, b))
+                rows = {"riccati_prefix": (S,), "kalman_prefix": (S, F),
+                        "mat_affine_prefix": (sequential_prefix(
+                            "mat_affine_prefix", (A, b)) if J == 8 else (F,))}
             for name, (kernel, plain, inputs) in runs.items():
                 before = _build.LAUNCHES[name]
                 got = kernel()
@@ -1736,11 +1805,13 @@ def phase_assoc_kernels(dev):
                 per_call = _build.LAUNCHES[name] - before
                 ms = cuda_ms(kernel, reps=5, warmup=1)
                 bound, by = bound_ms((*inputs, *got), kernel_flops(name, C, N_MAIN, J))
-                L = (_build.prefix_block_len(N_MAIN) if name == "mat_affine_prefix"
+                L = (_build.mat_affine_block_len(N_MAIN, J) if name == "mat_affine_prefix"
                      else _build.kalman_block_len(N_MAIN, J))
                 log("assoc", f"{name}: {ms:.4f} ms (bound {bound:.4f} ms by {by}; "
                     f"{per_call} launches, L = {L}) at N = 1e5, J = {J}, K = 1, "
                     f"C = {C}, float64")
+                if name == "mat_affine_prefix" and J > 2:
+                    log_device_ms("assoc", f"{name}, J = {J}, C = {C}", kernel, J)
                 if C == 1:
                     dbl, plain_ms = timed_plain(plain)
                     log("assoc", f"{name}: plain version {plain_ms:.1f} ms (one run)")
@@ -1754,23 +1825,29 @@ def phase_assoc_kernels(dev):
                         main_abs[name] = max((g - d).abs().max().item()
                                              for g, d in zip(got, dbl))
                         times[name] = (ms, plain_ms, bound, by)
-            del p, a, U, V, Y, fin, runs, got
+            del p, a, U, V, Y, fin, runs, got, A, b, W
             torch.cuda.empty_cache()
-    # N = 1e6, J = 4 and 8, one chain: against the row kernels and the
-    # doubling at 1e-9
-    for J in (4, 8):
+    # N = 1e6, one chain: against the row kernels and the doubling at 1e-9
+    for J in (2, 4, 8):
         p, a, U, V, Y = prefix_inputs(J, 1_000_000, 1, 1, dev, seed=J)
         fin = (p, a, U, V)
         S, F = row_prefix(*fin, Y)
-        dS, dF = pe.kalman_prefix_plain(*fin, Y)
-        main = {"riccati_prefix": (0.0, 0.0, 0.0), "kalman_prefix": (0.0, 0.0, 0.0)}
-        hold_prefix([("riccati_prefix", (_build.riccati_prefix_cuda(*fin),), (dS,), (S,)),
-                     ("kalman_prefix", _build.kalman_prefix_cuda(*fin, Y), (dS, dF),
-                      (S, F))], main, tol=LONG_RTOL)
-        log("assoc", f"N = 1e6, J = {J}, C = 1 (L = {_build.kalman_block_len(10**6, J)}):"
-            f" relative errors (against the row kernels, the doubling, the "
-            f"doubling's own) {main}")
-        del p, a, U, V, Y, fin, S, F, dS, dF
+        A, b = assoc.solve_elements(p, U, _build.factor_fwd_cuda(*fin)[1], Y)
+        checks = [("mat_affine_prefix", (_build.mat_affine_prefix_cuda(A, b),),
+                   (pe.mat_affine_prefix_plain(A, b),), (F,))]
+        if J > 2:
+            dS, dF = pe.kalman_prefix_plain(*fin, Y)
+            checks += [("riccati_prefix", (_build.riccati_prefix_cuda(*fin),), (dS,),
+                        (S,)),
+                       ("kalman_prefix", _build.kalman_prefix_cuda(*fin, Y), (dS, dF),
+                        (S, F))]
+        main = {name: (0.0, 0.0, 0.0) for name, *_ in checks}
+        hold_prefix(checks, main, tol=LONG_RTOL)
+        log("assoc", f"N = 1e6, J = {J}, C = 1 (L = {_build.kalman_block_len(10**6, J)}"
+            f", matrix-affine {_build.mat_affine_block_len(10**6, J)}): relative "
+            f"errors (against the row kernels, the doubling, the doubling's own) "
+            f"{main}")
+        del p, a, U, V, Y, fin, S, F, A, b, checks
         torch.cuda.empty_cache()
     # the shape of the factor adjoint's phase B at N = 1e5, J = 8, C = 1:
     # the prefix of ceil(N / L) maps of 64 x 64 (contracting random maps:
@@ -1779,13 +1856,18 @@ def phase_assoc_kernels(dev):
     rng = np.random.default_rng(5)
     A = torch.tensor(rng.normal(size=(1, NB, 64, 64)) / 12.0, device=dev)
     b = torch.tensor(rng.normal(size=(1, NB, 64, 1)), device=dev)
+    before = _build.LAUNCHES["mat_affine_prefix"]
     got = _build.mat_affine_prefix_cuda(A, b)
-    ms = cuda_ms(lambda: _build.mat_affine_prefix_cuda(A, b), reps=5, warmup=1)
+    per_call = _build.LAUNCHES["mat_affine_prefix"] - before
+    ms = cuda_ms(lambda: _build.mat_affine_prefix_cuda(A, b), reps=20, warmup=2)
+    plain_ms = cuda_ms(lambda: pe.mat_affine_prefix_plain(A, b), reps=5, warmup=1)
+    bound, by = bound_ms((A, b, got), 2 * NB * 64 * 64)
     main = {"mat_affine_prefix": (0.0, 0.0, 0.0)}
     hold_prefix([("mat_affine_prefix", (got,), (pe.mat_affine_prefix_plain(A, b),),
                   sequential_prefix("mat_affine_prefix", (A, b)))], main)
     log("assoc", f"mat_affine_prefix at phase B's shape (M = {NB} maps of 64 x 64, "
-        f"K = 1, C = 1): {ms:.4f} ms, relative errors {main}")
+        f"K = 1, C = 1): {ms:.4f} ms (plain {plain_ms:.4f} ms, bound {bound:.4f} "
+        f"ms by {by}; {per_call} launch), relative errors {main}")
     return main_abs, times
 
 
@@ -2542,11 +2624,113 @@ def phase_prefix_sweep(dev):
         assert math.isfinite(err) and err < LONG_RTOL, (shape, err)
 
 
+def solve_maps(J, N, C, dev, seed):
+    """The lower solve's matrix-affine elements ``(A, b)`` (K = 1) of
+    ``wide_system``: what ``assoc.sweep_fwd`` hands the matrix-affine
+    prefix (at J = 8 wide8's terms, the Q = 0.5 one stiff)."""
+    p, a, U, V, Y = prefix_inputs(J, N, C, 1, dev, seed)
+    W = _build.factor_fwd_cuda(p, a, U, V)[1]
+    return assoc.solve_elements(p, U, W, Y)
+
+
+def longdouble_mat_affine(A, b):
+    """x <- A x + b over the rows of chain 0 in numpy's long double, rounded
+    to float64 (None where long double is no wider than float64)."""
+    ld = np.longdouble
+    if np.finfo(ld).eps >= np.finfo(np.float64).eps:
+        return None
+    A_, b_ = (x[0].cpu().numpy().astype(ld) for x in (A, b))
+    x, out = np.zeros(b_.shape[1:], ld), np.empty(b_.shape, np.float64)
+    for n in range(b_.shape[0]):
+        x = A_[n] @ x + b_[n]
+        out[n] = x
+    return torch.from_numpy(out)[None]
+
+
+MAT_AFFINE_SWEEP = [(J, N_MAIN, C) for J in (2, 4, 8) for C in (1, 64)] + [
+    (4, 1_000_000, 1), (8, 1_000_000, 1), (16, N_MAIN, 1), (32, 10_000, 1)]
+MAT_AFFINE_SWEEP_ROWS = (8, 16, 32, 64, 128, 256, 512, 1024, 2048)
+AFFINE_SWEEP = [(8, N_MAIN, 1, 1), (8, N_MAIN, 1, 64), (4, N_MAIN, 1, 1),
+                (8, 1_000_000, 1, 1), (8, N_MAIN, 64, 1)]
+AFFINE_SWEEP_RUNS = (1, 2, 4, 8, 16, 32)
+
+
+def phase_affine_sweep(dev):
+    """The matrix-affine prefix per rows a block and the diagonal-affine
+    prefix per rows a run, on the card, float64.
+
+    * ``mat_affine_prefix`` on the lower solve's elements (K = 1): J = 2, 4,
+      8 at N = 1e5 with C = 1 and 64, J = 4, 8 at N = 1e6, J = 16 at
+      N = 1e5 and J = 32 at N = 1e4 with one chain; at each block length
+      its time and the relative error of chain 0 against the float64 row
+      recursion and against the same recursion in long double
+      (``longdouble_mat_affine``), beside the float64 recursion's own;
+    * ``affine_prefix`` on the rectangular product's (phi, G): J = 8, K = 1
+      and 64, J = 4, K = 1 at N = 1e5, J = 8 at N = 1e6, one chain, and
+      J = 8, K = 1 with 64 chains; its time and error against the row
+      recursion per rows a run.
+
+    The defaults' errors are held to LONG_RTOL against the float64 row
+    recursions, after every line is logged."""
+    worst = {}
+    for J, N, C in MAT_AFFINE_SWEEP:
+        A, b = solve_maps(J, N, C, dev, seed=J)
+        rows_ref = sequential_prefix("mat_affine_prefix", first_chain((A, b)))[0]
+        began = time.perf_counter()
+        truth = longdouble_mat_affine(A, b)
+        if truth is not None:
+            log("sweep", f"mat_affine, J = {J}, N = {N}, C = {C}: the float64 row "
+                f"recursion against the long double one {scaled_err(rows_ref, truth):.2e} "
+                f"({time.perf_counter() - began:.1f} s)")
+        for rows in MAT_AFFINE_SWEEP_ROWS:
+            before = _build.LAUNCHES["mat_affine_prefix"]
+            _build.mat_affine_prefix_cuda(A, b, False, rows)
+            launches = _build.LAUNCHES["mat_affine_prefix"] - before
+            ms = cuda_ms(lambda: _build.mat_affine_prefix_cuda(A, b, False, rows),
+                         reps=3, warmup=1)
+            got = _build.mat_affine_prefix_cuda(*first_chain((A, b)), False, rows)
+            errs = [scaled_err(got, rows_ref)]
+            line = (f"mat_affine, J = {J}, N = {N}, C = {C}, {rows} rows a block "
+                    f"(NB = {-(-N // rows)}, {launches} launches): {ms:.4f} ms; "
+                    f"against the row recursion {errs[0]:.2e}")
+            if truth is not None:
+                errs.append(scaled_err(got, truth))
+                line += f", the long double {errs[1]:.2e}"
+            if rows == _build.mat_affine_block_len(N, J):
+                line += " (the default)"
+                worst["mat_affine", J, N, C] = errs[0]
+            log("sweep", line)
+            del got
+        del A, b, rows_ref, truth
+        torch.cuda.empty_cache()
+    for J, N, C, K in AFFINE_SWEEP:
+        t, c, _, _, V, Y = wide_system(J, N, C, K, dev, seed=J)
+        G = (V[..., None] * Y[..., None, :]).contiguous()
+        phi = scan.transport(t, c)
+        rows_ref = prefix_rows(*first_chain((phi, G)), False)
+        for run in AFFINE_SWEEP_RUNS:
+            ms = cuda_ms(lambda: _build.affine_prefix_cuda(phi, G, False, run),
+                         reps=10, warmup=2)
+            err = scaled_err(_build.affine_prefix_cuda(
+                *first_chain((phi, G)), False, run), rows_ref)
+            line = (f"affine_prefix, J = {J}, K = {K}, N = {N}, C = {C}, {run} rows "
+                    f"a run ({32 * run} a tile): {ms:.4f} ms; against the row "
+                    f"recursion {err:.2e}")
+            if run == _build.affine_run_len(N):
+                line += " (the default)"
+                worst["affine", J, N, C, K] = err
+            log("sweep", line)
+        del t, c, V, Y, G, phi, rows_ref
+        torch.cuda.empty_cache()
+    for shape, err in worst.items():
+        assert math.isfinite(err) and err < LONG_RTOL, (shape, err)
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--sweep", action="store_true",
                         help="also time the fused kernels, evals/s and the "
-                        "Riccati and Kalman prefixes for several block lengths")
+                        "assoc tier's prefixes for several block lengths")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -2593,6 +2777,7 @@ def main(argv=None):
     if args.sweep:
         timed(phase_sweep, dev)
         timed(phase_prefix_sweep, dev)
+        timed(phase_affine_sweep, dev)
     log("done", f"{time.perf_counter() - start:.1f} s")
     # each kernel's launches on the path that runs it: K3 on the J = 2
     # path, K1, K2, K4, K5 on the J = 4 path, the general forward kernels on

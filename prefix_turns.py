@@ -1,5 +1,5 @@
-"""Times the assoc tier's Riccati and Kalman prefix kernels of this checkout
-against another checkout of the repository on one NVIDIA GPU, in turns.
+"""Times the assoc tier's prefix kernels of this checkout against another
+checkout of the repository on one NVIDIA GPU, in turns.
 
 Each checkout runs in its own process, in the order other, this, this,
 other; the other is usually the parent commit, unpacked with ``git
@@ -9,7 +9,12 @@ that checkout's ``celerite2_torch`` and times its
 and K = 5 at J = 16, 32) with CUDA events, at the block length each
 checkout chooses, on this checkout's ``chip_smoke.prefix_inputs`` (float64):
 J = 2, 4, 8 at N = 1e5 with C = 1 and 64 chains, and J = 16, 32 at
-``chip_smoke.py``'s own shape for them, N = 1e4 with C = 8.
+``chip_smoke.py``'s own shape for them, N = 1e4 with C = 8.  It also times
+``_build.mat_affine_prefix_cuda`` on the lower solve's elements
+(``chip_smoke.solve_maps``, K = 1) at J = 4 and 8, N = 1e5, C = 1 and 64,
+and on phase B's shape (98 maps of 64 x 64, one chain), and
+``_build.affine_prefix_cuda`` on the rectangular product's (phi, G) at
+J = 8, K = 1, N = 1e5, C = 1 and 64.
 
     python3 prefix_turns.py _checkout/parent
 
@@ -54,6 +59,24 @@ def turn(root):
                 lambda: b.kalman_prefix_cuda(p, a, U, V, Yk), reps=reps)
         del p, a, U, V, Y
         torch.cuda.empty_cache()
+    for J in (4, 8):
+        for C in (1, 64):
+            A, bb = cs.solve_maps(J, 100_000, C, dev, seed=J)
+            res[f"mat_affine_J{J}_N100000_C{C}"] = cs.cuda_ms(
+                lambda: b.mat_affine_prefix_cuda(A, bb), reps=5 if C > 1 else 20)
+            del A, bb
+            torch.cuda.empty_cache()
+    rng = cs.np.random.default_rng(5)
+    A = torch.tensor(rng.normal(size=(1, 98, 64, 64)) / 12.0, device=dev)
+    bb = torch.tensor(rng.normal(size=(1, 98, 64, 1)), device=dev)
+    res["mat_affine_D64_M98_C1"] = cs.cuda_ms(lambda: b.mat_affine_prefix_cuda(A, bb),
+                                              reps=20)
+    for C in (1, 64):
+        t, c, _, _, V, Y = cs.wide_system(8, 100_000, C, 1, dev, seed=8)
+        G = (V[..., None] * Y[..., None, :]).contiguous()
+        phi = cs.scan.transport(t, c)
+        res[f"affine_J8_K1_N100000_C{C}"] = cs.cuda_ms(
+            lambda: b.affine_prefix_cuda(phi, G), reps=20)
     return res
 
 

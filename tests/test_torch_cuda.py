@@ -441,13 +441,14 @@ def test_sweep_fwd_long_rows(cuda, dtype, tol, N):
 @pytest.mark.parametrize("reverse", [False, True])
 @pytest.mark.parametrize("M, J, K, block_len", [
     (1, 1, 1, None), (31, 3, 2, None), (301, 8, 1, None), (5000, 8, 5, None),
-    (5000, 2, 130, None), (301, 5, 3, 4), (100_000, 8, 1, None)])
+    (5000, 2, 130, None), (301, 5, 3, 4), (10_000, 8, 1, 1),
+    (10_000, 4, 500, None), (100_000, 8, 1, None), (100_000, 8, 1, 32)])
 def test_affine_prefix_matches_plain(cuda, M, J, K, block_len, reverse):
-    """The blocked affine prefix against the plain doubling and, at small
-    M, the row-by-row recurrence, C = 3 (C = 1 at M = 1e5), float64, to
-    1e-10 relative: one launch up to one block of rows, three above it,
-    and one more pair for each further level (block_len = 4 at M = 301
-    nests five levels)."""
+    """The diagonal-affine prefix against the plain doubling and, up to
+    M = 1e4, the row-by-row recurrence, C = 3 (C = 1 at M = 1e5), float64,
+    to 1e-10 relative: one launch whatever the rows, tiles of 32 runs of
+    ``block_len`` rows (M = 1e4 in runs of one row: 313 tiles, a look-back
+    over many windows of 32; K = 500: chunks of eight entries)."""
     C = 1 if M > 10_000 else 3
     rng = np.random.default_rng(M + J)
     phi = torch.tensor(rng.uniform(0.2, 1.0, (C, M, J)), device=cuda)
@@ -455,17 +456,45 @@ def test_affine_prefix_matches_plain(cuda, M, J, K, block_len, reverse):
     before = _build.LAUNCHES["affine_prefix"]
     got = _build.affine_prefix_cuda(phi, G, reverse, block_len)
     torch.cuda.synchronize()
-    L, levels, rows = block_len or _build.prefix_block_len(M), 0, M
-    while rows > L:
-        rows, levels = -(-rows // L), levels + 1
-    assert _build.LAUNCHES["affine_prefix"] == before + 2 * levels + 1
+    assert _build.LAUNCHES["affine_prefix"] == before + 1
     assert _rel(got, scan.affine_prefix_plain(phi, G, reverse=reverse)) < 1e-10
-    if M <= 5000:
+    if M <= 10_000:
         F, want = torch.zeros_like(G[:, 0]), [None] * M
         for m in (range(M - 1, -1, -1) if reverse else range(M)):
             F = phi[:, m, :, None] * F + G[:, m]
             want[m] = F
         assert _rel(got, torch.stack(want, 1)) < 1e-10
+
+
+@pytest.mark.parametrize("C", [64, 1023])
+def test_affine_prefix_at_many_chains(cuda, C):
+    """C = 64 and 1023 chains (tickets across sequences), J = 4, K = 2,
+    M = 3000 in runs of 4 rows (24 tiles a sequence), against the doubling
+    (1e-10)."""
+    rng = np.random.default_rng(C)
+    phi = torch.tensor(rng.uniform(0.2, 1.0, (C, 3000, 4)), device=cuda)
+    G = torch.tensor(rng.normal(size=(C, 3000, 4, 2)), device=cuda)
+    got = _build.affine_prefix_cuda(phi, G, True, 4)
+    assert _rel(got, scan.affine_prefix_plain(phi, G, reverse=True)) < 1e-10
+
+
+def test_affine_prefix_float32(cuda):
+    """Float32, J = 8, K = 1, M = 1e4, against the float64 row recurrence:
+    within max(1e-4, 2 x the float32 plain doubling's error against it)."""
+    rng = np.random.default_rng(8)
+    phi = torch.tensor(rng.uniform(0.2, 1.0, (3, 10_000, 8)), device=cuda)
+    G = torch.tensor(rng.normal(size=(3, 10_000, 8, 1)), device=cuda)
+    want = scan.affine_prefix_plain(phi, G)
+    F, rows = torch.zeros_like(G[:, 0]), [None] * 10_000
+    for m in range(10_000):
+        F = phi[:, m, :, None] * F + G[:, m]
+        rows[m] = F
+    rows = torch.stack(rows, 1)
+    assert _rel(want, rows) < 1e-10
+    got = _build.affine_prefix_cuda(phi.float(), G.float())
+    plain = scan.affine_prefix_plain(phi.float(), G.float())
+    tol = max(1e-4, 2 * _rel(plain.double(), rows))
+    assert torch.isfinite(got).all() and _rel(got.double(), rows) < tol
 
 
 def test_affine_prefix_float32_and_dispatch(cuda):
@@ -502,9 +531,8 @@ def test_general_matmul_cuda_matches_cpu_with_gradients(cuda, name):
         z = getattr(ops, name)(*args)
         grads = torch.autograd.grad((z * z).sum(), args[2:])
         if device != "cpu":
-            # 700 source rows are 22 blocks of 32: three launches forward
-            # and three for the adjoint
-            assert z.is_cuda and _build.LAUNCHES["affine_prefix"] == before + 6
+            # one launch forward and one for the adjoint
+            assert z.is_cuda and _build.LAUNCHES["affine_prefix"] == before + 2
         results.append([z.detach().cpu()] + [g.cpu() for g in grads])
     for got, want in zip(results[1], results[0]):
         assert got.shape == want.shape and _rel(got, want) < 1e-10
@@ -875,18 +903,46 @@ def test_riccati_and_kalman_prefix_float32(cuda, J):
         assert torch.isfinite(g).all() and _rel(g.double(), r) < tol
 
 
+def _mat_affine_launches(M, D, L):
+    """Launches of one matrix-affine prefix call: above D = 32 one walk;
+    up to it the rows of one block, with more blocks the block maps (with
+    their scan within each group) too, and with more than one group the
+    scan over the groups."""
+    if D > 32:
+        return 1
+    NB = -(-M // L)
+    GB = -(-NB // _build._library().c2t_mat_affine_group(D))
+    return 1 + (NB > 1) + (GB > 1)
+
+
+def _mat_affine_rows(A, b, reverse):
+    x, rows = torch.zeros_like(b[:, 0]), [None] * b.shape[1]
+    for m in (range(b.shape[1] - 1, -1, -1) if reverse else range(b.shape[1])):
+        x = A[:, m] @ x + b[:, m]
+        rows[m] = x
+    return torch.stack(rows, 1)
+
+
 @pytest.mark.parametrize("reverse", [False, True])
 @pytest.mark.parametrize("M, D, K, block_len", [
     (1, 1, 1, None), (130, 4, 1, None), (1040, 8, 5, None), (301, 3, 2, 4),
     (5000, 8, 1, None), (300, 64, 1, None), (40, 256, 1, None),
-    (200, 16, 40, None)])
+    (200, 16, 40, None), (129, 2, 3, 2), (129, 8, 1, 4), (10_000, 4, 1, None),
+    (10_000, 8, 1, 1), (10_000, 32, 1, None), (3000, 1, 9, 2),
+    (1000, 8, 500, None), (98, 64, 1, None)])
 def test_mat_affine_prefix_matches_plain(cuda, M, D, K, block_len, reverse):
-    """The matrix-affine prefix kernel against the plain doubling and the
+    """The matrix-affine prefix kernels against the plain doubling and the
     row-by-row recurrence (``_hold_prefix``), C = 2, float64, on
-    contracting maps of the sizes the solves (D = J) and the factor
-    adjoint (D = J^2) give it."""
+    contracting maps of the sizes the solves (D = J, K up to 500) and the
+    factor adjoint (D = J^2: 64 at M = 98, phase B's shape at J = 8, the
+    route above D = 32) give them; several groups (M = 129 in blocks of 2
+    at D = 2 and of 4 at D = 8, 1e4 in one-row blocks), padded widths
+    (D = 3); launches per call
+    (``_mat_affine_launches``)."""
     from celerite2_torch.ops import prefix_engine as pe
 
+    assert all(_build._library().c2t_mat_affine_group(D) == pe.mat_affine_group(D)
+               for D in (1, 2, 3, 4, 8, 16, 32, 64))
     rng = np.random.default_rng(M + D)
     A = torch.tensor(rng.normal(size=(2, M, D, D)) / (1.5 * np.sqrt(D)),
                      device=cuda)
@@ -894,16 +950,46 @@ def test_mat_affine_prefix_matches_plain(cuda, M, D, K, block_len, reverse):
     before = _build.LAUNCHES["mat_affine_prefix"]
     got = _build.mat_affine_prefix_cuda(A, b, reverse, block_len)
     torch.cuda.synchronize()
-    L, levels, rows = block_len or _build.prefix_block_len(M), 0, M
-    while rows > L:
-        rows, levels = -(-rows // L), levels + 1
-    assert _build.LAUNCHES["mat_affine_prefix"] == before + 3 * levels + 1
-    x, want = torch.zeros_like(b[:, 0]), [None] * M
-    for m in (range(M - 1, -1, -1) if reverse else range(M)):
-        x = A[:, m] @ x + b[:, m]
-        want[m] = x
+    L = block_len or _build.mat_affine_block_len(M, D)
+    assert _build.LAUNCHES["mat_affine_prefix"] == before + _mat_affine_launches(M, D, L)
     _hold_prefix((got,), (pe.mat_affine_prefix_plain(A, b, reverse=reverse),),
-                 (torch.stack(want, 1),))
+                 (_mat_affine_rows(A, b, reverse),))
+
+
+@pytest.mark.parametrize("C", [64, 1023])
+def test_mat_affine_prefix_at_many_chains(cuda, C):
+    """C = 64 and 1023 chains at D = 4 and 8, M = 300 in blocks of 2 rows
+    (150 blocks: three groups at D = 4, five at D = 8), K = 1, against the
+    row loop and the doubling (1e-10)."""
+    from celerite2_torch.ops import prefix_engine as pe
+
+    rng = np.random.default_rng(C)
+    for D in (4, 8):
+        A = torch.tensor(rng.normal(size=(C, 300, D, D)) / (1.5 * np.sqrt(D)),
+                         device=cuda)
+        b = torch.tensor(rng.normal(size=(C, 300, D, 1)), device=cuda)
+        got = _build.mat_affine_prefix_cuda(A, b, False, 2)
+        _hold_prefix((got,), (pe.mat_affine_prefix_plain(A, b),),
+                     (_mat_affine_rows(A, b, False),))
+
+
+@pytest.mark.parametrize("D", [2, 8, 64])
+def test_mat_affine_prefix_float32(cuda, D):
+    """Float32 at D = 2, 8 (M = 1040 in blocks of 8: 130 blocks) and 64
+    (M = 98), K = 1, against the float64 row recursion: within
+    max(1e-4, 2 x the float32 plain doubling's error against it)."""
+    from celerite2_torch.ops import prefix_engine as pe
+
+    M = 98 if D > 32 else 1040
+    rng = np.random.default_rng(D)
+    A = torch.tensor(rng.normal(size=(3, M, D, D)) / (1.5 * np.sqrt(D)),
+                     device=cuda)
+    b = torch.tensor(rng.normal(size=(3, M, D, 1)), device=cuda)
+    rows = _mat_affine_rows(A, b, False)
+    got = _build.mat_affine_prefix_cuda(A.float(), b.float(), False, 8)
+    plain = pe.mat_affine_prefix_plain(A.float(), b.float())
+    tol = max(1e-4, 2 * _rel(plain.double(), rows))
+    assert torch.isfinite(got).all() and _rel(got.double(), rows) < tol
 
 
 @pytest.mark.parametrize("J", [2, 3, 8])

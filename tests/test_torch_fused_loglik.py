@@ -160,6 +160,42 @@ def test_nonpd_quiet_minus_inf():
         assert torch.all(g[0] == 0)
 
 
+@pytest.mark.parametrize("diag, yscale", [(-0.9, 1e15), (-0.999, 1e14)])
+def test_float32_nonpd_overflow_is_quiet(diag, yscale):
+    """A float32 chain that is not positive definite, with data so large
+    that its Z^2 d^-2 overflows at a row whose pivot is positive (the
+    NaN that 0 x inf gave in the backward before the non-PD chain's d and
+    Z were masked, ROADMAP Queue C under D4): -inf, zero and finite
+    gradients; the PD chain beside it as when it is alone."""
+    from celerite2_torch import SHOTerm
+    from celerite2_torch.ops import fused_loglik as fl
+
+    rng = np.random.default_rng(0)
+    N = 200
+    t = torch.tensor(np.sort(rng.uniform(0, 10, N)), dtype=torch.float32)
+    kernel = SHOTerm(sigma=torch.ones(2), rho=3.0, tau=2.0)
+    c, a, U, V = kernel.get_celerite_matrices(
+        t, torch.tensor([[0.04], [diag]]).expand(2, N))
+    y = torch.tensor(rng.normal(size=(2, N)) * yscale, dtype=torch.float32)
+    tt = t.expand(2, N).contiguous()
+    with torch.no_grad():
+        _, saved = fl._forward(tt, c, a, U, V, y, 32)
+    dd, Z, ok = saved[-3:]
+    assert ok.tolist() == [True, False]
+    pos = dd[1] > 0
+    assert torch.isinf((Z[1] / dd[1])[pos] ** 2).any()  # the overflow is reached
+    args = [x.detach().clone().requires_grad_(True) for x in (c, a, U, V, y)]
+    ll = loglik_fused(tt, *args, block_len=32)
+    grads = torch.autograd.grad(ll.sum(), args)
+    assert np.isneginf(ll[1].item()) and np.isfinite(ll[0].item())
+    alone = [x[:1].detach().clone().requires_grad_(True) for x in (c, a, U, V, y)]
+    grads0 = torch.autograd.grad(loglik_fused(tt[:1], *alone, block_len=32).sum(),
+                                 alone)
+    for g, g0 in zip(grads, grads0):
+        assert torch.isfinite(g).all() and torch.all(g[1] == 0)
+        assert torch.equal(g[:1], g0)
+
+
 def test_width_and_shape_checks():
     t, c, a, U, V, y = (t64(x)[None] for x in fused_system(70))
     with pytest.raises(NotImplementedError, match="A3/A8"):
