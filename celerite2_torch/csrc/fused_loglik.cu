@@ -21,8 +21,6 @@
 
 namespace {
 
-constexpr int kThreads = 32;
-
 template <typename T>
 struct Limits;
 template <>
@@ -242,16 +240,17 @@ __device__ __forceinline__ Walk walk_setup(int N, int L, int NB,
 
 // Copies rows [s kTile, (s + 1) kTile) of every walk of X (W values a row)
 // into values [OFF, OFF + W) of the tile's rows of WIDTH values (rows past a
-// walk's end are skipped).  Lane j copies row j % kTile of the walks
-// j / kTile, j / kTile + kWalks / kTile, ...: the index arithmetic is paid
-// once a row, not once a value.
-template <int W, int OFF, int WIDTH, typename T>
+// walk's end are skipped).  Thread j of the NT copying copies row j % kTile
+// of the walks j / kTile, j / kTile + NT / kTile, ...: the index arithmetic
+// is paid once a row, not once a value.
+template <int W, int OFF, int WIDTH, int NT = kWalks, typename T>
 __device__ __forceinline__ void stage(T* tile, const T* __restrict__ X,
                                       const long long* start, const int* len,
                                       int s) {
+  static_assert(NT % kTile == 0, "a thread copies whole rows of a tile");
   const int l = threadIdx.x % kTile, n = s * kTile + l;
 #pragma unroll
-  for (int k = threadIdx.x / kTile; k < kWalks; k += kWalks / kTile) {
+  for (int k = threadIdx.x / kTile; k < kWalks; k += NT / kTile) {
     if (n < len[k]) {
       const T* src = X + (start[k] + n) * W;
       T* dst = tile + (l * WIDTH + OFF) * kPitch + k;
@@ -1336,18 +1335,18 @@ int launch_solve(int J, const void* p, const void* U,
 //          groups;
 //      (c) frev_rows: each lane's rows from its block's incoming state, D
 //          values a row.
-//   K5 takes K4's block maps (J^4 + J^2 = 272 values at J = 4, which
-//   block_scan_kernel's two slots a thread over 128 threads cannot hold in
-//   shared memory), reduce-then-scan:
-//      (a) frev_groups: a warp per group of 32 blocks composes the group's
-//          maps, lane k carrying column k and lane D the constant (a D x D
-//          mat-vec a lane and block, the block's map read once into shared
-//          memory and broadcast), and writes each block's suffix within the
-//          group and the group's map;
-//      (b) frev_scan: a warp per chain carries the state over the groups,
-//          last to first (a mat-vec a group, lane i computing value i);
-//      (c) frev_rows, K3's (c).
-// K4 keeps its design (below).
+//   K4 and K5 (J = 3, 4) split the same three phases over two calls, since
+//   a block's map is J^4 + J^2 = 272 values at J = 4, which a lane cannot
+//   carry:
+//      (a) frev_maps (K4): a thread block per group of 32 blocks, a warp per
+//          column of the maps (D + 1 of them) and a lane per block, walks
+//          the group's rows by tiles, then composes the group's maps in
+//          shared memory and writes each block's suffix within the group
+//          and the group's map;
+//      (b) frev_scan (K5): a warp per chain carries the state over the
+//          groups, last to first (a mat-vec a group, lane i computing value
+//          i);
+//      (c) frev_rows (K5), K3's (c).
 
 // the values of a row in the factor adjoint's input tiles: p, u, w, bv0, bdp
 template <int J>
@@ -1356,18 +1355,18 @@ struct FIn {
                        WIDTH = 4 * J + 1;
 };
 
-template <typename T, int J>
+template <typename T, int J, int NT = kWalks>
 __device__ __forceinline__ void frev_stage(T* tile, const T* p, const T* U,
                                            const T* W, const T* bv0,
                                            const T* bdp,
                                            const long long* start,
                                            const int* len, int s) {
   using I = FIn<J>;
-  stage<J, I::P, I::WIDTH>(tile, p, start, len, s);
-  stage<J, I::U, I::WIDTH>(tile, U, start, len, s);
-  stage<J, I::W, I::WIDTH>(tile, W, start, len, s);
-  stage<J, I::G, I::WIDTH>(tile, bv0, start, len, s);
-  stage<1, I::BD, I::WIDTH>(tile, bdp, start, len, s);
+  stage<J, I::P, I::WIDTH, NT>(tile, p, start, len, s);
+  stage<J, I::U, I::WIDTH, NT>(tile, U, start, len, s);
+  stage<J, I::W, I::WIDTH, NT>(tile, W, start, len, s);
+  stage<J, I::G, I::WIDTH, NT>(tile, bv0, start, len, s);
+  stage<1, I::BD, I::WIDTH, NT>(tile, bdp, start, len, s);
   cp_async_commit();
 }
 
@@ -1546,70 +1545,6 @@ __global__ void __launch_bounds__(kWalks, 1)
   }
 }
 
-// K5 (a): one warp per group of kWalks blocks of a chain.  K4's maps hold
-// column k of a block's linear part at [k D, (k + 1) D) and its constant at
-// [D^2, D^2 + D).  Walking the group's blocks last to first, lane k < D
-// carries column k of the composition of the blocks walked so far, lane D
-// its constant; after block b it is block b's suffix within the group,
-// written as AffineMaps<T, D> to ``suffix`` (C, NB, E), and after the first
-// block the group's map, to ``groups`` (C, GB, E).  Each block's map is
-// copied into shared memory one block ahead.
-template <typename T, int J>
-__global__ void __launch_bounds__(kWalks, 1)
-    frev_groups_kernel(const T* __restrict__ maps, T* __restrict__ suffix,
-                       T* __restrict__ groups, int NB, int GB) {
-  constexpr int D = J * J, E = D * D + D;
-  static_assert(D < kWalks, "a lane a column and one for the constant");
-  __shared__ __align__(16) T buf[2][E];
-  const int lane = threadIdx.x;
-  const long long chain = blockIdx.x / GB;
-  const int group = blockIdx.x % GB;
-  const int b0 = group * kWalks, b1 = min(NB, b0 + kWalks);
-  const T* cm = maps + chain * NB * E;
-
-  T X[D];
-#pragma unroll
-  for (int i = 0; i < D; ++i) X[i] = i == lane ? T(1) : T(0);
-
-  for (int e = lane; e < E; e += kWalks)
-    cp_async_elem(buf[(b1 - 1) & 1] + e, cm + (long long)(b1 - 1) * E + e);
-  cp_async_commit();
-  for (int b = b1 - 1; b >= b0; --b) {
-    if (b > b0) {
-      for (int e = lane; e < E; e += kWalks)
-        cp_async_elem(buf[(b - 1) & 1] + e, cm + (long long)(b - 1) * E + e);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncwarp();
-    const T* m = buf[b & 1];
-    if (lane <= D) {
-      T y[D];
-#pragma unroll
-      for (int i = 0; i < D; ++i) {
-        T s = lane == D ? m[D * D + i] : T(0);
-#pragma unroll
-        for (int j = 0; j < D; ++j) s += m[j * D + i] * X[j];
-        y[i] = s;
-      }
-      T* o = suffix + (chain * NB + b) * E;
-#pragma unroll
-      for (int i = 0; i < D; ++i) {
-        X[i] = y[i];
-        o[lane < D ? i * D + lane : D * D + i] = y[i];
-      }
-    }
-    __syncwarp();  // every lane is done with the buffer before it is refilled
-  }
-  if (lane <= D) {
-    T* o = groups + (chain * GB + group) * E;
-#pragma unroll
-    for (int i = 0; i < D; ++i) o[lane < D ? i * D + lane : D * D + i] = X[i];
-  }
-}
-
 // K5 (b): one warp per chain carries the state over the groups, last to
 // first: the state entering group g is the map of group g + 1 applied to
 // the state entering it, zero for the last group.  Lane i < D holds value i
@@ -1647,70 +1582,208 @@ __global__ void __launch_bounds__(kWalks, 1)
   }
 }
 
-// K4 frev_maps: replaces the Pallas kernel celerite2_tpu/ops/fused_slab.py:
-// _factor_adjoint_structured phase A (pallas_call :629, body _phaseA_body
-// :530).  For each (chain, block) it densifies the block's composed reverse
-// map: the D = J^2 basis columns go through the steps' linear part, the
-// constant through the full affine step, rows in descending order.  Output
-// (C, NB, D^2 + D): column k at [k D, (k + 1) D), the constant at
-// [D^2, D^2 + D).
-//
-// Bound on this card: latency: L dependent steps of O(J^2) per column.  The
-// TPU carried all D^2 + D = 272 values (J = 4) of a block in VMEM scratch;
-// one thread cannot hold that in registers.  So one warp walks one (chain,
-// block) and lane k < D carries column k (D values), lane D the constant:
-// 17 of 32 lanes at J = 4, 10 at J = 3.  Every lane reads the same row's
-// parameters, which the hardware serves as one broadcast load.
+// K4's shared memory after its walk, in values of T: the group's block maps
+// by columns (block b's column k at b EP + k D, the constant at k = D; EP
+// odd, so that the lanes storing them do not collide on a bank), their
+// suffixes row-major with the constant as a last column (rows of D + 1,
+// block b's at b E), and for each of the WARPS warps that compose them two
+// buffers of the running columns of each of its two half-warps (an even
+// pitch CP: pairs of values 16-byte aligned; the halves HS apart, off the
+// banks of each other).
+constexpr int kCols = 2;  // columns of the suffixes a half-warp carries
 
-// The parameters of row n (global row r): p, u (0 at n = 0), w, bv0, bdp.
+template <int J>
+struct FrevLayout {
+  static constexpr int D = J * J, E = D * D + D, EP = E + 1;
+  static constexpr int CP = D + (D & 1);
+  static constexpr int HS = kCols * CP + 2;
+  static constexpr int WARPS = (D + 2 * kCols) / (2 * kCols);
+  static constexpr int SUF = kWalks * EP, XS = SUF + kWalks * E;
+  static constexpr int SIZE = XS + WARPS * 4 * HS;
+};
+
+template <typename T>
+struct Pair;
+template <>
+struct Pair<float> {
+  using type = float2;
+};
+template <>
+struct Pair<double> {
+  using type = double2;
+};
+
+// K4 (2): one warp's columns [k0, k0 + 2 kCols) of the suffixes of the
+// group's nb block maps, last block to first: the last block's suffix is its
+// map, and block b's column k is its map applied to column k of block
+// b + 1's suffix (the constant added for k = D).  Lane h 16 + i (i < D)
+// computes row i of the half-warp h's kCols columns, so that both halves
+// read the same values of each block's map; each carries its columns as
+// 16-byte broadcasts from ``xs`` (two buffers, one written while the other
+// is read: one warp barrier a block).  Each sum runs from the constant (or
+// zero) up the map's columns in order.
 template <typename T, int J>
-__device__ __forceinline__ void frev_row(const T* __restrict__ p,
-                                         const T* __restrict__ U,
-                                         const T* __restrict__ W,
-                                         const T* __restrict__ bv0,
-                                         const T* __restrict__ bdp, int n,
-                                         long long r, T (&pr)[J], T (&u)[J],
-                                         T (&w)[J], T (&g)[J], T& bd) {
+__device__ __forceinline__ void frev_compose(const T* maps, T* suf, T* xs,
+                                             int k0, int nb) {
+  using F = FrevLayout<J>;
+  using V = typename Pair<T>::type;
+  constexpr int D = F::D;
+  static_assert(D <= kWalks / 2, "a row a lane of each half-warp");
+  const int lane = threadIdx.x % kWalks;
+  const int half = lane / (kWalks / 2);
+  const int row = min(lane % (kWalks / 2), D - 1);
+  const bool live = lane % (kWalks / 2) < D;
+  const int kh = k0 + half * kCols;
+  T* xh = xs + half * F::HS;
+  T x[kCols];
+  auto put = [&](int b, int buf) {
 #pragma unroll
-  for (int j = 0; j < J; ++j) {
-    pr[j] = p[r * J + j];
-    u[j] = n == 0 ? T(0) : U[r * J + j];
-    w[j] = W[r * J + j];
-    g[j] = bv0[r * J + j];
+    for (int c = 0; c < kCols; ++c) {
+      if (live && kh + c <= D) {
+        xh[buf * 2 * F::HS + c * F::CP + row] = x[c];
+        suf[b * F::E + row * (D + 1) + kh + c] = x[c];
+      }
+    }
+    __syncwarp();
+  };
+#pragma unroll
+  for (int c = 0; c < kCols; ++c)
+    x[c] = kh + c <= D ? maps[(nb - 1) * F::EP + (kh + c) * D + row] : T(0);
+  put(nb - 1, 0);
+  for (int b = nb - 2, buf = 1; b >= 0; --b, buf ^= 1) {
+    const T* m = maps + b * F::EP;
+    const T* xp = xh + (buf ^ 1) * 2 * F::HS;
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) x[c] = kh + c == D ? m[D * D + row] : T(0);
+#pragma unroll
+    for (int j = 0; j < D; j += 2) {
+      const T a0 = m[j * D + row];
+      const T a1 = j + 1 < D ? m[(j + 1) * D + row] : T(0);
+#pragma unroll
+      for (int c = 0; c < kCols; ++c) {
+        if (kh + c > D) continue;
+        const V v = *reinterpret_cast<const V*>(xp + c * F::CP + j);
+        x[c] += a0 * v.x;
+        if (j + 1 < D) x[c] += a1 * v.y;
+      }
+    }
+    put(b, buf);
   }
-  bd = bdp[r];
 }
 
+// K4 frev_maps: replaces the Pallas kernel celerite2_tpu/ops/fused_slab.py:
+// _factor_adjoint_structured phase A (pallas_call :629, body _phaseA_body
+// :530) and the part of phase B (XLA, :651-682) that stays inside a group of
+// kWalks blocks.  One thread block per (chain, group of kWalks consecutive
+// blocks), D + 1 warps (D = J^2): warp k < D carries column k of the linear
+// part of the group's block maps, warp D their constant, and lane b block b
+// of the group.
+//   (1) the walk: each thread takes its column through its block's rows,
+//       descending (the D basis states through the steps' linear part, the
+//       zero state through the affine steps), the rows staged by tiles of
+//       kTile rows of every block with cp.async one tile ahead, shared by
+//       all the warps (lane b reads block b's row: no bank conflict);
+//   (2) the composition: the group's block maps go to shared memory, and
+//       ceil((D + 1) / (2 kCols)) warps compose each block's suffix within
+//       the group from the last block to the first, kCols columns a
+//       half-warp (frev_compose);
+//   (3) the suffixes (C, NB, E) and the group's map, its first block's
+//       suffix (C, GB, E), E = D^2 + D as AffineMaps<T, D> (A row-major,
+//       then b), stored coalesced from shared memory.
+// Bound on this card: operations, (D + 1) 10 D a row (the walk) and
+// (D + 1) 2 D^2 a block (the composition).  Every lane of every warp walks,
+// where one warp a block left 15 of 32 lanes idle at J = 4; the rows come
+// from shared memory, where every lane read them from device memory inside
+// the dependent row loop; and the block maps never leave the thread block.
+// The walk is then bound by the float64 pipe (about 108 float64
+// instructions a row and thread at J = 4, 17 warps on 4 schedulers), the
+// composition by shared-memory traffic, which few composing warps, each
+// map read once for a half-warp's kCols columns, and broadcast reads of
+// the running columns keep low (PERF.md).
 template <typename T, int J>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__((J * J + 1) * kWalks, 1)
     frev_maps_kernel(const T* __restrict__ p, const T* __restrict__ U,
                      const T* __restrict__ W, const T* __restrict__ bv0,
-                     const T* __restrict__ bdp, T* __restrict__ maps, int C,
-                     int N, int L, int NB) {
-  constexpr int D = J * J;
-  constexpr int E = D * D + D;
-  const long long idx = blockIdx.x;
-  const int lane = threadIdx.x;
-  if (idx >= (long long)C * NB || lane > D) return;
-  const int c = (int)(idx / NB);
-  const int blk = (int)(idx % NB);
-  const long long row0 = (long long)c * N;
-  const int n0 = blk * L;
-  const int n1 = min(n0 + L, N);
-  const bool affine = lane == D;
-
-  T M[D];
-#pragma unroll
-  for (int i = 0; i < D; ++i) M[i] = i == lane ? T(1) : T(0);
-
-  for (int n = n1 - 1; n >= n0; --n) {
-    T pr[J], u[J], w[J], g[J], bd;
-    frev_row<T, J>(p, U, W, bv0, bdp, n, row0 + n, pr, u, w, g, bd);
-    structured_apply<T, J>(M, pr, u, w, g, bd, affine);
+                     const T* __restrict__ bdp, T* __restrict__ suffix,
+                     T* __restrict__ groups, int N, int L, int NB, int GB) {
+  using I = FIn<J>;
+  using F = FrevLayout<J>;
+  constexpr int D = F::D, E = F::E;
+  constexpr int NT = (D + 1) * kWalks;
+  constexpr int TILE = kTile * I::WIDTH * kPitch;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* tiles = reinterpret_cast<T*>(smem_raw);
+  __shared__ long long start[kWalks];
+  __shared__ int len[kWalks];
+  const int col = threadIdx.x / kWalks, lane = threadIdx.x % kWalks;
+  const long long chain = blockIdx.x / GB;
+  const int group = blockIdx.x % GB;
+  const int b0 = group * kWalks, nb = min(kWalks, NB - b0);
+  const int n0 = (b0 + lane) * L;
+  if (col == 0) {
+    start[lane] = chain * N + (lane < nb ? n0 : 0);
+    len[lane] = lane < nb ? min(L, N - n0) : 0;
   }
-  T* o = maps + idx * E + lane * D;
+  __syncthreads();
+  const int mine = len[lane];
+  const bool affine = col == D;
+
+  T X[D];
 #pragma unroll
-  for (int i = 0; i < D; ++i) o[i] = M[i];
+  for (int i = 0; i < D; ++i) X[i] = i == col ? T(1) : T(0);
+
+  const int ntiles = (min(L, N) + kTile - 1) / kTile;
+  frev_stage<T, J, NT>(tiles + ((ntiles - 1) & 1) * TILE, p, U, W, bv0, bdp,
+                       start, len, ntiles - 1);
+  for (int s = ntiles - 1; s >= 0; --s) {
+    if (s > 0) {
+      frev_stage<T, J, NT>(tiles + ((s - 1) & 1) * TILE, p, U, W, bv0, bdp,
+                           start, len, s - 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const T* tile = tiles + (s & 1) * TILE + lane;
+#pragma unroll 2
+    for (int l = min(kTile, mine - s * kTile) - 1; l >= 0; --l) {
+      T pr[J], u[J], w[J], g[J], bd;
+      frev_row_tile<T, J>(tile + l * I::WIDTH * kPitch,
+                          n0 + s * kTile + l == 0, pr, u, w, g, bd);
+      structured_apply<T, J>(X, pr, u, w, g, bd, affine);
+    }
+    __syncthreads();  // every warp is done with the tile before it is refilled
+  }
+
+  // the group's block maps, then their suffixes (FrevLayout)
+  if (lane < nb) {
+    T* o = tiles + lane * F::EP + col * D;
+#pragma unroll
+    for (int i = 0; i < D; ++i) o[i] = X[i];
+  }
+  __syncthreads();
+  if (col < F::WARPS)
+    frev_compose<T, J>(tiles, tiles + F::SUF,
+                       tiles + F::XS + col * 4 * F::HS, col * 2 * kCols, nb);
+  __syncthreads();
+  const T* suf = tiles + F::SUF;
+  auto at = [&](int b, int r) {  // value r of block b's suffix, as AffineMaps
+    return r < D * D ? suf[b * E + r / D * (D + 1) + r % D]
+                     : suf[b * E + (r - D * D) * (D + 1) + D];
+  };
+  T* out = suffix + (chain * NB + b0) * E;
+  for (int e = threadIdx.x; e < nb * E; e += NT) out[e] = at(e / E, e % E);
+  T* og = groups + (chain * GB + group) * E;
+  for (int e = threadIdx.x; e < E; e += NT) og[e] = at(0, e);
+}
+
+// dynamic shared memory of K4 at width J: two input tiles, then
+// FrevLayout's arrays in the same space
+template <typename T, int J>
+constexpr size_t frev_maps_smem() {
+  const size_t tiles = walk_smem<T>(FIn<J>::WIDTH, 0);
+  const size_t after = FrevLayout<J>::SIZE * sizeof(T);
+  return tiles > after ? tiles : after;
 }
 
 // the rows of K3 (c) or K5 (c), with the shared memory they need
@@ -1755,25 +1828,39 @@ int launch_factor_j(const void* p, const void* U, const void* W,
                            L, NB, GB, s);
 }
 
-// The phases of K5 at width J: (a) with more than one block, (b) with more
-// than one group, (c).
+// K4 at width J: with more than one block, one thread block per group of
+// kWalks blocks of a chain (with one block the rows of K5 walk it alone).
 template <typename T, int J>
-int launch_frev_states_j(const void* p, const void* U, const void* W,
-                         const void* bv0, const void* bdp, const void* kmaps,
-                         void* MX, void* suffix, void* groups, void* gstates,
-                         int C, int N, int L, cudaStream_t s) {
+int launch_frev_maps_j(const void* p, const void* U, const void* W,
+                       const void* bv0, const void* bdp, void* suffix,
+                       void* groups, int C, int N, int L, cudaStream_t s) {
   const int NB = (N + L - 1) / L;
   const int GB = (NB + kWalks - 1) / kWalks;
-  int err;
-  if (NB > 1) {
-    frev_groups_kernel<T, J><<<walk_grid(C, GB), kWalks, 0, s>>>(
-        (const T*)kmaps, (T*)suffix, (T*)groups, NB, GB);
-    if ((err = (int)cudaGetLastError())) return err;
-  }
+  if (NB < 2) return 0;
+  constexpr size_t smem = frev_maps_smem<T, J>();
+  static size_t allowed = 0;
+  const int err = allow_smem(frev_maps_kernel<T, J>, smem, &allowed);
+  if (err) return err;
+  frev_maps_kernel<T, J><<<walk_grid(C, GB), (J * J + 1) * kWalks, smem, s>>>(
+      (const T*)p, (const T*)U, (const T*)W, (const T*)bv0, (const T*)bdp,
+      (T*)suffix, (T*)groups, N, L, NB, GB);
+  return (int)cudaGetLastError();
+}
+
+// The phases of K5 at width J, on K4's suffixes and group maps: (b) with
+// more than one group, (c).
+template <typename T, int J>
+int launch_frev_states_j(const void* p, const void* U, const void* W,
+                         const void* bv0, const void* bdp, const void* suffix,
+                         const void* groups, void* MX, void* gstates, int C,
+                         int N, int L, cudaStream_t s) {
+  const int NB = (N + L - 1) / L;
+  const int GB = (NB + kWalks - 1) / kWalks;
   if (GB > 1) {
     frev_scan_kernel<T, J><<<(unsigned)C, kWalks, 0, s>>>(
         (const T*)groups, (T*)gstates, GB);
-    if ((err = (int)cudaGetLastError())) return err;
+    const int err = (int)cudaGetLastError();
+    if (err) return err;
   }
   return launch_rows<T, J>(
       (const T*)p, (const T*)U, (const T*)W, (const T*)bv0, (const T*)bdp,
@@ -1800,47 +1887,44 @@ int launch_factor(int J, const void* p, const void* U, const void* W,
 
 template <typename T>
 int launch_frev_maps(int J, const void* p, const void* U, const void* W,
-                     const void* bv0, const void* bdp, void* maps, int C,
-                     int N, int L, cudaStream_t s) {
-  const int NB = (N + L - 1) / L;
-  const T *pp = (const T*)p, *Up = (const T*)U, *Wp = (const T*)W,
-          *gp = (const T*)bv0, *dp = (const T*)bdp;
-  const dim3 grid((unsigned)((long long)C * NB));  // one warp per block
-  if (J == 1)
-    frev_maps_kernel<T, 1><<<grid, kThreads, 0, s>>>(pp, Up, Wp, gp, dp,
-                                                     (T*)maps, C, N, L, NB);
-  else if (J == 2)
-    frev_maps_kernel<T, 2><<<grid, kThreads, 0, s>>>(pp, Up, Wp, gp, dp,
-                                                     (T*)maps, C, N, L, NB);
-  else if (J == 3)
-    frev_maps_kernel<T, 3><<<grid, kThreads, 0, s>>>(pp, Up, Wp, gp, dp,
-                                                     (T*)maps, C, N, L, NB);
-  else if (J == 4)
-    frev_maps_kernel<T, 4><<<grid, kThreads, 0, s>>>(pp, Up, Wp, gp, dp,
-                                                     (T*)maps, C, N, L, NB);
-  else
-    return -1;
-  return (int)cudaGetLastError();
+                     const void* bv0, const void* bdp, void* suffix,
+                     void* groups, int C, int N, int L, cudaStream_t s) {
+  switch (J) {
+    case 1:
+      return launch_frev_maps_j<T, 1>(p, U, W, bv0, bdp, suffix, groups, C, N,
+                                      L, s);
+    case 2:
+      return launch_frev_maps_j<T, 2>(p, U, W, bv0, bdp, suffix, groups, C, N,
+                                      L, s);
+    case 3:
+      return launch_frev_maps_j<T, 3>(p, U, W, bv0, bdp, suffix, groups, C, N,
+                                      L, s);
+    case 4:
+      return launch_frev_maps_j<T, 4>(p, U, W, bv0, bdp, suffix, groups, C, N,
+                                      L, s);
+    default:
+      return -1;
+  }
 }
 
 template <typename T>
 int launch_frev_states(int J, const void* p, const void* U, const void* W,
-                       const void* bv0, const void* bdp, const void* kmaps,
-                       void* MX, void* suffix, void* groups, void* gstates,
-                       int C, int N, int L, cudaStream_t s) {
+                       const void* bv0, const void* bdp, const void* suffix,
+                       const void* groups, void* MX, void* gstates, int C,
+                       int N, int L, cudaStream_t s) {
   switch (J) {
     case 1:
-      return launch_frev_states_j<T, 1>(p, U, W, bv0, bdp, kmaps, MX, suffix,
-                                        groups, gstates, C, N, L, s);
+      return launch_frev_states_j<T, 1>(p, U, W, bv0, bdp, suffix, groups, MX,
+                                        gstates, C, N, L, s);
     case 2:
-      return launch_frev_states_j<T, 2>(p, U, W, bv0, bdp, kmaps, MX, suffix,
-                                        groups, gstates, C, N, L, s);
+      return launch_frev_states_j<T, 2>(p, U, W, bv0, bdp, suffix, groups, MX,
+                                        gstates, C, N, L, s);
     case 3:
-      return launch_frev_states_j<T, 3>(p, U, W, bv0, bdp, kmaps, MX, suffix,
-                                        groups, gstates, C, N, L, s);
+      return launch_frev_states_j<T, 3>(p, U, W, bv0, bdp, suffix, groups, MX,
+                                        gstates, C, N, L, s);
     case 4:
-      return launch_frev_states_j<T, 4>(p, U, W, bv0, bdp, kmaps, MX, suffix,
-                                        groups, gstates, C, N, L, s);
+      return launch_frev_states_j<T, 4>(p, U, W, bv0, bdp, suffix, groups, MX,
+                                        gstates, C, N, L, s);
     default:
       return -1;
   }
@@ -1854,19 +1938,20 @@ int launch_frev_states(int J, const void* p, const void* U, const void* W,
 // after the launch (0 on success), or -1 for an unsupported J (K1, K2, K4,
 // K5: 1..4; K3: 1, 2).  Pointers are to contiguous device arrays of the
 // scalar type given by ``is_double``; shapes are (C, N, J) for per-row
-// vectors, (C, N) for per-row scalars and (C, ceil(N / L), J^4 + J^2) for
-// K4's ``maps``.
+// vectors and (C, N) for per-row scalars.
 //
-// c2t_kalman_fwd, c2t_solve_rev, c2t_factor_rev and c2t_frev_states launch
-// the phases their rows need, on NB = ceil(N / L) blocks in GB = ceil(NB /
-// 32) groups: 0 with NB > 1, the block maps (writes each block's prefix or
-// suffix within its group, ``maps`` or ``suffix`` (C, NB, E), and each
-// group's map, ``groups`` (C, GB, E); E = 3J^2 + 2J for K1, J^2 + J for K2,
-// J^4 + J^2 for K3 and K5); 1 with GB > 1, the scan over the groups (writes
-// ``gstates``, the state entering every group: (C, GB, J^2 + J), (C, GB,
-// J), (C, GB, J^2)); 2 the rows (writes S (C, N, J, J) and F (C, N, J), R
-// (C, N, J), or MX (C, N, J, J)).  The scratch arrays a call does not need
-// may be null.
+// c2t_kalman_fwd, c2t_solve_rev and c2t_factor_rev launch the phases their
+// rows need, on NB = ceil(N / L) blocks in GB = ceil(NB / 32) groups: 0
+// with NB > 1, the block maps (writes each block's prefix or suffix within
+// its group, ``maps`` (C, NB, E), and each group's map, ``groups`` (C, GB,
+// E); E = 3J^2 + 2J for K1, J^2 + J for K2, J^4 + J^2 for K3); 1 with
+// GB > 1, the scan over the groups (writes ``gstates``, the state entering
+// every group: (C, GB, J^2 + J), (C, GB, J), (C, GB, J^2)); 2 the rows
+// (writes S (C, N, J, J) and F (C, N, J), R (C, N, J), or MX (C, N, J, J)).
+// The structured factor adjoint splits the same phases: c2t_frev_maps is
+// phase 0 (writes ``suffix`` (C, NB, J^4 + J^2) and ``groups`` (C, GB,
+// J^4 + J^2); nothing with NB = 1), c2t_frev_states phases 1 and 2 on them.
+// The scratch arrays a call does not need may be null.
 
 extern "C" {
 
@@ -1904,25 +1989,26 @@ int c2t_factor_rev(int is_double, int J, const void* p, const void* U,
 }
 
 int c2t_frev_maps(int is_double, int J, const void* p, const void* U,
-                  const void* W, const void* bv0, const void* bdp, void* maps,
-                  int C, int N, int L, void* stream) {
+                  const void* W, const void* bv0, const void* bdp,
+                  void* suffix, void* groups, int C, int N, int L,
+                  void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  return is_double ? launch_frev_maps<double>(J, p, U, W, bv0, bdp, maps, C,
-                                              N, L, s)
-                   : launch_frev_maps<float>(J, p, U, W, bv0, bdp, maps, C,
-                                             N, L, s);
+  return is_double ? launch_frev_maps<double>(J, p, U, W, bv0, bdp, suffix,
+                                              groups, C, N, L, s)
+                   : launch_frev_maps<float>(J, p, U, W, bv0, bdp, suffix,
+                                             groups, C, N, L, s);
 }
 
 int c2t_frev_states(int is_double, int J, const void* p, const void* U,
                     const void* W, const void* bv0, const void* bdp,
-                    const void* maps, void* MX, void* suffix, void* groups,
+                    const void* suffix, const void* groups, void* MX,
                     void* gstates, int C, int N, int L, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   return is_double
-             ? launch_frev_states<double>(J, p, U, W, bv0, bdp, maps, MX,
-                                          suffix, groups, gstates, C, N, L, s)
-             : launch_frev_states<float>(J, p, U, W, bv0, bdp, maps, MX,
-                                         suffix, groups, gstates, C, N, L, s);
+             ? launch_frev_states<double>(J, p, U, W, bv0, bdp, suffix, groups,
+                                          MX, gstates, C, N, L, s)
+             : launch_frev_states<float>(J, p, U, W, bv0, bdp, suffix, groups,
+                                         MX, gstates, C, N, L, s);
 }
 
 }  // extern "C"

@@ -31,6 +31,7 @@ __all__ = [
     "build",
     "fused_block_len",
     "factor_adjoint_block_len",
+    "structured_block_len",
     "kalman_fwd_cuda",
     "solve_rev_cuda",
     "factor_rev_cuda",
@@ -174,8 +175,8 @@ def _library():
             ("c2t_kalman_fwd", 10),
             ("c2t_solve_rev", 8),
             ("c2t_factor_rev", 9),
-            ("c2t_frev_maps", 6),
-            ("c2t_frev_states", 10),
+            ("c2t_frev_maps", 7),
+            ("c2t_frev_states", 9),
         ):
             fn = getattr(lib, name)
             fn.argtypes = [I, I] + [P] * n_arrays + [I, I, I, P]
@@ -257,16 +258,30 @@ def fused_block_len(N):
     return L
 
 
-# Rows per block of the factor adjoint on the card (K3, and K4 with K5, which
-# starts each block from K4's map of the blocks after it): the rule of K1 and
-# K2, which ``chip_smoke.py --sweep`` holds against the other block lengths
-# (PERF.md), under a name of its own that the sweep can set apart.
+# Rows per block of the dense factor adjoint K3 on the card: the rule of K1
+# and K2, which ``chip_smoke.py --sweep`` holds against the other block
+# lengths (PERF.md), under a name of its own that the sweep can set apart.
 factor_adjoint_block_len = fused_block_len
 
 
 # blocks of the fused kernels' rows in a group: the walks of one of their
 # thread blocks (csrc/fused_loglik.cu, kWalks)
 FUSED_GROUP = 32
+# the H100's multiprocessors, on each of which K4 walks one group at a time
+CARD_SMS = 132
+
+
+def structured_block_len(N, C=1):
+    """Rows per block of K4 and K5 on the card (K5 starts each block from
+    K4's suffixes of the blocks after it): K1's rule, doubled up to 256
+    rows while the C chains' groups of :data:`FUSED_GROUP` blocks fill
+    more than one wave of K4's thread blocks, one a multiprocessor.  Past
+    one wave a doubling halves K4's waves, and shorter blocks cost K5's
+    scan more groups (``chip_smoke.py --sweep``, PERF.md)."""
+    L = fused_block_len(N)
+    while L < 256 and C * -(-N // L) > CARD_SMS * FUSED_GROUP:
+        L *= 2
+    return L
 
 
 def _block_len(key, block_len, N, rule):
@@ -277,7 +292,7 @@ def _block_len(key, block_len, N, rule):
 
 
 def _two_level(key, J, inputs, outs, C, N, L, map_width, state_width):
-    """Launch K1, K2, K3 or K5 (``c2t_<key>``, one call) in blocks of L
+    """Launch K1, K2 or K3 (``c2t_<key>``, one call) in blocks of L
     rows: with more than one block, the block maps; with more than one
     group of blocks, the scan over the groups; the rows.  Each kernel
     counts in :data:`LAUNCHES`."""
@@ -338,34 +353,56 @@ def factor_rev_cuda(p, U, W, bv0, bdp, block_len=None):
 
 
 def frev_maps_cuda(p, U, W, bv0, bdp, block_len=None):
-    """K4 on the card: each block's composed reverse-factor map
-    ``(C, ceil(N/L), J^4+J^2)``, column k of its linear part at
-    ``[k J^2, (k+1) J^2)`` and its constant last, in blocks of
-    ``block_len`` rows (default :func:`factor_adjoint_block_len`)."""
+    """K4 on the card, in blocks of ``block_len`` rows (default
+    :func:`structured_block_len`) and groups of :data:`FUSED_GROUP`
+    blocks: each block's suffix within its group ``suffix (C, NB, E)``
+    (the composition of its map and those of the group's later blocks)
+    and each group's map ``groups (C, GB, E)``, as affine maps (E =
+    J^4 + J^2: the linear part row-major, then the constant).  With one
+    block, nothing is launched and both are None: K5 walks it alone."""
     C, N, J = U.shape
     inputs = (p, U, W, bv0, bdp)
     _check("frev_maps", inputs, _row_shapes(C, N, J, 4, 1))
     if min(C, N) < 1:
         raise ValueError(f"frev_maps: empty system (C={C}, N={N})")
-    L = _block_len("frev_maps", block_len, N, factor_adjoint_block_len)
-    maps = _empty(p, C, -(-N // L), J**4 + J * J)
-    _launch_general("frev_maps", J, inputs, (maps,), (C, N, L))
-    return maps
+    L = _block_len("frev_maps", block_len, N,
+                   lambda n: structured_block_len(n, C))
+    NB = -(-N // L)
+    if NB == 1:
+        return None, None
+    E = J**4 + J * J
+    outs = (_empty(p, C, NB, E), _empty(p, C, -(-NB // FUSED_GROUP), E))
+    _launch_general("frev_maps", J, inputs, outs, (C, N, L))
+    return outs
 
 
-def frev_states_cuda(p, U, W, bv0, bdp, maps, block_len=None):
-    """K5 on the card: from K4's block maps ``maps (C, ceil(N/L),
-    J^4+J^2)``, the factor adjoint's state entering every row,
-    ``MX (C, N, J, J)``; the maps' blocks are of ``block_len`` rows
-    (default :func:`factor_adjoint_block_len`)."""
+def frev_states_cuda(p, U, W, bv0, bdp, suffix, groups, block_len=None):
+    """K5 on the card: from K4's ``suffix`` and ``groups``
+    (:func:`frev_maps_cuda`, None with one block), the factor adjoint's
+    state entering every row, ``MX (C, N, J, J)``, by the scan over the
+    groups (with more than one) and the rows; the blocks are of
+    ``block_len`` rows (default :func:`structured_block_len`), those
+    of K4's call."""
     C, N, J = U.shape
-    L = _block_len("frev_states", block_len, N, factor_adjoint_block_len)
+    inputs = (p, U, W, bv0, bdp)
+    _check("frev_states", inputs, _row_shapes(C, N, J, 4, 1))
+    if min(C, N) < 1:
+        raise ValueError(f"frev_states: empty system (C={C}, N={N})")
+    L = _block_len("frev_states", block_len, N,
+                   lambda n: structured_block_len(n, C))
     D = J * J
-    inputs = (p, U, W, bv0, bdp, maps)
-    _check("frev_states", inputs,
-           _row_shapes(C, N, J, 4, 1) + ((C, -(-N // L), D * D + D),))
+    NB = -(-N // L)
+    GB = -(-NB // FUSED_GROUP)
+    if NB > 1:
+        _check("frev_states", (p, suffix, groups),
+               ((C, N, J), (C, NB, D * D + D), (C, GB, D * D + D)))
+    elif suffix is not None or groups is not None:
+        raise ValueError("frev_states: one block takes no suffix or groups")
     MX = _empty(p, C, N, J, J)
-    _two_level("frev_states", J, inputs, (MX,), C, N, L, D * D + D, D)
+    gstates = _empty(p, C, GB, D) if GB > 1 else None
+    _launch_general("frev_states", J, (*inputs, suffix, groups),
+                    (MX, gstates), (C, N, L))
+    LAUNCHES["frev_states"] += GB > 1
     return MX
 
 

@@ -387,8 +387,9 @@ def _frev_suffix_states_dense(p, u, w, bv0, bdp):
 
 def _frev_states_k45(p, U, W, bv0, bdp):
     """The factor adjoint's carry at every row at J = 3, 4 through the
-    fused path's kernels: K4 (``frev_maps``, phase A) for each block's map,
-    K5 (``frev_states``) for phase B, the state entering each block, and
+    fused path's kernels: K4 (``frev_maps``, phase A) for each block's map
+    and the suffixes within its group of blocks, K5 (``frev_states``) for
+    the rest of phase B, the state entering each group and block, and
     phase C, the rows.  Returns ``(C, N, J, J)``: the state entering step n
     at rows n >= 1, the state after every step at row 0."""
     L = _fl.default_block_len(U.shape[1])

@@ -17,7 +17,8 @@ forward (K1), the solve adjoint's Rst (K2), the factor adjoint's MX (K3 at
 J <= 2; K4 and K5 at J = 3, 4).  On the card each is a CUDA kernel family
 (``csrc/fused_loglik.cu``) that runs the whole scan, its cross-block level
 included, in blocks of rows of its own choosing
-(``_build.fused_block_len``, ``_build.factor_adjoint_block_len``).  Their
+(``_build.fused_block_len``, ``_build.factor_adjoint_block_len``,
+``_build.structured_block_len``).  Their
 plain versions, below, run it in PyTorch in blocks of L rows:
 
 * within each block, the pass builds every row's element from the raw
@@ -30,9 +31,11 @@ plain versions, below, run it in PyTorch in blocks of L rows:
 At J = 3, 4 the factor adjoint instead takes the JAX package's
 structured route (``_factor_adjoint_structured``): a dense J^2-affine
 element per row is J^4 + J^2 values, so only per-block maps are
-densified (K4), composed across blocks (phase B), and each block is re-run
-from its incoming state (K5, which takes K4's maps and runs phase B
-itself on the card).
+densified and composed within groups of ``_build.FUSED_GROUP`` blocks
+(K4), the state is carried over the groups (phase B), and each block is
+re-run from its incoming state (K5).  Their plain versions keep the
+kernels' order: each group's maps composed from its last block to its
+first, then the groups.
 
 The glue that turns the states into d, W, Z, the log-likelihood and the
 six cotangents is shared by the CUDA and CPU routes.
@@ -64,6 +67,7 @@ __all__ = [
     "factor_rev",
     "factor_rev_blocks",
     "factor_rev_plain",
+    "frev_block_maps",
     "frev_maps",
     "frev_maps_plain",
     "frev_seeds",
@@ -79,7 +83,7 @@ LAUNCHES = _build.LAUNCHES
 def default_block_len(N: int) -> int:
     """Rows per block L of the plain versions.  The kernels take their own
     on the card (``_build.fused_block_len``,
-    ``_build.factor_adjoint_block_len``)."""
+    ``_build.factor_adjoint_block_len``, ``_build.structured_block_len``)."""
     return max(1, min(N, 256))
 
 
@@ -323,10 +327,11 @@ def factor_rev(p, U, W, bv0, bdp, L):
 #
 # fused_slab._factor_adjoint_structured: the reverse-factor step applied
 # to a J x J state in O(J^2) (no dense J^2 x J^2 element per row).
-#   K4 (phase A) densifies each block's composed map,
-#   K5 composes the block maps (phase B), giving each block's incoming
-#     state (its seed), and re-runs each block from its seed (phase C),
-#     emitting the state entering every row.
+#   K4 (phase A) densifies each block's composed map and composes each
+#     group's maps (the part of phase B inside a group),
+#   K5 carries the state over the groups (the rest of phase B), giving
+#     each block's incoming state (its seed), and re-runs each block from
+#     its seed (phase C), emitting the state entering every row.
 
 
 def _structured_apply(M, par, affine):
@@ -367,12 +372,13 @@ def _frev_steps(p, U, W, bv0, bdp, L):
     return par, valid
 
 
-def frev_maps_plain(p, U, W, bv0, bdp, L):
-    """Plain version of K4: per (chain, block), the D = J^2 basis
-    matrices through the linear part of the block's steps and the zero
-    state through the affine steps, rows descending.  Returns the block
-    maps ``(C, NB, D^2+D)``: column k at ``[k D, (k+1) D)``, the constant
-    last."""
+def frev_block_maps(p, U, W, bv0, bdp, L):
+    """Each block's composed reverse-factor map: per (chain, block), the
+    D = J^2 basis matrices through the linear part of the block's steps
+    and the zero state through the affine steps, rows descending.
+    Returns ``(C, NB, D^2+D)``: column k of the linear part at
+    ``[k D, (k+1) D)``, the constant last (K4's block maps, as its walk
+    leaves them)."""
     C, N, J = U.shape
     D = J * J
     par, valid = _frev_steps(p, U, W, bv0, bdp, L)
@@ -387,49 +393,97 @@ def frev_maps_plain(p, U, W, bv0, bdp, L):
     return M.reshape(C, NB, (D + 1) * D).contiguous()
 
 
+def _affine_flat(cols):
+    """Affine maps given by columns ``(..., D+1, D)`` (column k of the
+    linear part, then the constant) as ``(..., D^2+D)``: the linear part
+    row-major, then the constant (``AffineMaps``)."""
+    D = cols.shape[-1]
+    return torch.cat([cols[..., :D, :].mT.flatten(-2), cols[..., D, :]], -1)
+
+
+def frev_maps_plain(p, U, W, bv0, bdp, L):
+    """Plain version of K4: the block maps (:func:`frev_block_maps`)
+    composed within groups of ``_build.FUSED_GROUP`` consecutive blocks
+    from the last block to the first, as the kernel composes them: block
+    b's suffix is its map after the suffix of block b + 1 of its group.
+    Returns ``suffix (C, NB, D^2+D)`` and each group's map, its first
+    block's suffix, ``groups (C, GB, D^2+D)``: the linear part
+    row-major, then the constant."""
+    C, N, J = U.shape
+    D = J * J
+    G = _build.FUSED_GROUP
+    maps = frev_block_maps(p, U, W, bv0, bdp, L)
+    NB = maps.shape[1]
+    GB = -(-NB // G)
+    cols = maps.reshape(C, NB, D + 1, D)
+    cols = torch.cat([cols, cols.new_zeros(C, GB * G - NB, D + 1, D)], 1)
+    cols = cols.reshape(C, GB, G, D + 1, D)
+    valid = (torch.arange(GB * G, device=p.device) < NB).reshape(GB, G)
+    eye = torch.eye(D, dtype=p.dtype, device=p.device)
+    S = torch.cat([eye, torch.zeros_like(eye[:1])]).expand(C, GB, D + 1, D)
+    out = [None] * G
+    for g in range(G - 1, -1, -1):
+        A_T = cols[:, :, g, :D, :]  # row j: column j of the block's A
+        new = S @ A_T
+        new[..., D, :] += cols[:, :, g, D, :]
+        S = torch.where(valid[:, g, None, None], new, S)
+        out[g] = S
+    suffix = torch.stack(out, 2).reshape(C, GB * G, D + 1, D)[:, :NB]
+    return _affine_flat(suffix).contiguous(), _affine_flat(out[0]).contiguous()
+
+
 def frev_maps(p, U, W, bv0, bdp, L):
-    """K4: the CUDA kernel for CUDA tensors (in blocks of K5's length on
-    the card), the plain version in blocks of L rows on CPU."""
+    """K4: the CUDA kernel for CUDA tensors (in blocks of its own length
+    on the card; ``(None, None)`` with one block), the plain version in
+    blocks of L rows on CPU.  Returns ``(suffix, groups)``."""
     if p.device.type == "cpu":
         return frev_maps_plain(p, U, W, bv0, bdp, L)
     return _build.frev_maps_cuda(p, U, W, bv0, bdp)
 
 
-def frev_seeds(maps, J):
-    """Phase B: each block's incoming state ``(C, NB, J^2)`` from the
-    block maps ``(C, NB, J^4+J^2)``.  The maps become augmented
-    ``(D+1, D+1)`` matrices, composed as suffix products
-    ``S[b] <- S[b] @ S[b+k]`` (identity past the end; Hillis-Steele
-    doubling); block b's seed is ``S[b+1]`` applied to the zero state,
-    and zero for the last block."""
-    C, NB = maps.shape[:2]
+def frev_seeds(suffix, groups, J):
+    """Phase B in K5's order: the state entering each group, zero for the
+    last and the map of group g + 1 applied to the state entering it for
+    the others (last to first), then carried through the suffix of the
+    group's later blocks (``suffix (C, NB, J^4+J^2)``, ``groups (C, GB,
+    J^4+J^2)``, :func:`frev_maps_plain`).  Returns the state entering each
+    block, ``(C, NB, J^2)``."""
+    C, NB = suffix.shape[:2]
+    GB = groups.shape[1]
     D = J * J
-    A = maps[..., : D * D].reshape(C, NB, D, D).mT  # A[..., i, k] = image_k[i]
-    aug = torch.zeros(C, NB, D + 1, D + 1, dtype=maps.dtype, device=maps.device)
-    aug[..., :D, :D] = A
-    aug[..., :D, D] = maps[..., D * D :]
-    aug[..., D, D] = 1.0
-    eye = torch.eye(D + 1, dtype=maps.dtype, device=maps.device).expand(
-        C, NB, D + 1, D + 1
-    )
-    S = aug
-    k = 1
-    while k < NB:
-        S = S @ torch.cat([S[:, k:], eye[:, :k]], 1)
-        k *= 2
-    return torch.cat([S[:, 1:, :D, D], maps.new_zeros(C, 1, D)], 1).contiguous()
+    G = _build.FUSED_GROUP
+    Ag, bg = _affine_unflat(groups, D)
+    x = groups.new_zeros(C, D, 1)
+    entering = [None] * GB
+    for g in range(GB - 1, -1, -1):
+        entering[g] = x
+        if g:
+            x = Ag[:, g] @ x + bg[:, g]
+    blk = torch.arange(NB, device=suffix.device)
+    x = torch.stack(entering, 1)[:, blk // G]  # (C, NB, D, 1)
+    nxt = blk + 1
+    inside = (nxt % G != 0) & (nxt < NB)
+    As, bs = _affine_unflat(suffix[:, nxt.clamp(max=NB - 1)], D)
+    carried = As @ x + bs
+    return torch.where(inside[:, None, None], carried, x)[..., 0].contiguous()
 
 
-def frev_states_plain(p, U, W, bv0, bdp, maps, L):
-    """Plain version of K5: phase B (:func:`frev_seeds`) on K4's block
-    maps, then per (chain, block) the affine steps from the block's seed,
-    rows descending, recording the state entering each row.  Returns
+def frev_states_plain(p, U, W, bv0, bdp, suffix, groups, L):
+    """Plain version of K5: phase B (:func:`frev_seeds`) on K4's suffixes
+    and group maps (None with one block: the state entering it is zero),
+    then per (chain, block) the affine steps from the block's seed, rows
+    descending, recording the state entering each row.  Returns
     ``MX (C, N, J, J)``."""
     C, N, J = U.shape
     D = J * J
-    seeds = frev_seeds(maps, J)
     par, valid = _frev_steps(p, U, W, bv0, bdp, L)
     NB = valid.shape[0]
+    if suffix is None:
+        if NB > 1:
+            raise ValueError("frev_states: more than one block needs K4's maps")
+        seeds = p.new_zeros(C, 1, D)
+    else:
+        seeds = frev_seeds(suffix, groups, J)
     M = seeds.reshape(C, NB, 1, J, J)
     affine = torch.ones(1, dtype=torch.bool, device=p.device)
     rows = [None] * L
@@ -441,13 +495,13 @@ def frev_states_plain(p, U, W, bv0, bdp, maps, L):
     return out.reshape(C, N, J, J)
 
 
-def frev_states(p, U, W, bv0, bdp, maps, L):
+def frev_states(p, U, W, bv0, bdp, suffix, groups, L):
     """K5: the CUDA kernels for CUDA tensors (in blocks of their own
-    length, those of ``maps``), the plain version in blocks of L rows on
-    CPU."""
+    length, those of K4's ``suffix`` and ``groups``), the plain version
+    in blocks of L rows on CPU."""
     if p.device.type == "cpu":
-        return frev_states_plain(p, U, W, bv0, bdp, maps, L)
-    return _build.frev_states_cuda(p, U, W, bv0, bdp, maps)
+        return frev_states_plain(p, U, W, bv0, bdp, suffix, groups, L)
+    return _build.frev_states_cuda(p, U, W, bv0, bdp, suffix, groups)
 
 
 # ======================================= cross-block level + distribute
@@ -524,8 +578,8 @@ def factor_adjoint(p, U, W, bv0, bdp, L, *, structured=None, record=None):
             record["frev_maps"] = (p, U, W, bv0, bdp)
         maps = frev_maps(p, U, W, bv0, bdp, L)
         if record is not None:
-            record["frev_states"] = (p, U, W, bv0, bdp, maps)
-        return frev_states(p, U, W, bv0, bdp, maps, L)
+            record["frev_states"] = (p, U, W, bv0, bdp, *maps)
+        return frev_states(p, U, W, bv0, bdp, *maps, L)
     if record is not None:
         record["factor_rev"] = (p, U, W, bv0, bdp)
     return factor_rev(p, U, W, bv0, bdp, L)

@@ -35,8 +35,9 @@ tier its launch counts and times assume.
 
 It then times chained sampler steps on the J = 2, 4 and 8 paths, config5's
 J = 4 model at its own size N = 1e6, and profiles the J = 2, 4 and 8
-paths.  K1, K2, K3 and K5 are also held at the edges of their blocks and
-tiles and in float32, K1 on rows that are not positive definite.  Run from
+paths.  K1 to K5 are also held at the edges of their blocks and tiles and
+in float32, K1 on rows that are not positive definite; K4 and K5 are timed
+at J = 3, 4, N = 1e5 and 1e6, 1 and 64 chains, in both types.  Run from
 the root of the repository:
 
     python3 chip_smoke.py            # the smoke test (a few minutes)
@@ -111,17 +112,18 @@ PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 33.5e12}
 REPORT_J = {"kalman_fwd": 4, "solve_rev": 4, "factor_rev": 2,
             "frev_maps": 4, "frev_states": 4}
 # The fused kernels take their rows per block on the card themselves: K1
-# and K2 _build.fused_block_len, the factor adjoint (K3; K4 with K5, whose
-# input is K4's block maps) _build.factor_adjoint_block_len.  Their plain
-# versions take the plain route's L, or for K4 and K5 the card's.
+# and K2 _build.fused_block_len, K3 _build.factor_adjoint_block_len, K4 with
+# K5 (whose input is K4's suffixes and group maps)
+# _build.structured_block_len.  Their plain versions take the plain route's
+# L, or for K4 and K5 the card's.
 K12 = ("kalman_fwd", "solve_rev")
 CARD_BLOCKS = ("frev_maps", "frev_states")
 # the device kernels of one value+gradient evaluation at N = 1e5, float64,
-# under torch.profiler, at the parent commit (PERF.md, PR 10), and the fall
-# each must show now that the factor adjoint runs its cross-block level on
-# the card
-PARENT_KERNELS_PER_EVAL = {"J = 2": 461, "J = 4": 596}
-KERNELS_FALL = {"J = 2": 50, "J = 4": 18}
+# under torch.profiler, before K4 composed the groups' maps itself (PERF.md,
+# fused_turns.py), and the fall each must show now: K5's pass over K4's
+# block maps is gone from the J = 4 path
+PARENT_KERNELS_PER_EVAL = {"J = 2": 400, "J = 4": 575}
+KERNELS_FALL = {"J = 2": 0, "J = 4": 1}
 THETA0 = np.log([1.0, 5.0, 3.0])
 THETA4 = np.zeros(5)  # config5's J4 starting point
 THETA_ROT = np.log([1.0, 3.5, 2.0, 1.0, 0.3])  # config2's RotationTerm
@@ -208,12 +210,19 @@ def kernel_call(name, inputs, rows=None):
     return KERNELS[name][1](*inputs, rows)
 
 
-def plain_len(name, N):
+def plain_len(name, N, C=1):
     """The rows per block of the plain version of the fused kernel
     ``name`` held against the kernel at its own length on the card."""
+    return card_len(name, N, C) if name in CARD_BLOCKS else fl.default_block_len(N)
+
+
+def card_len(name, N, C=1):
+    """The rows per block of the fused kernel ``name`` on the card."""
+    if name in K12:
+        return _build.fused_block_len(N)
     if name in CARD_BLOCKS:
-        return _build.factor_adjoint_block_len(N)
-    return fl.default_block_len(N)
+        return _build.structured_block_len(N, C)
+    return _build.factor_adjoint_block_len(N)
 
 
 def bound_ms(arrays, flops):
@@ -222,12 +231,17 @@ def bound_ms(arrays, flops):
     at the peak rate of the arrays' type, whichever is larger.  Returns
     ``(milliseconds, "bytes" or "operations")``."""
     nbytes = sum(x.numel() * x.element_size() for x in arrays)
+    return bytes_or_ops(nbytes, flops, arrays[0].dtype)
+
+
+def bytes_or_ops(nbytes, flops, dtype):
+    """:func:`bound_ms` from a count of bytes and of operations."""
     by_bytes = 1e3 * nbytes / PEAK_BYTES_PER_S
-    by_ops = 1e3 * flops / PEAK_FLOPS[arrays[0].dtype]
+    by_ops = 1e3 * flops / PEAK_FLOPS[dtype]
     return max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations"
 
 
-def kernel_flops(name, C, N, J, K=1):
+def kernel_flops(name, C, N, J, K=1, L=None):
     """Operations of one call (of the fused kernels' three launches),
     counted from the recursions: per row, K1's rank-one composition into its
     block's map and its rank-one state step, and K2's the same for the
@@ -235,10 +249,11 @@ def kernel_flops(name, C, N, J, K=1):
     combines of whole maps (the scan over the blocks and the distribute);
     per row one structured step on J^2 + 1 states and on one (K3), on
     J^2 + 1 (K4) or on one (K5), plus per block of
-    ``_build.factor_adjoint_block_len`` rows K3's six D-affine combines
+    ``card_len`` rows K3's six D-affine combines
     (D = J^2: the warp scan, the scan over the groups) and one map applied,
-    K5's mat-vec of each of the D + 1 columns of its group's running map
-    and one map applied; the rank-one
+    K4's mat-vec of each of the D + 1 columns of its group's running map,
+    K5's one map applied (and per group of 32 blocks, its scan over the
+    groups, one more); the rank-one
     update, transport and product of the factor, the transport, projection
     and feed of a sweep, one multiply-add of the affine prefix; for the
     adjoints, the factor's rank-one update, the reads of bS's row and
@@ -248,14 +263,17 @@ def kernel_flops(name, C, N, J, K=1):
     and the row step of the apply walk (Riccati, Kalman); per row the
     composition of the row's J x J map into its block's map with the value
     from zero, and the walk again from the value entering the block
-    (matrix-affine, D = J)."""
+    (matrix-affine, D = J).  ``L``: the fused kernels' rows a block, by
+    default the card's (:func:`card_len`)."""
     D = J * J
-    L = (_build.fused_block_len if name in K12 else _build.factor_adjoint_block_len)(N)
-    blocks = C * -(-N // L)
+    L = card_len(name, N, C) if L is None else L
+    NB = -(-N // L)
+    blocks, groups = C * NB, C * -(-NB // _build.FUSED_GROUP)
     per_block = {"kalman_fwd": 2 * (12 * J**3 + 10 * D),
                  "solve_rev": 2 * (2 * J**3 + 2 * D),
                  "factor_rev": 6 * (2 * D**3 + 2 * D * D) + 2 * D * D,
-                 "frev_states": (D + 2) * 2 * D * D}.get(name, 0)
+                 "frev_maps": (D + 1) * 2 * D * D,
+                 "frev_states": 2 * D * D}.get(name, 0)
     per_row = {
         "kalman_fwd": (10 * D + 15 * J + 3) + (4 * D + 11 * J + 3),
         "solve_rev": (5 * D + 5 * J) + (5 * J + 1),
@@ -271,7 +289,8 @@ def kernel_flops(name, C, N, J, K=1):
         "kalman_prefix": 26 * D + 14 * J * K,
         "mat_affine_prefix": 2 * J**3 + 4 * D * K,
     }[name]
-    return C * N * per_row + blocks * per_block
+    per_group = 2 * D * D if name == "frev_states" else 0
+    return C * N * per_row + blocks * per_block + groups * per_group
 
 
 def reset_launches():
@@ -309,12 +328,13 @@ def phase_device():
     return smi
 
 
-# the kernels of K1, K2, K3 and K5 (ptxas names), which must not spill: K1
-# and K2 two row kernels each and the scan over the blocks' maps; K3 its
-# block maps (with K2's scan at D = J^2); K5 the groups' maps and their
-# scan; the rows of K3 and K5; at J = 1..4 (K3's maps J = 1, 2) in two types
+# the kernels of K1 to K5 (ptxas names), which must not spill: K1 and K2
+# two row kernels each and the scan over the blocks' maps; K3 its block maps
+# (with K2's scan at D = J^2); K4 the block maps and their suffixes within
+# each group; K5 the scan over the groups; the rows of K3 and K5; at
+# J = 1..4 (K3's maps J = 1, 2) in two types
 FUSED_KERNELS = ("kalman_maps", "kalman_states", "solve_maps", "solve_states",
-                 "block_scan", "factor_maps", "frev_groups", "frev_scan",
+                 "block_scan", "factor_maps", "frev_maps", "frev_scan",
                  "frev_rows")
 FUSED_KERNEL_COUNT = (6 * 4 + 2 + 3 * 4) * 2
 # csrc/assoc_prefix.cu's ric_{maps,carry,apply}_kernel at J = 1, 2, 4 and
@@ -347,10 +367,10 @@ def phase_build():
         elif m := re.search(r"Used (\d+) registers", line):
             log("build", f"{name}: {m[1]} registers, {spills}")
     assert len(fused) == FUSED_KERNEL_COUNT, (
-        f"K1-K3, K5 kernels in the build log: {len(fused)}")
+        f"K1-K5 kernels in the build log: {len(fused)}")
     spilled = [n for n, sp in fused if not sp.startswith("0 bytes")]
-    assert not spilled, f"K1-K3, K5 kernels that spill: {spilled}"
-    log("build", f"K1, K2, K3, K5: {len(fused)} kernels (J = 1..4, K3 J = 1, 2; "
+    assert not spilled, f"K1-K5 kernels that spill: {spilled}"
+    log("build", f"K1 to K5: {len(fused)} kernels (J = 1..4, K3 J = 1, 2; "
         "float and double), 0 bytes spilled")
     assert len(ric) == RIC_KERNEL_COUNT, f"ric_* kernels in the build log: {len(ric)}"
     spilled = [n for n, sp in ric if not sp.startswith("0 bytes")]
@@ -393,7 +413,7 @@ KINDS = (("real", 1), ("sho", 2), ("real_sho", 3), ("sho_mixture", 4),
 GEOMETRIES = ((130, 1), (1040, 1), (N_MAIN, 1), (3001, 8))
 
 
-# K1, K2, K3 and K5 at their edges (N, C, block length on the card, None for
+# K1 to K5 at their edges (N, C, block length on the card, None for
 # their own): one row, one row below and past a tile of rows and a block, a
 # ragged last block, 3 and 64 chains, many groups of 32 blocks (a ragged
 # last one), and 301 groups, more than the 128 threads of the scan over the
@@ -404,24 +424,30 @@ K12_EDGES = ((1, 3, None), (7, 3, None), (9, 3, None), (63, 3, 64), (65, 3, 64),
 
 
 def edge_calls(inputs, N, rows):
-    """(name, the card route, the plain route) of K1, K2, K3 and K5 on the
-    fused path's ``inputs`` (those of ``structured=True`` add K4's), in
-    blocks of ``rows`` on the card (None: their own) and of 16 rows in the
-    plain versions, K4's and K5's of the card's: K5 from K4's maps."""
-    L5 = _build.factor_adjoint_block_len(N) if rows is None else rows
+    """(name, the card route, the plain route) of K1 to K5 on the fused
+    path's ``inputs`` (those of ``structured=True`` add K4's), in blocks of
+    ``rows`` on the card (None: their own) and of 16 rows in the plain
+    versions, K4's and K5's of the card's: K5 from K4's suffixes and group
+    maps; K4 itself only with more than one block (with one it launches
+    nothing and returns no maps)."""
+    C = inputs["frev_maps"][0].shape[0]
+    L5 = _build.structured_block_len(N, C) if rows is None else rows
     calls = [(name, lambda x, n=name: KERNELS[n][1](*x, rows),
               lambda x, n=name: KERNELS[n][0](*x, 16), name)
              for name in (*K12, "factor_rev") if name in inputs]
+    if N > L5:
+        calls.append(("frev_maps", lambda x: _build.frev_maps_cuda(*x, L5),
+                      lambda x: fl.frev_maps_plain(*x, L5), "frev_maps"))
     calls.append(("frev_states",
                   lambda x: _build.frev_states_cuda(
-                      *x, _build.frev_maps_cuda(*x, L5), L5),
+                      *x, *_build.frev_maps_cuda(*x, L5), L5),
                   lambda x: fl.frev_states_plain(
-                      *x, fl.frev_maps_plain(*x, L5), L5), "frev_maps"))
+                      *x, *fl.frev_maps_plain(*x, L5), L5), "frev_maps"))
     return calls
 
 
 def k12_edges(dev):
-    """K1, K2, K3 (J <= 2) and K5 (from K4's maps) against their plain
+    """K1, K2, K3 (J <= 2), K4 and K5 (from K4's outputs) against their plain
     versions at the edges of their blocks and tiles, in float64 (1e-10) and
     float32 (within 1e-4 or twice the plain float32 version's error, against
     the float64 plain version), and K1 on a system whose diagonal turns
@@ -464,7 +490,7 @@ def k12_edges(dev):
         rows = slice(0, int((dp <= 0).int().argmax(-1).min()) + 1)
         err = max(scaled_err(S[:, rows], Sp[:, rows]), scaled_err(F[:, rows], Fp[:, rows]))
         assert err < 1e-10, (kind, err)
-    log("kernels", f"K1, K2, K3, K5 at their edges (N = 1, a tile of rows and a "
+    log("kernels", f"K1 to K5 at their edges (N = 1, a tile of rows and a "
         f"block +-1, ragged blocks, runs of three groups a scan thread, C = 3, "
         f"64; J = 1..4, K3 J = 1, 2): worst relative error "
         f"{worst['float64']:.3e} in float64, {worst['float32']:.3e} in float32; "
@@ -491,9 +517,10 @@ def phase_kernels(dev):
                 inputs.update(fl.pass_inputs(*args, structured=True))
             for name, inp in inputs.items():
                 got = _tuple(kernel_call(name, inp))
-                want = _tuple(KERNELS[name][0](*inp, plain_len(name, N)))
+                want = _tuple(KERNELS[name][0](*inp, plain_len(name, N, C)))
                 # the kernels that run a whole scan over 1e5 rows hold to
-                # 1e-9, as the factor kernels do; K4's block maps to 1e-10
+                # 1e-9, as the factor kernels do; K4's maps, composed over
+                # 32 blocks at most, to 1e-10
                 tol = 1e-9 if name != "frev_maps" and N > 10_000 else 1e-10
                 for g, w in zip(got, want):
                     assert g.shape == w.shape, (name, kind, N, C)
@@ -531,8 +558,7 @@ def phase_kernels(dev):
         J = REPORT_J[name]
         bound, by = bound_ms((*inp, *out), kernel_flops(name, 1, N_MAIN, J))
         times[name] = (ms, plain_ms, bound, by)
-        rows = (_build.fused_block_len if name in K12
-                else _build.factor_adjoint_block_len)(N_MAIN)
+        rows = card_len(name, N_MAIN)
         log("kernels", f"{name}: {ms:.4f} ms (plain {plain_ms:.2f} ms at L = {L}, "
             f"bound {bound:.4f} ms by {by}) at N = 1e5, J = {J}, {rows} rows a "
             "block on the card, float64")
@@ -545,6 +571,108 @@ def phase_kernels(dev):
         log("kernels", f"{name}: {ms:.4f} ms (bound {bound:.4f} ms by {by}) at "
             "N = 1e5, J = 2, float64")
     return main_abs, times
+
+
+# K4 and K5 timed at (J, N, C): the J = 3 RealTerm + SHOTerm and config5's
+# J = 4 SHO mixture at N = 1e5, and config5's own N = 1e6 at J = 4 (128 rows
+# a block); one chain and 64
+FREV_SHAPES = ((3, N_MAIN, 1), (3, N_MAIN, 64), (4, N_MAIN, 1),
+               (4, N_MAIN, 64), (4, 1_000_000, 1), (4, 1_000_000, 64))
+
+
+def frev_inputs(J, N, C, dev):
+    """K4's inputs (p, U, W, bv0, bdp), float64, of one chain of N rows at
+    width J (``real_sho`` at J = 3, ``sho_mixture`` at 4), repeated over C
+    chains: the kernels' work does not depend on the values."""
+    kind = "real_sho" if J == 3 else "sho_mixture"
+    fin = fl.pass_inputs(*system(kind, N, 1, dev, seed=N + J),
+                         structured=True)["frev_maps"]
+    return [x.repeat(C, *(1,) * (x.dim() - 1)) for x in fin]
+
+
+def frev_bounds(J, N, C, dtype, L):
+    """The bounds of K4, K5 and the two together in blocks of L rows,
+    ``(ms, by)`` each: the bytes of the rows' 4J + 1 values, read by each,
+    K4's suffixes and group maps (written by K4, read by K5) and MX
+    (written by K5), and the operations of :func:`kernel_flops`; together
+    the rows and MX only."""
+    NB = -(-N // L)
+    D = J * J
+    maps = C * (NB + -(-NB // _build.FUSED_GROUP)) * (D * D + D) if NB > 1 else 0
+    rows, mx = C * N * (4 * J + 1), C * N * D
+    size = torch.empty((), dtype=dtype).element_size()
+    f4, f5 = (kernel_flops(k, C, N, J, L=L) for k in ("frev_maps", "frev_states"))
+    return {"frev_maps": bytes_or_ops(size * (rows + maps), f4, dtype),
+            "frev_states": bytes_or_ops(size * (rows + maps + mx), f5, dtype),
+            "both": bytes_or_ops(size * (rows + mx), f4 + f5, dtype)}
+
+
+def frev_times(dev, shapes=FREV_SHAPES, reps=20):
+    """K4, K5 (from K4's outputs) and the two together, ms per call by CUDA
+    events over ``reps`` calls, at each (J, N, C) of ``shapes`` in float64
+    and float32, in the card's own blocks, beside their bounds
+    (:func:`frev_bounds`) and each device kernel's ms per call of the two
+    together under torch.profiler (None when the trace holds no device
+    events).  ``_build.frev_maps_cuda`` may return a tuple of outputs or
+    one tensor of block maps, and the rows a block follow
+    ``_build.factor_adjoint_block_len`` where the package has no
+    ``structured_block_len`` (an older checkout's, which fused_turns.py
+    times with this).  Returns one dict per shape and type."""
+    rule = getattr(_build, "structured_block_len", None)
+    out = []
+    for J, N, C in shapes:
+        L = rule(N, C) if rule else _build.factor_adjoint_block_len(N)
+        base = frev_inputs(J, N, C, dev)
+        for dtype in (torch.float64, torch.float32):
+            fin = [x.to(dtype) for x in base]
+            maps = _tuple(_build.frev_maps_cuda(*fin))
+
+            def both():
+                return _build.frev_states_cuda(
+                    *fin, *_tuple(_build.frev_maps_cuda(*fin)))
+
+            ms = {"frev_maps": cuda_ms(lambda: _build.frev_maps_cuda(*fin), reps),
+                  "frev_states": cuda_ms(
+                      lambda: _build.frev_states_cuda(*fin, *maps), reps),
+                  "both": cuda_ms(both, reps)}
+            prof = profile_calls(both, J)
+            bounds = frev_bounds(J, N, C, dtype, L)
+            row = {"J": J, "N": N, "C": C, "dtype": str(dtype)[6:],
+                   "rows": L, "ms": ms,
+                   "bound_ms": {k: b for k, (b, _) in bounds.items()},
+                   "bound_by": {k: by for k, (_, by) in bounds.items()},
+                   "device_ms": None if prof is None else
+                   {k: ms_ for k, (_, ms_) in prof["parts"].items()}}
+            log("frev", f"J = {J}, N = {N}, C = {C}, {row['dtype']}, {row['rows']} "
+                "rows a block: " + "; ".join(
+                    f"{k} {ms[k]:.4f} ms (bound {b:.4f} by {by})"
+                    for k, (b, by) in bounds.items())
+                + "; device ms per call: " + ("not measured" if prof is None else
+                                              ", ".join(f"{k} {v:.4f}" for k, v in
+                                                        row["device_ms"].items())))
+            out.append(row)
+            del fin, maps
+        del base
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_frev(dev):
+    """K4 on its own outputs and K5 from them against their plain versions
+    at config5's N = 1e6, J = 4, float64 (1e-9), then their times
+    (:func:`frev_times`)."""
+    N = 1_000_000
+    fin = frev_inputs(4, N, 1, dev)
+    L = _build.structured_block_len(N)
+    maps = _build.frev_maps_cuda(*fin)
+    errs = [scaled_err(g, w) for g, w in zip(maps, fl.frev_maps_plain(*fin, L))]
+    errs.append(scaled_err(_build.frev_states_cuda(*fin, *maps),
+                           fl.frev_states_plain(*fin, *maps, L)))
+    log("frev", f"J = 4, N = 1e6, {L} rows a block: suffix, groups, MX against "
+        "the plain versions: " + ", ".join(f"{e:.3e}" for e in errs) + " (tol 1e-9)")
+    assert all(math.isfinite(e) and e < 1e-9 for e in errs), errs
+    del fin, maps
+    return frev_times(dev)
 
 
 # ------------------------------------ the general factor and sweep kernels
@@ -2064,6 +2192,7 @@ def phase_auto_path(dev, smi):
     log("auto path", f"launches: auto {launches['auto']}; scan {launches['scan']}")
     assert launches["auto"].get("riccati_prefix", 0) >= 1, launches["auto"]
     assert launches["auto"].get("factor_fwd", 0) == 0, launches["auto"]
+    auto_gradient(t, y)
     # where compute's time goes under "auto": each of 7 calls timed on its
     # own (the spread), and a trace of 3
     with tier("auto"), torch.no_grad():
@@ -2081,6 +2210,32 @@ def phase_auto_path(dev, smi):
         f"{prof['span_ms']:.3f} ms span (idle share {prof['idle_share']:.3f}); "
         "device time by kernel (top 8): " + "; ".join(
             f"{k} x{c:.0f} {ms:.4f} ms" for k, (c, ms) in top))
+
+
+def auto_gradient(t, y):
+    """The value and theta-gradient of ``GaussianProcess.log_likelihood``
+    for config5's SHO mixture at N = 1e5, float64, under backend="auto"
+    (the assoc tier, whose factor adjoint at J = 4 is K4 and K5) against
+    backend="scan" (``factor_bwd``), to 1e-9."""
+    res = {}
+    for name in ("auto", "scan"):
+        with tier(name):
+            reset_launches()
+            theta = torch.tensor(THETA4, device="cuda", requires_grad=True)
+            gp = ct.GaussianProcess(sho_mixture(theta), t, yerr=0.25, mean=0.1)
+            ll = gp.log_likelihood(gp.state.t.new_tensor(y))
+            (g,) = torch.autograd.grad(ll, theta)
+            torch.cuda.synchronize()
+            res[name] = (ll.detach(), g,
+                         {k: v for k, v in _build.LAUNCHES.items() if v})
+    ev = scaled_err(res["auto"][0], res["scan"][0])
+    eg = scaled_err(res["auto"][1], res["scan"][1])
+    log("auto path", f"log_likelihood and its gradient: auto against scan "
+        f"value err {ev:.2e}, grad err {eg:.2e} (tol 1e-9); launches: auto "
+        f"{res['auto'][2]}")
+    assert all(torch.isfinite(x).all() for x in res["auto"][:2])
+    assert ev < 1e-9 and eg < 1e-9, (ev, eg)
+    assert res["auto"][2].get("frev_maps", 0) >= 1, res["auto"][2]
 
 
 CROSS_MODELS = {2: (sho, THETA0), 4: (sho_mixture, THETA4), 8: (wide8, THETA0)}
@@ -2352,7 +2507,8 @@ def phase_steps(dev):
 # the kernels of the fused passes as the profiler names them, by wrapper; the
 # scan over the groups' maps serves K1 (KalmanMaps), K2 (AffineMaps of width
 # J) and K3 (AffineMaps of width J^2), the rows of the factor adjoint K3
-# (J <= 2) and K5 (J = 3, 4)
+# (J <= 2) and K5 (J = 3, 4); frev_groups_kernel is K5's pass over K4's
+# block maps in older checkouts, which fused_turns.py profiles beside this
 FUSED_PARTS = {"kalman_fwd": ("kalman_maps_kernel", "kalman_states_kernel",
                               "KalmanMaps"),
                "solve_rev": ("solve_maps_kernel", "solve_states_kernel"),
@@ -2458,9 +2614,9 @@ def phase_profile(dev, label, model, theta0, J):
 @contextmanager
 def card_block_len(name, rows):
     """``_build.<name>`` (``fused_block_len``: K1 and K2;
-    ``factor_adjoint_block_len``: K3, K4 and K5; ``kalman_block_len``: the
-    Riccati and Kalman prefixes) gives ``rows`` rows a block, whatever it
-    would choose."""
+    ``factor_adjoint_block_len``: K3; ``structured_block_len``: K4 and K5;
+    ``kalman_block_len``: the Riccati and Kalman prefixes) gives ``rows``
+    rows a block, whatever it would choose."""
     saved = getattr(_build, name)
     setattr(_build, name, lambda *args: rows)
     try:
@@ -2485,7 +2641,16 @@ def phase_sweep(dev):
       takes that block length and the relative error of that evaluation's
       value and gradient against the plain route on the card (in blocks of
       ``fl.default_block_len`` rows)."""
-    models = {2: (sho, THETA0), 4: (sho_mixture, THETA4)}
+    sweep_k12(dev)
+    sweep_factor_adjoint(dev)
+
+
+SWEEP_MODELS = {2: (sho, THETA0), 4: (sho_mixture, THETA4)}
+
+
+def sweep_k12(dev):
+    """:func:`phase_sweep`'s K1 and K2."""
+    models = SWEEP_MODELS
     rng = np.random.default_rng(17)
     for J, kind, N, C in ((2, "sho", N_MAIN, 1), (4, "sho_mixture", N_MAIN, 1),
                           (4, "sho_mixture", 1_000_000, 1),
@@ -2510,6 +2675,12 @@ def phase_sweep(dev):
             if rows == _build.fused_block_len(N):
                 line += " (the default)"
             log("sweep", line)
+
+
+def sweep_factor_adjoint(dev):
+    """:func:`phase_sweep`'s factor adjoint."""
+    models = SWEEP_MODELS
+    rng = np.random.default_rng(18)
     for J, N, C in ((2, N_MAIN, 1), (4, N_MAIN, 1), (2, 1_000_000, 1),
                     (4, 1_000_000, 1), (2, N_MAIN, 64), (4, N_MAIN, 64)):
         model, theta0 = models[J]
@@ -2529,16 +2700,18 @@ def phase_sweep(dev):
                 line = f"factor_rev {ms:.4f} ms"
             else:
                 ms4 = cuda_ms(lambda: _build.frev_maps_cuda(*fin, rows), reps=20)
-                maps = _build.frev_maps_cuda(*fin, rows)
-                ms5 = cuda_ms(lambda: _build.frev_states_cuda(*fin, maps, rows),
+                maps = _tuple(_build.frev_maps_cuda(*fin, rows))
+                ms5 = cuda_ms(lambda: _build.frev_states_cuda(*fin, *maps, rows),
                               reps=20)
                 line = f"frev_maps {ms4:.4f} ms, frev_states {ms5:.4f} ms"
-            with card_block_len("factor_adjoint_block_len", rows):
+            with card_block_len("factor_adjoint_block_len", rows), \
+                    card_block_len("structured_block_len", rows):
                 got = value_and_grad(theta, *data, model)
                 rate = steps_per_s(dev, torch.float64, n_steps=10, model=model,
                                    theta0=theta.cpu().numpy(), data=data)
             ev, eg = scaled_err(got[0], ref[0]), scaled_err(got[1], ref[1])
-            default = rows == _build.factor_adjoint_block_len(N)
+            default = rows == card_len("frev_maps" if J > 2 else "factor_rev", N,
+                                       C)
             log("sweep", f"factor adjoint, J = {J}, N = {N}, C = {C}, {rows} rows a "
                 f"block (NB = {-(-N // rows)}): {line}; {rate:.2f} evals/s; "
                 f"against the plain route value err {ev:.2e}, grad err {eg:.2e}"
@@ -2751,6 +2924,7 @@ def main(argv=None):
     try:
         timed(phase_build)
         main_abs, times = timed(phase_kernels, dev)
+        timed(phase_frev, dev)
         for phase in (phase_general_kernels, phase_prefix_kernel,
                       phase_adjoint_kernels):
             phase_abs, phase_times = timed(phase, dev)

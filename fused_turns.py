@@ -15,7 +15,10 @@ J = 4):
 * ``torch.profiler`` over 3 evaluations at N = 1e5, float64: device kernels
   per evaluation, device busy time, idle share, the device time of each of
   this repository's kernels and of the rest, the PyTorch glue
-  (``chip_smoke.profile_eval``).
+  (``chip_smoke.profile_eval``);
+* the structured factor adjoint's kernels K4 and K5 alone and together, at
+  J = 3, 4, N = 1e5 and 1e6, 1 and 64 chains, float64 and float32, with
+  each device kernel's time under the profiler (``chip_smoke.frev_times``).
 
     python3 fused_turns.py _checkout/parent
 
@@ -66,6 +69,8 @@ def turn(root):
         dev, torch.float64, n_steps=5, model=cs.sho_mixture, theta0=cs.THETA4,
         data=data)
     res["peak_GiB_N1e6"] = torch.cuda.max_memory_allocated() / 2**30
+    del data
+    res["frev"] = cs.frev_times(dev)
     return res
 
 

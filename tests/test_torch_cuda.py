@@ -68,21 +68,22 @@ def _as_tuple(x):
 
 def _check_kernel(cuda, name, J):
     """Kernel ``name`` against its plain version at N = 300 in blocks of
-    16 (a ragged last block), C = 3, float64, on the card too.  K1, K2, K3
-    and K5 launch two kernels there (the block maps, the rows: 19 blocks
-    are one group, which needs no scan); K5 takes K4's maps of those
-    blocks."""
+    16 (a ragged last block), C = 3, float64, on the card too.  K1, K2 and
+    K3 launch two kernels there (the block maps, the rows: 19 blocks are
+    one group, which needs no scan); K4 one (the block maps and their
+    suffixes within the group), and K5, from K4's suffixes, one (the
+    rows)."""
     args = [x.to(cuda) for x in _system(300, 3, J=J)]
     # K4, K5 at every J (the default route takes them only at J > 2)
     structured = name.startswith("frev")
     inputs = fl.pass_inputs(*args, block_len=16,
                             structured=structured or None)[name]
     if name == "frev_states":
-        inputs = (*inputs[:5], KERNEL["frev_maps"](*inputs[:5], 16))
+        inputs = (*inputs[:5], *KERNEL["frev_maps"](*inputs[:5], 16))
     before = _build.LAUNCHES[name]
     got = _as_tuple(KERNEL[name](*inputs, 16))
     torch.cuda.synchronize()
-    launches = 1 if name == "frev_maps" else 2
+    launches = 1 if name.startswith("frev") else 2
     assert _build.LAUNCHES[name] == before + launches
     want = _as_tuple(PLAIN[name](*inputs, 16))
     for g, w in zip(got, want):
@@ -169,17 +170,63 @@ def test_factor_adjoint_edges_match_plain(cuda, name, J, edge):
     inputs = fl.pass_inputs(*args, structured=structured)
     fin = [x.to(dtype) for x in inputs["frev_maps" if structured else name]]
     if structured:
-        L = _build.factor_adjoint_block_len(N) if block_len is None else block_len
-        got = KERNEL[name](*fin, KERNEL["frev_maps"](*fin, L), L)
+        L = _build.structured_block_len(N, C) if block_len is None else block_len
+        got = KERNEL[name](*fin, *KERNEL["frev_maps"](*fin, L), L)
 
         def plain(xs):
-            return PLAIN[name](*xs, PLAIN["frev_maps"](*xs, L), L)
+            return PLAIN[name](*xs, *PLAIN["frev_maps"](*xs, L), L)
     else:
         got = KERNEL[name](*fin, block_len)
 
         def plain(xs):
             return PLAIN[name](*xs, 16)
     _hold((got,), (plain([x.double() for x in fin]),), (plain(fin),))
+
+
+@pytest.mark.parametrize("edge", list(K12_EDGES))
+@pytest.mark.parametrize("J", [1, 2, 3, 4])
+def test_frev_maps_edges_match_plain(cuda, J, edge):
+    """K4's suffixes within groups and group maps against its plain
+    version at K1's and K2's edges (float64 1e-10; float32 within 1e-4 or
+    twice the plain float32 version's error, against the plain float64):
+    one launch with more than one block; with one block none, and no
+    maps."""
+    N, C, block_len, dtype = K12_EDGES[edge]
+    args = [x.to(cuda) for x in _system(N, C, seed=N + J, J=J)]
+    fin = [x.to(dtype) for x in fl.pass_inputs(*args, structured=True)["frev_maps"]]
+    L = _build.structured_block_len(N, C) if block_len is None else block_len
+    before = _build.LAUNCHES["frev_maps"]
+    got = KERNEL["frev_maps"](*fin, L)
+    torch.cuda.synchronize()
+    if -(-N // L) == 1:
+        assert got == (None, None)
+        assert _build.LAUNCHES["frev_maps"] == before
+        return
+    assert _build.LAUNCHES["frev_maps"] == before + 1
+    _hold(got, PLAIN["frev_maps"](*(x.double() for x in fin), L),
+          PLAIN["frev_maps"](*fin, L))
+
+
+# N, rows a block: one block; one group of 32 blocks; 98 groups (the card's
+# 32 rows a block at N = 1e5)
+@pytest.mark.parametrize("N, block_len, launches",
+                         [(100, 128, 1), (1024, 32, 2), (100_000, None, 3)])
+def test_structured_factor_adjoint_launches(cuda, N, block_len, launches):
+    """The structured factor adjoint (K4 -> K5) launches 3 kernels with
+    more than one group of blocks (K4; K5's scan over the groups and its
+    rows), 2 with one group and 1 with one block, and agrees with its
+    plain route in the card's blocks."""
+    args = [x.to(cuda) for x in _system(N, 1, seed=5, J=4)]
+    fin = fl.pass_inputs(*args, structured=True)["frev_maps"]
+    L = _build.structured_block_len(N) if block_len is None else block_len
+    before = dict(_build.LAUNCHES)
+    suffix, groups = KERNEL["frev_maps"](*fin, L)
+    MX = KERNEL["frev_states"](*fin, suffix, groups, L)
+    torch.cuda.synchronize()
+    made = sum(_build.LAUNCHES[k] - before[k] for k in ("frev_maps", "frev_states"))
+    assert made == launches
+    want = PLAIN["frev_states"](*fin, *PLAIN["frev_maps"](*fin, L), L)
+    assert _rel(MX, want) < (1e-9 if N > 10_000 else 1e-10)
 
 
 @pytest.mark.parametrize("J", [1, 2, 3, 4])

@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from celerite2_torch.ops import _build
 from celerite2_torch.ops import elements as el
 from celerite2_torch.ops import fused_loglik as fl
 from celerite2_tpu.ops import planes
@@ -153,7 +154,7 @@ def test_structured_matches_dense(J, L):
 
     D = J * J
     _, k3_maps = fl.factor_rev_blocks(*inputs, L)
-    k4_maps = fl.frev_maps_plain(*inputs, L)
+    k4_maps = fl.frev_block_maps(*inputs, L)
     C, NB = k4_maps.shape[:2]
     k4_linear = k4_maps[..., : D * D].reshape(C, NB, D, D).mT
     k3_linear = k3_maps[..., : D * D].reshape(C, NB, D, D)
@@ -179,21 +180,50 @@ def test_structured_cotangents_match_dense(J):
         assert_scaled_close(g.numpy(), w.numpy(), 1e-12, name)
 
 
-def test_frev_seeds_match_sequential_composition():
-    """Phase B's doubling gives each block the composition of every
-    later block's map applied to the zero state, as a loop does."""
-    J, L = 3, 10
-    inputs = _factor_inputs(95, J, L)
-    maps = fl.frev_maps_plain(*inputs, L)
-    seeds = fl.frev_seeds(maps, J)
-    D = J * J
+# (N, L): one block; one group of ten blocks; three groups of 32 blocks,
+# the last group ragged (11 blocks) and its last block too (3 rows)
+@pytest.mark.parametrize("N, L", [(95, 100), (95, 10), (299, 4)])
+@pytest.mark.parametrize("J", [3, 4])
+def test_frev_seeds_match_sequential_composition(J, N, L):
+    """K4's suffixes within groups of 32 blocks and the groups' maps, and
+    phase B's state entering each block, as loops over the block maps
+    compose them: a block's suffix is its map after those of its group's
+    later blocks, a group's map its first block's suffix, and the state
+    entering a block every later block's map applied to the zero state."""
+    inputs = _factor_inputs(N, J, L)
+    maps = fl.frev_block_maps(*inputs, L)
+    suffix, groups = fl.frev_maps_plain(*inputs, L)
+    seeds = fl.frev_seeds(suffix, groups, J)
+    D, G = J * J, _build.FUSED_GROUP
     C, NB = maps.shape[:2]
+    assert suffix.shape == (C, NB, D * D + D)
+    assert groups.shape == (C, -(-NB // G), D * D + D)
     A = maps[..., : D * D].reshape(C, NB, D, D).mT
-    b = maps[..., D * D :]
-    state = torch.zeros(C, D, dtype=maps.dtype)
+    b = maps[..., D * D :, None]
+    state = torch.zeros(C, D, 1, dtype=maps.dtype)
     for blk in range(NB - 1, -1, -1):
-        torch.testing.assert_close(seeds[:, blk], state, rtol=1e-12, atol=1e-14)
-        state = (A[:, blk] @ state[..., None])[..., 0] + b[:, blk]
+        torch.testing.assert_close(seeds[:, blk], state[..., 0], rtol=1e-12,
+                                   atol=1e-14)
+        state = A[:, blk] @ state + b[:, blk]
+        if blk == NB - 1 or blk % G == G - 1:  # the last block of a group
+            SA, Sb = A[:, blk], b[:, blk]
+        else:
+            SA, Sb = A[:, blk] @ SA, A[:, blk] @ Sb + b[:, blk]
+        want = torch.cat([SA.flatten(-2), Sb[..., 0]], -1)
+        assert_scaled_close(suffix[:, blk].numpy(), want.numpy(), 1e-13,
+                            f"suffix {blk}")
+        if blk % G == 0:
+            assert_scaled_close(groups[:, blk // G].numpy(), want.numpy(),
+                                1e-13, f"group {blk // G}")
+
+
+# gp_loglik through the plain K4 and K5 with three groups of 32 blocks of 4
+# rows (the last group and its last block ragged)
+@pytest.mark.parametrize("J", [3, 4])
+def test_groups_of_blocks_against_factor_solve(J):
+    args = fused_system(299, J=J, seed=J)
+    check_parity(torch_value_and_grads(args, block_len=4),
+                 jax_value_and_grads(ll_ref, args))
 
 
 # K1's states through d, W, Z against ops.factor / ops.solve_lower, and K2's
