@@ -35,7 +35,10 @@ tier its launch counts and times assume.
 
 It then times chained sampler steps on the J = 2, 4 and 8 paths, config5's
 J = 4 model at its own size N = 1e6, and profiles the J = 2, 4 and 8
-paths.  K1 to K5 are also held at the edges of their blocks and tiles and
+paths.  Its last phase drives the fleet sampler (``inference.run_hmc``) on
+benchmarks/configs.py config3's posterior (J = 4, N = 30,000): a segment
+of iterations against the CPU's plain route, 64 chains with checkpoints
+and their bitwise resume, 1024 chains, and a profile of two iterations.  K1 to K5 are also held at the edges of their blocks and tiles and
 in float32, K1 on rows that are not positive definite; K4 and K5 are timed
 at J = 3, 4, N = 1e5 and 1e6, 1 and 64 chains, in both types.  Run from
 the root of the repository:
@@ -58,6 +61,7 @@ import queue
 import re
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 from contextlib import contextmanager
@@ -72,6 +76,11 @@ from celerite2_torch.ops import dispatch
 from celerite2_torch.ops import fused_loglik as fl
 from celerite2_torch.ops import prefix_engine as pe
 from celerite2_torch.ops import scan
+from celerite2_torch.inference import CheckpointManager, run_hmc, summary
+from celerite2_torch.inference import adapt, chunked
+from celerite2_torch.inference import hmc
+from celerite2_torch.inference.checkpoint import to_host
+from celerite2_torch.utils.observe import sampling_monitor
 
 # the kernels of the fused log-likelihood: (plain version, wrapper)
 KERNELS = {
@@ -2898,6 +2907,297 @@ def phase_affine_sweep(dev):
     for shape, err in worst.items():
         assert math.isfinite(err) and err < LONG_RTOL, (shape, err)
 
+# ------------------------------------------------------ the fleet sampler
+
+# benchmarks/configs.py config3: an SHO mixture at N = 3e4 under the fleet
+# sampler, from its starting point, under a N(0, 2^2) prior on theta
+SAMPLER_N = 30_000
+THETA3 = np.array([0.0, np.log(5.0), np.log(10.0), -0.5, np.log(3.0)])
+FLEET_C = 64
+BIG_C = 1024
+FLEET_RUN = dict(num_warmup=60, num_samples=40, max_leapfrog=16, chunk_size=50)
+SAMPLER_RTOL = 1e-9
+SAMPLER_KERNELS = ("kalman_fwd", "solve_rev", "frev_maps", "frev_states")
+
+
+def config3_data(N, dev):
+    """config3's data process: t ~ sort(U(0, 300)) from seed 7, yerr = 0.2,
+    y drawn from the true kernel by the port's GaussianProcess.sample with
+    a generator seeded 5."""
+    t = np.sort(np.random.default_rng(7).uniform(0, 300, N))
+    t = torch.tensor(t, device=dev)
+    true = (ct.SHOTerm(sigma=1.0, rho=8.0, tau=20.0)
+            + ct.SHOTerm(sigma=0.6, rho=2.0, Q=0.3))
+    gp = ct.GaussianProcess(true, t=t, yerr=0.2)
+    y = gp.sample(torch.Generator(dev).manual_seed(5))
+    assert torch.isfinite(y).all()
+    return t, y
+
+
+def config3_logpost(t, y):
+    """The batched log-posterior: theta (C, 5) -> (C,)."""
+
+    def logpost(theta):
+        ll = ct.gp_loglik(sho_mixture(theta), t, y, yerr=0.2)
+        return ll - 0.5 * ((theta / 2.0) ** 2).sum(-1)
+
+    return logpost
+
+
+class CountedCalls:
+    """Counts the calls of ``fn`` and the host seconds spent in them."""
+
+    def __init__(self, fn):
+        self.fn, self.calls, self.seconds = fn, 0, 0.0
+
+    def __call__(self, *args):
+        began = time.perf_counter()
+        out = self.fn(*args)
+        self.seconds += time.perf_counter() - began
+        self.calls += 1
+        return out
+
+
+@contextmanager
+def patched(module, name, wrapper):
+    saved = getattr(module, name)
+    setattr(module, name, wrapper)
+    try:
+        yield wrapper
+    finally:
+        setattr(module, name, saved)
+
+
+def segment_carry(logpost, q, eps, log_T, inv_mass=None):
+    """A sampler carry at the positions ``q`` (C, 5) on their device, as
+    run_hmc builds one, with the step size ``eps``, log T = ``log_T`` and
+    the mass ``inv_mass`` (default unit)."""
+    dev = q.device
+    pot, g = hmc._potential_and_grad(logpost, q)
+    eps, log_T = (torch.as_tensor(x, dtype=torch.float64, device=dev)
+                  for x in (eps, log_T))
+    return hmc._HMCCarry(
+        q=q, logp=-pot, g=g, da=adapt.da_init(eps),
+        adam=hmc._adam_init(torch.float64, dev), log_T=log_T,
+        wf=adapt.welford_init(5, torch.float64, device=dev),
+        inv_mass=torch.ones(5, dtype=torch.float64, device=dev)
+        if inv_mass is None else inv_mass,
+        eps_frozen=eps, rng=torch.Generator(dev))
+
+
+def sampler_segment_check(smi, t, y):
+    """Step 1: 3 iterations of ``_hmc_segment`` (one in warmup with a
+    window end and the freeze, two after) on the card and on the CPU's
+    plain route, from the same start on the same draws (numpy, seed 11)."""
+    C, S = 4, 3
+    rng = np.random.default_rng(11)
+    q0 = THETA3 + 0.01 * rng.normal(size=(C, 5))
+    z, u = rng.normal(size=(S, C, 5)), rng.uniform(size=(S, C))
+    first = np.array([True, False, False])
+    sched = (first, first, first, first, hmc._halton(S))
+    results = {}
+    for where, (tt, yy) in (("card", (t, y)), ("cpu", (t.cpu(), y.cpu()))):
+        device = tt.device
+        logpost = config3_logpost(tt, yy)
+        began = time.perf_counter()
+        carry = segment_carry(logpost, torch.tensor(q0, device=device), 0.01,
+                              math.log(0.08))
+        carry, outs = hmc._hmc_segment(
+            logpost, carry, sched,
+            (torch.tensor(z, device=device), torch.tensor(u, device=device)),
+            max_leapfrog=8, target_accept=0.8)
+        results[where] = (to_host(carry), to_host(outs))
+        log("sampler", f"segment on the {where}: {time.perf_counter() - began:.1f} s "
+            f"({smi})")
+    (card_carry, card_outs), (cpu_carry, cpu_outs) = results["card"], results["cpu"]
+    steps, div = card_outs[3], card_outs[4]
+    assert torch.equal(steps, cpu_outs[3]), (steps, cpu_outs[3])
+    assert torch.equal(div, cpu_outs[4]), (div, cpu_outs[4])
+    u_t = torch.tensor(u)
+    assert torch.equal(u_t < card_outs[2], u_t < cpu_outs[2])
+    errs = {name: scaled_err(card_outs[i], cpu_outs[i])
+            for i, name in enumerate(("q", "logp", "accept_prob"))}
+
+    def leaves(tree):
+        return list(tree.values()) if isinstance(tree, dict) else [tree]
+
+    for name in ("da", "log_T", "wf", "inv_mass", "eps_frozen"):
+        pairs = zip(leaves(card_carry[name]), leaves(cpu_carry[name]))
+        for i, (got, ref) in enumerate(pairs):
+            errs[f"{name}[{i}]"] = scaled_err(got, ref)
+    worst = max(errs.values())
+    log("sampler", f"segment, C = {C}, N = {t.shape[0]}, 3 iterations: leapfrog "
+        f"steps {steps.tolist()}, divergences {int(div.sum())}, accepted "
+        f"{int((u_t < card_outs[2]).sum())} of {C * S}; card against the CPU route: "
+        f"worst error {worst:.2e} (tol {SAMPLER_RTOL:g}; "
+        + ", ".join(f"{k} {v:.1e}" for k, v in errs.items()) + f") ({smi})")
+    assert worst < SAMPLER_RTOL, errs
+
+
+def fleet_run(logpost, dev, C, run, **kw):
+    """run_hmc over C chains from config3's start (generator seeded 0),
+    with the log-density's calls counted and timed by the host."""
+    counted = CountedCalls(logpost)
+    torch.cuda.synchronize()
+    began = time.perf_counter()
+    res = run_hmc(counted, torch.tensor(THETA3, device=dev),
+                  torch.Generator(dev).manual_seed(0), num_chains=C, **run, **kw)
+    torch.cuda.synchronize()
+    return res, counted, time.perf_counter() - began
+
+
+def refuse_retry(chunk, attempt, exc):
+    raise RuntimeError(f"chunk {chunk} failed on the card (attempt {attempt}); "
+                       "a retry there is a failed phase") from exc
+
+
+def phase_sampler(dev, smi):
+    """The fleet sampler on config3's posterior at N = 3e4, float64:
+    ``_hmc_segment`` against the CPU's plain route, ``run_hmc`` with
+    checkpoints at C = 64 and its resume, C = 1024, and a profile of two
+    post-warmup iterations (kernels K1, K2, K4, K5 through gp_loglik)."""
+    t, y = config3_data(SAMPLER_N, dev)
+    logpost = config3_logpost(t, y)
+    sampler_segment_check(smi, t, y)
+
+    # step 2: the fleet at C = 64 with checkpoints and a monitor
+    total = FLEET_RUN["num_warmup"] + FLEET_RUN["num_samples"]
+    chunks = -(-total // FLEET_RUN["chunk_size"])
+    with tempfile.TemporaryDirectory() as tmp:
+        mgr = CheckpointManager(f"{tmp}/fleet")
+        saves = CountedCalls(mgr.save)
+        mgr.save = saves
+        snapshots = CountedCalls(chunked.to_host)
+        reset_launches()
+        with patched(chunked, "to_host", snapshots), \
+                sampling_monitor(log_every=0) as (emit, records):
+            res, evals, wall = fleet_run(logpost, dev, FLEET_C, FLEET_RUN,
+                                         checkpoint=mgr, monitor=emit,
+                                         on_retry=refuse_retry)
+        torch.cuda.synchronize()
+        launches = dict(_build.LAUNCHES)
+        for name in (*SAMPLER_KERNELS, "factor_rev"):
+            assert (launches[name] >= 1) == (name != "factor_rev"), (name, launches)
+        assert len(records) == chunks, records
+        assert torch.isfinite(res.samples).all() and torch.isfinite(res.log_prob).all()
+        eps, T = res.step_size.item(), res.trajectory_length.item()
+        assert math.isfinite(eps) and eps > 0 and math.isfinite(T) and T > 0
+        s = summary(res.samples)
+        ess = s["ess"].cpu()
+        log("sampler", f"fleet C = {FLEET_C}, N = {SAMPLER_N}, {total} iterations "
+            f"({FLEET_RUN['num_warmup']} warmup), chunks of {FLEET_RUN['chunk_size']}: "
+            f"{wall:.2f} s, {evals.calls - 1} leapfrog steps, {evals.calls} gp_loglik "
+            f"evals with the start's ({evals.calls / wall:.2f} "
+            f"evals/s inside the sampler, {total / wall:.2f} iterations/s), mean "
+            f"accept {res.accept_prob.mean().item():.3f}, divergences "
+            f"{int(res.diverging.sum())} of {res.diverging.numel()}, step size "
+            f"{eps:.4g}, trajectory {T:.4g}, monitor records "
+            f"{[(k, round(v['mean_leapfrogs'], 2)) for k, v in records]} ({smi})")
+        log("sampler", f"fleet C = {FLEET_C}: host copies of the carry and outputs "
+            f"{snapshots.seconds:.3f} s in {snapshots.calls} calls, checkpoint saves "
+            f"{saves.seconds:.3f} s in {saves.calls}, of {wall:.2f} s; ESS "
+            f"min {ess.min().item():.1f} mean {ess.mean().item():.1f} over "
+            f"{res.samples.shape[1]} draws: min-ESS/s {ess.min().item() / wall:.2f} "
+            f"(information only) ({smi})")
+        log("sampler", f"fleet C = {FLEET_C}: launches {launches}, per gp_loglik eval "
+            + ", ".join(f"{k} {launches[k] / evals.calls:.2f}" for k in SAMPLER_KERNELS)
+            + f" ({smi})")
+
+        # step 3: the same run stopped after its first chunk and resumed
+        class Killed(Exception):
+            pass
+
+        def stop(step, stats):
+            raise Killed
+
+        resume = CheckpointManager(f"{tmp}/resume")
+        try:
+            fleet_run(logpost, dev, FLEET_C, FLEET_RUN, checkpoint=resume,
+                      monitor=stop, on_retry=refuse_retry)
+            raise AssertionError("the run was not stopped")
+        except Killed:
+            pass
+        assert resume.latest_step() == 0
+        again, _, wall2 = fleet_run(logpost, dev, FLEET_C, FLEET_RUN,
+                                    checkpoint=CheckpointManager(f"{tmp}/resume"),
+                                    on_retry=refuse_retry)
+        same = {name: torch.equal(getattr(again, name), getattr(res, name))
+                for name in res._fields}
+        log("sampler", f"resume after chunk 1 of {chunks}: bitwise equal to the run "
+            f"without the stop: {same} (resumed part {wall2:.2f} s) ({smi})")
+        assert all(same.values()), same
+
+    # step 4: the README's chain count
+    torch.cuda.reset_peak_memory_stats()
+    big, evals, wall = fleet_run(logpost, dev, BIG_C,
+                                 dict(num_warmup=5, num_samples=5, max_leapfrog=8),
+                                 on_retry=refuse_retry)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    assert torch.isfinite(big.samples).all() and torch.isfinite(big.log_prob).all()
+    log("sampler", f"fleet C = {BIG_C}, N = {SAMPLER_N}, 10 iterations: {wall:.2f} s, "
+        f"{evals.calls} gp_loglik evals with the start's ({evals.calls / wall:.3f} evals/s, "
+        f"{BIG_C * evals.calls / wall:.1f} chain-evals/s, {10 / wall:.3f} "
+        f"iterations/s), peak device memory {peak:.2f} GiB ({smi})")
+
+    # step 5: two post-warmup iterations at C = 64, profiled
+    # a carry at the fleet's last draws, with its adapted step and mass
+    carry = segment_carry(logpost, res.samples[:, -1].contiguous(), res.step_size,
+                          torch.log(res.trajectory_length), res.inv_mass)
+    sched = tuple(np.zeros(2, bool) for _ in range(4)) + (hmc._halton(2) + 0.5,)
+    gen = torch.Generator(dev).manual_seed(1)
+    draws = (torch.randn((2, FLEET_C, 5), generator=gen, device=dev, dtype=torch.float64),
+             torch.rand((2, FLEET_C), generator=gen, device=dev, dtype=torch.float64))
+
+    def two_iterations():
+        return hmc._hmc_segment(logpost, carry, sched, draws, max_leapfrog=16,
+                                target_accept=0.8)
+
+    steps = int(two_iterations()[1][3].sum())
+    prof = profile_calls(two_iterations, 4, n=1)
+    one = profile_calls(lambda: hmc._potential_and_grad(logpost, carry.q), 4, n=steps)
+    # the host's time outside the value and gradient: each of them waited
+    # for, so that the one host read of an iteration finds the card idle
+    walls, plain = {}, hmc._potential_and_grad
+    for waited in (False, True):
+        def value_and_gradient(*args, _waited=waited):
+            out = plain(*args)
+            if _waited:
+                torch.cuda.synchronize()
+            return out
+
+        grads = CountedCalls(value_and_gradient)
+        with patched(hmc, "_potential_and_grad", grads):
+            torch.cuda.synchronize()
+            began = time.perf_counter()
+            two_iterations()
+            torch.cuda.synchronize()
+            walls[waited] = (time.perf_counter() - began, grads.seconds)
+        assert grads.calls == steps
+    host_ms = 1e3 * (walls[True][0] - walls[True][1]) / steps
+    if prof is None or one is None:
+        log("sampler", "profile: no device events in the trace: not measured; host "
+            f"ms per leapfrog step outside gp_loglik {host_ms:.3f} ({smi})")
+        return
+    per_step = prof["kernels_per_eval"] / steps
+    gp_per_step = one["kernels_per_eval"]
+    own_ms = (prof["busy_ms"] - steps * one["busy_ms"]) / steps
+    log("sampler", f"profile, C = {FLEET_C}, 2 post-warmup iterations, {steps} "
+        f"leapfrog steps: {prof['kernels_per_eval']:.0f} device kernels "
+        f"({per_step:.1f} per step: gp_loglik's value and gradient {gp_per_step:.1f}, "
+        f"the sampler's own {per_step - gp_per_step:.1f}), device busy "
+        f"{prof['busy_ms']:.3f} ms of a {prof['span_ms']:.3f} ms span (idle share "
+        f"{prof['idle_share']:.3f}, under the profiler; the sampler's own "
+        f"{own_ms:.4f} ms per step); one value and gradient alone: device busy "
+        f"{one['busy_ms']:.3f} ms, idle share {one['idle_share']:.3f} ({smi})")
+    log("sampler", f"without the profiler: {1e3 * walls[False][0] / steps:.3f} ms "
+        f"per leapfrog step; with each value and gradient waited for "
+        f"{1e3 * walls[True][0] / steps:.3f}, of which {host_ms:.3f} ms on the host "
+        f"outside gp_loglik's value and gradient ({smi})")
+    top = sorted(one["by_name"].items(), key=lambda kv: -kv[1][1])[:8]
+    log("sampler", f"one value and gradient at C = {FLEET_C}, N = {SAMPLER_N}: "
+        "device time by kernel (top 8): " + "; ".join(
+            f"{k} x{c:.0f} {ms:.4f} ms" for k, (c, ms) in top) + f" ({smi})")
+
 
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -2948,6 +3248,7 @@ def main(argv=None):
     timed(phase_profile, dev, "J = 2", sho, THETA0, 2)
     timed(phase_profile, dev, "J = 4", sho_mixture, THETA4, 4)
     timed(phase_profile, dev, "J = 8", wide8, THETA0, 8)
+    timed(phase_sampler, dev, smi)
     if args.sweep:
         timed(phase_sweep, dev)
         timed(phase_prefix_sweep, dev)
