@@ -6,6 +6,7 @@ the reference.  This package imports neither JAX nor ``celerite2_tpu``.
 """
 
 from celerite2_torch import models, ops
+from celerite2_torch.citation import CITATION_KEYS, CITATIONS, get_citations
 from celerite2_torch.config import Config, get_config, set_config
 from celerite2_torch.gp import (
     ConditionalDistribution,
@@ -25,9 +26,13 @@ from celerite2_torch.models.terms import (
     ComplexTerm,
     Matern32Term,
     RealTerm,
+    OriginalCeleriteTerm,
     RotationTerm,
     SHOTerm,
     Term,
+    TermConvolution,
+    TermDiff,
+    TermProduct,
     TermSum,
 )
 from celerite2_torch.utils import LinAlgError
@@ -44,11 +49,15 @@ __all__ = [
     "LinAlgError",
     "Term",
     "TermSum",
+    "TermProduct",
+    "TermDiff",
+    "TermConvolution",
     "RealTerm",
     "ComplexTerm",
     "SHOTerm",
     "Matern32Term",
     "RotationTerm",
+    "OriginalCeleriteTerm",
     "ConstantMean",
     "GPState",
     "GaussianProcess",
@@ -60,4 +69,7 @@ __all__ = [
     "gp_loglik",
     "gp_sample",
     "factor_solve",
+    "CITATIONS",
+    "CITATION_KEYS",
+    "get_citations",
 ]

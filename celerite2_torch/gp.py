@@ -501,3 +501,10 @@ class GaussianProcess:
         return gp_sample(
             self._state, generator, shape=shape, include_mean=include_mean
         )
+
+    @property
+    def citations(self):
+        """``(CITATION_KEYS, BibTeX)`` for the celerite method papers."""
+        from celerite2_torch.citation import CITATION_KEYS, get_citations
+
+        return CITATION_KEYS, get_citations()

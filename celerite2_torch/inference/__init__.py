@@ -4,8 +4,9 @@ checkpoints.
 Counterpart of ``celerite2_tpu.inference``, with one contract of its own:
 every log-density here is **batched**, ``logdensity_fn(q (C, dim)) ->
 (C,)``, where the JAX package vmaps a scalar one (see ``hmc``).  Draws
-come from a ``torch.Generator`` in place of a JAX key.  NUTS
-(``nuts_kernel``, ``run_nuts``, ``NUTSResult``) is not ported yet.
+come from a ``torch.Generator`` in place of a JAX key.  NUTS runs the
+fleet's chains together (``nuts_kernel``, ``build_nuts_step``) with
+per-chain windowed adaptation (``run_nuts``, ``warmup_and_sample``).
 """
 
 from celerite2_torch.inference.checkpoint import (
@@ -20,6 +21,8 @@ from celerite2_torch.inference.diagnostics import (
 )
 from celerite2_torch.inference.fit import MAPResult, fit_map
 from celerite2_torch.inference.hmc import HMCResult, run_hmc
+from celerite2_torch.inference.nuts import NUTSInfo, build_nuts_step, nuts_kernel
+from celerite2_torch.inference.sampler import NUTSResult, run_nuts, warmup_and_sample
 from celerite2_torch.inference.smc import SMCResult, run_smc
 from celerite2_torch.inference.transforms import (
     IdentityTransform,
@@ -36,6 +39,12 @@ __all__ = [
     "CheckpointManager",
     "run_hmc",
     "HMCResult",
+    "run_nuts",
+    "NUTSResult",
+    "NUTSInfo",
+    "nuts_kernel",
+    "build_nuts_step",
+    "warmup_and_sample",
     "run_advi",
     "ADVIResult",
     "run_smc",

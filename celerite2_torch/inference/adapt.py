@@ -84,37 +84,49 @@ class WelfordState(NamedTuple):
     count: torch.Tensor
 
 
-def welford_init(dim, dtype=torch.float64, *, dense=False, device=None):
+def welford_init(dim, dtype=torch.float64, *, dense=False, device=None,
+                 chains=None):
     """``dense=True`` accumulates the full (dim, dim) second-moment
-    matrix for a dense mass metric."""
-    m2_shape = (dim, dim) if dense else (dim,)
+    matrix for a dense mass metric.  With ``chains`` every field gets a
+    leading chain axis: one estimate per chain."""
+    lead = () if chains is None else (chains,)
+    m2_shape = lead + ((dim, dim) if dense else (dim,))
     return WelfordState(
-        mean=torch.zeros((dim,), dtype=dtype, device=device),
+        mean=torch.zeros(lead + (dim,), dtype=dtype, device=device),
         m2=torch.zeros(m2_shape, dtype=dtype, device=device),
-        count=torch.zeros((), dtype=dtype, device=device),
+        count=torch.zeros(lead, dtype=dtype, device=device),
     )
 
 
+def _per_row(count, x):
+    """``count`` (one per chain, or one) shaped to broadcast against
+    ``x``, which has the chain axes of ``count`` and more."""
+    return count.reshape(count.shape + (1,) * (x.dim() - count.dim()))
+
+
 def welford_update(state: WelfordState, x):
+    """One draw ``x`` (dim,), or one per chain (C, dim)."""
     count = state.count + 1
     delta = x - state.mean
-    mean = state.mean + delta / count
-    if state.m2.dim() == 2:
-        m2 = state.m2 + torch.outer(delta, x - mean)
+    mean = state.mean + delta / _per_row(count, delta)
+    if state.m2.dim() > state.mean.dim():
+        m2 = state.m2 + delta[..., :, None] * (x - mean)[..., None, :]
     else:
         m2 = state.m2 + delta * (x - mean)
     return WelfordState(mean=mean, m2=m2, count=count)
 
 
 def welford_variance(state: WelfordState, *, regularize=True):
-    """Sample variance (diag) or covariance (dense), with Stan's
-    shrinkage towards unit scale for short windows."""
-    var = state.m2 / torch.clamp(state.count - 1, min=1)
+    """Sample variance (diag) or covariance (dense), per chain where the
+    state has a chain axis, with Stan's shrinkage towards unit scale for
+    short windows."""
+    n = _per_row(state.count, state.m2)
+    var = state.m2 / torch.clamp(n - 1, min=1)
     if regularize:
-        n = state.count
+        dim = state.mean.shape[-1]
         unit = (
-            torch.eye(var.shape[0], dtype=var.dtype, device=var.device)
-            if var.dim() == 2
+            torch.eye(dim, dtype=var.dtype, device=var.device)
+            if state.m2.dim() > state.mean.dim()
             else 1.0
         )
         var = (n / (n + 5.0)) * var + 1e-3 * (5.0 / (n + 5.0)) * unit
@@ -124,8 +136,10 @@ def welford_variance(state: WelfordState, *, regularize=True):
 # ------------------------------------------------- mass-metric helpers
 #
 # ``inv_mass`` is the estimated posterior (co)variance: (dim,) for a
-# diagonal metric, (dim, dim) for a dense one.  Momenta are drawn from
-# N(0, inv_mass^{-1}).
+# diagonal metric, (dim, dim) for a dense one, or one per chain, (C, dim)
+# and (C, dim, dim), beside momenta ``p (C, dim)``.  A metric is dense when
+# it has one axis more than the momenta; a diagonal one may also be shared
+# by the chains.  Momenta are drawn from N(0, inv_mass^{-1}).
 
 
 def chol_small(A):
@@ -133,23 +147,34 @@ def chol_small(A):
     return torch.linalg.cholesky(A)
 
 
+def _dense(inv_mass, p):
+    return inv_mass.dim() == p.dim() + 1
+
+
 def mass_matvec(inv_mass, p):
-    """inv_mass @ p for either metric shape."""
-    if inv_mass.dim() == 2:
+    """inv_mass @ p for either metric shape, per chain."""
+    if not _dense(inv_mass, p):
+        return inv_mass * p
+    if p.dim() == 1:
         return inv_mass @ p
-    return inv_mass * p
+    return (inv_mass @ p[..., None])[..., 0]
 
 
 def mass_kinetic(inv_mass, p):
-    """0.5 * p^T inv_mass p."""
-    if inv_mass.dim() == 2:
+    """0.5 * p^T inv_mass p, per chain: () for p (dim,), (C,) for
+    p (C, dim)."""
+    if not _dense(inv_mass, p):
+        return 0.5 * torch.sum(inv_mass * p**2, dim=-1)
+    if p.dim() == 1:
         return 0.5 * torch.dot(p, inv_mass @ p)
-    return 0.5 * torch.sum(inv_mass * p**2)
+    return 0.5 * torch.sum(p * mass_matvec(inv_mass, p), dim=-1)
 
 
 def mass_momentum(z, inv_mass):
-    """p ~ N(0, inv_mass^{-1}) from standard normals ``z (..., dim)``, or
-    from a ``torch.Generator``, which draws one ``(dim,)``.
+    """p ~ N(0, inv_mass^{-1}) from standard normals ``z (dim,)`` or
+    ``(C, dim)`` (a metric per chain, or a shared diagonal one), or from a
+    ``torch.Generator``, which draws one ``(dim,)`` for a metric of one
+    chain.
 
     Dense: with inv_mass = Sigma = L L^T, the momentum covariance is
     Sigma^{-1} = L^{-T} L^{-1}, so p = L^{-T} z.
@@ -157,7 +182,7 @@ def mass_momentum(z, inv_mass):
     if isinstance(z, torch.Generator):
         z = torch.randn(inv_mass.shape[:1], generator=z, dtype=inv_mass.dtype,
                         device=inv_mass.device)
-    if inv_mass.dim() == 2:
+    if _dense(inv_mass, z):
         L = chol_small(inv_mass)
         return torch.linalg.solve_triangular(L.mT, z[..., None], upper=True)[..., 0]
     return z / torch.sqrt(inv_mass)

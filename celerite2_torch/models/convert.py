@@ -9,6 +9,11 @@ classes' ``_params`` do::
 
     {"type": "SHOTerm", "params": {"w0": w0, "Q": Q, "S0": S0, "eps": eps}}
     {"type": "TermSum", "terms": [description, ...]}
+    {"type": "TermProduct", "terms": [description, description]}
+    {"type": "TermDiff", "term": description}
+    {"type": "TermConvolution", "term": description, "delta": delta}
+    {"type": "OriginalCeleriteTerm",
+     "params": {"ar": ar, "cr": cr, "ac": ac, "bc": bc, "cc": cc, "dc": dc}}
 
 where each parameter is anything ``numpy.asarray`` accepts.  From a JAX
 term ``k`` the parameters are ``numpy.asarray(getattr(k, p))`` for ``p``
@@ -34,27 +39,42 @@ _PRIMITIVES = {
 }
 
 
+class _Coefficients:
+    """A stand-in for a celerite-v1 term: its six coefficient arrays."""
+
+    def __init__(self, params):
+        self._coeffs = tuple(params[k] for k in _terms.OriginalCeleriteTerm._params)
+
+    def get_all_coefficients(self):
+        return self._coeffs
+
+
 def term_from_numpy(spec, *, device=None, dtype=torch.float64):
     """The port's term for the description ``spec`` (see the module
     docstring), with every parameter a tensor of ``dtype`` on ``device``
     (default: the package's ``Config.device``)."""
     device = resolve_device(device)
     kind = spec["type"]
+
+    def tensor(value):
+        return torch.as_tensor(np.asarray(value), device=device, dtype=dtype)
+
+    def sub(s):
+        return term_from_numpy(s, device=device, dtype=dtype)
+
     if kind == "TermSum":
-        return _terms.TermSum(
-            *(
-                term_from_numpy(s, device=device, dtype=dtype)
-                for s in spec["terms"]
-            )
-        )
+        return _terms.TermSum(*(sub(s) for s in spec["terms"]))
+    if kind == "TermProduct":
+        return _terms.TermProduct(*(sub(s) for s in spec["terms"]))
+    if kind == "TermDiff":
+        return _terms.TermDiff(sub(spec["term"]))
+    if kind == "TermConvolution":
+        return _terms.TermConvolution(sub(spec["term"]), tensor(spec["delta"]))
+    params = {name: tensor(value) for name, value in spec["params"].items()}
+    if kind == "OriginalCeleriteTerm":
+        return _terms.OriginalCeleriteTerm(_Coefficients(params))
     if kind not in _PRIMITIVES:
-        raise NotImplementedError(
-            f"{kind} is not ported yet (ROADMAP.md Queue A, item A2)"
-        )
-    params = {
-        name: torch.as_tensor(np.asarray(value), device=device, dtype=dtype)
-        for name, value in spec["params"].items()
-    }
+        raise NotImplementedError(f"no term of the port is called {kind}")
     return _PRIMITIVES[kind](**params)
 
 

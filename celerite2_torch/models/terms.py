@@ -34,11 +34,15 @@ from celerite2_torch.utils.misc import as_tensor, atleast_1d, first_device
 __all__ = [
     "Term",
     "TermSum",
+    "TermProduct",
+    "TermDiff",
+    "TermConvolution",
     "RealTerm",
     "ComplexTerm",
     "SHOTerm",
     "Matern32Term",
     "RotationTerm",
+    "OriginalCeleriteTerm",
     "resolve_parameter_spec",
 ]
 
@@ -74,6 +78,9 @@ class Term:
 
     def __add__(self, other):
         return TermSum(self, other)
+
+    def __mul__(self, other):
+        return TermProduct(self, other)
 
     @property
     def terms(self):
@@ -217,12 +224,33 @@ def _matrices_from_coefficients(x, diag, ar, cr, ac, bc, cc, dc):
 # =============================================================== algebra
 
 
+def _no_convolution(*terms):
+    if any(isinstance(t, TermConvolution) for t in terms):
+        raise TypeError(
+            "You cannot perform operations on a TermConvolution, it must "
+            "be the outer term in the kernel"
+        )
+
+
+def _outer(u, v, op):
+    """``op`` over every pair of the last axes of ``u (*B, n)`` and ``v
+    (*B, m)``, flattened to ``(*B, n m)`` with ``u``'s index outer."""
+    u, v = torch.broadcast_tensors(u[..., :, None], v[..., None, :])
+    return op(u, v).flatten(-2)
+
+
+def _interleave(x, y):
+    """``(x_0, y_0, x_1, y_1, ...)`` along the last axis."""
+    return torch.stack([x, y], -1).flatten(-2)
+
+
 class TermSum(Term):
     """Sum of terms; widths concatenate."""
 
     _params = ("_terms",)
 
     def __init__(self, *terms):
+        _no_convolution(*terms)
         self._terms = tuple(terms)
 
     @property
@@ -265,6 +293,204 @@ class TermSum(Term):
     @property
     def width(self) -> int:
         return sum(t.width for t in self._terms)
+
+
+class TermProduct(Term):
+    """Product of two terms; the width is J1 J2.
+
+    The closed-form coefficient products:
+      real x real       -> real (a1 a2, c1 + c2)
+      real x complex    -> complex (amplitudes scale, exponents add)
+      complex x complex -> two complex terms at dc1 -+ dc2
+    """
+
+    _params = ("term1", "term2")
+
+    def __init__(self, term1, term2):
+        _no_convolution(term1, term2)
+        self.term1 = term1
+        self.term2 = term2
+
+    def get_coefficients(self):
+        ar1, cr1, ac1, bc1, cc1, dc1 = self.term1.get_coefficients()
+        ar2, cr2, ac2, bc2, cc2, dc2 = self.term2.get_coefficients()
+
+        def mul(u, v):
+            return _outer(u, v, torch.mul)
+
+        def add(u, v):
+            return _outer(u, v, torch.add)
+
+        # real x real
+        ar = mul(ar1, ar2)
+        cr = add(cr1, cr2)
+
+        acs, bcs, ccs, dcs = [], [], [], []
+        # real x complex (both orders)
+        for (arr, crr), (a2, b2, c2, d2) in (
+            ((ar1, cr1), (ac2, bc2, cc2, dc2)),
+            ((ar2, cr2), (ac1, bc1, cc1, dc1)),
+        ):
+            acs.append(mul(arr, a2))
+            bcs.append(mul(arr, b2))
+            ccs.append(add(crr, c2))
+            dcs.append(_outer(arr, d2, lambda _, d: d))
+
+        # complex x complex: a product of two damped cosinusoids splits into
+        # the difference- and sum-frequency components, interleaved
+        aa, bb = mul(ac1, ac2), mul(bc1, bc2)
+        ab, ba = mul(ac1, bc2), mul(bc1, ac2)
+        ccx = add(cc1, cc2)
+        acs.append(_interleave(0.5 * (aa + bb), 0.5 * (aa - bb)))
+        bcs.append(_interleave(0.5 * (ba - ab), 0.5 * (ba + ab)))
+        ccs.append(_interleave(ccx, ccx))
+        dcs.append(_interleave(_outer(dc1, dc2, torch.sub), add(dc1, dc2)))
+
+        return (ar, cr, _cat_last(acs), _cat_last(bcs), _cat_last(ccs),
+                _cat_last(dcs))
+
+    @property
+    def width(self) -> int:
+        return self.term1.width * self.term2.width
+
+    def get_value(self, tau):
+        return self.term1.get_value(tau) * self.term2.get_value(tau)
+
+    def get_celerite_matrices(self, x, diag):
+        # The Hadamard product of two semiseparable kernels is semiseparable
+        # with row-wise Kronecker (Khatri-Rao) factors and summed transport
+        # coefficients: K1[n,m] K2[n,m]
+        #   = sum_{jk} (U1 kr U2)[n,jk] (V1 kr V2)[m,jk] e^{-(c_j+c_k) dt}.
+        # Composing the matrices keeps branchless sub-terms (SHOTerm) exact.
+        x = atleast_1d(x)
+        diag = as_tensor(diag, like=x)
+        zero = torch.zeros_like(x)
+        c1, a1, U1, V1 = self.term1.get_celerite_matrices(x, zero)
+        c2, a2, U2, V2 = self.term2.get_celerite_matrices(x, zero)
+        return (
+            _outer(c1, c2, torch.add),
+            diag + a1 * a2,
+            _outer(U1, U2, torch.mul),
+            _outer(V1, V2, torch.mul),
+        )
+
+
+class TermDiff(Term):
+    """Second derivative kernel -d^2 k / d tau^2."""
+
+    _params = ("term",)
+
+    def __init__(self, term):
+        _no_convolution(term)
+        self.term = term
+
+    def get_coefficients(self):
+        ar, cr, a, b, c, d = self.term.get_coefficients()
+        return (
+            -ar * cr**2,
+            cr,
+            a * (d**2 - c**2) + 2 * b * c * d,
+            b * (d**2 - c**2) - 2 * a * c * d,
+            c,
+            d,
+        )
+
+
+def _damped_exponentials(coeffs):
+    """A coefficient 6-tuple as complex pairs ``(w, z, n_real)``: every
+    component is ``Re[w exp(-z tau)]`` with ``w = a + i b`` and ``z = c +
+    i d`` (b = d = 0 for the first ``n_real``, the real ones), so the
+    boxcar closed forms below are written once."""
+    ar, cr, ac, bc, cc, dc = coeffs
+    w = _cat_last([torch.complex(ar, torch.zeros_like(ar)), torch.complex(ac, bc)])
+    z = _cat_last([torch.complex(cr, torch.zeros_like(cr)), torch.complex(cc, dc)])
+    return w, z, ar.shape[-1]
+
+
+def _boxcar_far_amplitudes(w, z, delta):
+    """Amplitudes of the boxcar-convolved kernel at lags tau >= delta: each
+    ``w`` times ``2 (cosh(z d) - 1) / (z d)^2``; the exponents z are
+    unchanged."""
+    zd = z * delta
+    return 2.0 * w * (torch.cosh(zd) - 1.0) / zd**2
+
+
+def _boxcar_variance_excess(w, z, delta):
+    """``k_conv(0)`` less the sum of the far amplitudes' real parts: the
+    overlap of the exposure windows at zero lag, ``2 Re[w (z d - sinh(z
+    d))] / (z d)^2`` per component, summed: the diagonal correction of the
+    celerite matrices."""
+    zd = z * delta
+    return 2.0 * torch.sum((w * (zd - torch.sinh(zd)) / zd**2).real, dim=-1)
+
+
+class TermConvolution(Term):
+    """Boxcar (exposure-time) convolution of a term,
+
+        k_conv(tau) = (1/d^2) int_0^d int_0^d k(tau - u + v) du dv,
+
+    which for each component ``Re[w e^{-z tau}]`` is
+
+        tau >= d:  Re[ w' e^{-z tau} ],  w' = 2 w (cosh(zd)-1)/(zd)^2
+        tau <  d:  Re[ w (2 (d-tau)/z
+                         + (e^{-z(d-tau)} + e^{-z(d+tau)}
+                            - 2 e^{-z tau}) / z^2) ] / d^2
+
+    ``delta`` may be batched like the term's parameters.
+    """
+
+    _params = ("term", "delta")
+
+    def __init__(self, term, delta):
+        self.term = term
+        (self.delta,) = _tensors(delta)
+
+    def _delta(self, ndim):
+        """delta shaped to broadcast against ``(*B, 1 x ndim)``."""
+        return self.delta.reshape(self.delta.shape + (1,) * ndim)
+
+    def get_celerite_matrices(self, x, diag):
+        # the semiseparable representation is the far field; of the pairs
+        # closer than delta, the diagonal is the part corrected exactly
+        x = atleast_1d(x)
+        w, z, _ = _damped_exponentials(self.term.get_coefficients())
+        excess = _boxcar_variance_excess(w, z, self._delta(1).to(x))
+        return Term.get_celerite_matrices(
+            self, x, as_tensor(diag, like=x) + excess[..., None])
+
+    def get_coefficients(self):
+        ar, cr, ac, bc, cc, dc = self.term.get_coefficients()
+        w, z, n_real = _damped_exponentials((ar, cr, ac, bc, cc, dc))
+        wp = _boxcar_far_amplitudes(w, z, self._delta(1).to(ar))
+        return (wp[..., :n_real].real, cr, wp[..., n_real:].real,
+                wp[..., n_real:].imag, cc, dc)
+
+    def get_psd(self, omega):
+        omega = atleast_1d(omega)
+        psd0 = self.term.get_psd(omega)
+        arg = 0.5 * self._delta(omega.ndim).to(omega) * omega
+        safe = torch.where(arg == 0.0, torch.ones_like(arg), arg)
+        sinc = torch.where(arg == 0.0, torch.ones_like(arg), torch.sin(arg) / safe)
+        return psd0 * sinc**2
+
+    def get_value(self, tau0):
+        tau0 = torch.abs(atleast_1d(tau0))
+        w, z, _ = (x if isinstance(x, int) else _lift(x, tau0.ndim)
+                   for x in _damped_exponentials(self.term.get_coefficients()))
+        d = self._delta(tau0.ndim + 1).to(tau0)
+        tau = tau0[..., None]
+
+        far = torch.sum(
+            (_boxcar_far_amplitudes(w, z, d) * torch.exp(-z * tau)).real, dim=-1)
+
+        gap = d - tau
+        near_per = w * (
+            2.0 * gap / z
+            + (torch.exp(-z * gap) + torch.exp(-z * (d + tau))
+               - 2.0 * torch.exp(-z * tau)) / z**2
+        )
+        near = torch.sum(near_per.real, dim=-1) / d[..., 0] ** 2
+        return torch.where(tau0 >= d[..., 0], far, near)
 
 
 # ====================================================== primitive terms
@@ -536,3 +762,19 @@ class RotationTerm(Term):
         ]
         e = modes[0][0].new_zeros(modes[0][0].shape[:-1] + (0,))
         return (e, e) + tuple(_cat_last(parts) for parts in zip(*modes))
+
+
+class OriginalCeleriteTerm(Term):
+    """Wrap a celerite-v1 term: any object whose ``get_all_coefficients()``
+    returns ``(ar, cr, ac, bc, cc, dc)``.  The coefficients are read once
+    and held as the term's parameters."""
+
+    _params = ("ar", "cr", "ac", "bc", "cc", "dc")
+
+    def __init__(self, term):
+        self.ar, self.cr, self.ac, self.bc, self.cc, self.dc = (
+            atleast_1d(c) for c in _tensors(*term.get_all_coefficients())
+        )
+
+    def get_coefficients(self):
+        return (self.ar, self.cr, self.ac, self.bc, self.cc, self.dc)

@@ -27,11 +27,12 @@ def as_tensor(x, *, like=None, device=None):
     a numpy array or a list, which keep their dtype) is placed on
     ``like``'s device if ``like`` is given, else on ``device``, else on
     the package default ``Config.device``.  ``like`` also moves a tensor
-    to that tensor's device and dtype."""
+    to that tensor's device and dtype.  A number is filled in on the device
+    (no copy from the host, which on the card would wait for the stream)."""
     if not isinstance(x, torch.Tensor):
         target = like.device if like is not None else resolve_device(device)
         if isinstance(x, (int, float)):
-            x = torch.tensor(float(x), dtype=torch.float64, device=target)
+            x = torch.full((), float(x), dtype=torch.float64, device=target)
         else:
             x = torch.as_tensor(np.asarray(x)).to(target)
     if like is not None:

@@ -35,10 +35,17 @@ tier its launch counts and times assume.
 
 It then times chained sampler steps on the J = 2, 4 and 8 paths, config5's
 J = 4 model at its own size N = 1e6, and profiles the J = 2, 4 and 8
-paths.  Its last phase drives the fleet sampler (``inference.run_hmc``) on
+paths.  It drives the fleet sampler (``inference.run_hmc``) on
 benchmarks/configs.py config3's posterior (J = 4, N = 30,000): a segment
 of iterations against the CPU's plain route, 64 chains with checkpoints
-and their bitwise resume, 1024 chains, and a profile of two iterations.  K1 to K5 are also held at the edges of their blocks and tiles and
+and their bitwise resume, 1024 chains, and a profile of two iterations.
+Then NUTS (``inference.run_nuts``): five transitions of config2's
+posterior against the CPU's plain route, configs 2 and 4 after their MAP
+(a checkpoint's bitwise resume), config3's posterior as a fleet of 64
+chains beside ``run_hmc``, and a profile of two transitions; and
+``gp_loglik`` through products and a convolution of terms.  The plain
+references of the CPU run in worker processes started at launch.  K1 to
+K5 are also held at the edges of their blocks and tiles and
 in float32, K1 on rows that are not positive definite; K4 and K5 are timed
 at J = 3, 4, N = 1e5 and 1e6, 1 and 64 chains, in both types.  Run from
 the root of the repository:
@@ -59,6 +66,7 @@ import math
 import multiprocessing
 import queue
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -76,9 +84,10 @@ from celerite2_torch.ops import dispatch
 from celerite2_torch.ops import fused_loglik as fl
 from celerite2_torch.ops import prefix_engine as pe
 from celerite2_torch.ops import scan
-from celerite2_torch.inference import CheckpointManager, run_hmc, summary
+from celerite2_torch.inference import (CheckpointManager, fit_map, run_hmc, run_nuts,
+                                       summary)
 from celerite2_torch.inference import adapt, chunked
-from celerite2_torch.inference import hmc
+from celerite2_torch.inference import hmc, nuts, sampler
 from celerite2_torch.inference.checkpoint import to_host
 from celerite2_torch.utils.observe import sampling_monitor
 
@@ -724,13 +733,10 @@ def wide_system(J, N, C, K, dev, seed=0):
 
 
 def sweep_args(mode, t, c, U, V, W):
-    """``(p, A, B)`` of a sweep mode: the solves take W, the matmuls V; the
-    upper sweeps project with the second matrix and feed with U."""
-    is_solve, upper = MODES[mode]
-    second = W if is_solve else V
-    A, B = (second, U) if upper else (U, second)
-    p = scan.transport_up(t, c) if upper else scan.transport(t, c)
-    return p, A, B
+    """``(p, A, B)`` of a sweep mode (:func:`sweep_inputs`), with its
+    transport computed here."""
+    p = scan.transport_up(t, c) if MODES[mode][1] else scan.transport(t, c)
+    return sweep_inputs(mode, (t, c, None, U, V, None, p, p), W)
 
 
 def held_at_main_shape(name, got, want, what):
@@ -772,6 +778,62 @@ def timed_plain(fn):
     return out, 1e3 * (time.perf_counter() - start)
 
 
+class PhaseClock:
+    """``[time]`` lines for the sections of a phase: each section's seconds
+    and, of them, the seconds spent in the plain versions of the general
+    recursions (each call ended by a synchronize) and the seconds spent
+    waiting for references from the CPU (``waiting``)."""
+
+    PLAIN = ("factor_fwd_plain", "sweep_fwd_plain", "factor_bwd_plain",
+             "sweep_bwd_plain")
+
+    def __init__(self, phase):
+        self.phase = phase
+        self.section = None
+        self.saved = {n: getattr(scan, n) for n in self.PLAIN}
+        for n, fn in self.saved.items():
+            setattr(scan, n, self._clocked(fn))
+
+    def _clocked(self, fn):
+        def wrapped(*args, **kwargs):
+            torch.cuda.synchronize()
+            began = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            self.plain += time.perf_counter() - began
+            return out
+        return wrapped
+
+    def waiting(self, fn):
+        """``fn()``, its seconds counted as waiting for the CPU."""
+        began = time.perf_counter()
+        out = fn()
+        self.waited += time.perf_counter() - began
+        return out
+
+    def start(self, section):
+        self._close()
+        torch.cuda.synchronize()
+        self.section, self.plain, self.waited = section, 0.0, 0.0
+        self.began = time.perf_counter()
+
+    def _close(self):
+        if self.section is None:
+            return
+        torch.cuda.synchronize()
+        total = time.perf_counter() - self.began
+        log("time", f"{self.phase} {self.section}: {total:.1f} s, of which "
+            f"the plain versions on the card {self.plain:.1f} s, waiting for "
+            f"the CPU's references {self.waited:.1f} s, the kernels and the "
+            f"rest {total - self.plain - self.waited:.1f} s")
+        self.section = None
+
+    def stop(self):
+        self._close()
+        for n, fn in self.saved.items():
+            setattr(scan, n, fn)
+
+
 def forward_checks(system, nonpositive=False):
     """(name, kernel outputs, plain outputs) of factor_fwd and sweep_fwd in
     its four modes on ``system`` (``wide_system``'s tuple), caches
@@ -811,27 +873,173 @@ def ring_line(name, J, K=1, C=1, **kw):
         for dt, dtype in (("float64", torch.float64), ("float32", torch.float32)))
 
 
-def phase_general_kernels(dev):
+# The grids of the general kernels' phases: widths, rows, chains and right-
+# hand sides; their systems split over two CPU workers, about even in the
+# plain versions' time (J = 32 and 16 lead)
+GRID_J = (1, 2, 3, 8, 16, 32)
+GRID_N = (130, 1040, 10_000)
+GRID_C, GRID_K = 8, 5
+GRID_WORKERS = ((32, 3, 1), (16, 8, 2))
+
+
+def cpu_system(J, N, C, K, seed):
+    """``wide_system``'s tuple built on the CPU, with its two transports:
+    ``(t, c, a, U, V, Y, p, p_up)``, the inputs that a kernel on the card
+    (after a copy) and its plain version in a CPU worker share bit for
+    bit."""
+    t, c, a, U, V, Y = wide_system(J, N, C, K, "cpu", seed)
+    return t, c, a, U, V, Y, scan.transport(t, c), scan.transport_up(t, c)
+
+
+def sweep_inputs(mode, system, W):
+    """``(p, A, B)`` of a sweep mode on a ``cpu_system`` tuple: the solves
+    take W, the matmuls V; the upper sweeps project with the second matrix,
+    feed with U and take the upward transport."""
+    _, _, _, U, V, _, p, p_up = system
+    is_solve, upper = MODES[mode]
+    second = W if is_solve else V
+    A, B = (second, U) if upper else (U, second)
+    return (p_up if upper else p), A, B
+
+
+def as_numpy(tree):
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().cpu().numpy()
+    if isinstance(tree, dict):
+        return {k: as_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(as_numpy(v) for v in tree)
+    return tree
+
+
+def on_device(tree, dev):
+    """numpy arrays (in tuples and dicts) as tensors on ``dev``."""
+    if isinstance(tree, np.ndarray):
+        return torch.from_numpy(tree).to(dev)
+    if isinstance(tree, torch.Tensor):
+        return tree.to(dev)
+    if isinstance(tree, dict):
+        return {k: on_device(v, dev) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(on_device(v, dev) for v in tree)
+    return tree
+
+
+def plain_references(system, seed, sweep_modes=tuple(MODES), adjoints=True):
+    """The plain versions on a ``cpu_system`` tuple, each run once: the
+    factor (d, W, S_half); the sweeps (Z, F) on all K columns of Y and the
+    factor's W; then random cotangents from ``seed`` (bd, bW, each sweep's
+    bZ) and the adjoints on the forward's outputs: the factor's, and each
+    sweep's on all columns and on the first.  The milliseconds of each
+    plain version go under ``ms``."""
+    _, _, a, U, V, Y, p, _ = system
+    ms = {}
+
+    def run(name, fn, *args, **kw):
+        began = time.perf_counter()
+        out = fn(*args, **kw)
+        ms[name] = 1e3 * (time.perf_counter() - began)
+        return out
+
+    rng = np.random.default_rng(seed)
+    d, W, S = run("factor_fwd", scan.factor_fwd_plain, p, a, U, V)
+    out = {"factor": (d, W, S), "sweep": {}, "ms": ms}
+    if adjoints:
+        bd, bW = randn_like(d, rng), randn_like(W, rng)
+        out.update(cot=(bd, bW), bZ={}, sweep_bwd={}, sweep_bwd1={},
+                   factor_bwd=run("factor_bwd", scan.factor_bwd_plain,
+                                  p, d, U, W, S, bd, bW))
+    for mode in sweep_modes:
+        is_solve, upper = MODES[mode]
+        ps, A, B = sweep_inputs(mode, system, W)
+        Z, F = run(f"sweep_fwd {mode}", scan.sweep_fwd_plain, ps, A, B, Y,
+                   is_solve=is_solve, upper=upper)
+        out["sweep"][mode] = (Z, F)
+        if not adjoints:
+            continue
+        bZ = randn_like(Z, rng)
+        R = Z if is_solve else Y
+        out["bZ"][mode] = bZ
+        out["sweep_bwd"][mode] = run(f"sweep_bwd {mode}", scan.sweep_bwd_plain,
+                                     ps, A, B, R, F, bZ, is_solve=is_solve,
+                                     upper=upper)
+        out["sweep_bwd1"][mode] = scan.sweep_bwd_plain(
+            ps, A, B, *(x[..., :1].contiguous() for x in (R, F, bZ)),
+            is_solve=is_solve, upper=upper)
+    return out
+
+
+def grid_seed(J, N):
+    return J + N
+
+
+def grid_references(Js):
+    """The grids' plain references (:func:`plain_references`) at
+    J in ``Js``, N in GRID_N, C = 8, K = 5, as numpy."""
+    return {(J, N): as_numpy(plain_references(
+                cpu_system(J, N, GRID_C, GRID_K, seed=grid_seed(J, N)), seed=J * N))
+            for J in Js for N in GRID_N}
+
+
+# the other right-hand sides the GP path's sweeps take at N = 1e5
+MAIN_K_SHAPES = (("matmul_lower", 4), ("solve_lower", 500), ("solve_upper", 500))
+
+
+def main_shape_references():
+    """The plain references at the GP and training paths' shape, N = 1e5,
+    J = 8, C = 1, K = 1 (each run once, shared by the two phases): the
+    factor, the two solves with their caches, the factor's adjoint and the
+    lower solve's; then each sweep of MAIN_K_SHAPES on its right-hand sides
+    (numpy seed 9); and the milliseconds of each."""
+    system = cpu_system(8, N_MAIN, 1, 1, seed=8)
+    out = plain_references(system, seed=1, sweep_modes=("solve_lower",))
+    began = time.perf_counter()
+    out["sweep"]["solve_upper"] = scan.sweep_fwd_plain(
+        *sweep_inputs("solve_upper", system, out["factor"][1]), system[5],
+        is_solve=True, upper=True)
+    out["ms"]["sweep_fwd solve_upper"] = 1e3 * (time.perf_counter() - began)
+    rng = np.random.default_rng(9)
+    out["K"] = {}
+    for mode, K in MAIN_K_SHAPES:
+        is_solve, up = MODES[mode]
+        YK = torch.tensor(rng.normal(size=(1, N_MAIN, K)))
+        began = time.perf_counter()
+        Z, _ = scan.sweep_fwd_plain(*sweep_inputs(mode, system, out["factor"][1]), YK,
+                                    is_solve=is_solve, upper=up)
+        out["K"][mode, K] = (YK, Z, 1e3 * (time.perf_counter() - began))
+    return as_numpy(out)
+
+
+def phase_general_kernels(dev, grid_refs, main_refs):
     """factor_fwd and sweep_fwd (its four modes) against their plain
-    versions on the card, float64, caches included, to 1e-10 relative, at
-    C = 8 and at C = 1 as the first of those chains (the plain version runs
-    once on all eight).  Then the edges of their rings of row tiles: N = 1
-    and one row below and past a tile (C = 3; K = 1, 5, 200, 500), 64
-    chains, blocks of several chains (1023 chains, the last block fewer),
+    versions, float64, caches included, to 1e-10 relative, at C = 8 and at
+    C = 1 as the first of those chains (the plain version runs once on all
+    eight, in the CPU workers ``grid_refs``, on the same inputs; the K = 1
+    sweeps against the first column of the K = 5 ones).  Then the edges
+    of their rings of row tiles: N = 1 and one row below and past a tile
+    (C = 3; K = 1, 5, 200, 500), 64 chains, blocks of several chains (1023
+    chains, the last block fewer),
     pivots d <= 0, and chains whose rows start off a 16-byte boundary (odd
     N at J = 1, 2, in float32 and float64); without the caches d, W and Z
     are the same bits.  Then their times at N = 1e5, J = 8, at C = 1 and
     C = 64, and at N = 3e4, C = 1024, with ns per row, and each sweep shape
-    the GP path launches against the plain version at N = 1e5.  The times
-    and bounds reported are those of the call the GP path makes: without
-    the caches."""
+    the GP path launches against the plain version at N = 1e5 (run once in
+    the CPU worker ``main_refs``, whose time is the plain time reported).
+    The times and bounds reported are those of the call the GP path makes:
+    without the caches."""
+    clock = PhaseClock("phase_general_kernels")
+    clock.start("grids of J x N")
+    grid = {}
+    for refs in grid_refs:
+        grid.update(clock.waiting(refs.get))
     worst = {"factor_fwd": 0.0, "sweep_fwd": 0.0}
-    for J in (1, 2, 3, 8, 16, 32):
-        for N in (130, 1040, 10_000):
-            t, c, a, U, V, Y5 = wide_system(J, N, 8, 5, dev, seed=J + N)
-            p = scan.transport(t, c)
+    for J in GRID_J:
+        for N in GRID_N:
+            system = on_device(cpu_system(J, N, GRID_C, GRID_K, grid_seed(J, N)), dev)
+            _, _, a, U, V, Y5, p, _ = system
+            ref = on_device(grid[J, N], dev)
             fin = (p, a, U, V)
-            want = scan.factor_fwd_plain(*fin)
+            want = ref["factor"]
             W = want[1]
             checks = [
                 ("factor_fwd", _build.factor_fwd_cuda(*fin, want_cache=True), want),
@@ -839,10 +1047,11 @@ def phase_general_kernels(dev):
                  [w[:1] for w in want]),
             ]
             for mode, (is_solve, upper) in MODES.items():
-                ps, A, B = sweep_args(mode, t, c, U, V, W)
-                for Y in (Y5[..., :1].contiguous(), Y5):
+                ps, A, B = sweep_inputs(mode, system, W)
+                Z5, F5 = ref["sweep"][mode]
+                for Y, want in ((Y5[..., :1].contiguous(), (Z5[..., :1], F5[..., :1])),
+                                (Y5, (Z5, F5))):
                     sin = (ps, A, B, Y)
-                    want = scan.sweep_fwd_plain(*sin, is_solve=is_solve, upper=upper)
                     checks += [
                         ("sweep_fwd", _build.sweep_fwd_cuda(*sin, is_solve, upper, True),
                          want),
@@ -851,12 +1060,14 @@ def phase_general_kernels(dev):
                          [w[:1] for w in want]),
                     ]
             hold_against_plain(checks, worst)
+            del system, ref, checks
     for name, err in worst.items():
         log("kernels", f"{name}: worst relative error {err:.3e} (J = 1, 2, "
             "3 -> 4, 8, 16, 32; N = 130, 1040, 1e4; C = 8 and 1; K = 1, 5; "
-            "caches included)")
+            "caches included; the plain versions in CPU workers)")
 
     # the rings' edges: rows per tile at each bucket, K, cache and mode
+    clock.start("ring edges")
     edges = {"factor_fwd": 0.0, "sweep_fwd": 0.0}
     for J in (1, 2, 3, 8, 16, 32):
         Jb = J if J != 3 else 4
@@ -915,11 +1126,18 @@ def phase_general_kernels(dev):
         f"{worst32}; caches on and off the same bits")
 
     # times at the gp path's shapes: N = 1e5, J = 8, K = 1, float64
+    clock.start("N = 1e5 shapes")
     main_abs, times = {}, {}
     per_row = 1e6 / N_MAIN  # ms per launch -> ns per row
+    main = on_device(clock.waiting(main_refs.get), dev)
+    plain_ms_of = main["ms"]
     for C in (1, 64):
-        t, c, a, U, V, Y = wide_system(8, N_MAIN, C, 1, dev, seed=8)
-        p = scan.transport(t, c)
+        if C == 1:
+            system = on_device(cpu_system(8, N_MAIN, 1, 1, seed=8), dev)
+        else:
+            t, c, a, U, V, Y = wide_system(8, N_MAIN, C, 1, dev, seed=8)
+            system = (t, c, a, U, V, Y, scan.transport(t, c), scan.transport_up(t, c))
+        t, c, a, U, V, Y, p, _ = system
         d, W, S = _build.factor_fwd_cuda(p, a, U, V, want_cache=True)
         ms_c = cuda_ms(lambda: _build.factor_fwd_cuda(p, a, U, V, True),
                        reps=5, warmup=1)
@@ -934,13 +1152,16 @@ def phase_general_kernels(dev):
             + "; ".join(ring_line("factor_fwd", 8, C=C, cache=cache)
                         for cache in (False, True)))
         if C == 1:
-            want, plain_ms = timed_plain(lambda: scan.factor_fwd_plain(p, a, U, V))
-            log("kernels", f"factor_fwd: plain version {plain_ms:.1f} ms (one run)")
+            want, plain_ms = main["factor"], plain_ms_of["factor_fwd"]
+            log("kernels", f"factor_fwd: plain version {plain_ms:.1f} ms (one run "
+                "on the CPU, in a worker)")
             main_abs["factor_fwd"] = held_at_main_shape(
                 "factor_fwd", (d, W, S), want, "d, W, S_half")
             times["factor_fwd"] = (ms, plain_ms, bound, by)
+            # the sweeps run on the plain version's W, as the plain sweeps did
+            W = want[1]
         for mode, (is_solve, upper) in MODES.items():
-            ps, A, B = sweep_args(mode, t, c, U, V, W)
+            ps, A, B = sweep_inputs(mode, system, W)
             Z, F = _build.sweep_fwd_cuda(ps, A, B, Y, is_solve, upper, True)
             ms_c = cuda_ms(
                 lambda: _build.sweep_fwd_cuda(ps, A, B, Y, is_solve, upper, True),
@@ -955,10 +1176,10 @@ def phase_general_kernels(dev):
                 f"{ms_c:.4f} ms, {ms_c * per_row:.1f} ns per row (bound "
                 f"{bound_c:.4f} ms) at N = 1e5, J = 8, K = 1, C = {C}, float64")
             if C == 1 and mode in ("solve_lower", "solve_upper"):
-                want, plain_ms = timed_plain(lambda: scan.sweep_fwd_plain(
-                    ps, A, B, Y, is_solve=True, upper=upper))
+                want = main["sweep"][mode]
+                plain_ms = plain_ms_of[f"sweep_fwd {mode}"]
                 log("kernels", f"sweep_fwd {mode}: plain version {plain_ms:.1f} ms "
-                    "(one run)")
+                    "(one run on the CPU, in a worker)")
                 err = held_at_main_shape("sweep_fwd", (Z, F), want, f"{mode} K = 1")
                 if mode == "solve_lower":
                     main_abs["sweep_fwd"] = err
@@ -967,27 +1188,25 @@ def phase_general_kernels(dev):
             # the other shapes the GP path launches: sample's matmul_lower
             # (K = 4) and the variance's solves on K = 500 columns (sixteen
             # blocks of right-hand sides per chain)
-            rng = np.random.default_rng(9)
-            for mode, K in (("matmul_lower", 4), ("solve_lower", 500),
-                            ("solve_upper", 500)):
+            for mode, K in MAIN_K_SHAPES:
                 is_solve, upper = MODES[mode]
-                ps, A, B = sweep_args(mode, t, c, U, V, W)
-                YK = torch.tensor(rng.normal(size=(1, N_MAIN, K)), device=dev)
+                ps, A, B = sweep_inputs(mode, system, W)
+                YK, want, plain_ms = main["K"][mode, K]
                 Z, _ = _build.sweep_fwd_cuda(ps, A, B, YK, is_solve, upper)
                 ms = cuda_ms(
                     lambda: _build.sweep_fwd_cuda(ps, A, B, YK, is_solve, upper),
                     reps=3, warmup=1)
-                (want, _), plain_ms = timed_plain(lambda: scan.sweep_fwd_plain(
-                    ps, A, B, YK, is_solve=is_solve, upper=upper))
                 bound, by = bound_ms((ps, A, B, YK, Z),
                                      kernel_flops("sweep_fwd", 1, N_MAIN, 8, K))
                 log("kernels", f"sweep_fwd {mode}, K = {K}: {ms:.4f} ms, "
                     f"{ms * per_row:.1f} ns per row (bound {bound:.4f} ms by {by}; "
-                    f"plain version {plain_ms:.1f} ms) at N = 1e5, J = 8, C = 1, "
+                    f"plain version {plain_ms:.1f} ms on the CPU) at N = 1e5, J = 8, "
+                    "C = 1, "
                     f"float64; ring: " + ring_line("sweep_fwd", 8, K,
                                                    is_solve=is_solve))
                 held_at_main_shape("sweep_fwd", (Z,), (want,), f"{mode} K = {K}")
     # a fleet of chains (the sampler's): C = 1024 at N = 3e4
+    clock.start("C = 1024")
     C, N = 1024, 30_000
     t, c, a, U, V, Y = wide_system(8, N, C, 1, dev, seed=8)
     p = scan.transport(t, c)
@@ -1010,6 +1229,7 @@ def phase_general_kernels(dev):
             f"{ms * 1e6 / N:.1f} ns per row (bound {bound:.4f} ms by {by}) at "
             f"N = 3e4, J = 8, K = 1, C = {C}, float64; ring: "
             + ring_line(name.split()[0], 8, C=C, cache=cache))
+    clock.stop()
     return main_abs, times
 
 
@@ -1167,12 +1387,17 @@ def adjoint_inputs(J, N, C, K, dev, seed, nonpositive=False, data_seed=None):
     return fin, sins
 
 
-def adjoint_checks(fin, sins, whole=True, first=True, factor=True):
+def adjoint_checks(fin, sins, whole=True, first=True, factor=True, wants=None):
     """(name, kernel outputs, plain outputs) of factor_bwd (unless not
     ``factor``) and sweep_bwd in its four modes; with ``first`` also the
-    first chain alone (the plain version runs once on all chains)."""
+    first chain alone (the plain version runs once on all chains).
+    ``wants``: the plain outputs, ``(factor_bwd's, {mode: sweep_bwd's})``,
+    where a worker computed them; else the plain versions run here."""
+    wanted = iter([] if wants is None else
+                  ([wants[0]] if factor else []) + [wants[1][m] for m in MODES])
+
     def pair(name, kernel, plain, args):
-        want = plain(*args)
+        want = plain(*args) if wants is None else next(wanted)
         out = [(name, kernel(*args), want)] if whole else []
         if first:
             out.append((name, kernel(*first_chain(args)), [w[:1] for w in want]))
@@ -1188,6 +1413,24 @@ def adjoint_checks(fin, sins, whole=True, first=True, factor=True):
                 *a, is_solve=s, upper=u),
             sins[mode])
     return checks
+
+
+def plain_adjoint_inputs(system, ref):
+    """From a ``cpu_system`` tuple and its :func:`plain_references` (both
+    on the card): factor_bwd's inputs ``(p, d, U, W, S_half, bd, bW)``,
+    sweep_bwd's per mode ``(p, A, B, R, F, bZ)`` on all K columns, and the
+    plain outputs on them, ``(factor_bwd's, {mode: sweep_bwd's})`` on all
+    columns and ``(None, {mode: ...})`` on the first."""
+    _, _, _, U, _, Y, p, _ = system
+    d, W, S = ref["factor"]
+    fin = (p, d, U, W, S, *ref["cot"])
+    sins = {}
+    for mode, bZ in ref["bZ"].items():
+        Z, F = ref["sweep"][mode]
+        sins[mode] = (*sweep_inputs(mode, system, W), Z if MODES[mode][0] else Y,
+                      F, bZ)
+    return (fin, sins, (ref.get("factor_bwd"), ref["sweep_bwd"]),
+            (None, ref["sweep_bwd1"]))
 
 
 def hold_float32(checks32, checks64, worst):
@@ -1208,11 +1451,13 @@ def to_float32(xs):
     return tuple(x.float() for x in xs)
 
 
-def phase_adjoint_kernels(dev):
-    """factor_bwd and sweep_bwd (four modes) against their plain versions
-    on the card, float64, to 1e-10 relative, on the kernels' own forward
-    caches and random cotangents: J = 1, 2, 3 -> 4, 8, 16, 32; N = 130,
-    1040, 1e4; C = 8, and C = 1 as the first of those chains; K = 1, 5.
+def phase_adjoint_kernels(dev, grid_refs, main_refs):
+    """factor_bwd and sweep_bwd (four modes) against their plain versions,
+    float64, to 1e-10 relative, on the plain forward's outputs and random
+    cotangents, all from the CPU workers ``grid_refs`` (the systems of
+    ``phase_general_kernels``, whose plain forward there holds the kernels'
+    forward): J = 1, 2, 3 -> 4, 8, 16, 32; N = 130, 1040, 1e4; C = 8, and
+    C = 1 as the first of those chains; K = 1, 5.
     Then the edges of their rings of row tiles: N = 1 and one row below and
     past a tile (C = 3; K = 1, 5, 200), 64 chains, blocks of several chains
     (the last one fewer), pivots d <= 0, and chains whose rows start off a
@@ -1220,23 +1465,33 @@ def phase_adjoint_kernels(dev):
     their times at N = 1e5, J = 8 (K = 1 in the four modes, and K = 5) at
     C = 1 and C = 64, and at C = 1024, N = 3e4 (K = 1, the lower solve's),
     with ns per row, and at C = 1 the factor and the lower solve's adjoint
-    (the training path's shapes) against the plain versions to 1e-9
+    (the training path's shapes, on the plain forward's outputs from the
+    CPU worker ``main_refs``) against the plain versions there to 1e-9
     (LONG_RTOL)."""
+    clock = PhaseClock("phase_adjoint_kernels")
+    clock.start("grids of J x N")
+    grid = {}
+    for refs in grid_refs:
+        grid.update(clock.waiting(refs.get))
     worst = {"factor_bwd": 0.0, "sweep_bwd": 0.0}
-    for J in (1, 2, 3, 8, 16, 32):
-        for N in (130, 1040, 10_000):
-            fin, sins = adjoint_inputs(J, N, 8, 5, dev, seed=J * N)
-            sins1 = {m: s[:3] + tuple(x[..., :1].contiguous() for x in s[3:4])
-                     + (s[4][..., :1].contiguous(), s[5][..., :1].contiguous())
+    for J in GRID_J:
+        for N in GRID_N:
+            system = on_device(cpu_system(J, N, GRID_C, GRID_K, grid_seed(J, N)), dev)
+            fin, sins, wants, wants1 = plain_adjoint_inputs(
+                system, on_device(grid[J, N], dev))
+            sins1 = {m: s[:3] + tuple(x[..., :1].contiguous() for x in s[3:])
                      for m, s in sins.items()}
-            hold_against_plain(adjoint_checks(fin, sins), worst)
-            hold_against_plain(adjoint_checks(fin, sins1, factor=False), worst)
+            hold_against_plain(adjoint_checks(fin, sins, wants=wants), worst)
+            hold_against_plain(adjoint_checks(fin, sins1, factor=False,
+                                              wants=wants1), worst)
+            del system, fin, sins, sins1, wants, wants1
     for name, err in worst.items():
         log("kernels", f"{name}: worst relative error {err:.3e} (J = 1, 2, "
             "3 -> 4, 8, 16, 32; N = 130, 1040, 1e4; C = 8 and 1; K = 1, 5 in "
-            "four modes)")
+            "four modes; the plain versions in CPU workers)")
 
     # the rings' edges: rows per tile at each bucket, K and type
+    clock.start("ring edges")
     edges = {"factor_bwd": 0.0, "sweep_bwd": 0.0}
     for J in (1, 2, 3, 8, 16, 32):
         Jb = J if J != 3 else 4
@@ -1295,8 +1550,12 @@ def phase_adjoint_kernels(dev):
         f"odd N at J = 1, 2); float32 against the float64 plain version {worst32}")
 
     # times at the training path's shapes: N = 1e5, J = 8, float64
+    clock.start("N = 1e5 shapes")
     main_abs, times = {}, {}
     per_row = 1e6 / N_MAIN  # ms per launch -> ns per row
+    main = on_device(clock.waiting(main_refs.get), dev)
+    main_fin, main_sins, main_wants, _ = plain_adjoint_inputs(
+        on_device(cpu_system(8, N_MAIN, 1, 1, seed=8), dev), main)
     for C in (1, 64):
         fin, sins = adjoint_inputs(8, N_MAIN, C, 1, dev, seed=C, data_seed=8)
         got = _build.factor_bwd_cuda(*fin)
@@ -1305,10 +1564,12 @@ def phase_adjoint_kernels(dev):
         log("kernels", f"factor_bwd: {ms:.4f} ms, {ms * per_row:.1f} ns per row "
             f"(bound {bound:.4f} ms by {by}) at N = 1e5, J = 8, C = {C}, float64")
         if C == 1:
-            want, plain_ms = timed_plain(lambda: scan.factor_bwd_plain(*fin))
-            log("kernels", f"factor_bwd: plain version {plain_ms:.1f} ms (one run)")
+            plain_ms = main["ms"]["factor_bwd"]
+            log("kernels", f"factor_bwd: plain version {plain_ms:.1f} ms (one run "
+                "on the CPU, in a worker)")
             main_abs["factor_bwd"] = held_at_main_shape(
-                "factor_bwd", got, want, "ba, bU, bV, bp")
+                "factor_bwd", _build.factor_bwd_cuda(*main_fin), main_wants[0],
+                "ba, bU, bV, bp")
             times["factor_bwd"] = (ms, plain_ms, bound, by)
         _, sins5 = adjoint_inputs(8, N_MAIN, C, 5, dev, seed=C, data_seed=8)
         for mode, (is_solve, upper) in MODES.items():
@@ -1322,14 +1583,15 @@ def phase_adjoint_kernels(dev):
                     f"{ms * per_row:.1f} ns per row (bound {bound:.4f} ms by "
                     f"{by}) at N = 1e5, J = 8, K = {K}, C = {C}, float64")
                 if C == 1 and K == 1 and mode == "solve_lower":
-                    want, plain_ms = timed_plain(lambda: scan.sweep_bwd_plain(
-                        *sin, is_solve=True, upper=False))
+                    plain_ms = main["ms"][f"sweep_bwd {mode}"]
                     log("kernels", f"sweep_bwd {mode}: plain version "
-                        f"{plain_ms:.1f} ms (one run)")
+                        f"{plain_ms:.1f} ms (one run on the CPU, in a worker)")
                     main_abs["sweep_bwd"] = held_at_main_shape(
-                        "sweep_bwd", got, want, f"{mode} K = 1")
+                        "sweep_bwd", _build.sweep_bwd_cuda(*main_sins[mode], True, False),
+                        main_wants[1][mode], f"{mode} K = 1")
                     times["sweep_bwd"] = (ms, plain_ms, bound, by)
     # a fleet of chains (the sampler's): C = 1024 at N = 3e4
+    clock.start("C = 1024")
     C, N = 1024, 30_000
     fin, sins = adjoint_inputs(8, N, C, 1, dev, seed=C, data_seed=8)
     sin = sins["solve_lower"]
@@ -1342,6 +1604,7 @@ def phase_adjoint_kernels(dev):
         log("kernels", f"{name}: {ms:.4f} ms, {ms * 1e6 / N:.1f} ns per row "
             f"(bound {bound:.4f} ms by {by}) at N = 3e4, J = 8, K = 1, "
             f"C = {C}, float64")
+    clock.stop()
     return main_abs, times
 
 
@@ -1484,23 +1747,27 @@ def cpu_references(N):
     return out
 
 
-def _cpu_references_worker(queue, N):
+def _cpu_references_worker(queue, fn, args):
     try:
-        queue.put(("ok", cpu_references(N)))
+        ct.set_config(device="cpu")
+        torch.set_num_threads(1)
+        queue.put(("ok", fn(*args)))
     except BaseException:
         queue.put(("error", traceback.format_exc()))
         raise
 
 
 class CpuReferences:
-    """cpu_references(N) in a worker process, started at once, so that the
-    CPU's plain route (minutes at N = 1e5) runs beside the card's phases."""
+    """``fn(*args)`` in a worker process on the CPU, started at once, so
+    that the plain versions (minutes at N = 1e5) run beside the card's
+    phases.  ``fn`` is a function of this module that returns numpy
+    arrays (in tuples and dicts)."""
 
-    def __init__(self, N):
+    def __init__(self, fn, *args):
         ctx = multiprocessing.get_context("spawn")
         self._queue = ctx.Queue()
         self._proc = ctx.Process(target=_cpu_references_worker,
-                                 args=(self._queue, N), daemon=True)
+                                 args=(self._queue, fn, args), daemon=True)
         self._proc.start()
         self._result = None
 
@@ -2545,9 +2812,9 @@ def part_name(name):
     return (m[1] if m else name[:60]) + (f"<{width[1]}, {width[2]}>" if width else "")
 
 
-def profile_calls(fn, J, n=3):
+def profile_calls(fn, J, n=3, host_ops=True):
     """torch.profiler over ``n`` calls of ``fn`` (at width J), after one
-    outside it.  Returns None when the trace holds no device events, else
+    outside it; ``host_ops=False`` traces the device alone.  Returns None when the trace holds no device events, else
     per call: device kernels, device busy and span ms, the idle share,
     (calls, device ms) by kernel, this repository's kernels under the name
     of the wrapper that launched them (:func:`ours`), and by device kernel
@@ -2557,7 +2824,8 @@ def profile_calls(fn, J, n=3):
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CPU] * host_ops + [ProfilerActivity.CUDA]
+    with profile(activities=activities) as prof:
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
@@ -3055,7 +3323,8 @@ def phase_sampler(dev, smi):
     """The fleet sampler on config3's posterior at N = 3e4, float64:
     ``_hmc_segment`` against the CPU's plain route, ``run_hmc`` with
     checkpoints at C = 64 and its resume, C = 1024, and a profile of two
-    post-warmup iterations (kernels K1, K2, K4, K5 through gp_loglik)."""
+    post-warmup iterations (kernels K1, K2, K4, K5 through gp_loglik).
+    Returns the fleet's evals/s at C = 64."""
     t, y = config3_data(SAMPLER_N, dev)
     logpost = config3_logpost(t, y)
     sampler_segment_check(smi, t, y)
@@ -3080,6 +3349,7 @@ def phase_sampler(dev, smi):
             assert (launches[name] >= 1) == (name != "factor_rev"), (name, launches)
         assert len(records) == chunks, records
         assert torch.isfinite(res.samples).all() and torch.isfinite(res.log_prob).all()
+        rate = evals.calls / wall
         eps, T = res.step_size.item(), res.trajectory_length.item()
         assert math.isfinite(eps) and eps > 0 and math.isfinite(T) and T > 0
         s = summary(res.samples)
@@ -3087,7 +3357,7 @@ def phase_sampler(dev, smi):
         log("sampler", f"fleet C = {FLEET_C}, N = {SAMPLER_N}, {total} iterations "
             f"({FLEET_RUN['num_warmup']} warmup), chunks of {FLEET_RUN['chunk_size']}: "
             f"{wall:.2f} s, {evals.calls - 1} leapfrog steps, {evals.calls} gp_loglik "
-            f"evals with the start's ({evals.calls / wall:.2f} "
+            f"evals with the start's ({rate:.2f} "
             f"evals/s inside the sampler, {total / wall:.2f} iterations/s), mean "
             f"accept {res.accept_prob.mean().item():.3f}, divergences "
             f"{int(res.diverging.sum())} of {res.diverging.numel()}, step size "
@@ -3177,7 +3447,7 @@ def phase_sampler(dev, smi):
     if prof is None or one is None:
         log("sampler", "profile: no device events in the trace: not measured; host "
             f"ms per leapfrog step outside gp_loglik {host_ms:.3f} ({smi})")
-        return
+        return rate
     per_step = prof["kernels_per_eval"] / steps
     gp_per_step = one["kernels_per_eval"]
     own_ms = (prof["busy_ms"] - steps * one["busy_ms"]) / steps
@@ -3197,6 +3467,445 @@ def phase_sampler(dev, smi):
     log("sampler", f"one value and gradient at C = {FLEET_C}, N = {SAMPLER_N}: "
         "device time by kernel (top 8): " + "; ".join(
             f"{k} x{c:.0f} {ms:.4f} ms" for k, (c, ms) in top) + f" ({smi})")
+    return rate
+
+
+# ------------------------------------------------------------------ NUTS
+
+# benchmarks/configs.py config2 (:121): a RotationTerm at N = 1e3 (t ~
+# sort(U(0, 50)), seed 123, yerr 0.1; a N(0, 2^2) prior on theta), MAP by
+# L-BFGS, then 4 chains of NUTS at max_depth 8; config4 (:242): Matern32Term
+# + SHOTerm at N = 400 (t ~ sort(U(0, 40)), seed 99, yerr 0.15; a N(PRIOR4,
+# 1) prior), MAP from the prior's mean, 4 chains at max_depth 8.  y is drawn
+# by the port's GaussianProcess.sample from a CPU generator (seeds 11 and
+# 21), so the card and the CPU worker hold the same data.  The runs are cut
+# from 500 + 500 and 400 + 400 transitions to fit the smoke test, config2's
+# chunks from 100 to 60 (two chunks: the resume after the first reruns 20
+# transitions).
+NUTS_C, NUTS_DEPTH = 4, 8
+CONFIG2_RUN = dict(num_warmup=50, num_samples=30, chunk_size=60)
+CONFIG4_RUN = dict(num_warmup=40, num_samples=20)
+THETA2 = np.array([0.0, np.log(3.0), np.log(1.5), 0.0, 0.0])
+PRIOR4 = np.log([1.0, 1.0, 1.0, 6.0, 8.0])
+# the transitions held against the CPU: from near config2's true kernel,
+# each chain with its own step size (trees of 1 to a few tens of leaves)
+NUTS_STEPS = 5
+NUTS_Q0 = np.log([1.0, 3.5, 2.0, 1.0, 0.3 / 0.7])
+NUTS_EPS = np.array([0.03, 0.05, 0.08, 0.12])
+# config3's posterior (phase_sampler's) as a NUTS fleet; 40 warmup
+# transitions, since with 16 the last fast window of the schedule is one
+# transition and freezes each step size near ten times the adapted one
+# (mean accept in chip runs: 0.002 with 16, 0.60 with 32, 0.82 with 40)
+NUTS_FLEET_C, NUTS_FLEET_DEPTH = 64, 6
+NUTS_FLEET_RUN = dict(num_warmup=40, num_samples=6)
+
+
+def cpu64(*values):
+    return tuple(torch.tensor(v, dtype=torch.float64) for v in values)
+
+
+def config2_data():
+    """config2's data on the CPU: (t, y)."""
+    t, = cpu64(np.sort(np.random.default_rng(123).uniform(0, 50, 1000)))
+    true = ct.RotationTerm(**dict(zip(("sigma", "period", "Q0", "dQ", "f"),
+                                      cpu64(1.0, 3.5, 2.0, 1.0, 0.3))))
+    y = ct.GaussianProcess(true, t=t, yerr=0.1, device="cpu").sample(
+        torch.Generator().manual_seed(11))
+    return t, y
+
+
+def config2_logpost(t, y):
+    """config2's batched log-posterior: theta (C, 5) = log[sigma, period,
+    Q0, dQ] and logit f -> (C,)."""
+
+    def logpost(theta):
+        e = theta[:, :4].exp()
+        k = ct.RotationTerm(sigma=e[:, 0], period=e[:, 1], Q0=e[:, 2], dQ=e[:, 3],
+                            f=torch.sigmoid(theta[:, 4]))
+        return ct.gp_loglik(k, t, y, yerr=0.1) - 0.5 * ((theta / 2.0) ** 2).sum(-1)
+
+    return logpost
+
+
+def config4_data():
+    """config4's data on the CPU: (t, y)."""
+    t, = cpu64(np.sort(np.random.default_rng(99).uniform(0, 40, 400)))
+    s1, r1, s2, r2, tau = cpu64(0.8, 0.9, 1.0, 8.0, 12.0)
+    true = ct.Matern32Term(sigma=s1, rho=r1) + ct.SHOTerm(sigma=s2, rho=r2, tau=tau)
+    y = ct.GaussianProcess(true, t=t, yerr=0.15, device="cpu").sample(
+        torch.Generator().manual_seed(21))
+    return t, y
+
+
+def config4_logpost(t, y):
+    """config4's batched log-posterior: theta (C, 5) = log[sigma, rho] of
+    the Matern-3/2 term and log[sigma, rho, tau] of the SHOTerm -> (C,)."""
+    mu = torch.tensor(PRIOR4, device=t.device)
+
+    def logpost(theta):
+        e = theta.exp()
+        k = ct.Matern32Term(sigma=e[:, 0], rho=e[:, 1]) + ct.SHOTerm(
+            sigma=e[:, 2], rho=e[:, 3], tau=e[:, 4])
+        return ct.gp_loglik(k, t, y, yerr=0.15) - 0.5 * ((theta - mu) ** 2).sum(-1)
+
+    return logpost
+
+
+def nuts_transitions(t, y):
+    """NUTS_STEPS transitions of config2's posterior on t's device (C = 4,
+    max_depth 8, a unit metric), from NUTS_Q0 with the step sizes NUTS_EPS,
+    on draws from numpy (seed 11): per transition (q, logp, accept_prob,
+    energy, num_steps, diverging, turning) as numpy, and the kernel's
+    counts."""
+    dev = t.device
+    logpost = config2_logpost(t, y)
+    rng = np.random.default_rng(11)
+    q = torch.tensor(NUTS_Q0 + 0.01 * rng.normal(size=(NUTS_C, 5)), device=dev)
+    eps = torch.tensor(NUTS_EPS, device=dev)
+    inv_mass = torch.ones((NUTS_C, 5), dtype=torch.float64, device=dev)
+    pot_grad, rows, counts = None, [], {}
+    for _ in range(NUTS_STEPS):
+        draws = nuts.NUTSDraws(*(torch.tensor(x, device=dev) for x in (
+            rng.normal(size=(NUTS_C, 5)),
+            rng.choice([-1.0, 1.0], size=(NUTS_C, NUTS_DEPTH)),
+            rng.uniform(size=(NUTS_C, 2**NUTS_DEPTH - 1)),
+            rng.uniform(size=(NUTS_C, NUTS_DEPTH)))))
+        q, logp, info, g = nuts.nuts_kernel(logpost, q, draws, eps, inv_mass,
+                                            max_depth=NUTS_DEPTH, pot_and_grad=pot_grad,
+                                            counts=counts)
+        pot_grad = (-logp, g)
+        rows.append(as_numpy((q, logp, info.accept_prob, info.energy,
+                              info.num_steps, info.diverging, info.turning)))
+    return rows, counts
+
+
+def nuts_references():
+    """:func:`nuts_transitions` on the CPU's plain route."""
+    return nuts_transitions(*config2_data())
+
+
+def fleet_evaluations(num_steps, D):
+    """The evaluations of the vmapped loops of the JAX package for one
+    transition from the chains' leapfrog steps (the start's value and
+    gradient given): per doubling the most leaves any chain takes."""
+    n = np.asarray(num_steps)[:, None]
+    return int(np.clip(n - (2 ** np.arange(D) - 1), 0, 2 ** np.arange(D)).max(0).sum())
+
+
+class TransitionLog:
+    """In place of ``sampler.nuts_kernel``: each transition's counts and
+    its chains' leapfrog steps (left on the device until the run ends)."""
+
+    def __init__(self):
+        self.counts, self.steps = [], []
+
+    def __call__(self, *args, **kwargs):
+        kwargs["counts"] = counts = {}
+        out = nuts.nuts_kernel(*args, **kwargs)
+        self.counts.append(counts)
+        self.steps.append(out[2].num_steps)
+        return out
+
+
+@contextmanager
+def syncs_counted(module, name):
+    """Count the calls of ``module.name`` that torch's CUDA sync debug mode
+    flags as synchronizing (a host read or wait inside the call)."""
+    import warnings
+
+    fn, box = getattr(module, name), {"calls": 0, "syncs": 0}
+
+    def wrapped(*args, **kwargs):
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                out = fn(*args, **kwargs)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        box["calls"] += 1
+        box["syncs"] += sum("synchroniz" in str(w.message) for w in caught)
+        return out
+
+    with patched(module, name, wrapped):
+        yield box
+
+
+def nuts_run(logpost, init, dev, C, D, run, **kw):
+    """run_nuts over C chains at max_depth D from ``init`` (generator
+    seeded 0), the log-density's calls counted, each transition logged."""
+    counted, transitions = CountedCalls(logpost), TransitionLog()
+    with patched(sampler, "nuts_kernel", transitions):
+        torch.cuda.synchronize()
+        began = time.perf_counter()
+        res = run_nuts(counted, torch.as_tensor(init, device=dev),
+                       torch.Generator(dev).manual_seed(0), num_chains=C,
+                       max_depth=D, **run, **kw)
+        torch.cuda.synchronize()
+    return res, counted, transitions, time.perf_counter() - began
+
+
+def report_nuts_run(label, res, counted, transitions, wall, D, launches, smi):
+    """Log a run's rates, tree sizes, host reads, adaptation and ESS, and
+    hold each transition's evaluations to the vmapped loops' count."""
+    steps = torch.stack(transitions.steps).cpu().numpy()  # (T, C)
+    evals = np.array([c["evaluations"] for c in transitions.counts])
+    reads = np.array([c["host_reads"] for c in transitions.counts])
+    doublings = np.array([c["doublings"] for c in transitions.counts])
+    want = np.array([fleet_evaluations(s, D) for s in steps])
+    assert np.array_equal(evals, want), (evals, want)
+    assert np.all(reads <= evals + doublings), (reads, evals, doublings)
+    T = len(evals)
+    assert torch.isfinite(res.samples).all() and torch.isfinite(res.log_prob).all()
+    eps = res.step_size.cpu().numpy()
+    assert np.all(np.isfinite(eps) & (eps > 0)), eps
+    s = summary(res.samples)
+    ess, rhat = s["ess"].cpu(), s["rhat"].cpu()
+    log("nuts", f"{label}: {T} transitions in {wall:.2f} s, {counted.calls} "
+        f"gp_loglik evals (the start's and the step-size search's included): "
+        f"{counted.calls / wall:.2f} evals/s, {T / wall:.2f} transitions/s; leapfrog "
+        f"steps a chain and transition mean {steps.mean():.2f}, max {steps.max()}; "
+        f"the fleet's evaluations a transition {evals.mean():.2f} (equal to the "
+        f"vmapped loops' count in every transition); host reads a transition "
+        f"{reads.mean():.2f} (max {reads.max()}, doublings {doublings.mean():.2f}) "
+        f"({smi})")
+    log("nuts", f"{label}: draws {tuple(res.samples.shape)}, mean accept "
+        f"{res.accept_prob.mean().item():.3f}, divergences {int(res.diverging.sum())} "
+        f"of {res.diverging.numel()}, step sizes {np.array2string(eps, precision=4)}; "
+        f"ESS min {ess.min().item():.1f} mean {ess.mean().item():.1f}, min-ESS/s "
+        f"{ess.min().item() / wall:.2f}, split R-hat max {rhat.max().item():.3f}; "
+        "launches per eval " + ", ".join(
+            f"{k} {launches[k] / counted.calls:.2f}" for k in SAMPLER_KERNELS)
+        + f" ({smi})")
+    for k in SAMPLER_KERNELS:
+        assert launches[k] >= 1, (label, k, launches)
+
+
+def phase_nuts(dev, smi, nuts_refs, hmc_rate):
+    """NUTS on the card (kernels K1, K2, K4, K5 through gp_loglik, J = 4):
+    five transitions of config2's posterior against the CPU's plain route
+    (1e-9; steps, divergences and U-turns equal), with the synchronizing
+    calls inside gp_loglik's value and gradient counted; config2 by MAP
+    then run_nuts in chunks with a checkpoint and its bitwise resume;
+    config4 likewise, shorter; config3's posterior as a fleet of 64 chains
+    beside ``hmc_rate``, run_hmc's evals/s on the same posterior and chains
+    in :func:`phase_sampler`; a profile of two of the fleet's transitions."""
+    began = time.perf_counter()
+
+    def lap(step):
+        nonlocal began
+        log("time", f"phase_nuts {step}: {time.perf_counter() - began:.1f} s")
+        began = time.perf_counter()
+
+    # step 1: transitions against the CPU
+    t2, y2 = (x.to(dev) for x in config2_data())
+    with syncs_counted(nuts, "_potential_and_grad") as syncs:
+        card_rows, counts = nuts_transitions(t2, y2)
+    cpu_rows, _ = nuts_refs.get()
+    worst = 0.0
+    for i, (card, cpu) in enumerate(zip(card_rows, cpu_rows)):
+        for name, got, ref in zip(("num_steps", "diverging", "turning"), card[4:], cpu[4:]):
+            assert np.array_equal(got, ref), (i, name, got, ref)
+        for got, ref in zip(card[:4], cpu[:4]):
+            worst = max(worst, scaled_err(torch.from_numpy(got), torch.from_numpy(ref)))
+    log("nuts", f"config2, C = {NUTS_C}, max_depth {NUTS_DEPTH}, {NUTS_STEPS} "
+        f"transitions: leapfrog steps {[r[4].tolist() for r in card_rows]}, "
+        f"diverging {sum(int(r[5].sum()) for r in card_rows)}, U-turns "
+        f"{sum(int(r[6].sum()) for r in card_rows)}; card against the CPU route: "
+        f"worst error {worst:.2e} (tol {SAMPLER_RTOL:g}), integers equal; "
+        f"{counts['evaluations']} evaluations, {counts['host_reads']} host reads, "
+        f"{counts['doublings']} doublings; synchronizing calls inside gp_loglik's "
+        f"value and gradient: {syncs['syncs']} in {syncs['calls']} ({smi})")
+    assert worst < SAMPLER_RTOL, worst
+    lap("transitions against the CPU")
+
+    # step 2: config2, MAP then run_nuts in chunks, stopped and resumed
+    logpost2 = config2_logpost(t2, y2)
+    map_began = time.perf_counter()
+    fit = fit_map(logpost2, torch.tensor(THETA2, device=dev), num_steps=300)
+    map_s = time.perf_counter() - map_began
+    assert torch.isfinite(fit.params).all() and math.isfinite(fit.log_prob.item())
+    log("nuts", f"config2: MAP by L-BFGS, 300 steps, {map_s:.2f} s, log posterior "
+        f"{fit.log_prob.item():.3f} at {np.round(fit.params.cpu().numpy(), 4).tolist()} "
+        f"({smi})")
+    total = CONFIG2_RUN["num_warmup"] + CONFIG2_RUN["num_samples"]
+    chunks = -(-total // CONFIG2_RUN["chunk_size"])
+    with tempfile.TemporaryDirectory() as tmp:
+        reset_launches()
+        full = CheckpointManager(f"{tmp}/full", max_to_keep=chunks)
+        with sampling_monitor(log_every=0) as (emit, records):
+            res, evals, transitions, wall = nuts_run(
+                logpost2, fit.params, dev, NUTS_C, NUTS_DEPTH, CONFIG2_RUN,
+                checkpoint=full, monitor=emit, on_retry=refuse_retry)
+        assert len(records) == chunks, records
+        report_nuts_run(f"config2, N = 1000, C = {NUTS_C}, max_depth {NUTS_DEPTH}, "
+                        f"{CONFIG2_RUN}", res, evals, transitions, wall, NUTS_DEPTH,
+                        dict(_build.LAUNCHES), smi)
+        # a run stopped after its first chunk leaves that chunk's checkpoint,
+        # the one this run wrote: resume from a copy of it
+        resume = CheckpointManager(f"{tmp}/resume")
+        shutil.copy(full._path(0), resume._path(0))
+        again, _, _, wall2 = nuts_run(logpost2, fit.params, dev, NUTS_C, NUTS_DEPTH,
+                                      CONFIG2_RUN, checkpoint=resume,
+                                      on_retry=refuse_retry)
+        same = {name: torch.equal(getattr(again, name), getattr(res, name))
+                for name in res._fields}
+        log("nuts", f"config2: resume after chunk 1 of {chunks}: bitwise equal to "
+            f"the run without the stop: {same} (resumed part {wall2:.2f} s) ({smi})")
+        assert all(same.values()), same
+    lap("config2 with its resume")
+
+    # step 3: config4
+    t4, y4 = (x.to(dev) for x in config4_data())
+    logpost4 = config4_logpost(t4, y4)
+    fit4 = fit_map(logpost4, torch.tensor(PRIOR4, device=dev), num_steps=300)
+    assert torch.isfinite(fit4.params).all()
+    reset_launches()
+    res4, evals4, transitions4, wall4 = nuts_run(logpost4, fit4.params, dev, NUTS_C,
+                                                 NUTS_DEPTH, CONFIG4_RUN,
+                                                 on_retry=refuse_retry)
+    report_nuts_run(f"config4, N = 400, C = {NUTS_C}, max_depth {NUTS_DEPTH}, "
+                    f"{CONFIG4_RUN}", res4, evals4, transitions4, wall4, NUTS_DEPTH,
+                    dict(_build.LAUNCHES), smi)
+    lap("config4")
+
+    # step 4: config3's posterior as a fleet, beside run_hmc
+    t3, y3 = config3_data(SAMPLER_N, dev)
+    logpost3 = config3_logpost(t3, y3)
+    reset_launches()
+    fleet, evals3, transitions3, wall3 = nuts_run(
+        logpost3, THETA3, dev, NUTS_FLEET_C, NUTS_FLEET_DEPTH, NUTS_FLEET_RUN,
+        on_retry=refuse_retry)
+    report_nuts_run(f"fleet, config3's posterior, N = {SAMPLER_N}, C = {NUTS_FLEET_C}, "
+                    f"max_depth {NUTS_FLEET_DEPTH}, {NUTS_FLEET_RUN}", fleet, evals3,
+                    transitions3, wall3, NUTS_FLEET_DEPTH, dict(_build.LAUNCHES), smi)
+    log("nuts", f"fleet C = {NUTS_FLEET_C}: run_nuts {evals3.calls / wall3:.2f} "
+        f"evals/s beside run_hmc's {hmc_rate:.2f} in this process (phase_sampler's "
+        f"fleet, {FLEET_RUN}) ({smi})")
+    lap("fleet")
+
+    # step 5: two of the fleet's transitions, profiled
+    q = fleet.samples[:, -1].contiguous()
+    eps, inv_mass = fleet.step_size, fleet.inv_mass
+    pot_grad = hmc._potential_and_grad(logpost3, q)
+    gen = torch.Generator(dev).manual_seed(1)
+    draws = [nuts.draw_nuts(gen, NUTS_FLEET_C, 5, NUTS_FLEET_DEPTH) for _ in range(2)]
+
+    def two_transitions(counts=None):
+        qq, pg = q, pot_grad
+        for d in draws:
+            qq, logp, _, g = nuts.nuts_kernel(logpost3, qq, d, eps, inv_mass,
+                                              max_depth=NUTS_FLEET_DEPTH,
+                                              pot_and_grad=pg, counts=counts)
+            pg = (-logp, g)
+        return qq
+
+    # the host's time outside the value and gradient, then the profile
+    counts, walls, plain = {}, {}, nuts._potential_and_grad
+    for waited in (False, True):
+        def value_and_gradient(*args, _waited=waited):
+            out = plain(*args)
+            if _waited:
+                torch.cuda.synchronize()
+            return out
+
+        grads = CountedCalls(value_and_gradient)
+        with patched(nuts, "_potential_and_grad", grads):
+            torch.cuda.synchronize()
+            run_began = time.perf_counter()
+            two_transitions(None if waited else counts)
+            torch.cuda.synchronize()
+            walls[waited] = (time.perf_counter() - run_began, grads.seconds)
+        steps = counts["evaluations"]
+        assert grads.calls == steps
+    host_ms = 1e3 * (walls[True][0] - walls[True][1]) / steps
+    # the trace of the device's kernels alone: tracing the host's ops too
+    # took 49.5 s against 25.9 s for these some 85000 kernels (H100 80GB
+    # HBM3, 700 W)
+    prof = profile_calls(two_transitions, 4, n=1, host_ops=False)
+    one = profile_calls(lambda: hmc._potential_and_grad(logpost3, q), 4, n=3,
+                        host_ops=False)
+    lap("profile")
+    log("nuts", f"profile, C = {NUTS_FLEET_C}, 2 transitions, {steps} leapfrog steps "
+        f"of the fleet, {counts['host_reads']} host reads: without the profiler "
+        f"{1e3 * walls[False][0] / steps:.3f} ms a step; with each value and "
+        f"gradient waited for {1e3 * walls[True][0] / steps:.3f}, of which "
+        f"{host_ms:.3f} ms on the host outside gp_loglik's value and gradient ({smi})")
+    if prof is None or one is None:
+        log("nuts", f"profile: no device events in the trace: not measured ({smi})")
+        return
+    per_step = prof["kernels_per_eval"] / steps
+    gp_per_step = one["kernels_per_eval"]
+    own_ms = (prof["busy_ms"] - steps * one["busy_ms"]) / steps
+    log("nuts", f"profile, C = {NUTS_FLEET_C}: {prof['kernels_per_eval']:.0f} device "
+        f"kernels ({per_step:.1f} a step: gp_loglik's value and gradient "
+        f"{gp_per_step:.1f}, NUTS's own {per_step - gp_per_step:.1f}), device busy "
+        f"{prof['busy_ms']:.3f} ms of a {prof['span_ms']:.3f} ms span (idle share "
+        f"{prof['idle_share']:.3f}, under the profiler; NUTS's own {own_ms:.4f} ms "
+        f"a step); one value and gradient alone: busy {one['busy_ms']:.3f} ms, idle "
+        f"share {one['idle_share']:.3f} ({smi})")
+
+
+# ------------------------------------------------------------ the terms
+
+# gp_loglik through the term algebra on bench.py's data at N = 1e5, against
+# the CPU's plain route in a worker: a product of two SHOTerms (J = 4, the
+# fused path), config2's RotationTerm times an SHOTerm (J = 8, the general
+# kernels) and a boxcar convolution of bench.py's SHOTerm (J = 2)
+TERMS_N = N_MAIN
+TERMS_MODELS = {
+    "SHOTerm x SHOTerm (J = 4)": (
+        lambda th: sho(th[..., :3]) * ct.SHOTerm(sigma=th[..., 3].exp(),
+                                                 rho=th[..., 4].exp(), Q=2.0),
+        np.log([1.0, 5.0, 3.0, 0.8, 20.0]),
+        ("kalman_fwd", "solve_rev", "frev_maps", "frev_states")),
+    "RotationTerm x SHOTerm (J = 8)": (
+        lambda th: rotation(th) * ct.SHOTerm(sigma=1.0, rho=30.0, tau=60.0),
+        THETA_ROT, ("factor_fwd", "sweep_fwd", "factor_bwd", "sweep_bwd")),
+    "TermConvolution of an SHOTerm (J = 2)": (
+        lambda th: ct.TermConvolution(sho(th), 0.5), THETA0,
+        ("kalman_fwd", "solve_rev", "factor_rev")),
+}
+
+
+def terms_references(N):
+    """gp_loglik's value and theta-gradient for each of TERMS_MODELS on
+    bench.py's data at N rows, the CPU's plain route in float64, and the
+    seconds of each."""
+    t, y = bench_data(N, "cpu", torch.float64)
+    out = {}
+    for label, (model, theta, _) in TERMS_MODELS.items():
+        began = time.perf_counter()
+        v, g = value_and_grad(torch.tensor(theta), t, y, model)
+        out[label] = (v.numpy(), g.numpy(), time.perf_counter() - began)
+    return out
+
+
+def phase_terms(dev, smi, terms_refs):
+    """gp_loglik's value and gradient through a product, a wider product
+    and a convolution on the card, against the CPU's plain route at 1e-9,
+    with the kernels each launches."""
+    t, y = bench_data(TERMS_N, dev, torch.float64)
+    refs = terms_refs.get()
+    for label, (model, theta, kernels) in TERMS_MODELS.items():
+        theta = torch.tensor(theta, device=dev)
+        value_and_grad(theta, t, y, model)
+        reset_launches()
+        torch.cuda.synchronize()
+        began = time.perf_counter()
+        v, g = value_and_grad(theta, t, y, model)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - began)
+        launches = {k: n for k, n in _build.LAUNCHES.items() if n}
+        v_ref, g_ref, cpu_s = refs[label]
+        ev = scaled_err(v, torch.from_numpy(v_ref))
+        eg = scaled_err(g, torch.from_numpy(g_ref))
+        log("terms", f"{label}, N = {TERMS_N}, float64: value and gradient "
+            f"{ms:.2f} ms on the card (the CPU route {cpu_s:.1f} s), value err "
+            f"{ev:.2e}, grad err {eg:.2e} (tol 1e-9); launches {launches} ({smi})")
+        assert ev < 1e-9 and eg < 1e-9, (label, ev, eg)
+        for k in kernels:
+            assert launches.get(k, 0) >= 1, (label, k, launches)
 
 
 def main(argv=None):
@@ -3220,35 +3929,51 @@ def main(argv=None):
     smi = phase_device()
     # every phase but the assoc tier's runs the sequential tier
     ct.set_config(backend="scan")
-    refs = CpuReferences(N_MAIN)
+    # the plain references on the CPU, each in a worker started now, or for
+    # the last phases once the general kernels' workers are done
+    refs = CpuReferences(cpu_references, N_MAIN)
+    grid_refs = [CpuReferences(grid_references, Js) for Js in GRID_WORKERS]
+    main_refs = CpuReferences(main_shape_references)
+    workers = [refs, *grid_refs, main_refs]
     try:
         timed(phase_build)
         main_abs, times = timed(phase_kernels, dev)
         timed(phase_frev, dev)
-        for phase in (phase_general_kernels, phase_prefix_kernel,
-                      phase_adjoint_kernels):
-            phase_abs, phase_times = timed(phase, dev)
+        # the assoc tier's kernels first: they need no CPU reference, and
+        # the general kernels' workers run meanwhile
+        for phase, phase_args in (
+                (phase_assoc_kernels, (dev,)),
+                (phase_general_kernels, (dev, grid_refs, main_refs)),
+                (phase_prefix_kernel, (dev,)),
+                (phase_adjoint_kernels, (dev, grid_refs, main_refs))):
+            phase_abs, phase_times = timed(phase, *phase_args)
             main_abs.update(phase_abs)
             times.update(phase_times)
+        for w in (*grid_refs, main_refs):
+            w.stop()
+        nuts_refs = CpuReferences(nuts_references)
+        terms_refs = CpuReferences(terms_references, TERMS_N)
+        workers += [nuts_refs, terms_refs]
         launches = timed(phase_main_path, dev)
         launches4 = timed(phase_main_path_j4, dev)
         launches8 = timed(phase_gp_path, dev, smi, refs)
         launches_train = timed(phase_train_j8, dev, smi, refs)
-        phase_abs, phase_times = timed(phase_assoc_kernels, dev)
-        main_abs.update(phase_abs)
-        times.update(phase_times)
         launches_assoc, ok32 = timed(phase_assoc_path, dev, smi, refs)
-    finally:
         refs.stop()
-    timed(phase_auto_path, dev, smi)
-    timed(phase_crossover, dev, ok32)
-    timed(phase_chains, dev)
-    timed(phase_quiet_failure, dev)
-    timed(phase_steps, dev)
-    timed(phase_profile, dev, "J = 2", sho, THETA0, 2)
-    timed(phase_profile, dev, "J = 4", sho_mixture, THETA4, 4)
-    timed(phase_profile, dev, "J = 8", wide8, THETA0, 8)
-    timed(phase_sampler, dev, smi)
+        timed(phase_auto_path, dev, smi)
+        timed(phase_crossover, dev, ok32)
+        timed(phase_chains, dev)
+        timed(phase_quiet_failure, dev)
+        timed(phase_steps, dev)
+        timed(phase_profile, dev, "J = 2", sho, THETA0, 2)
+        timed(phase_profile, dev, "J = 4", sho_mixture, THETA4, 4)
+        timed(phase_profile, dev, "J = 8", wide8, THETA0, 8)
+        hmc_rate = timed(phase_sampler, dev, smi)
+        timed(phase_nuts, dev, smi, nuts_refs, hmc_rate)
+        timed(phase_terms, dev, smi, terms_refs)
+    finally:
+        for w in workers:
+            w.stop()
     if args.sweep:
         timed(phase_sweep, dev)
         timed(phase_prefix_sweep, dev)
@@ -3264,11 +3989,16 @@ def main(argv=None):
                    affine_prefix=launches8, factor_bwd=launches_train,
                    sweep_bwd=launches_train)
     on_path.update(dict.fromkeys(ASSOC, launches_assoc))
+    # where each plain_ms was taken: the tile ring's plain versions run once,
+    # in a CPU worker; the others on the card
+    plain_on_cpu = ("factor_fwd", "sweep_fwd", "factor_bwd", "sweep_bwd")
     kernels = [
         {"name": name, "route": "cuda", "source": SOURCE[name],
          "replaces": TPU_KERNEL[name], "launches": on_path[name][name],
          "max_abs_err": main_abs[name], "ms": times[name][0],
-         "plain_ms": times[name][1], "bound_ms": times[name][2],
+         "plain_ms": times[name][1],
+         "plain_device": "cpu" if name in plain_on_cpu else "cuda",
+         "bound_ms": times[name][2],
          "bound_by": times[name][3], "library_ms": None}
         for name in on_path
     ]

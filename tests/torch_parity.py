@@ -24,6 +24,14 @@ def spec_from_jax(term):
     name = type(term).__name__
     if name == "TermSum":
         return {"type": name, "terms": [spec_from_jax(t) for t in term.terms]}
+    if name == "TermProduct":
+        return {"type": name,
+                "terms": [spec_from_jax(term.term1), spec_from_jax(term.term2)]}
+    if name == "TermDiff":
+        return {"type": name, "term": spec_from_jax(term.term)}
+    if name == "TermConvolution":
+        return {"type": name, "term": spec_from_jax(term.term),
+                "delta": np.asarray(term.delta)}
     return {
         "type": name,
         "params": {p: np.asarray(getattr(term, p)) for p in term._params},
