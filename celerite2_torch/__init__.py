@@ -8,6 +8,7 @@ the reference.  This package imports neither JAX nor ``celerite2_tpu``.
 from celerite2_torch import models, ops
 from celerite2_torch.citation import CITATION_KEYS, CITATIONS, get_citations
 from celerite2_torch.config import Config, get_config, set_config
+from celerite2_torch.distributions import CeleriteNormal, gp_distribution
 from celerite2_torch.gp import (
     ConditionalDistribution,
     ConstantMean,
@@ -19,6 +20,7 @@ from celerite2_torch.gp import (
     gp_log_likelihood,
     gp_loglik,
     gp_sample,
+    gp_sample_conditional,
 )
 from celerite2_torch.models import terms
 from celerite2_torch.ops import factor_solve
@@ -68,8 +70,21 @@ __all__ = [
     "gp_log_likelihood",
     "gp_loglik",
     "gp_sample",
+    "gp_sample_conditional",
     "factor_solve",
+    "CeleriteNormal",
+    "gp_distribution",
+    "pymc_support",
     "CITATIONS",
     "CITATION_KEYS",
     "get_citations",
 ]
+
+
+def __getattr__(name):
+    # pymc_support imports pytensor where it is installed: only on demand
+    if name == "pymc_support":
+        import importlib
+
+        return importlib.import_module("celerite2_torch.pymc_support")
+    raise AttributeError(f"module 'celerite2_torch' has no attribute {name!r}")

@@ -43,7 +43,13 @@ Then NUTS (``inference.run_nuts``): five transitions of config2's
 posterior against the CPU's plain route, configs 2 and 4 after their MAP
 (a checkpoint's bitwise resume), config3's posterior as a fleet of 64
 chains beside ``run_hmc``, and a profile of two transitions; and
-``gp_loglik`` through products and a convolution of terms.  The plain
+``gp_loglik`` through products and a convolution of terms.  Last, the
+posterior-predictive draws under ``backend="auto"``: ``sample_pathwise`` at
+N = 100,000 with 10,000 targets for the J = 4 and J = 8 models against the
+CPU route, the exact law of a component conditional through the Jacobian
+of its draws, ``gp_sample_conditional`` over a fleet of 64 posterior states
+against its chains' one-system calls, and the adapters (``CeleriteNormal``,
+the pymc cores).  The plain
 references of the CPU run in worker processes started at launch.  K1 to
 K5 are also held at the edges of their blocks and tiles and
 in float32, K1 on rows that are not positive definite; K4 and K5 are timed
@@ -3447,7 +3453,7 @@ def phase_sampler(dev, smi):
     if prof is None or one is None:
         log("sampler", "profile: no device events in the trace: not measured; host "
             f"ms per leapfrog step outside gp_loglik {host_ms:.3f} ({smi})")
-        return rate
+        return rate, res.samples[:, -1]
     per_step = prof["kernels_per_eval"] / steps
     gp_per_step = one["kernels_per_eval"]
     own_ms = (prof["busy_ms"] - steps * one["busy_ms"]) / steps
@@ -3467,7 +3473,7 @@ def phase_sampler(dev, smi):
     log("sampler", f"one value and gradient at C = {FLEET_C}, N = {SAMPLER_N}: "
         "device time by kernel (top 8): " + "; ".join(
             f"{k} x{c:.0f} {ms:.4f} ms" for k, (c, ms) in top) + f" ({smi})")
-    return rate
+    return rate, res.samples[:, -1]
 
 
 # ------------------------------------------------------------------ NUTS
@@ -3908,6 +3914,302 @@ def phase_terms(dev, smi, terms_refs):
             assert launches.get(k, 0) >= 1, (label, k, launches)
 
 
+# ---------------------------------------------- posterior-predictive draws
+
+# (a) the README's quick start at full width, under backend="auto": bench.py's
+# data at N = 1e5 with gp_data's M = 1e4 targets, config5's J = 4 mixture at
+# THETA4 (32 draws) and wide8 at THETA0 (J = 8, 8 draws), against the CPU
+# route in a worker on the same normals (a CPU generator seeded
+# PATHWISE_SEED); (c) the posterior-predictive fleet: config3's posterior
+# at N = 3e4, one state for each of phase_sampler's last 64 draws, M = 1e3
+# targets, 8 draws a chain
+PATHWISE_MODELS = {"J=4": (sho_mixture, THETA4, 32), "J=8": (wide8, THETA0, 8)}
+PATHWISE_SEED = 3
+PATHWISE_RTOL = 1e-9
+# The joint prior has no observational diagonal: on this data its pivots
+# fall below float64's resolution (ROADMAP C8), so the draws without a
+# jitter are reported, and the card is held to the CPU route at 1e-9 on the
+# joint prior jittered where a float64 recursion resolves it: 1e-7 at
+# J = 4, and 1e-2 at J = 8, whose near-critical Q = 0.5 term amplifies
+# rounding even under the observational noise (the GP path's 1e-9).  The
+# CPU worker measures its own prior draws against long double at both.
+PATHWISE_JITTER = {"J=4": 1e-7, "J=8": 1e-2}
+# the kernels of a pathwise draw on each tier (the rectangular products'
+# affine_prefix on both)
+TIER_KERNELS = {"assoc": ("riccati_prefix", "mat_affine_prefix", "affine_prefix"),
+                "scan": ("factor_fwd", "sweep_fwd", "affine_prefix")}
+PREDICTIVE_M, PREDICTIVE_DRAWS = 1000, 8
+
+
+def synced_seconds(fn):
+    """``fn()`` and its seconds on the host clock, the card synchronized
+    before and after."""
+    torch.cuda.synchronize()
+    began = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - began
+
+
+def pathwise_conditional(label, t, y, t_new):
+    """The quick start's conditional of model ``label`` on the device of
+    ``t``: ``(cond, its number of draws)``."""
+    model, theta, draws = PATHWISE_MODELS[label]
+    gp = ct.GaussianProcess(model(t.new_tensor(theta)), t, yerr=0.25, mean=0.1)
+    return gp.condition(y, t=t_new), draws
+
+
+def longdouble_prior_draw(t, c, a, U, V, Z):
+    """L sqrt(d) Z by the factor's and the lower matmul's row recursions in
+    numpy's long double, rounded to float64 (one system; None where long
+    double is no wider than float64)."""
+    ld = np.longdouble
+    if np.finfo(ld).eps >= np.finfo(np.float64).eps:
+        return None
+    t, c, a, U, V, Z = (x.numpy().astype(ld) for x in (t, c, a, U, V, Z))
+    J, K = U.shape[1], Z.shape[1]
+    S, F = np.zeros((J, J), ld), np.zeros((J, K), ld)
+    d, w, x = ld(0), np.zeros(J, ld), np.zeros(K, ld)
+    out = np.empty(Z.shape, ld)
+    for n in range(len(t)):
+        p = np.exp(-c * (t[n] - t[n - 1])) if n else np.zeros(J, ld)
+        S = (S + d * np.outer(w, w)) * p[:, None] * p[None, :]
+        F = p[:, None] * (F + np.outer(w, x))
+        tmp = S @ U[n]
+        d = a[n] - U[n] @ tmp
+        w = (V[n] - tmp) / (d if d > 0 else ld(1))
+        x = np.sqrt(max(d, ld(0))) * Z[n]
+        out[n] = x + U[n] @ F
+    return torch.from_numpy(out.astype(np.float64))
+
+
+def prior_draw_error(cond, reg):
+    """The CPU route's draw of the joint prior (two columns of normals)
+    against long double, relative to its largest entry, and the smallest
+    pivot over the variance k(0)."""
+    from celerite2_torch import gp as tgp
+
+    st = cond.gp.state
+    t_u, _, _ = tgp._union(st.t, cond.t)
+    diag = torch.zeros_like(t_u) + (reg or 0.0)
+    t_u, c, a, U, V = tgp._system(cond.gp.kernel, t_u, diag)
+    Z = torch.randn(t_u.shape[0], 2, generator=torch.Generator().manual_seed(5),
+                    dtype=torch.float64)
+    d, W = ct.ops.factor(t_u, c, a, U, V)
+    want = longdouble_prior_draw(t_u, c, a, U, V, Z)
+    err = math.nan if want is None else scaled_err(tgp._dot_tril(t_u, c, U, d, W, Z), want)
+    return err, (d.min() / a.max()).item()
+
+
+def pathwise_references():
+    """(a)'s draws of each model on the CPU's plain route, as numpy, without
+    and with its jitter, with the seconds of the first and its compute, and
+    for each the prior draw's error against long double and its smallest
+    pivot."""
+    t, y, t_new, _ = gp_data(N_MAIN)
+    out = {}
+    for label in PATHWISE_MODELS:
+        began = time.perf_counter()
+        cond, S = pathwise_conditional(label, *map(torch.tensor, (t, y, t_new)))
+        draws, seconds, prior = {}, None, {}
+        for reg in (None, PATHWISE_JITTER[label]):
+            draws[reg] = cond.sample_pathwise(
+                torch.Generator().manual_seed(PATHWISE_SEED), shape=(S,),
+                regularize=reg).numpy()
+            seconds = seconds or time.perf_counter() - began
+            prior[reg] = prior_draw_error(cond, reg)
+        out[label] = (draws, seconds, prior)
+    return out
+
+
+def pathwise_quick_start(dev, smi, refs):
+    """(a): sample_pathwise at N = 1e5, M = 1e4 on the card under "auto"
+    against the CPU route on the same normals: without a jitter (reported:
+    the joint prior's pivots fall below float64's resolution, ROADMAP C8)
+    and with the model's PATHWISE_JITTER (held to 1e-9; at J = 4 on both
+    tiers).  Returns the J = 4 GP."""
+    t, y, t_new, _ = gp_data(N_MAIN)
+    t, y, t_new = (torch.tensor(x, device=dev) for x in (t, y, t_new))
+    for label in PATHWISE_MODELS:
+        jitter = PATHWISE_JITTER[label]
+        reset_launches()
+        (cond, S), compute_s = synced_seconds(
+            lambda: pathwise_conditional(label, t, y, t_new))
+        compute_launches = {k: n for k, n in _build.LAUNCHES.items() if n}
+        cond.sample_pathwise(torch.Generator(dev).manual_seed(1), shape=(S,))
+        reset_launches()
+        with count_plain_versions() as plain_calls:
+            _, secs = synced_seconds(lambda: cond.sample_pathwise(
+                torch.Generator(dev).manual_seed(PATHWISE_SEED), shape=(S,)))
+        launches = {k: n for k, n in _build.LAUNCHES.items() if n}
+        log("pathwise", f"{label}, N = {N_MAIN}, M = {t_new.shape[0]}, float64, "
+            f"auto: sample_pathwise(shape=({S},)) {1e3 * secs:.2f} ms with a "
+            f"generator on the card ({S / secs:.1f} draws/s); compute "
+            f"{1e3 * compute_s:.2f} ms; launches a call {launches} (compute's "
+            f"{compute_launches}); plain versions {plain_calls} ({smi})")
+        assert not any(plain_calls.values()), plain_calls
+        joint_tier = dispatch.backend(dev, 1, N_MAIN + t_new.shape[0],
+                                      cond.gp.state.c.shape[-1], torch.float64)
+        for k in TIER_KERNELS[joint_tier]:
+            assert launches.get(k, 0) >= 1, (label, k, launches)
+        # the CPU route's normals: a CPU generator
+        ref_draws, cpu_s, prior = refs.get()[label]
+        tiers = ("auto", "scan") if label == "J=4" else ("auto",)
+        for name in tiers:
+            for reg in (None, jitter):
+                with tier(name):
+                    draws, secs = synced_seconds(lambda: cond.sample_pathwise(
+                        torch.Generator().manual_seed(PATHWISE_SEED), shape=(S,),
+                        regularize=reg))
+                assert draws.device == dev and tuple(draws.shape) == (S, t_new.shape[0])
+                assert torch.isfinite(draws).all()
+                err = scaled_err(draws, torch.from_numpy(ref_draws[reg]))
+                ld_err, pivot = prior[reg]
+                gate = f"tol {PATHWISE_RTOL:g}" if reg else "not gated: ROADMAP C8"
+                log("pathwise", f"{label}, {name}, regularize={reg}: {1e3 * secs:.2f} "
+                    f"ms with a CPU generator; against the CPU route ({cpu_s:.1f} s) "
+                    f"{err:.2e} ({gate}); the CPU route's joint prior draw against "
+                    f"long double {ld_err:.2e}, its smallest pivot {pivot:.2e} of "
+                    f"the variance ({smi})")
+                if reg is not None:
+                    assert err < PATHWISE_RTOL, (label, name, err)
+        if label == "J=4":
+            assert compute_launches.get("riccati_prefix", 0) >= 1, compute_launches
+            gp4 = cond.gp
+    return gp4
+
+
+def pathwise_exact_law(dev, smi):
+    """(b): the Jacobian A of _pathwise_transform of a component
+    conditional (N = 300, M = 20) on the card: A A^T equals covariance, the
+    map at zero noise the mean.  Returns the small problem's data."""
+    rng = np.random.default_rng(11)
+    N, M = 300, 20
+    t = np.sort(rng.uniform(0, 30, N))
+    y = np.sin(0.7 * t) + 0.25 * rng.normal(size=N)
+    t_new = np.linspace(-1.0, 31.0, M)
+    kernel = sho_mixture(torch.tensor(THETA4, device=dev))
+    gp = ct.GaussianProcess(kernel, torch.tensor(t, device=dev), yerr=0.25, mean=0.1)
+    cond = gp.condition(y, t=t_new, kernel=kernel.terms[0])
+
+    def draw(noise):
+        z, zc, eps = noise[: N + M], noise[N + M: 2 * N + M], noise[2 * N + M:]
+        return cond._pathwise_transform(z, eps, z_comp=zc)
+
+    zero = torch.zeros(3 * N + M, dtype=torch.float64, device=dev)
+    reset_launches()
+    A, secs = synced_seconds(lambda: torch.autograd.functional.jacobian(draw, zero))
+    launches = {k: n for k, n in _build.LAUNCHES.items() if n}
+    mean, cov = cond.mean, cond.covariance
+    at_zero = draw(zero)
+    cov_err = ((A @ A.T - cov).abs() - 1e-6 * cov.abs()).max().item()
+    mean_err = ((at_zero - mean).abs() - 1e-7 * mean.abs()).max().item()
+    log("pathwise", f"exact law, component conditional, N = {N}, M = {M}, on the "
+        f"card: Jacobian {tuple(A.shape)} in {secs:.2f} s, launches {launches}; "
+        f"max(|A A^T - cov| - 1e-6 |cov|) = {cov_err:.2e} (tol 1e-8), "
+        f"max(|transform(0) - mean| - 1e-7 |mean|) = {mean_err:.2e} (tol 1e-9) ({smi})")
+    assert A.device == dev and cov_err <= 1e-8 and mean_err <= 1e-9
+    assert launches.get("sweep_bwd", 0) >= 1, launches
+    return t, y, t_new
+
+
+def pathwise_fleet(dev, smi, fleet_theta):
+    """(c): one gp_compute over 64 posterior draws of config3 and one
+    gp_sample_conditional, (64, 8, 1000), against chains 0 and 63's
+    one-system calls on the card (1e-12)."""
+    from celerite2_torch import gp as tgp
+
+    t, y = config3_data(SAMPLER_N, dev)
+    theta = fleet_theta.to(dev)
+    C, M, S = theta.shape[0], PREDICTIVE_M, PREDICTIVE_DRAWS
+    t_new = torch.linspace(0.0, 300.0, M, dtype=torch.float64, device=dev)
+    kernel = sho_mixture(theta)
+    state, compute_s = synced_seconds(lambda: ct.gp_compute(kernel, t, yerr=0.2))
+    ct.gp_sample_conditional(state, kernel, y, t_new, torch.Generator(dev),
+                             shape=(S,))
+    reset_launches()
+    draws, secs = synced_seconds(lambda: ct.gp_sample_conditional(
+        state, kernel, y, t_new, torch.Generator(dev).manual_seed(7), shape=(S,)))
+    launches = {k: n for k, n in _build.LAUNCHES.items() if n}
+    assert tuple(draws.shape) == (C, S, M) and torch.isfinite(draws).all()
+    assert bool(state.ok.all()), "a posterior draw's system is not positive definite"
+    N = t.shape[0]
+    for k in TIER_KERNELS[dispatch.backend(dev, C, N + M, 4, torch.float64)]:
+        assert launches.get(k, 0) >= 1, (k, launches)
+    # the same normals, drawn in gp_sample_conditional's order
+    g = torch.Generator(dev).manual_seed(7)
+    z = torch.randn(C, S, N + M, generator=g, dtype=torch.float64, device=dev)
+    eps = torch.randn(C, S, N, generator=g, dtype=torch.float64, device=dev)
+    errs = {}
+    for i in (0, C - 1):
+        one_kernel = sho_mixture(theta[i])
+        one = ct.gp_compute(one_kernel, t, yerr=0.2)
+        want = tgp._pathwise_core(one, one_kernel, y, t_new, z[i], eps[i])
+        errs[i] = scaled_err(draws[i], want)
+    log("pathwise", f"fleet: config3's posterior, C = {C}, N = {N}, M = {M}, "
+        f"shape ({S},): gp_compute {1e3 * compute_s:.2f} ms, gp_sample_conditional "
+        f"{1e3 * secs:.2f} ms ({C * S / secs:.1f} draws/s), launches a call "
+        f"{launches}; chains {list(errs)} against their one-system calls "
+        + ", ".join(f"{e:.2e}" for e in errs.values()) + f" (tol 1e-12) ({smi})")
+    assert max(errs.values()) < 1e-12, errs
+
+
+def pathwise_adapters(dev, smi, gp4, small):
+    """(d): CeleriteNormal, LoglikCore (the fused path at J = 4) and
+    ConditionalMomentsCore on the card against the calls they wrap."""
+    from celerite2_torch import pymc_support as pm
+
+    t, y = gp4.state.t, gp_data(N_MAIN)[1]
+    dist = gp4.distribution(torch.Generator(dev).manual_seed(0))
+    ys = t.new_tensor(y)
+    err = scaled_err(dist.log_prob(ys), gp4.log_likelihood(ys))
+    draws = dist.rsample((2,))
+    log("pathwise", f"CeleriteNormal (J = 4, N = {N_MAIN}): log_prob against "
+        f"log_likelihood {err:.2e}; rsample {tuple(draws.shape)} ({smi})")
+    assert err < 1e-12 and tuple(draws.shape) == (2, N_MAIN)
+    assert draws.device == dev and torch.isfinite(draws).all()
+
+    core = pm.LoglikCore(pm.make_gp_loglik_fn(sho_mixture, t.cpu().numpy(), y,
+                                              yerr=0.25))
+    reset_launches()
+    value, (grad,) = core.value(THETA4), core.grad(np.asarray(1.0), THETA4)
+    launches = {k: n for k, n in _build.LAUNCHES.items() if n}
+    want, want_g = value_and_grad(torch.tensor(THETA4, device=dev), t, ys,
+                                  sho_mixture)
+    ev = scaled_err(torch.from_numpy(np.asarray(value)), want)
+    eg = scaled_err(torch.from_numpy(grad), want_g)
+    log("pathwise", f"LoglikCore (J = 4, N = {N_MAIN}): value {ev:.2e}, gradient "
+        f"{eg:.2e} against gp_loglik (tol 1e-12); launches {launches} ({smi})")
+    assert ev < 1e-12 and eg < 1e-12, (ev, eg)
+    for k in SAMPLER_KERNELS:
+        assert launches.get(k, 0) >= 1, (k, launches)
+
+    t_s, y_s, t_new = small
+    moments = pm.ConditionalMomentsCore(sho_mixture, t_s, y_s, t_new=t_new,
+                                        yerr=0.25, mean=0.1)
+    mu, cov = moments.values(THETA4)
+    gp = ct.GaussianProcess(sho_mixture(torch.tensor(THETA4, device=dev)),
+                            torch.tensor(t_s, device=dev), yerr=0.25, mean=0.1)
+    cond = gp.condition(y_s, t=t_new)
+    em = scaled_err(torch.from_numpy(mu), cond.mean)
+    ec = scaled_err(torch.from_numpy(cov), cond.covariance)
+    log("pathwise", f"ConditionalMomentsCore (N = {len(t_s)}, M = {len(t_new)}): mean "
+        f"{em:.2e}, covariance {ec:.2e} against condition() (tol 1e-12) ({smi})")
+    assert em < 1e-12 and ec < 1e-12, (em, ec)
+
+
+def phase_pathwise(dev, smi, refs, fleet_theta):
+    """Posterior-predictive draws under backend="auto", float64: (a) the
+    quick start at N = 1e5, M = 1e4 (J = 4 and 8) against the CPU route,
+    (b) the exact law of a component conditional, (c) the fleet of 64
+    posterior states, (d) the adapters."""
+    with tier("auto"):
+        gp4 = pathwise_quick_start(dev, smi, refs)
+        small = pathwise_exact_law(dev, smi)
+        pathwise_fleet(dev, smi, fleet_theta)
+        pathwise_adapters(dev, smi, gp4, small)
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--sweep", action="store_true",
@@ -3953,7 +4255,8 @@ def main(argv=None):
             w.stop()
         nuts_refs = CpuReferences(nuts_references)
         terms_refs = CpuReferences(terms_references, TERMS_N)
-        workers += [nuts_refs, terms_refs]
+        pathwise_refs = CpuReferences(pathwise_references)
+        workers += [nuts_refs, terms_refs, pathwise_refs]
         launches = timed(phase_main_path, dev)
         launches4 = timed(phase_main_path_j4, dev)
         launches8 = timed(phase_gp_path, dev, smi, refs)
@@ -3968,9 +4271,10 @@ def main(argv=None):
         timed(phase_profile, dev, "J = 2", sho, THETA0, 2)
         timed(phase_profile, dev, "J = 4", sho_mixture, THETA4, 4)
         timed(phase_profile, dev, "J = 8", wide8, THETA0, 8)
-        hmc_rate = timed(phase_sampler, dev, smi)
+        hmc_rate, fleet_theta = timed(phase_sampler, dev, smi)
         timed(phase_nuts, dev, smi, nuts_refs, hmc_rate)
         timed(phase_terms, dev, smi, terms_refs)
+        timed(phase_pathwise, dev, smi, pathwise_refs, fleet_theta)
     finally:
         for w in workers:
             w.stop()

@@ -187,8 +187,18 @@ def test_error_contracts(data):
         gp.log_likelihood(np.stack([y, y], axis=1))
     with pytest.raises(ValueError, match="one-dimensional"):
         gp.condition(y, t=np.stack([t, t]))
+    # a chain-axis kernel gives one state of two systems (the shell stays
+    # one system), each equal to its own one-system state
+    chains = ct.gp_compute(ct.RealTerm(a=t64([1.0, 2.0]), c=t64([0.5, 0.5])), t,
+                           yerr=yerr)
+    assert chains.d.shape == (2, len(t)) and chains.ok.shape == (2,)
+    for i, a in enumerate((1.0, 2.0)):
+        one = ct.gp_compute(ct.RealTerm(a=a, c=0.5), t, yerr=yerr)
+        assert_rel_close(chains.W[i], one.W, 1e-14)
+        np.testing.assert_allclose(chains.log_det[i].item(), one.log_det.item(),
+                                   rtol=1e-14)
     with pytest.raises(ValueError, match="one system"):
-        ct.gp_compute(ct.RealTerm(a=t64([1.0, 2.0]), c=t64([0.5, 0.5])), t)
+        ct.GaussianProcess(ct.RealTerm(a=t64([1.0, 2.0]), c=t64([0.5, 0.5])), t)
 
 
 def test_quiet_nonpd(data):
