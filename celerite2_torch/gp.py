@@ -513,12 +513,17 @@ def gp_sample_conditional(state, kernel, y, t_new, generator=None, *,
 
     ``mean`` (a number, a ``(C,)`` tensor or a callable) is the mean at
     ``t_new``; the training mean is in ``state.mean_value``.
-    ``regularize`` jitters the joint prior's diagonal: needed where
-    ``t_new`` repeats training times, and where the joint prior's pivots
-    fall below float64's resolution (targets a hair from training times, a
-    smooth kernel sampled densely), whose draws lose digits on any tier
-    otherwise.  Component conditionals: pass the
-    component as ``kernel`` and the rest of the kernel as ``complement``.
+    ``regularize`` jitters the joint prior's diagonal, and so biases the
+    draws' covariance by the order of ``regularize``.  Where the joint
+    prior's pivots fall to float64's resolution (targets that repeat
+    training times or lie a hair from them under a smooth kernel), the
+    draws keep their law, but the map from the normals to the draws loses
+    digits, so two routes give different draws from the same normals.
+    Where the factor breaks down (a pivot far below zero, as with a
+    near-critical term sampled densely) the draws are not accurate; the
+    jitter restores them only at a bias of its own.  Component
+    conditionals: pass the component as ``kernel`` and the rest of the
+    kernel as ``complement``.
 
     The normals come from ``generator`` (None: PyTorch's global one) in
     this order: the joint prior's ``z``, the complement's, the noise's
@@ -679,26 +684,21 @@ class ConditionalDistribution:
         draws are exactly ``N(mean, covariance)``, the law of
         :meth:`sample`, at O(N + M) a draw.
 
-        ``regularize`` jitters the joint prior's diagonal: needed where the
-        targets repeat training times (the joint system is singular
-        there).  A component (``kernel=``) conditional draws the joint
+        ``regularize`` jitters the joint prior's diagonal, at a bias of
+        its order in the draws' covariance (see
+        :func:`gp_sample_conditional` for when the draws need it).  A
+        component (``kernel=``) conditional draws the joint
         prior from the component and an independent draw of the rest of
         the kernel at the training times; the rest is derived when the GP
         kernel is a sum holding the component as a summand, else pass
         ``complement=``.  The normals come from ``generator`` in the order
         of :func:`gp_sample_conditional`.
         """
-        st = self.gp._state
-        shape = tuple(shape)
-        N, M = st.t.shape[0], self._xs.shape[0]
-        complement = self._complement(complement)
-        z = _randn(shape + (N + M,), st.t, generator)
-        z_comp = None
-        if complement is not None:
-            z_comp = _randn(shape + (N,), st.t, generator)
-        eps = _randn(shape + (N,), st.t, generator)
-        return self._pathwise_transform(
-            z, eps, regularize=regularize, z_comp=z_comp, complement=complement,
+        return gp_sample_conditional(
+            self.gp._state, self.kernel or self.gp.kernel, self.y, self._xs,
+            generator, shape=shape,
+            mean=self.gp._mean if self.include_mean else 0.0,
+            regularize=regularize, complement=self._complement(complement),
         )
 
 

@@ -142,6 +142,33 @@ def test_singular_joint_prior_without_regularize(data):
     assert_rel_close(got, np.asarray(want), 1e-7)
 
 
+def test_near_duplicate_targets_keep_the_law_in_both_packages(data):
+    """Two targets 1e-7 from training times under a smooth kernel (config5's
+    mixture of two SHOTerms): the joint prior's pivots there fall below
+    float64's resolution, so the map from the normals to the draws is not
+    determined to 1e-10 (the two packages' maps differ by about 5e-5 of
+    their largest entry) while the law is: the map's columns A, read by
+    the affine map at unit normals, give A A^T equal to the covariance in
+    both packages (ROADMAP C8)."""
+    t, yerr, y = data
+    t_new = np.sort(np.concatenate([np.linspace(-0.5, 10.5, M - 2),
+                                    t[[20, 40]] + 1e-7]))
+    jk = jt.SHOTerm(sigma=1.0, rho=1.0, tau=1.0) + jt.SHOTerm(sigma=1.0, rho=1.0, Q=0.3)
+    tk = ct.SHOTerm(sigma=1.0, rho=1.0, tau=1.0) + ct.SHOTerm(sigma=1.0, rho=1.0, Q=0.3)
+    with jax_config(backend="scan"):
+        jcond = JaxGP(jk, t=t, yerr=yerr, mean=1.5).condition(y, t=t_new)
+    cond = ct.GaussianProcess(tk, t, yerr=yerr, mean=1.5).condition(y, t=t_new)
+    cov = cond.covariance.numpy()
+    unit = np.concatenate([np.zeros((1, 2 * N + M)), np.eye(2 * N + M)])
+    got = cond._pathwise_transform(unit[:, :N + M], unit[:, N + M:]).numpy()
+    with jax_config(backend="scan"):
+        want = np.asarray(jax.jit(lambda n: jcond._pathwise_transform(
+            n[:, :N + M], n[:, N + M:]))(jnp.asarray(unit)))
+    for draws in (got, want):
+        A = (draws[1:] - draws[0]).T
+        assert_rel_close(A @ A.T, cov, 1e-12)
+
+
 def test_sample_pathwise_draws_in_order(data):
     """sample_pathwise draws z, then the complement's normals, then eps,
     from its generator: the same seed through _pathwise_transform gives the
