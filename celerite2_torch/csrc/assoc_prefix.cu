@@ -191,15 +191,24 @@ __device__ __forceinline__ RicWarp ric_walks(int N, int L, int NB,
 }
 
 // Copies rows [s TR, (s + 1) TR) of every walk into a tile: p of each row,
-// u, v, a and the chunk's columns of y of the row before it (not for row 0
-// of a chain, whose element is the identity).  Lane j copies row j % TR of
-// the walks j / TR, j / TR + 32 / TR, ...
+// u, v, a and the chunk's columns of y of the row before it.  Row 0 of a
+// chain takes u, v and a of the row given before it (``Pv``: the previous
+// row's a (C), u and v (C, J), the Riccati family only), and without one
+// is the identity.  Lane j copies row j % TR of the walks j / TR,
+// j / TR + 32 / TR, ...
+template <typename T>
+struct RicPrev {
+  const T* a;  // (C), or null: row 0 of a chain is the identity
+  const T* U;  // (C, J)
+  const T* V;  // (C, J)
+};
+
 template <typename T, int J, bool KAL>
 __device__ __forceinline__ void ric_stage(
     T* tile, const T* __restrict__ p, const T* __restrict__ a,
     const T* __restrict__ U, const T* __restrict__ V, const T* __restrict__ Y,
-    int K, int k0, int kc, const long long* start, const int* len,
-    const int* first, int s) {
+    const RicPrev<T>& Pv, int N, int K, int k0, int kc,
+    const long long* start, const int* len, const int* first, int s) {
   using G = Ric<J, KAL>;
   constexpr int PI = G::PITCH;
   const int l = threadIdx.x % G::TR, n = s * G::TR + l;
@@ -210,7 +219,17 @@ __device__ __forceinline__ void ric_stage(
 #pragma unroll
     for (int f = 0; f < J; ++f)
       cp_async_elem(dst + (G::IP + f) * PI, p + r * J + f);
-    if (first[k] + n == 0) continue;
+    if (first[k] + n == 0) {
+      if (KAL || Pv.a == nullptr) continue;
+      const long long c = r / N;
+#pragma unroll
+      for (int f = 0; f < J; ++f) {
+        cp_async_elem(dst + (G::IU + f) * PI, Pv.U + c * J + f);
+        cp_async_elem(dst + (G::IV + f) * PI, Pv.V + c * J + f);
+      }
+      cp_async_elem(dst + G::IA * PI, Pv.a + c);
+      continue;
+    }
 #pragma unroll
     for (int f = 0; f < J; ++f) {
       cp_async_elem(dst + (G::IU + f) * PI, U + (r - 1) * J + f);
@@ -702,21 +721,25 @@ struct RicRegs {
 // tiles (cp.async, one tile ahead of the walk), then row(l, w) for row l of
 // the tile of the lane's walk, in order, and end(s) after the rows of tile
 // s.  A team's shuffles need every lane, so there the rows past a walk's end
-// read as the identity (RicRow), as row 0 of a chain does everywhere.
+// read as the identity (RicRow), as row 0 of a chain does without a
+// previous row.
 template <typename T, int J, bool KAL, class Row, class End>
 __device__ __forceinline__ void ric_over_rows(
     T* tiles, const T* __restrict__ p, const T* __restrict__ a,
     const T* __restrict__ U, const T* __restrict__ V, const T* __restrict__ Y,
-    int N, int K, int L, int k0, int kc, const long long* start,
-    const int* len, const int* first, Row row, End end) {
+    const RicPrev<T>& Pv, int N, int K, int L, int k0, int kc,
+    const long long* start, const int* len, const int* first, Row row,
+    End end) {
   using G = Ric<J, KAL>;
   const int k = threadIdx.x / G::P, mine = len[k], n0 = first[k];
   const int ntiles = (min(L, N) + G::TR - 1) / G::TR;
-  ric_stage<T, J, KAL>(tiles, p, a, U, V, Y, K, k0, kc, start, len, first, 0);
+  const int from = (!KAL && Pv.a != nullptr) ? 0 : 1;  // first live row
+  ric_stage<T, J, KAL>(tiles, p, a, U, V, Y, Pv, N, K, k0, kc, start, len,
+                       first, 0);
   for (int s = 0; s < ntiles; ++s) {
     if (s + 1 < ntiles) {
-      ric_stage<T, J, KAL>(tiles + ((s + 1) & 1) * G::TILE, p, a, U, V, Y, K,
-                           k0, kc, start, len, first, s + 1);
+      ric_stage<T, J, KAL>(tiles + ((s + 1) & 1) * G::TILE, p, a, U, V, Y, Pv,
+                           N, K, k0, kc, start, len, first, s + 1);
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
@@ -728,7 +751,7 @@ __device__ __forceinline__ void ric_over_rows(
     for (int l = 0; l < rows; ++l) {
       const int n = s * G::TR + l;
       row(l, RicRow<T, J, KAL>{tile + l * G::WIN * G::PITCH,
-                               n < mine && n0 + n > 0, kc});
+                               n < mine && n0 + n >= from, kc});
     }
     __syncwarp();
     end(s);
@@ -744,9 +767,9 @@ template <typename T, int J, bool KAL>
 __global__ void __launch_bounds__(32, 1)
     ric_maps_kernel(const T* __restrict__ p, const T* __restrict__ a,
                     const T* __restrict__ U, const T* __restrict__ V,
-                    const T* __restrict__ Y, T* __restrict__ maps,
-                    T* __restrict__ totals, int N, int K, int L, int NB,
-                    int GB) {
+                    const T* __restrict__ Y, RicPrev<T> Pv,
+                    T* __restrict__ maps, T* __restrict__ totals, int N, int K,
+                    int L, int NB, int GB) {
   using G = Ric<J, KAL>;
   constexpr int E = G::E;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -761,7 +784,7 @@ __global__ void __launch_bounds__(32, 1)
   RicMap<T, J, KAL> acc;
   acc.identity(t);
   ric_over_rows<T, J, KAL>(
-      tiles, p, a, U, V, Y, N, K, L, k0, kc, start, len, first,
+      tiles, p, a, U, V, Y, Pv, N, K, L, k0, kc, start, len, first,
       [&](int, const RicRow<T, J, KAL>& row) { acc.step(row, t); },
       [](int) {});
   if constexpr (G::P == 1) {
@@ -799,14 +822,16 @@ __global__ void __launch_bounds__(32, 1)
 
 // (e): the state after every row, from the state entering each block.  At
 // J <= 4 that is ``states`` (C, chunks, GB, ST), the state entering the
-// group (zero when null), carried over ``maps``' prefix of the blocks before
-// it in the group; from J = 8 ``states`` (C, chunks, NB, ST) holds it (zero
-// when null).  S is written by chunk 0 only.
+// group, carried over ``maps``' prefix of the blocks before it in the group;
+// from J = 8 ``states`` (C, chunks, NB, ST) holds it.  Where ``states`` is
+// null, the state entering the chain: ``S0`` (C, J, J) of the Riccati
+// family, or zero.  S is written by chunk 0 only.
 template <typename T, int J, bool KAL>
 __global__ void __launch_bounds__(32, 1)
     ric_apply_kernel(const T* __restrict__ p, const T* __restrict__ a,
                      const T* __restrict__ U, const T* __restrict__ V,
-                     const T* __restrict__ Y, const T* __restrict__ maps,
+                     const T* __restrict__ Y, RicPrev<T> Pv,
+                     const T* __restrict__ S0, const T* __restrict__ maps,
                      const T* __restrict__ states, T* __restrict__ S,
                      T* __restrict__ F, int N, int K, int L, int NB, int GB) {
   using G = Ric<J, KAL>;
@@ -821,24 +846,26 @@ __global__ void __launch_bounds__(32, 1)
   const int lane = threadIdx.x, t = lane % G::P, k = lane / G::P;
   T* Sout = blockIdx.y == 0 ? S : nullptr;
 
+  // the state entering the chain (ST = J^2 without right-hand sides)
+  const T* s0 = (!KAL && S0 != nullptr) ? S0 + w.chain * G::ST : nullptr;
   RicState<T, J, KAL> st;
   if constexpr (G::P == 1) {
     T x[G::ST];
     const T* gs = states != nullptr ? states + (cc * GB + w.group) * G::ST
-                                    : nullptr;
+                                    : s0;
 #pragma unroll
     for (int e = 0; e < G::ST; ++e) x[e] = gs ? gs[e] : T(0);
     if (lane > 0 && len[lane] > 0)
       RicRegs<T, J, KAL>::apply(maps + (cc * NB + block[lane] - 1) * G::E, x);
     st.load(x, 0);
   } else {
-    st.load(states != nullptr && len[k] > 0
-                ? states + (cc * NB + block[k]) * G::ST
-                : nullptr,
+    st.load(states != nullptr
+                ? (len[k] > 0 ? states + (cc * NB + block[k]) * G::ST : nullptr)
+                : s0,
             t);
   }
   ric_over_rows<T, J, KAL>(
-      tiles, p, a, U, V, Y, N, K, L, k0, kc, start, len, first,
+      tiles, p, a, U, V, Y, Pv, N, K, L, k0, kc, start, len, first,
       [&](int l, const RicRow<T, J, KAL>& row) {
         st.step(row, t);
         st.put(out + l * G::ST * G::PITCH + k, t);
@@ -851,15 +878,19 @@ __global__ void __launch_bounds__(32, 1)
 
 // (b) at J <= 4: one thread block a (chain, chunk) over its GB group maps
 // (``totals``), writing the state entering every group, ``gstates``
-// (C, chunks, GB, ST).  Thread t takes the run of groups [t per, (t + 1)
-// per): it composes the run's maps, a Kogge-Stone scan in shared memory (two
-// slots a thread) composes the runs, and the thread carries the state
-// entering its run over the run's maps.
+// (C, chunks, GB, ST), from ``S0`` (C, J, J; zero when null) of the Riccati
+// family.  Thread t takes the run of groups [t per, (t + 1) per): it
+// composes the run's maps, a Kogge-Stone scan in shared memory (two slots a
+// thread) composes the runs, and the thread carries the state entering its
+// run over the run's maps.  With ``total`` the last thread writes the
+// composition of every group's map there (C, chunks, E); with ``gstates``
+// null that is all.
 constexpr int kScanThreads = 128;
 
 template <typename T, int J, bool KAL>
 __global__ void __launch_bounds__(kScanThreads, 1)
     ric_carry_kernel(const T* __restrict__ totals, T* __restrict__ gstates,
+                     const T* __restrict__ S0, T* __restrict__ total,
                      int GB) {
   using X = RicRegs<T, J, KAL>;
   constexpr int E = X::E, ST = X::ST, SL = Ric<J, KAL>::SLOT;
@@ -902,10 +933,15 @@ __global__ void __launch_bounds__(kScanThreads, 1)
     dst = tmp;
   }
 
+  if (total != nullptr && tid == kScanThreads - 1)
+    for (int e = 0; e < E; ++e) total[cc * E + e] = src[tid * SL + e];
+  if (gstates == nullptr) return;
   T st[ST];
-  if (tid == 0) {
+  const T* s0 = (!KAL && S0 != nullptr) ? S0 + blockIdx.x * (long long)ST : nullptr;
+  if (tid == 0 || s0 != nullptr) {
 #pragma unroll
-    for (int e = 0; e < ST; ++e) st[e] = T(0);
+    for (int e = 0; e < ST; ++e) st[e] = s0 ? s0[e] : T(0);
+    if (tid > 0) X::apply(src + (tid - 1) * SL, st);
   } else {
     X::state_of(src + (tid - 1) * SL, st);
   }
@@ -1215,19 +1251,21 @@ __global__ void __launch_bounds__(RicLevel<T, J, KAL>::NT, 1)
   V::copy(totals + (cc * GB + g) * E, X, E);
 }
 
-// (c): a (chain, chunk) carries the state over the groups' maps and writes
-// the state entering every group, ``gstates`` (C, chunks, GB, ST).
+// (c): a (chain, chunk) carries the state over the groups' maps, from
+// ``S0`` (C, J, J; zero when null) of the Riccati family, and writes the
+// state entering every group, ``gstates`` (C, chunks, GB, ST).
 template <typename T, int J, bool KAL>
 __global__ void __launch_bounds__(RicLevel<T, J, KAL>::NT, 1)
     ric_scan_kernel(const T* __restrict__ totals, T* __restrict__ gstates,
-                    int GB) {
+                    const T* __restrict__ S0, int GB) {
   using V = RicLevel<T, J, KAL>;
   constexpr int E = V::E, ST = V::ST;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const RicLevelSmem<T, J, KAL> sm(smem_raw);
   T *st = sm.st, *scr = sm.scr;
   const long long cc = (long long)blockIdx.x * gridDim.y + blockIdx.y;
-  for (int e = threadIdx.x; e < ST; e += V::NT) st[e] = T(0);
+  const T* s0 = (!KAL && S0 != nullptr) ? S0 + blockIdx.x * (long long)ST : nullptr;
+  for (int e = threadIdx.x; e < ST; e += V::NT) st[e] = s0 ? s0[e] : T(0);
   V::sync();
   T* cs = gstates + cc * GB * ST;
   ric_over_maps<T, J, KAL>(totals + cc * GB * E, GB - 1, sm.buf,
@@ -1239,13 +1277,14 @@ __global__ void __launch_bounds__(RicLevel<T, J, KAL>::NT, 1)
 }
 
 // (d): a (chain, chunk, group) carries the state entering its group
-// (``gstates``; zero when null) over the group's block maps and writes the
-// state entering every block, ``cS`` (C, chunks, NB, ST).
+// (``gstates``; when null, ``S0`` (C, J, J) of the Riccati family, or zero)
+// over the group's block maps and writes the state entering every block,
+// ``cS`` (C, chunks, NB, ST).
 template <typename T, int J, bool KAL>
 __global__ void __launch_bounds__(RicLevel<T, J, KAL>::NT, 1)
     ric_enter_kernel(const T* __restrict__ maps,
-                     const T* __restrict__ gstates, T* __restrict__ cS, int NB,
-                     int GB) {
+                     const T* __restrict__ gstates, const T* __restrict__ S0,
+                     T* __restrict__ cS, int NB, int GB) {
   using V = RicLevel<T, J, KAL>;
   constexpr int E = V::E, ST = V::ST;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -1253,7 +1292,9 @@ __global__ void __launch_bounds__(RicLevel<T, J, KAL>::NT, 1)
   T *st = sm.st, *scr = sm.scr;
   const long long cc = (blockIdx.x / GB) * gridDim.y + blockIdx.y;
   const int g = blockIdx.x % GB, b0 = g * kGroup, b1 = min(NB, b0 + kGroup);
-  const T* gs = gstates != nullptr ? gstates + (cc * GB + g) * ST : nullptr;
+  const T* s0 = (!KAL && S0 != nullptr) ? S0 + (blockIdx.x / GB) * (long long)ST
+                                        : nullptr;
+  const T* gs = gstates != nullptr ? gstates + (cc * GB + g) * ST : s0;
   for (int e = threadIdx.x; e < ST; e += V::NT) st[e] = gs ? gs[e] : T(0);
   V::sync();
   T* cs = cS + (cc * NB + b0) * ST;
@@ -1643,8 +1684,8 @@ __global__ void __launch_bounds__(Ma<DP>::NT, 1)
 }
 
 // (b): one thread block a (chain, chunk) carries the value over the GB
-// groups' maps (``totals``) from zero and writes the value entering every
-// group, ``gstates`` (C, chunks, GB, ST).  The maps come into shared memory
+// groups' maps (``totals``), from ``x0`` (C, D, K; zero when null), and
+// writes the value entering every group, ``gstates`` (C, chunks, GB, ST).  The maps come into shared memory
 // by chunks of CH (cp.async, the next chunk while the steps walk this
 // one).  A value of at most 32 entries (DP kc) takes one warp, lane o its
 // entry o, and a step takes the entries it needs by shuffles, with no
@@ -1654,7 +1695,7 @@ constexpr int kMaCarryThreads = 128;
 template <typename T, int DP>
 __global__ void __launch_bounds__(kMaCarryThreads)
     ma_carry_kernel(const T* __restrict__ totals, T* __restrict__ gstates,
-                    int K, int GB) {
+                    const T* __restrict__ x0, int D, int K, int GB) {
   using G = Ma<DP>;
   constexpr int CH = G::CH;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -1685,10 +1726,17 @@ __global__ void __launch_bounds__(kMaCarryThreads)
     }
     cp_async_commit();
   };
+  // entry (i, c) of the value entering the chain
+  const T* xc = x0 != nullptr ? x0 + (long long)blockIdx.x * D * K + blockIdx.y * G::KC
+                              : nullptr;
+  auto start = [&](int e) {
+    const int i = e / kc, c = e - i * kc;
+    return xc != nullptr && i < D ? xc[(long long)i * K + c] : T(0);
+  };
   // one warp: this lane's entry (i, c) of the value, x
   const int o = tid < n ? tid : 0, oi = o / kc, oc = o - oi * kc;
-  T x = T(0);
-  for (int e = tid; e < n; e += nt) cur[e] = T(0);
+  T x = tid < n ? start(tid) : T(0);
+  for (int e = tid; e < n; e += nt) cur[e] = start(e);
   fetch(0);
   for (int c = 0; c < nchunks; ++c) {
     if (c + 1 < nchunks) {
@@ -1736,14 +1784,15 @@ __global__ void __launch_bounds__(kMaCarryThreads)
 }
 
 // (c): the value after every row, F, from the value entering each block:
-// that entering its group (``gstates``, zero when null) carried over the
-// prefix of the group's blocks before it (``maps``).  Grid (C GB, chunks).
+// that entering its group (``gstates``; when null, ``x0`` (C, D, K), or
+// zero) carried over the prefix of the group's blocks before it (``maps``).
+// Grid (C GB, chunks).
 template <typename T, int DP>
 __global__ void __launch_bounds__(Ma<DP>::NT, 1)
     ma_apply_kernel(const T* __restrict__ A, const T* __restrict__ b,
                     const T* __restrict__ maps, const T* __restrict__ gstates,
-                    T* __restrict__ F, int M, int D, int K, int L, int NB,
-                    int GB, int reverse) {
+                    const T* __restrict__ x0, T* __restrict__ F, int M, int D,
+                    int K, int L, int NB, int GB, int reverse) {
   using G = Ma<DP>;
   constexpr int P = G::P, KC = G::KC;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -1760,16 +1809,20 @@ __global__ void __launch_bounds__(Ma<DP>::NT, 1)
   T* tiles = sm + warp * ma_ring<DP>(r);
   ma_zero_tiles<T, DP>(tiles, r);
   const int kc = r.kc;
-  // x(i, c) of the value entering the group; the prefix map of the blocks
-  // before this one
-  const T* gx = gstates != nullptr ? gstates + (cc * GB + g) * G::ST : nullptr;
+  // the value entering the group, its entry (i, c) at gx[i * gk + c] (from
+  // x0 where there are no gstates; null: zero); the prefix map of the
+  // blocks before this one
+  const T* gx = gstates != nullptr ? gstates + (cc * GB + g) * G::ST
+                : x0 != nullptr    ? x0 + chain * D * K + r.k0
+                                   : nullptr;
+  const int gk = gstates != nullptr ? kc : K;
   const T* pm = s > 0 && len[s] > 0 ? maps + (cc * NB + blk - 1) * G::MW : nullptr;
   auto enter = [&](int i, int c) {
     if (i >= D) return T(0);
-    if (pm == nullptr) return gx != nullptr ? gx[i * kc + c] : T(0);
+    if (pm == nullptr) return gx != nullptr ? gx[i * gk + c] : T(0);
     T v = pm[DP * DP + i * kc + c];
     if (gx != nullptr)
-      for (int j = 0; j < D; ++j) v += pm[i * DP + j] * gx[j * kc + c];
+      for (int j = 0; j < D; ++j) v += pm[i * DP + j] * gx[j * gk + c];
     return v;
   };
   T* Fo = F + r.k0;
@@ -1835,21 +1888,40 @@ __global__ void __launch_bounds__(Ma<DP>::NT, 1)
 // Above D = 32: a thread block of kWideThreads a (chain, chunk of kWideCols
 // columns) walks every row; warp w computes the rows w, w + 32, ... of the
 // value, each lane a share of the row's sum, reduced by shuffles; the value
-// is double-buffered in shared memory, a barrier between rows.
+// is double-buffered in shared memory, a barrier between rows.  The value
+// starts from ``x0`` (C, D, K; zero when null).  With ``Ptot`` the walk
+// gives the total map instead of F: the columns are those of [P | q], D + K
+// of them, column j < D of P from e_j with no constant, column D + k of q
+// from zero with b's column k; ``Ptot`` (C, D, D) and ``qtot`` (C, D, K)
+// get the value after the last row.
 constexpr int kWideThreads = 1024;
 constexpr int kWideCols = 4;
 
 template <typename T>
 __global__ void __launch_bounds__(kWideThreads, 1)
     ma_wide_kernel(const T* __restrict__ A, const T* __restrict__ b,
-                   T* __restrict__ F, int M, int D, int K, int reverse) {
+                   const T* __restrict__ x0, T* __restrict__ F,
+                   T* __restrict__ Ptot, T* __restrict__ qtot, int M, int D,
+                   int K, int reverse) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* cur = reinterpret_cast<T*>(smem_raw);
   const long long chain = blockIdx.x;
-  const int k0 = blockIdx.y * kWideCols, kc = min(kWideCols, K - k0);
+  const bool total = Ptot != nullptr;
+  const int cols = total ? D + K : K;
+  const int k0 = blockIdx.y * kWideCols, kc = min(kWideCols, cols - k0);
   T* nxt = cur + D * kc;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int o = threadIdx.x; o < D * kc; o += kWideThreads) cur[o] = T(0);
+  // column k0 + c of the value: of P (total, < D), of q (total), of F
+  auto bcol = [&](int c) { return total ? k0 + c - D : k0 + c; };
+  for (int o = threadIdx.x; o < D * kc; o += kWideThreads) {
+    const int i = o / kc, c = o - i * kc, g = k0 + c;
+    T v = T(0);
+    if (total && g < D)
+      v = i == g ? T(1) : T(0);
+    else if (!total && x0 != nullptr)
+      v = x0[(chain * D + i) * K + g];
+    cur[o] = v;
+  }
   __syncthreads();
   for (int n = 0; n < M; ++n) {
     const long long row = chain * M + (reverse ? M - 1 - n : n);
@@ -1873,16 +1945,67 @@ __global__ void __launch_bounds__(kWideThreads, 1)
         if (lane == c) mine = v;
       }
       if (lane < kc) {
-        const long long at = (row * D + i) * K + k0 + lane;
-        const T v = mine + b[at];
+        const int bc = bcol(lane);
+        const long long at = (row * D + i) * K + bc;
+        const T v = mine + (bc >= 0 ? b[at] : T(0));
         nxt[i * kc + lane] = v;
-        F[at] = v;
+        if (!total) F[at] = v;
       }
     }
     __syncthreads();
     T* tmp = cur;
     cur = nxt;
     nxt = tmp;
+  }
+  if (total)
+    for (int o = threadIdx.x; o < D * kc; o += kWideThreads) {
+      const int i = o / kc, c = o - i * kc, bc = bcol(c);
+      if (bc < 0)
+        Ptot[(chain * D + i) * D + k0 + c] = cur[o];
+      else
+        qtot[(chain * D + i) * K + bc] = cur[o];
+    }
+}
+
+// The total map of each (chain, chunk) up to D = 32 from its groups' maps
+// (``totals`` (C, chunks, GB, MW), ma_maps): composed in order, the value
+// double-buffered in shared memory, each thread entries of the next map.
+// ``Ptot`` (C, D, D) gets P (from chunk 0), ``qtot`` (C, D, K) the chunk's
+// columns of q.
+constexpr int kMaTotalThreads = 256;
+
+template <typename T, int DP>
+__global__ void __launch_bounds__(kMaTotalThreads)
+    ma_total_kernel(const T* __restrict__ totals, T* __restrict__ Ptot,
+                    T* __restrict__ qtot, int D, int K, int GB) {
+  using G = Ma<DP>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* cur = reinterpret_cast<T*>(smem_raw);
+  T* nxt = cur + G::MW;
+  const long long chain = blockIdx.x;
+  const long long cc = chain * gridDim.y + blockIdx.y;
+  const int k0 = blockIdx.y * G::KC, kc = min(G::KC, K - k0);
+  const int W = DP * DP + DP * kc;
+  const T* tm = totals + cc * GB * G::MW;
+  for (int e = threadIdx.x; e < W; e += kMaTotalThreads) cur[e] = tm[e];
+  __syncthreads();
+  for (int q = 1; q < GB; ++q) {
+    const T* m = tm + (long long)q * G::MW;
+    for (int e = threadIdx.x; e < W; e += kMaTotalThreads)
+      nxt[e] = ma_compose<T, DP>(cur, m, e, kc);
+    __syncthreads();
+    T* tmp = cur;
+    cur = nxt;
+    nxt = tmp;
+  }
+  for (int e = threadIdx.x; e < W; e += kMaTotalThreads) {
+    if (e < DP * DP) {
+      const int i = e / DP, j = e % DP;
+      if (blockIdx.y == 0 && i < D && j < D) Ptot[(chain * D + i) * D + j] = cur[e];
+    } else {
+      const int f = e - DP * DP, i = f / kc, c = f - i * kc;
+      if (i < D) qtot[(chain * D + i) * K + k0 + c] = cur[e];
+    }
   }
 }
 
@@ -2105,12 +2228,13 @@ struct RicPlan {
 };
 
 // The phases of a Riccati or Kalman call at width J, in order; *launched
-// counts the kernels launched.
+// counts the kernels launched.  ``Pv`` and ``S0`` (the Riccati family only):
+// the row before each chain's row 0 and the state entering the chain.
 template <typename T, int J, bool KAL>
 int launch_riccati_j(const void* p, const void* a, const void* U,
-                     const void* V, const void* Y, void* S, void* F,
-                     void* work, int C, int N, int K, int L, int* launched,
-                     cudaStream_t s) {
+                     const void* V, const void* Y, RicPrev<T> Pv,
+                     const void* S0, void* S, void* F, void* work, int C,
+                     int N, int K, int L, int* launched, cudaStream_t s) {
   using G = Ric<J, KAL>;
   using Lv = RicLevel<T, J, KAL>;
   static_assert(G::P > 1 || G::NW == kGroup, "a warp's lanes walk a group");
@@ -2138,10 +2262,11 @@ int launch_riccati_j(const void* p, const void* a, const void* U,
                           &maps_allowed)))
       return err;
     ric_maps_kernel<T, J, KAL><<<walks, 32, smem, s>>>(
-        pp, ap, Up, Vp, Yp, maps, totals, N, K, L, NB, GB);
+        pp, ap, Up, Vp, Yp, Pv, maps, totals, N, K, L, NB, GB);
     if ((err = (int)cudaGetLastError())) return err;
     ++*launched;
   }
+  const T* s0 = (const T*)S0;
   if constexpr (G::P == 1) {
     if (GB > 1) {  // (b) at J <= 4
       const size_t smem = 2 * (size_t)kScanThreads * G::SLOT * sizeof(T);
@@ -2150,7 +2275,7 @@ int launch_riccati_j(const void* p, const void* a, const void* U,
                             &scan_allowed)))
         return err;
       ric_carry_kernel<T, J, KAL><<<per_chain, kScanThreads, smem, s>>>(
-          totals, gstates, GB);
+          totals, gstates, s0, nullptr, GB);
       if ((err = (int)cudaGetLastError())) return err;
       ++*launched;
     }
@@ -2171,12 +2296,12 @@ int launch_riccati_j(const void* p, const void* a, const void* U,
       if ((err = (int)cudaGetLastError())) return err;
       ++*launched;
       ric_scan_kernel<T, J, KAL><<<per_chain, Lv::NT, Lv::SMEM, s>>>(
-          totals, gstates, GB);
+          totals, gstates, s0, GB);
       if ((err = (int)cudaGetLastError())) return err;
       ++*launched;
     }
     ric_enter_kernel<T, J, KAL><<<groups, Lv::NT, Lv::SMEM, s>>>(
-        maps, GB > 1 ? gstates : nullptr, cS, NB, GB);
+        maps, GB > 1 ? gstates : nullptr, s0, cS, NB, GB);
     if ((err = (int)cudaGetLastError())) return err;
     ++*launched;
   }
@@ -2189,10 +2314,84 @@ int launch_riccati_j(const void* p, const void* a, const void* U,
                         &apply_allowed)))
     return err;
   ric_apply_kernel<T, J, KAL><<<walks, 32, smem, s>>>(
-      pp, ap, Up, Vp, Yp, NB > 1 ? maps : nullptr, states, (T*)S, (T*)F, N,
-      K, L, NB, GB);
+      pp, ap, Up, Vp, Yp, Pv, s0, NB > 1 ? maps : nullptr, states, (T*)S,
+      (T*)F, N, K, L, NB, GB);
   if ((err = (int)cudaGetLastError())) return err;
   ++*launched;
+  return 0;
+}
+
+// The total map of every chain's rows, ``total`` (C, 3, J, J): [A | Q | R]
+// of the composition of the chain's elements (row 0's from ``Pv`` when
+// given, else the identity), without the rows' states.  (a), then the level
+// over the blocks' maps: at J <= 4 (a) gives every group's map and (b)
+// composes the groups' maps (none with one group); from J = 8 ric_groups
+// composes the blocks' maps a group at a time, then the groups' maps, and
+// so on until one map is left.  ``work`` holds riccati_total_work values.
+template <typename T, int J>
+int launch_riccati_total_j(const void* p, const void* a, const void* U,
+                           const void* V, RicPrev<T> Pv, void* total,
+                           void* work, int C, int N, int L, int* launched,
+                           cudaStream_t s) {
+  using G = Ric<J, false>;
+  using Lv = RicLevel<T, J, false>;
+  const RicPlan<J, false> plan(C, N, 0, L);
+  const int NB = plan.NB, GB = plan.GB;
+  T* out = (T*)total;
+  T* maps = (T*)work;
+  T* level = maps + plan.C * NB * G::E;  // two buffers of C GB maps
+  const dim3 walks((unsigned)(plan.C * ((NB + G::NW - 1) / G::NW)), 1);
+  size_t smem = 2 * G::TILE * sizeof(T);
+  if (G::P == 1 && smem < 2 * kGroup * G::SLOT * sizeof(T))
+    smem = 2 * kGroup * G::SLOT * sizeof(T);
+  static size_t maps_allowed = 0;
+  int err;
+  if ((err = allow_smem(ric_maps_kernel<T, J, false>, smem + G::WALK_STATIC,
+                        &maps_allowed)))
+    return err;
+  const T *pp = (const T*)p, *ap = (const T*)a, *Up = (const T*)U,
+          *Vp = (const T*)V;
+  if constexpr (G::P == 1) {
+    ric_maps_kernel<T, J, false><<<walks, 32, smem, s>>>(
+        pp, ap, Up, Vp, nullptr, Pv, maps, GB > 1 ? level : out, N, 0, L, NB,
+        GB);
+    if ((err = (int)cudaGetLastError())) return err;
+    ++*launched;
+    if (GB > 1) {
+      const size_t csmem = 2 * (size_t)kScanThreads * G::SLOT * sizeof(T);
+      static size_t scan_allowed = 0;
+      if ((err = allow_smem(ric_carry_kernel<T, J, false>, csmem,
+                            &scan_allowed)))
+        return err;
+      ric_carry_kernel<T, J, false>
+          <<<dim3((unsigned)plan.C, 1), kScanThreads, csmem, s>>>(
+              level, nullptr, nullptr, out, GB);
+      if ((err = (int)cudaGetLastError())) return err;
+      ++*launched;
+    }
+  } else {
+    ric_maps_kernel<T, J, false><<<walks, 32, smem, s>>>(
+        pp, ap, Up, Vp, nullptr, Pv, NB > 1 ? maps : out, nullptr, N, 0, L,
+        NB, GB);
+    if ((err = (int)cudaGetLastError())) return err;
+    ++*launched;
+    static size_t level_allowed = 0;
+    if ((err = allow_smem(ric_groups_kernel<T, J, false>, Lv::SMEM + sizeof(int),
+                          &level_allowed)))
+      return err;
+    const T* src = maps;
+    for (int count = NB, lvl = 0; count > 1; ++lvl) {
+      const int g = (count + kGroup - 1) / kGroup;
+      T* dst = g == 1 ? out : level + (lvl & 1) * plan.C * GB * G::E;
+      ric_groups_kernel<T, J, false>
+          <<<dim3((unsigned)(plan.C * g), 1), Lv::NT, Lv::SMEM, s>>>(
+              src, dst, count, g);
+      if ((err = (int)cudaGetLastError())) return err;
+      ++*launched;
+      src = dst;
+      count = g;
+    }
+  }
   return 0;
 }
 
@@ -2201,13 +2400,44 @@ int launch_riccati_j(const void* p, const void* a, const void* U,
 
 template <typename T, bool KAL>
 int launch_riccati(int J, const void* p, const void* a, const void* U,
-                   const void* V, const void* Y, void* S, void* F, void* work,
-                   int C, int N, int K, int L, int* launched, cudaStream_t s) {
+                   const void* V, const void* Y, RicPrev<T> Pv, const void* S0,
+                   void* S, void* F, void* work, int C, int N, int K, int L,
+                   int* launched, cudaStream_t s) {
   switch (J) {
-#define C2T_CASE(JJ)                                                      \
-  case JJ:                                                                \
-    return launch_riccati_j<T, JJ, KAL>(p, a, U, V, Y, S, F, work, C, N, \
-                                        K, L, launched, s);
+#define C2T_CASE(JJ)                                                       \
+  case JJ:                                                                 \
+    return launch_riccati_j<T, JJ, KAL>(p, a, U, V, Y, Pv, S0, S, F, work, \
+                                        C, N, K, L, launched, s);
+    C2T_WIDTHS(C2T_CASE)
+#undef C2T_CASE
+    default:
+      return -1;
+  }
+}
+
+template <typename T>
+int launch_riccati_total(int J, const void* p, const void* a, const void* U,
+                         const void* V, RicPrev<T> Pv, void* total, void* work,
+                         int C, int N, int L, int* launched, cudaStream_t s) {
+  switch (J) {
+#define C2T_CASE(JJ)                                                         \
+  case JJ:                                                                   \
+    return launch_riccati_total_j<T, JJ>(p, a, U, V, Pv, total, work, C, N, \
+                                         L, launched, s);
+    C2T_WIDTHS(C2T_CASE)
+#undef C2T_CASE
+    default:
+      return -1;
+  }
+}
+
+long long riccati_total_work(int J, int C, int N, int L) {
+  switch (J) {
+#define C2T_CASE(JJ)                                           \
+  case JJ: {                                                   \
+    const RicPlan<JJ, false> plan(C, N, 0, L);                 \
+    return plan.C * (plan.NB + 2LL * plan.GB) * Ric<JJ, false>::E; \
+  }
     C2T_WIDTHS(C2T_CASE)
 #undef C2T_CASE
     default:
@@ -2240,18 +2470,22 @@ struct MaPlan {
         NB((M + L - 1) / L),
         GB((NB + Ma<DP>::GS - 1) / Ma<DP>::GS),
         chunks((K + Ma<DP>::KC - 1) / Ma<DP>::KC) {}
-  long long work() const {
-    return NB > 1 ? C * chunks *
-                        ((long long)(NB + GB) * Ma<DP>::MW +
-                         (long long)GB * Ma<DP>::ST)
-                  : 0;
+  long long work(bool total = false) const {
+    return NB > 1 || total ? C * chunks *
+                                 ((long long)(NB + GB) * Ma<DP>::MW +
+                                  (long long)GB * Ma<DP>::ST)
+                           : 0;
   }
 };
 
+// A call up to D = 32: F from ``x0`` (null: zero) or, with ``Ptot``, the
+// total map (P, q) into ``Ptot``, ``qtot``: (a) (also with one block), then
+// ma_total over the groups' maps instead of (b) and (c).
 template <typename T, int DP>
-int launch_mat_affine_dp(const void* A, const void* b, void* F, void* work,
-                         int C, int M, int D, int K, int L, int reverse,
-                         int* launched, cudaStream_t s) {
+int launch_mat_affine_dp(const void* A, const void* b, const void* x0, void* F,
+                         void* Ptot, void* qtot, void* work, int C, int M,
+                         int D, int K, int L, int reverse, int* launched,
+                         cudaStream_t s) {
   using G = Ma<DP>;
   const MaPlan<DP> plan(C, M, K, L);
   const int NB = plan.NB, GB = plan.GB;
@@ -2267,7 +2501,8 @@ int launch_mat_affine_dp(const void* A, const void* b, void* F, void* work,
       (size_t)G::WARPS * G::STAGES * G::TR * W * G::PITCH * sizeof(T);
   constexpr size_t walk_static = G::GS * (sizeof(long long) + sizeof(int));
   int err;
-  if (NB > 1) {  // (a); its scan over the group reuses the tiles
+  const bool total = Ptot != nullptr;
+  if (NB > 1 || total) {  // (a); its scan over the group reuses the tiles
     size_t smem = 2 * (size_t)G::GS * W * sizeof(T);
     if (smem < tiles) smem = tiles;
     static size_t maps_allowed = 0;
@@ -2279,6 +2514,19 @@ int launch_mat_affine_dp(const void* A, const void* b, void* F, void* work,
     if ((err = (int)cudaGetLastError())) return err;
     ++*launched;
   }
+  if (total) {
+    const size_t smem = 2 * (size_t)G::MW * sizeof(T);
+    static size_t total_allowed = 0;
+    if ((err = allow_smem(ma_total_kernel<T, DP>, smem, &total_allowed)))
+      return err;
+    ma_total_kernel<T, DP>
+        <<<dim3((unsigned)plan.C, (unsigned)plan.chunks), kMaTotalThreads, smem,
+           s>>>(totals, (T*)Ptot, (T*)qtot, D, K, GB);
+    if ((err = (int)cudaGetLastError())) return err;
+    ++*launched;
+    return 0;
+  }
+  const T* x0p = (const T*)x0;
   if (GB > 1) {  // (b)
     const size_t smem = (2 * G::CH * G::MW + 2 * G::ST) * sizeof(T);
     static size_t carry_allowed = 0;
@@ -2287,7 +2535,7 @@ int launch_mat_affine_dp(const void* A, const void* b, void* F, void* work,
     const int threads = DP * (K < G::KC ? K : G::KC) <= 32 ? 32 : kMaCarryThreads;
     ma_carry_kernel<T, DP>
         <<<dim3((unsigned)plan.C, (unsigned)plan.chunks), threads, smem, s>>>(
-            totals, gstates, K, GB);
+            totals, gstates, x0p, D, K, GB);
     if ((err = (int)cudaGetLastError())) return err;
     ++*launched;
   }
@@ -2296,8 +2544,8 @@ int launch_mat_affine_dp(const void* A, const void* b, void* F, void* work,
                         &apply_allowed)))
     return err;
   ma_apply_kernel<T, DP><<<groups, G::NT, tiles, s>>>(
-      Ap, bp, NB > 1 ? maps : nullptr, GB > 1 ? gstates : nullptr, (T*)F, M,
-      D, K, L, NB, GB, reverse);
+      Ap, bp, NB > 1 ? maps : nullptr, GB > 1 ? gstates : nullptr, x0p, (T*)F,
+      M, D, K, L, NB, GB, reverse);
   if ((err = (int)cudaGetLastError())) return err;
   ++*launched;
   return 0;
@@ -2311,27 +2559,30 @@ inline int ma_width(int D) {
 }
 
 template <typename T>
-int launch_mat_affine(const void* A, const void* b, void* F, void* work, int C,
-                      int M, int D, int K, int L, int reverse, int* launched,
+int launch_mat_affine(const void* A, const void* b, const void* x0, void* F,
+                      void* Ptot, void* qtot, void* work, int C, int M, int D,
+                      int K, int L, int reverse, int* launched,
                       cudaStream_t s) {
   switch (ma_width(D)) {
-#define C2T_CASE(DP)                                                       \
-  case DP:                                                                 \
-    return launch_mat_affine_dp<T, DP>(A, b, F, work, C, M, D, K, L,      \
-                                       reverse, launched, s);
+#define C2T_CASE(DP)                                                        \
+  case DP:                                                                  \
+    return launch_mat_affine_dp<T, DP>(A, b, x0, F, Ptot, qtot, work, C, M, \
+                                       D, K, L, reverse, launched, s);
     C2T_WIDTHS(C2T_CASE)
 #undef C2T_CASE
     default: {  // above D = 32: one walk a (chain, chunk)
-      const int kc = K < kWideCols ? K : kWideCols;
+      const int cols = Ptot != nullptr ? D + K : K;
+      const int kc = cols < kWideCols ? cols : kWideCols;
       const size_t smem = 2 * (size_t)D * kc * sizeof(T);
       static size_t wide_allowed = 0;
       int err;
       if ((err = allow_smem(ma_wide_kernel<T>, smem, &wide_allowed)))
         return err;
-      ma_wide_kernel<T><<<dim3((unsigned)C, (unsigned)((K + kWideCols - 1) /
+      ma_wide_kernel<T><<<dim3((unsigned)C, (unsigned)((cols + kWideCols - 1) /
                                                        kWideCols)),
                           kWideThreads, smem, s>>>(
-          (const T*)A, (const T*)b, (T*)F, M, D, K, reverse);
+          (const T*)A, (const T*)b, (const T*)x0, (T*)F, (T*)Ptot, (T*)qtot, M,
+          D, K, reverse);
       if ((err = (int)cudaGetLastError())) return err;
       ++*launched;
       return 0;
@@ -2339,11 +2590,11 @@ int launch_mat_affine(const void* A, const void* b, void* F, void* work, int C,
   }
 }
 
-long long mat_affine_work(int D, int C, int M, int K, int L) {
+long long mat_affine_work(int D, int C, int M, int K, int L, bool total) {
   switch (ma_width(D)) {
 #define C2T_CASE(DP) \
   case DP:           \
-    return MaPlan<DP>(C, M, K, L).work();
+    return MaPlan<DP>(C, M, K, L).work(total);
     C2T_WIDTHS(C2T_CASE)
 #undef C2T_CASE
     default:
@@ -2397,16 +2648,32 @@ int launch_affine_prefix(const void* phi, const void* G, void* F, void* status,
 // L rows need (the header comment: at J <= 4 (e) alone for one block, (a)
 // and (e) for one group, (a), (b), (e) above; from J = 8 (e), then (a), (d),
 // (e), then all five) and adds their number to *launched; ``work`` holds
-// c2t_riccati_work(J, C, N, K, L) values of scratch (null for none).
+// c2t_riccati_work(J, C, N, K, L) values of scratch (null for none).  The
+// Riccati family may start from an incoming state: ``a_prev`` (C),
+// ``U_prev``, ``V_prev`` (C, J), the row before each chain's row 0, whose
+// element row 0 then is (null: the identity), and ``S0`` (C, J, J), the
+// state entering the chain (null: zero); with K >= 1 both must be null
+// (-2 otherwise).
+// c2t_riccati_total: the total map [A | Q | R] (C, 3, J, J) of each chain's
+// elements (row 0's from the previous row when given), by (a) and the level
+// over the maps alone, no rows' states: at J <= 4 one launch, two with more
+// than one group; from J = 8 one launch, plus one a level of groups of
+// kGroup maps until one is left.  ``work`` holds c2t_riccati_total_work(J,
+// C, N, L) values.
 // c2t_riccati_group: the blocks of a group, kGroup.
 //
-// c2t_mat_affine_prefix: F, the value after every row from zero, of A (C,
-// M, D, D) and b (C, M, D, K), any D >= 1 and K >= 1, in blocks of L rows
-// up to D = 32 (the header comment: (c) alone for one block, (a) and (c)
-// for one group, all three above), in one walk above; adds the kernels
-// launched to *launched.  ``work`` holds c2t_mat_affine_work(D, C, M, K, L)
-// values of scratch (null for none).  c2t_mat_affine_group: the blocks of a
-// group at width D (0 above D = 32, which has no groups).
+// c2t_mat_affine_prefix: F, the value after every row from ``x0`` (C, D, K;
+// null: zero), of A (C, M, D, D) and b (C, M, D, K), any D >= 1 and K >= 1,
+// in blocks of L rows up to D = 32 (the header comment: (c) alone for one
+// block, (a) and (c) for one group, all three above), in one walk above;
+// adds the kernels launched to *launched.  ``work`` holds
+// c2t_mat_affine_work(D, C, M, K, L, 0) values of scratch (null for none).
+// c2t_mat_affine_total: the total map of each chain's rows, P (C, D, D) and
+// q (C, D, K) (x -> P x + q), no F: up to D = 32 (a) and ma_total, two
+// launches; above, one walk of the D + K columns of [P | q].  ``work``
+// holds c2t_mat_affine_work(D, C, M, K, L, 1) values.
+// c2t_mat_affine_group: the blocks of a group at width D (0 above D = 32,
+// which has no groups).
 //
 // c2t_affine_prefix: F (C, M, J, K) of the diagonal-affine recurrence, one
 // launch, in tiles of 32 runs of ``run`` rows (a power of two up to
@@ -2425,20 +2692,51 @@ long long c2t_riccati_work(int J, int C, int N, int K, int L) {
 }
 
 int c2t_riccati_prefix(int is_double, int J, const void* p, const void* a,
-                       const void* U, const void* V, const void* Y, void* S,
-                       void* F, void* work, int C, int N, int K, int L,
-                       int* launched, void* stream) {
+                       const void* U, const void* V, const void* Y,
+                       const void* a_prev, const void* U_prev,
+                       const void* V_prev, const void* S0, void* S, void* F,
+                       void* work, int C, int N, int K, int L, int* launched,
+                       void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
+  if (K > 0 && (a_prev != nullptr || S0 != nullptr)) return -2;
+  const RicPrev<double> pd{(const double*)a_prev, (const double*)U_prev,
+                           (const double*)V_prev};
+  const RicPrev<float> pf{(const float*)a_prev, (const float*)U_prev,
+                          (const float*)V_prev};
   if (K == 0)
     return is_double
-               ? launch_riccati<double, false>(J, p, a, U, V, Y, S, F, work, C,
-                                               N, K, L, launched, s)
-               : launch_riccati<float, false>(J, p, a, U, V, Y, S, F, work, C,
-                                              N, K, L, launched, s);
-  return is_double ? launch_riccati<double, true>(J, p, a, U, V, Y, S, F, work,
-                                                  C, N, K, L, launched, s)
-                   : launch_riccati<float, true>(J, p, a, U, V, Y, S, F, work,
-                                                 C, N, K, L, launched, s);
+               ? launch_riccati<double, false>(J, p, a, U, V, Y, pd, S0, S, F,
+                                               work, C, N, K, L, launched, s)
+               : launch_riccati<float, false>(J, p, a, U, V, Y, pf, S0, S, F,
+                                              work, C, N, K, L, launched, s);
+  return is_double
+             ? launch_riccati<double, true>(J, p, a, U, V, Y, pd, nullptr, S, F,
+                                            work, C, N, K, L, launched, s)
+             : launch_riccati<float, true>(J, p, a, U, V, Y, pf, nullptr, S, F,
+                                           work, C, N, K, L, launched, s);
+}
+
+long long c2t_riccati_total_work(int J, int C, int N, int L) {
+  return riccati_total_work(J, C, N, L);
+}
+
+int c2t_riccati_total(int is_double, int J, const void* p, const void* a,
+                      const void* U, const void* V, const void* a_prev,
+                      const void* U_prev, const void* V_prev, void* total,
+                      void* work, int C, int N, int L, int* launched,
+                      void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (is_double)
+    return launch_riccati_total<double>(
+        J, p, a, U, V,
+        RicPrev<double>{(const double*)a_prev, (const double*)U_prev,
+                        (const double*)V_prev},
+        total, work, C, N, L, launched, s);
+  return launch_riccati_total<float>(
+      J, p, a, U, V,
+      RicPrev<float>{(const float*)a_prev, (const float*)U_prev,
+                     (const float*)V_prev},
+      total, work, C, N, L, launched, s);
 }
 
 int c2t_mat_affine_group(int D) {
@@ -2453,17 +2751,33 @@ int c2t_mat_affine_group(int D) {
   }
 }
 
-long long c2t_mat_affine_work(int D, int C, int M, int K, int L) {
-  return mat_affine_work(D, C, M, K, L);
+long long c2t_mat_affine_work(int D, int C, int M, int K, int L, int total) {
+  return mat_affine_work(D, C, M, K, L, total != 0);
 }
 
 int c2t_mat_affine_prefix(int is_double, const void* A, const void* b,
-                          void* F, void* work, int C, int M, int D, int K,
-                          int L, int reverse, int* launched, void* stream) {
+                          const void* x0, void* F, void* work, int C, int M,
+                          int D, int K, int L, int reverse, int* launched,
+                          void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  return is_double ? launch_mat_affine<double>(A, b, F, work, C, M, D, K, L,
+  return is_double ? launch_mat_affine<double>(A, b, x0, F, nullptr, nullptr,
+                                               work, C, M, D, K, L, reverse,
+                                               launched, s)
+                   : launch_mat_affine<float>(A, b, x0, F, nullptr, nullptr,
+                                              work, C, M, D, K, L, reverse,
+                                              launched, s);
+}
+
+int c2t_mat_affine_total(int is_double, const void* A, const void* b,
+                         void* Ptot, void* qtot, void* work, int C, int M,
+                         int D, int K, int L, int reverse, int* launched,
+                         void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  return is_double ? launch_mat_affine<double>(A, b, nullptr, nullptr, Ptot,
+                                               qtot, work, C, M, D, K, L,
                                                reverse, launched, s)
-                   : launch_mat_affine<float>(A, b, F, work, C, M, D, K, L,
+                   : launch_mat_affine<float>(A, b, nullptr, nullptr, Ptot,
+                                              qtot, work, C, M, D, K, L,
                                               reverse, launched, s);
 }
 

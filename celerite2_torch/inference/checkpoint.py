@@ -12,6 +12,10 @@ generators and NamedTuples.
 
 A save writes a temporary file, flushes it to disk and renames it over
 the target, so a run killed mid-save leaves the previous checkpoint whole.
+
+A run whose chains are split over the ranks of a ``torch.distributed``
+group saves through :class:`GroupCheckpoint`: each rank its own chains, in
+a directory of its own, and the ranks resume together.
 """
 
 from __future__ import annotations
@@ -21,8 +25,9 @@ import re
 from typing import Any, Optional
 
 import torch
+import torch.distributed as dist
 
-__all__ = ["save_state", "restore_state", "CheckpointManager"]
+__all__ = ["save_state", "restore_state", "CheckpointManager", "GroupCheckpoint"]
 
 
 def _is_namedtuple(x):
@@ -118,3 +123,61 @@ class CheckpointManager:
 
     def close(self):
         """Nothing to release: every save is complete when it returns."""
+
+
+class GroupCheckpoint:
+    """One rank's checkpoints of a run whose chains are split over the ranks
+    of ``group``, given the run's ``manager`` (the same on every rank).
+
+    Each rank saves in ``<manager.directory>/rank_<i>`` (its index in the
+    group), its state tagged with the chains it runs, ``chains = (first,
+    stop, fleet)``.  The ranks resume together, from the latest step that
+    every rank saved (a rank killed mid-run may lag the others by one), or
+    from the start where no rank saved any; a restored state whose tag is not this rank's chains raises (a run
+    resumed under another layout)."""
+
+    def __init__(self, manager: CheckpointManager, group, chains):
+        rank = dist.get_rank(group)
+        self.inner = CheckpointManager(os.path.join(manager.directory, f"rank_{rank}"),
+                                       max_to_keep=manager.max_to_keep)
+        self.group = group
+        self.chains = torch.tensor(chains, dtype=torch.int64)
+
+    def save(self, step: int, state: Any) -> None:
+        self.inner.save(step, dict(state, chains=self.chains))
+
+    def latest_step(self) -> Optional[int]:
+        """The latest step that every rank of the group saved (a collective)."""
+        mine = self.inner.latest_step()
+        every = [None] * dist.get_world_size(self.group)
+        dist.all_gather_object(every, mine, group=self.group)
+        if all(s is None for s in every):
+            return None
+        if any(s is None for s in every):
+            raise ValueError(
+                f"checkpoint: ranks {[i for i, s in enumerate(every) if s is None]} "
+                f"of the group hold no step under {self.inner.directory}'s parent, "
+                "the others do; restart the run in an empty directory"
+            )
+        step = min(every)
+        if step not in self.inner.all_steps():
+            raise ValueError(
+                f"checkpoint: {self.inner.directory} no longer holds step {step}, "
+                "the latest that every rank saved; restart the run"
+            )
+        return step
+
+    def restore(self, step: Optional[int] = None, template: Any = None):
+        state = self.inner.restore(step, template)
+        saved = state.get("chains")
+        if saved is None or not torch.equal(saved, self.chains):
+            raise ValueError(
+                f"checkpoint: {self.inner.directory} holds chains "
+                f"{None if saved is None else tuple(saved.tolist())} (first, stop, "
+                f"fleet), this rank runs {tuple(self.chains.tolist())}; resume "
+                "under the layout that saved it"
+            )
+        return state
+
+    def close(self):
+        self.inner.close()

@@ -35,6 +35,18 @@ package's key.
 The schedule's flags (warmup, slow window, window end, freeze) live on
 the host, so the adaptation branches on them in Python; conditions on
 device values stay ``torch.where``.
+
+**Chains over ranks.**  ``run_hmc(..., chain_group=group)`` splits the fleet
+over the ranks of a ``torch.distributed`` group (the counterpart of the JAX
+package's ``chain_axis``): each rank runs its slice of the chains, and the
+cross-chain means of the adaptation (the dual-averaging acceptance, ChEES's
+centres and weighted sums, the pooled Welford moments) are sums over the
+group (``all_reduce``; through the host for gloo).  Every rank draws the
+whole fleet's normals and uniforms and keeps its chains', so the run does
+not depend on the layout beyond the order of those sums.  Each rank
+checkpoints its own chains (``checkpoint.GroupCheckpoint``), and a chunk
+that raises is not retried: a rank that reran it alone would pair its sums
+with the other ranks' later ones.
 """
 
 from __future__ import annotations
@@ -43,8 +55,10 @@ from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from celerite2_torch.inference import adapt as _adapt
+from celerite2_torch.inference.checkpoint import GroupCheckpoint
 from celerite2_torch.inference.chunked import drive_chunks
 from celerite2_torch.utils.misc import as_tensor
 
@@ -97,11 +111,28 @@ def _halton(n, base=2):
     return seq
 
 
-def _welford_batch(state: _adapt.WelfordState, X):
-    """Pooled Welford update with a (C, dim) batch (Chan et al. merge)."""
-    C = X.shape[0]
-    mean_b = X.mean(dim=0)
-    m2_b = ((X - mean_b) ** 2).sum(dim=0)
+def _fleet_sum(x, group):
+    """The sum over the fleet's chains (dim 0), over the group's ranks (gloo
+    takes host tensors: the sum goes to the host and back)."""
+    s = x.sum(dim=0)
+    if group is None:
+        return s
+    y = s.cpu() if dist.get_backend(group) == "gloo" else s
+    dist.all_reduce(y, group=group)
+    return y.to(s.device)
+
+
+def _fleet_mean(x, group, C):
+    """The mean over the fleet's ``C`` chains (dim 0)."""
+    return x.mean(dim=0) if group is None else _fleet_sum(x, group) / C
+
+
+def _welford_batch(state: _adapt.WelfordState, X, group=None, C=None):
+    """Pooled Welford update with a (C, dim) batch (Chan et al. merge); with
+    ``group`` the batch is the ranks' chains together, ``C`` of them."""
+    C = X.shape[0] if group is None else C
+    mean_b = _fleet_mean(X, group, C)
+    m2_b = _fleet_sum((X - mean_b) ** 2, group)
     count = state.count + C
     delta = mean_b - state.mean
     mean = state.mean + delta * (C / count)
@@ -170,17 +201,22 @@ def _hmc_segment(
     max_leapfrog: int,
     target_accept: float,
     divergence_threshold: float = 1000.0,
+    chain_group=None,
+    num_chains: Optional[int] = None,
 ):
     """One segment of iterations.
 
     ``sched = (is_warm, in_slow, win_end, freeze, u)``: host arrays of
     length S, the flags of each iteration and the Halton jitter.
     ``draws = (z, u_acc)``: standard normals ``(S, C, dim)`` and uniforms
-    in [0, 1) ``(S, C)``.  Returns the carry after the segment and
+    in [0, 1) ``(S, C)`` of this rank's chains.  ``chain_group``: the ranks
+    whose chains make up the fleet of ``num_chains``, over which the
+    cross-chain means run.  Returns the carry after the segment and
     ``(q, logp, accept_prob, n_steps, diverging)`` stacked over its
     iterations.
     """
     z_all, u_all = draws
+    group, C_all = chain_group, num_chains
     dim = carry.q.shape[-1]
     dtype, device = carry.q.dtype, carry.q.device
     rows = []
@@ -219,7 +255,8 @@ def _hmc_segment(
         # ---- shared adaptation (warmup only)
         da, adam, log_T = carry.da, carry.adam, carry.log_T
         if warm:
-            da = _adapt.da_update(da, accept_prob.mean(), target=target_accept)
+            da = _adapt.da_update(da, _fleet_mean(accept_prob, group, C_all),
+                                  target=target_accept)
             # ChEES gradient for log T (u-scaled chain rule); proposals,
             # not accepted states, drive the criterion.  Divergent
             # proposals may hold inf/nan positions — replace them with
@@ -228,13 +265,13 @@ def _hmc_segment(
             ok1 = torch.isfinite(h1)[:, None]
             q1s = torch.where(ok1, q1, q)
             v1s = torch.where(ok1, inv_mass * p1, torch.zeros_like(p1))
-            m0 = q.mean(dim=0)
-            m1 = q1s.mean(dim=0)
+            m0 = _fleet_mean(q, group, C_all)
+            m1 = _fleet_mean(q1s, group, C_all)
             r0 = ((q - m0) ** 2).sum(dim=-1)
             r1 = ((q1s - m1) ** 2).sum(dim=-1)
             per_chain = (r1 - r0) * ((q1s - m1) * v1s).sum(dim=-1)
-            wsum = accept_prob.sum() + 1e-6
-            chees_grad = float(u) * torch.sum(accept_prob * per_chain) / wsum
+            wsum = _fleet_sum(accept_prob, group) + 1e-6
+            chees_grad = float(u) * _fleet_sum(accept_prob * per_chain, group) / wsum
             # normalize scale so Adam's lr is geometry-free (paper sec. 4)
             chees_grad = chees_grad / (torch.abs(chees_grad) + 1e-6)
             adam, dlogT = _adam_step(adam, chees_grad)
@@ -246,7 +283,7 @@ def _hmc_segment(
             log_T = torch.where(torch.isfinite(log_T_new), log_T_new, log_T)
 
         # pooled Welford mass across all chains
-        wf = _welford_batch(carry.wf, q_new) if slow else carry.wf
+        wf = _welford_batch(carry.wf, q_new, group, C_all) if slow else carry.wf
         if at_end:
             inv_mass = _adapt.welford_variance(wf)
             wf = _adapt.welford_init(dim, dtype, device=device)
@@ -296,6 +333,7 @@ def run_hmc(
     checkpoint=None,
     monitor=None,
     on_retry: Optional[Callable] = None,
+    chain_group=None,
 ) -> HMCResult:
     """Adaptive fixed-trajectory HMC over a chain fleet.
 
@@ -307,6 +345,15 @@ def run_hmc(
     draws come from it, in place of the JAX package's key.
     ``chunk_size``, ``checkpoint``, ``monitor`` and ``on_retry``: see
     :func:`celerite2_torch.inference.chunked.drive_chunks`.
+    ``chain_group``: a ``torch.distributed`` group over whose ranks the C
+    chains are split evenly (the JAX package's ``chain_axis``); every rank
+    passes the whole fleet's ``init_params`` and a generator seeded alike,
+    runs its slice of the chains, and gets their results (the monitor's
+    statistics are its own chains').  With a group, ``checkpoint`` is the
+    run's manager, the same on every rank: each rank saves its chains under
+    it (:class:`~celerite2_torch.inference.checkpoint.GroupCheckpoint`) and
+    the ranks resume together; a chunk that raises is not retried, and
+    ``on_retry`` is refused.
     """
     init_params = as_tensor(init_params)
     dtype, device = init_params.dtype, init_params.device
@@ -318,7 +365,20 @@ def run_hmc(
         q0 = init_params[None, :] + jitter
     else:
         q0 = init_params
-    dim = q0.shape[1]
+    C_all, dim = q0.shape
+    mine = slice(None)
+    if chain_group is not None:
+        if on_retry is not None:
+            raise ValueError("run_hmc: a chain group's chunks are not retried")
+        ranks, rank = dist.get_world_size(chain_group), dist.get_rank(chain_group)
+        if C_all % ranks:
+            raise ValueError(f"run_hmc: {C_all} chains do not divide over {ranks} ranks")
+        per = C_all // ranks
+        mine = slice(rank * per, (rank + 1) * per)
+        q0 = q0[mine]
+        if checkpoint is not None:
+            checkpoint = GroupCheckpoint(checkpoint, chain_group,
+                                         (mine.start, mine.stop, C_all))
 
     total = num_warmup + num_samples * thin
     in_slow, win_end = _adapt.build_schedule(num_warmup)
@@ -349,16 +409,18 @@ def run_hmc(
     def segment(c, s):
         # one chunk's draws, up front: the momenta's normals, then the
         # accept tests' uniforms
-        shape = (len(s[0]),) + tuple(c.q.shape)
+        shape = (len(s[0]), C_all, dim)
         z = torch.randn(shape, generator=c.rng, dtype=dtype, device=device)
         u = torch.rand(shape[:2], generator=c.rng, dtype=dtype, device=device)
         return _hmc_segment(
             logdensity_fn,
             c,
             s,
-            (z, u),
+            (z[:, mine], u[:, mine]),
             max_leapfrog=max_leapfrog,
             target_accept=target_accept,
+            chain_group=chain_group,
+            num_chains=C_all,
         )
 
     def seg_stats(c, outs):
@@ -379,6 +441,7 @@ def run_hmc(
         checkpoint=checkpoint,
         monitor=monitor,
         stat_fn=seg_stats,
+        max_retries=2 if chain_group is None else 0,
         on_retry=on_retry,
     )
     qs, logps, accs, steps, divs = (x.to(device) for x in outs)

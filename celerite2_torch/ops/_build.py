@@ -45,9 +45,11 @@ __all__ = [
     "affine_run_len",
     "affine_prefix_cuda",
     "riccati_prefix_cuda",
+    "riccati_total_cuda",
     "kalman_prefix_cuda",
     "mat_affine_block_len",
     "mat_affine_prefix_cuda",
+    "mat_affine_total_cuda",
 ]
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -63,7 +65,9 @@ NVCC_FLAGS = (
 )
 
 # Launches of each kernel since the last reset (a plain count per
-# kernel, so a run can show that its main path went through them).
+# kernel, so a run can show that its main path went through them).  The
+# prefixes' launches from an incoming state (``S0``, ``x0``) count under
+# ``<kernel>:carry``, apart from their zero-start launches.
 LAUNCHES = {
     "kalman_fwd": 0,
     "solve_rev": 0,
@@ -76,8 +80,12 @@ LAUNCHES = {
     "sweep_bwd": 0,
     "affine_prefix": 0,
     "riccati_prefix": 0,
+    "riccati_prefix:carry": 0,
+    "riccati_total": 0,
     "kalman_prefix": 0,
     "mat_affine_prefix": 0,
+    "mat_affine_prefix:carry": 0,
+    "mat_affine_total": 0,
 }
 
 # The celerite widths J each kernel is built for (csrc/fused_loglik.cu;
@@ -95,6 +103,7 @@ WIDTHS = {
     "factor_bwd": J_BUCKETS,
     "sweep_bwd": J_BUCKETS,
     "riccati_prefix": J_BUCKETS,
+    "riccati_total": J_BUCKETS,
     "kalman_prefix": J_BUCKETS,
 }
 
@@ -201,23 +210,36 @@ def _library():
         # (C, M, J, K, run) -> status words, the ticket included
         lib.c2t_affine_status.argtypes = [I] * 5
         lib.c2t_affine_status.restype = ctypes.c_longlong
-        # (is_double, J, p, a, U, V, Y, S, F, work, C, N, K, L, launched,
-        #  stream)
-        lib.c2t_riccati_prefix.argtypes = ([I, I] + [P] * 8 + [I] * 4
+        # (is_double, J, p, a, U, V, Y, a_prev, U_prev, V_prev, S0, S, F,
+        #  work, C, N, K, L, launched, stream)
+        lib.c2t_riccati_prefix.argtypes = ([I, I] + [P] * 12 + [I] * 4
                                            + [ctypes.POINTER(I), P])
         lib.c2t_riccati_prefix.restype = I
+        # (is_double, J, p, a, U, V, a_prev, U_prev, V_prev, total, work, C,
+        #  N, L, launched, stream)
+        lib.c2t_riccati_total.argtypes = ([I, I] + [P] * 9 + [I] * 3
+                                          + [ctypes.POINTER(I), P])
+        lib.c2t_riccati_total.restype = I
+        # (J, C, N, L) -> values of scratch
+        lib.c2t_riccati_total_work.argtypes = [I] * 4
+        lib.c2t_riccati_total_work.restype = ctypes.c_longlong
         lib.c2t_riccati_group.argtypes = []
         lib.c2t_riccati_group.restype = I
         # (J, C, N, K, L) -> values of scratch
         lib.c2t_riccati_work.argtypes = [I] * 5
         lib.c2t_riccati_work.restype = ctypes.c_longlong
-        # (is_double, A, b, F, work, C, M, D, K, L, reverse, launched,
+        # (is_double, A, b, x0, F, work, C, M, D, K, L, reverse, launched,
         #  stream)
-        lib.c2t_mat_affine_prefix.argtypes = ([I] + [P] * 4 + [I] * 6
+        lib.c2t_mat_affine_prefix.argtypes = ([I] + [P] * 5 + [I] * 6
                                               + [ctypes.POINTER(I), P])
         lib.c2t_mat_affine_prefix.restype = I
-        # (D, C, M, K, L) -> values of scratch
-        lib.c2t_mat_affine_work.argtypes = [I] * 5
+        # (is_double, A, b, P, q, work, C, M, D, K, L, reverse, launched,
+        #  stream)
+        lib.c2t_mat_affine_total.argtypes = ([I] + [P] * 5 + [I] * 6
+                                             + [ctypes.POINTER(I), P])
+        lib.c2t_mat_affine_total.restype = I
+        # (D, C, M, K, L, total) -> values of scratch
+        lib.c2t_mat_affine_work.argtypes = [I] * 6
         lib.c2t_mat_affine_work.restype = ctypes.c_longlong
         lib.c2t_mat_affine_group.argtypes = [I]
         lib.c2t_mat_affine_group.restype = I
@@ -415,10 +437,9 @@ def _launch_general(key, J, inputs, outs, ints, fn=None, launched=None):
     None is not passed (a kernel that takes its width from ``ints``).  With
     ``launched`` (a ``ctypes.c_int``), the function reports through it the
     kernels it launched, and those are counted."""
-    if J is not None and J not in WIDTHS.get(key, (J,)):
-        raise NotImplementedError(
-            f"{key}: J must be one of {WIDTHS[key]}, got {J}"
-        )
+    widths = WIDTHS.get(key.split(":")[0], (J,))
+    if J is not None and J not in widths:
+        raise NotImplementedError(f"{key}: J must be one of {widths}, got {J}")
     x = inputs[0]
     lib = _library()
     with torch.cuda.device(x.device):
@@ -606,13 +627,31 @@ def kalman_block_len(N, J):
     return 2048 if J == 8 else 512
 
 
-def kalman_prefix_cuda(p, a, U, V, Y=None, block_len=None):
+def _riccati_prev(name, prev, C, J, like):
+    """The row before each chain's row 0, ``(a (C,), U (C, J), V (C, J))``,
+    checked (None: row 0's element is the identity)."""
+    if prev is None:
+        return (None, None, None)
+    prev = tuple(prev)
+    _check(name, (like, *prev), (tuple(like.shape), (C,), (C, J), (C, J)))
+    return prev
+
+
+def kalman_prefix_cuda(p, a, U, V, Y=None, block_len=None, *, prev=None,
+                       S0=None):
     """The Riccati prefix (``Y`` None) or the Kalman prefix on the card.
 
     The element of row n >= 1 is built from row n - 1 and ``p[n]``
     (``assoc.factor_assoc``, ``factor_solve_assoc``), that of row 0 is the
     identity; returns the state after every row applied to zero: ``S (C,
     N, J, J)``, and with ``Y (C, N, K)`` also ``F (C, N, J, K)``.
+
+    The Riccati prefix may start from an incoming state, as one shard of a
+    sequence split over ranks does: ``prev = (a (C,), U (C, J), V (C, J))``,
+    the row before each chain's row 0, whose element row 0 then is (with
+    ``p[:, 0]``), and ``S0 (C, J, J)``, the state entering the chain; the
+    kernels take both where they start from the identity and zero.  A
+    launch with ``S0`` counts under ``riccati_prefix:carry``.
 
     The rows go in blocks of ``block_len`` (default
     :func:`kalman_block_len`), the blocks in groups (csrc/assoc_prefix.cu,
@@ -633,6 +672,11 @@ def kalman_prefix_cuda(p, a, U, V, Y=None, block_len=None):
            shapes + ([(C, N, K)] if kalman else []))
     if min(C, N) < 1 or (kalman and K < 1):
         raise ValueError(f"{key}: empty system (C={C}, N={N}, K={K})")
+    if kalman and (prev is not None or S0 is not None):
+        raise ValueError("kalman_prefix: no incoming state (prev, S0)")
+    prev = _riccati_prev(key, prev, C, J, p)
+    if S0 is not None:
+        _check(key, (p, S0), ((C, N, J), (C, J, J)))
     L = kalman_block_len(N, J) if block_len is None else int(block_len)
     if L < 1:
         raise ValueError(f"{key}: block length must be >= 1, got {L}")
@@ -640,15 +684,41 @@ def kalman_prefix_cuda(p, a, U, V, Y=None, block_len=None):
     F = _empty(p, C, N, J, K) if kalman else None
     n_work = _library().c2t_riccati_work(J, C, N, K, L)  # -1 for another J
     work = _empty(p, n_work) if n_work > 0 else None
-    _launch_general(key, J, (p, a, U, V, Y), (S, F, work), (C, N, K, L),
-                    "riccati_prefix", ctypes.c_int(0))
+    _launch_general(key if S0 is None else f"{key}:carry", J,
+                    (p, a, U, V, Y, *prev, S0), (S, F, work),
+                    (C, N, K, L), "riccati_prefix", ctypes.c_int(0))
     return (S, F) if kalman else S
 
 
-def riccati_prefix_cuda(p, a, U, V, block_len=None):
+def riccati_prefix_cuda(p, a, U, V, block_len=None, *, prev=None, S0=None):
     """The Riccati prefix on the card: ``S (C, N, J, J)``
     (:func:`kalman_prefix_cuda` without right-hand sides)."""
-    return kalman_prefix_cuda(p, a, U, V, None, block_len)
+    return kalman_prefix_cuda(p, a, U, V, None, block_len, prev=prev, S0=S0)
+
+
+def riccati_total_cuda(p, a, U, V, block_len=None, *, prev=None):
+    """The total map of each chain's Riccati elements on the card, ``(A, Q,
+    R)`` each ``(C, J, J)``: the composition of every row's element (row
+    0's from ``prev``, as in :func:`kalman_prefix_cuda`, else the
+    identity), without the rows' states.  The blocks' maps (one launch),
+    then the level over them: at J <= 4 one more launch with more than one
+    group of blocks; from J = 8 one a level of groups of maps until one is
+    left (``c2t_riccati_total``).  Counted under ``riccati_total``."""
+    C, N, J = U.shape
+    _check("riccati_total", (p, a, U, V),
+           ((C, N, J), (C, N), (C, N, J), (C, N, J)))
+    if min(C, N) < 1:
+        raise ValueError(f"riccati_total: empty system (C={C}, N={N})")
+    prev = _riccati_prev("riccati_total", prev, C, J, p)
+    L = kalman_block_len(N, J) if block_len is None else int(block_len)
+    if L < 1:
+        raise ValueError(f"riccati_total: block length must be >= 1, got {L}")
+    total = _empty(p, C, 3, J, J)
+    n_work = _library().c2t_riccati_total_work(J, C, N, L)
+    work = _empty(p, n_work) if n_work > 0 else None
+    _launch_general("riccati_total", J, (p, a, U, V, *prev), (total, work),
+                    (C, N, L), launched=ctypes.c_int(0))
+    return total.unbind(1)
 
 
 def mat_affine_block_len(M, D):
@@ -675,11 +745,23 @@ def mat_affine_block_len(M, D):
     return max(L, 128) if 4 < D <= 8 else L
 
 
-def mat_affine_prefix_cuda(A, b, reverse=False, block_len=None):
+def _mat_affine_args(key, A, b, block_len):
+    C, M, D, K = b.shape
+    _check(key, (A, b), ((C, M, D, D), (C, M, D, K)))
+    if min(C, M, D, K) < 1:
+        raise ValueError(f"{key}: empty system {tuple(b.shape)}")
+    L = mat_affine_block_len(M, D) if block_len is None else int(block_len)
+    if L < 1:
+        raise ValueError(f"{key}: block length must be >= 1, got {L}")
+    return C, M, D, K, L
+
+
+def mat_affine_prefix_cuda(A, b, reverse=False, block_len=None, *, x0=None):
     """The matrix-affine prefix on the card: the value ``x_m = A_m x_prev +
     b_m`` after every row of ``A (C, M, D, D)``, ``b (C, M, D, K)``,
-    starting from zero; rows descending with ``reverse``.  Returns ``(C, M,
-    D, K)``.
+    starting from ``x0 (C, D, K)`` (None: zero), which enters before the
+    first row in walk order; rows descending with ``reverse``.  Returns
+    ``(C, M, D, K)``.
 
     Up to D = 32 a two-level scan in one call of ``c2t_mat_affine_prefix``
     (csrc/assoc_prefix.cu), in blocks of ``block_len`` rows (default
@@ -689,17 +771,31 @@ def mat_affine_prefix_cuda(A, b, reverse=False, block_len=None):
     the groups, then every block's rows from the value entering it.  Above
     D = 32 one launch walks all the rows (phase B of the factor adjoint:
     few rows, large maps).  Each kernel launched counts in
-    :data:`LAUNCHES`."""
-    C, M, D, K = b.shape
-    _check("mat_affine_prefix", (A, b), ((C, M, D, D), (C, M, D, K)))
-    if min(C, M, D, K) < 1:
-        raise ValueError(f"mat_affine_prefix: empty system {tuple(b.shape)}")
-    L = mat_affine_block_len(M, D) if block_len is None else int(block_len)
-    if L < 1:
-        raise ValueError(f"mat_affine_prefix: block length must be >= 1, got {L}")
+    :data:`LAUNCHES`, under ``mat_affine_prefix:carry`` with ``x0``."""
+    C, M, D, K, L = _mat_affine_args("mat_affine_prefix", A, b, block_len)
+    if x0 is not None:
+        _check("mat_affine_prefix", (b, x0), ((C, M, D, K), (C, D, K)))
     F = torch.empty_like(b)
-    n_work = _library().c2t_mat_affine_work(D, C, M, K, L)
+    n_work = _library().c2t_mat_affine_work(D, C, M, K, L, 0)
     work = _empty(b, n_work) if n_work > 0 else None
-    _launch_general("mat_affine_prefix", None, (A, b), (F, work),
-                    (C, M, D, K, L, int(reverse)), launched=ctypes.c_int(0))
+    key = "mat_affine_prefix" if x0 is None else "mat_affine_prefix:carry"
+    _launch_general(key, None, (A, b, x0), (F, work), (C, M, D, K, L, int(reverse)),
+                    "mat_affine_prefix", ctypes.c_int(0))
     return F
+
+
+def mat_affine_total_cuda(A, b, reverse=False, block_len=None):
+    """The total map of each chain's rows on the card, ``(P (C, D, D), q
+    (C, D, K))`` with ``x_last = P x_in + q`` over the rows in walk order
+    (descending with ``reverse``), without the value after every row.  Up
+    to D = 32 the blocks' maps and their scan within the groups (one
+    launch, also with one block), then the groups' maps composed in order
+    (one launch); above, one walk of the D + K columns of ``[P | q]``.
+    Counted under ``mat_affine_total``."""
+    C, M, D, K, L = _mat_affine_args("mat_affine_total", A, b, block_len)
+    P, q = _empty(b, C, D, D), _empty(b, C, D, K)
+    n_work = _library().c2t_mat_affine_work(D, C, M, K, L, 1)
+    work = _empty(b, n_work) if n_work > 0 else None
+    _launch_general("mat_affine_total", None, (A, b), (P, q, work),
+                    (C, M, D, K, L, int(reverse)), launched=ctypes.c_int(0))
+    return P, q

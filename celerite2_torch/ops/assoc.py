@@ -61,6 +61,10 @@ __all__ = [
     "factor_bwd",
     "sweep_bwd",
     "frev_apply",
+    "pair_dim",
+    "pair_rev_apply",
+    "pair_dense_elements",
+    "pair_row_outputs",
     "frev_block_len",
     "frev_step_maps",
     "factor_assoc",
@@ -285,6 +289,91 @@ def frev_apply(M, par, *, affine):
         ba = ba + bdp
     mid = M - _outer(u, bv) - ba[..., None, None] * _outer(u, u)
     return p[..., :, None] * mid * p[..., None, :]
+
+
+# ------------------------------------------------- paired reverse pass
+#
+# The log-likelihood's backward is the solve adjoint, then the factor
+# adjoint, coupled through bW one row later; both carries evolve affinely in
+# the same (decreasing-row) step order, so one affine state
+#
+#     x = [bF (J), dbR (1), dbB (J), vec(bS) (J^2)]
+#
+# runs both (assoc.py's paired reverse pass, K = 1).  dbR and dbB are the
+# one-step deferrals of the solve's contributions to the next row's bz and
+# bW.  The sequence-sharded log-likelihood (``parallel.sharded``) runs it
+# as a matrix-affine prefix of the dense per-step maps.
+
+
+def pair_dim(J):
+    """The paired state's width, ``J^2 + 2J + 1`` (``assoc._pair_dim``)."""
+    return 2 * J + 1 + J * J
+
+
+def pair_rev_apply(x, par, *, affine):
+    """One joint (solve and factor) reverse step on the flat state ``x (...,
+    D)`` (``assoc._pair_rev_apply``); ``par = (p, u, w, w_prev, z_prev, bZn,
+    bWn, bdn, dinv)`` the step's row data, batched over the leading dims.
+    ``affine=False``: the linear part alone."""
+    p, u, w, w_prev, z_prev, bZn, bWn, bdn, dinv = par
+    J = p.shape[-1]
+    bF, dbR = x[..., :J], x[..., J]
+    dbB = x[..., J + 1:2 * J + 1]
+    M = x[..., 2 * J + 1:].reshape(*x.shape[:-1], J, J)
+    # the solve's step
+    bz = dbR + bZn if affine else dbR
+    bF_out = p * (bF - u * bz[..., None])
+    dbR_out = (bF_out * w_prev).sum(-1)
+    dbB_out = bF_out * z_prev[..., None]
+    # the factor's step, on the dbB the later solve step deferred
+    bv0 = dbB * dinv[..., None]
+    bdp = -(w * bv0).sum(-1)
+    if affine:
+        bv0 = bv0 + bWn * dinv[..., None]
+        bdp = bdp + bdn - (w * bWn).sum(-1) * dinv
+    M_out = frev_apply(M, (p, u, w, bv0, bdp), affine=True)
+    return torch.cat([bF_out, dbR_out[..., None], dbB_out,
+                      M_out.reshape(*x.shape[:-1], J * J)], -1)
+
+
+def pair_dense_elements(par, dim):
+    """The dense per-step maps of the paired flow (``assoc._pair_dense_
+    elements``): ``L (..., M, D, D)``, the linear part (column k the image
+    of e_k, every basis vector pushed through :func:`pair_rev_apply` in one
+    batched call), and ``c (..., M, D)`` the constant."""
+    p = par[0]
+    basis = torch.eye(dim, dtype=p.dtype, device=p.device).expand(
+        *p.shape[:-1], dim, dim)
+    cols = pair_rev_apply(basis, tuple(x[..., None, :] if x.dim() == p.dim() else
+                                       x[..., None] for x in par), affine=False)
+    c = pair_rev_apply(p.new_zeros(*p.shape[:-1], dim), par, affine=True)
+    return cols.mT, c
+
+
+def pair_row_outputs(x_in, p, u, w, F_rows, S_half, bZ_s, bW_s, bd_s, dinv_s):
+    """Each step's outputs of the paired reverse flow from the state
+    entering it (``assoc._pair_row_outputs``): ``(bz, bU, bv, ba, bp)``, the
+    right-hand side's cotangent, U's (the solve's and the factor's parts),
+    V's, the diagonal's and the transport's."""
+    J = p.shape[-1]
+    bF_in, dbR_in = x_in[..., :J], x_in[..., J]
+    dbB_in = x_in[..., J + 1:2 * J + 1]
+    M_in = x_in[..., 2 * J + 1:].reshape(*x_in.shape[:-1], J, J)
+    # the solve's part
+    bz = bZ_s + dbR_in
+    bF_mid = bF_in - u * bz[..., None]
+    bU1 = -(p * F_rows) * bz[..., None]
+    bp1 = F_rows * bF_mid * p
+    # the factor's part
+    bv0 = (bW_s + dbB_in) * dinv_s[..., None]
+    bdp = bd_s - (w * bv0).sum(-1)
+    bv = bv0 + _mv(M_in + M_in.mT, w)
+    ba = bdp - (w * _mv(M_in, w)).sum(-1)
+    S_full = S_half * p[..., None, :]
+    bU2 = -_mv(S_full, bv + 2.0 * ba[..., None] * u)
+    mid = M_in - _outer(u, bv) - ba[..., None, None] * _outer(u, u)
+    bp2 = ((mid * S_half.mT).sum(-1) + (S_half * mid).sum(-2)) * p
+    return bz, bU1 + bU2, bv, ba, bp1 + bp2
 
 
 def frev_block_len(C, M, J):

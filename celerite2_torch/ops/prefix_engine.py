@@ -21,6 +21,13 @@ state):
 (The diagonal-affine family is ``scan.affine_prefix``, with its kernel's
 order in ``scan.affine_prefix_tiled``.)
 
+A sequence split over ranks (``celerite2_torch.parallel``) needs two more
+things of the Riccati and matrix-affine families, which the kernels give
+too: the prefix from an **incoming state** (``prev`` and ``S0`` of
+:func:`riccati_prefix`, ``x0`` of :func:`mat_affine_prefix`), and each
+chain's **total map** without the rows' states (:func:`riccati_total`,
+:func:`mat_affine_total`), which the ranks exchange.
+
 Each exists twice.  ``*_plain`` is a Hillis-Steele doubling of the family's
 combine along the rows (``elements.riccati_combine``, ``kalman_combine``,
 ``affine_combine``, with their clamped inverse and symmetrisation), as
@@ -28,7 +35,10 @@ combine along the rows (``elements.riccati_combine``, ``kalman_combine``,
 and what the kernels are held against.  Without a suffix, the CUDA kernels
 of ``csrc/assoc_prefix.cu`` for CUDA tensors (blocks of rows composed side
 by side, a scan over the block maps, then every block's rows from the state
-entering it) and the plain doubling for CPU tensors.
+entering it) and the plain doubling for CPU tensors; above D = 32, where
+the matrix-affine kernel walks the rows, the CPU route walks them too
+(:func:`mat_affine_walk`): the doubling's products of stiff maps lose the
+digits a walk keeps (ROADMAP C9).
 :func:`kalman_prefix_blocked` and :func:`mat_affine_prefix_blocked`
 compose the elements in the order of their kernels, for the tests on the
 CPU.
@@ -52,6 +62,8 @@ __all__ = [
     "kalman_elements",
     "riccati_prefix",
     "riccati_prefix_plain",
+    "riccati_total",
+    "riccati_total_plain",
     "kalman_prefix",
     "kalman_prefix_plain",
     "kalman_prefix_blocked",
@@ -59,6 +71,9 @@ __all__ = [
     "mat_affine_prefix",
     "mat_affine_prefix_plain",
     "mat_affine_prefix_blocked",
+    "mat_affine_total",
+    "mat_affine_total_plain",
+    "mat_affine_walk",
 ]
 
 
@@ -69,7 +84,7 @@ def shift_rows(x, upper=False):
     return torch.cat([x[:, 1:], zero], 1) if upper else torch.cat([zero, x[:, :-1]], 1)
 
 
-def riccati_elements(p, a, U, V):
+def riccati_elements(p, a, U, V, prev=None):
     """``(A, Q, R)`` of every row, ``(C, N, J, J)`` each
     (``assoc.factor_assoc``): for n >= 1, from row n - 1 and ``p_n``,
 
@@ -77,14 +92,21 @@ def riccati_elements(p, a, U, V):
         R = -u u^T / a,
 
     with ``a`` guarded (a non-positive diagonal divides by 1); row 0 is the
-    identity."""
+    identity, or with ``prev = (a (C,), U (C, J), V (C, J))`` built the same
+    way from that row and ``p_0``."""
     J = U.shape[-1]
-    u, v = shift_rows(U), shift_rows(V)
-    ar = _safe(shift_rows(a))[..., None, None]
+    u, v, ar = shift_rows(U), shift_rows(V), shift_rows(a)
+    if prev is not None:
+        a0, u0, v0 = prev
+        u, v = torch.cat([u0[:, None], u[:, 1:]], 1), torch.cat([v0[:, None], v[:, 1:]], 1)
+        ar = torch.cat([a0[:, None], ar[:, 1:]], 1)
+    ar = _safe(ar)[..., None, None]
     eye = torch.eye(J, dtype=U.dtype, device=U.device)
     A = p[..., :, None] * (eye - v[..., :, None] * u[..., None, :] / ar)
     Q = p[..., :, None] * (v[..., :, None] * v[..., None, :] / ar) * p[..., None, :]
     R = -(u[..., :, None] * u[..., None, :]) / ar
+    if prev is not None:
+        return A, Q, R
     first = torch.zeros_like(p[:, :, :1, None], dtype=torch.bool)
     first[:, 0] = True
     return (torch.where(first, eye, A), torch.where(first, 0.0, Q),
@@ -116,10 +138,24 @@ def _doubling(combine, elems):
     return elems
 
 
-def riccati_prefix_plain(p, a, U, V):
+def riccati_prefix_plain(p, a, U, V, *, prev=None, S0=None):
     """Plain version of the Riccati prefix kernel: ``S (C, N, J, J)``, the
-    Q leaf of the inclusive prefix of :func:`riccati_elements`."""
-    return _doubling(el.riccati_combine, riccati_elements(p, a, U, V))[1]
+    Q leaf of the inclusive prefix of :func:`riccati_elements` (row 0's
+    element from ``prev`` when given), applied to ``S0 (C, J, J)`` (None:
+    zero)."""
+    pref = _doubling(el.riccati_combine, riccati_elements(p, a, U, V, prev))
+    if S0 is None:
+        return pref[1]
+    state = (None, S0[:, None].expand_as(pref[1]), None)
+    return el.riccati_distribute(state, pref)[1]
+
+
+def riccati_total_plain(p, a, U, V, *, prev=None):
+    """Plain version of the Riccati total kernels: ``(A, Q, R)``, each ``(C,
+    J, J)``, the last row of the inclusive prefix of
+    :func:`riccati_elements`."""
+    pref = _doubling(el.riccati_combine, riccati_elements(p, a, U, V, prev))
+    return tuple(x[:, -1] for x in pref)
 
 
 def kalman_prefix_plain(p, a, U, V, Y):
@@ -262,16 +298,11 @@ def mat_affine_prefix_blocked(A, b, *, reverse=False, block_len):
     version of the kernels' order, for the tests on the CPU; nothing on the
     card's path calls it."""
     C, M, D, K = b.shape
-    if reverse:
-        A, b = A.flip(1), b.flip(1)
     GS = mat_affine_group(D)
     if GS == 0:
-        x, out = b.new_zeros(C, D, K), []
-        for m in range(M):
-            x = A[:, m] @ x + b[:, m]
-            out.append(x)
-        F = torch.stack(out, 1)
-        return F.flip(1) if reverse else F
+        return mat_affine_walk(A, b, reverse=reverse)
+    if reverse:
+        A, b = A.flip(1), b.flip(1)
 
     def compose(seq):  # the in-order composition along dim 2
         out = tuple(x[:, :, 0] for x in seq)
@@ -301,22 +332,69 @@ def mat_affine_prefix_blocked(A, b, *, reverse=False, block_len):
     return F.flip(1) if reverse else F
 
 
-def mat_affine_prefix_plain(A, b, *, reverse=False):
+def mat_affine_prefix_plain(A, b, *, reverse=False, x0=None):
     """Plain version of the matrix-affine prefix kernel: the b leaf of the
     inclusive prefix of ``(A (C, M, D, D), b (C, M, D, K))`` under
-    ``affine_combine``, over the rows descending with ``reverse``."""
+    ``affine_combine``, over the rows descending with ``reverse``, applied
+    to ``x0 (C, D, K)`` (None: zero)."""
     if reverse:
         A, b = A.flip(1), b.flip(1)
-    out = _doubling(el.affine_combine, (A, b))[1]
+    if x0 is None:
+        out = _doubling(el.affine_combine, (A, b))[1]
+    else:
+        PA, out = _doubling(el.affine_combine, (A, b))
+        out = out + PA @ x0[:, None]
     return out.flip(1) if reverse else out
 
 
-def riccati_prefix(p, a, U, V):
+def mat_affine_walk(A, b, *, reverse=False, x0=None, total=False):
+    """The matrix-affine prefix by one walk over the rows, as the kernel
+    walks them above D = 32: ``x <- A_m x + b_m`` from ``x0`` (None: zero),
+    rows descending with ``reverse``; returns the value after every row,
+    or with ``total`` each chain's total map ``(P, q)`` (P walked from the
+    identity alongside)."""
+    C, M, D, K = b.shape
+    x = b.new_zeros(C, D, K) if x0 is None else x0
+    P = torch.eye(D, dtype=b.dtype, device=b.device).expand(C, D, D) if total else None
+    out = None if total else b.new_empty(b.shape)
+    for m in (range(M - 1, -1, -1) if reverse else range(M)):
+        x = A[:, m] @ x + b[:, m]
+        if total:
+            P = A[:, m] @ P
+        else:
+            out[:, m] = x
+    return (P, x) if total else out
+
+
+def mat_affine_total_plain(A, b, *, reverse=False):
+    """Plain version of the matrix-affine total kernels: ``(P (C, D, D), q
+    (C, D, K))``, the last row in walk order of the inclusive prefix."""
+    if reverse:
+        A, b = A.flip(1), b.flip(1)
+    return tuple(x[:, -1] for x in _doubling(el.affine_combine, (A, b)))
+
+
+def _contiguous(xs):
+    return None if xs is None else tuple(x.contiguous() for x in xs)
+
+
+def riccati_prefix(p, a, U, V, *, prev=None, S0=None):
     """The Riccati prefix: the CUDA kernel for CUDA tensors, the plain
-    doubling on the CPU."""
+    doubling on the CPU.  ``prev`` and ``S0``: the row before row 0 and the
+    state entering the chain (:func:`riccati_prefix_plain`)."""
     if p.device.type == "cpu":
-        return riccati_prefix_plain(p, a, U, V)
-    return _build.riccati_prefix_cuda(p, a, U, V)
+        return riccati_prefix_plain(p, a, U, V, prev=prev, S0=S0)
+    return _build.riccati_prefix_cuda(
+        p, a, U, V, prev=_contiguous(prev),
+        S0=None if S0 is None else S0.contiguous())
+
+
+def riccati_total(p, a, U, V, *, prev=None):
+    """Each chain's total Riccati map ``(A, Q, R)``: the CUDA kernels for
+    CUDA tensors, the plain doubling on the CPU."""
+    if p.device.type == "cpu":
+        return riccati_total_plain(p, a, U, V, prev=prev)
+    return _build.riccati_total_cuda(p, a, U, V, prev=_contiguous(prev))
 
 
 def kalman_prefix(p, a, U, V, Y):
@@ -327,9 +405,25 @@ def kalman_prefix(p, a, U, V, Y):
     return _build.kalman_prefix_cuda(p, a, U, V, Y)
 
 
-def mat_affine_prefix(A, b, *, reverse=False):
+def mat_affine_prefix(A, b, *, reverse=False, x0=None):
     """The matrix-affine prefix: the CUDA kernel for CUDA tensors, the plain
-    doubling on the CPU."""
+    doubling on the CPU (above D = 32 the kernel's walk).  ``x0``: the value
+    entering the chain (None: zero)."""
     if b.device.type == "cpu":
-        return mat_affine_prefix_plain(A, b, reverse=reverse)
-    return _build.mat_affine_prefix_cuda(A.contiguous(), b.contiguous(), reverse)
+        if mat_affine_group(b.shape[-2]) == 0:
+            return mat_affine_walk(A, b, reverse=reverse, x0=x0)
+        return mat_affine_prefix_plain(A, b, reverse=reverse, x0=x0)
+    return _build.mat_affine_prefix_cuda(
+        A.contiguous(), b.contiguous(), reverse,
+        x0=None if x0 is None else x0.contiguous())
+
+
+def mat_affine_total(A, b, *, reverse=False):
+    """Each chain's total matrix-affine map ``(P, q)``: the CUDA kernels for
+    CUDA tensors, the plain doubling on the CPU (above D = 32 the kernel's
+    walk)."""
+    if b.device.type == "cpu":
+        if mat_affine_group(b.shape[-2]) == 0:
+            return mat_affine_walk(A, b, reverse=reverse, total=True)
+        return mat_affine_total_plain(A, b, reverse=reverse)
+    return _build.mat_affine_total_cuda(A.contiguous(), b.contiguous(), reverse)

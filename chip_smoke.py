@@ -49,7 +49,12 @@ N = 100,000 with 10,000 targets for the J = 4 and J = 8 models against the
 CPU route, the exact law of a component conditional through the Jacobian
 of its draws, ``gp_sample_conditional`` over a fleet of 64 posterior states
 against its chains' one-system calls, and the adapters (``CeleriteNormal``,
-the pymc cores).  The plain
+the pymc cores).  Then the sharded paths (``celerite2_torch.parallel``):
+the K6 modes a shard runs (the prefixes from an incoming state, the total
+maps) against their plain versions, and four gloo ranks spawned on the one
+card (time-sharing it) running the sequence-sharded log-likelihood, ops,
+predictions and pathwise sampler, the (chains, seq) train step and
+``run_hmc`` over a chain group, each against the single-rank call.  The plain
 references of the CPU run in worker processes started at launch.  K1 to
 K5 are also held at the edges of their blocks and tiles and
 in float32, K1 on rows that are not positive definite; K4 and K5 are timed
@@ -87,6 +92,7 @@ import celerite2_torch as ct
 from celerite2_torch.ops import _build
 from celerite2_torch.ops import assoc
 from celerite2_torch.ops import dispatch
+from celerite2_torch.ops import elements as el
 from celerite2_torch.ops import fused_loglik as fl
 from celerite2_torch.ops import prefix_engine as pe
 from celerite2_torch.ops import scan
@@ -124,7 +130,7 @@ GENERAL = ("factor_fwd", "sweep_fwd", "factor_bwd", "sweep_bwd", "affine_prefix"
 ASSOC = ("riccati_prefix", "kalman_prefix", "mat_affine_prefix")
 SOURCE = dict.fromkeys(KERNELS, "celerite2_torch/csrc/fused_loglik.cu")
 SOURCE.update(dict.fromkeys(GENERAL, "celerite2_torch/csrc/general_ops.cu"))
-SOURCE.update(dict.fromkeys(ASSOC + ("affine_prefix",),
+SOURCE.update(dict.fromkeys(ASSOC + ("affine_prefix", "riccati_total", "mat_affine_total"),
                             "celerite2_torch/csrc/assoc_prefix.cu"))
 # Peak rates of one H100 SXM for the bound of each kernel: 3.35 TB/s of
 # device memory; 67 TFLOP/s in float32 outside the tensor cores, and half
@@ -4153,6 +4159,701 @@ def pathwise_adapters(dev, smi, gp4, small):
     assert em < 1e-12 and ec < 1e-12, (em, ec)
 
 
+# ------------------------------------------------ the sharded paths
+
+# The K6 modes a shard of a sequence split over ranks runs
+# (celerite2_torch.parallel): the Riccati and matrix-affine prefixes from an
+# incoming state (row 0's element from the row before it, S0 / x0), and each
+# chain's total map without the rows' states.  Each is a wrapper of its own
+# in ops/_build.py, and each counts its launches under its own key (the
+# prefixes' launches from S0 / x0 apart from their zero-start ones).
+CARRY_KERNELS = {
+    "riccati_prefix:carry": ("riccati_prefix", "celerite2_tpu/ops/planes_engine.py:311"),
+    "riccati_total": ("riccati_total", "celerite2_tpu/ops/planes_engine.py:311"),
+    "mat_affine_prefix:carry": ("mat_affine_prefix",
+                                "celerite2_tpu/ops/planes_engine.py:311"),
+    "mat_affine_total": ("mat_affine_total", "celerite2_tpu/ops/planes_engine.py:311"),
+}
+CARRY_RTOL = 1e-10
+# rows a rank of the sharded phase's J = 4 log-likelihood: config5's
+# N = 1e6 over four ranks
+SHARD_ROWS = 250_000
+CARRY_GRID = ((130, None), (1040, None), (1040, 8), (10_000, None), (10_000, 2))
+
+
+def split_riccati(fin, k, L=None):
+    """The Riccati kernels on rows [0, k) and [k, N) of ``fin = (p, a, U,
+    V)`` as two shards: the head's total map, the tail's states from the
+    head's state (row k - 1 as the row before it, S0 the total's Q), the
+    tail's total map; and the plain versions' same."""
+    head = tuple(x[:, :k].contiguous() for x in fin)
+    tail = tuple(x[:, k:].contiguous() for x in fin)
+    prev = tuple(x[:, k - 1].contiguous() for x in fin[1:])
+    tot = _build.riccati_total_cuda(*head, L)
+    S = _build.riccati_prefix_cuda(*tail, L, prev=prev, S0=tot[1].contiguous())
+    tot2 = _build.riccati_total_cuda(*tail, L, prev=prev)
+    ptot = pe.riccati_total_plain(*head)
+    pS = pe.riccati_prefix_plain(*tail, prev=prev, S0=ptot[1])
+    ptot2 = pe.riccati_total_plain(*tail, prev=prev)
+    return (tot, S, tot2), (ptot, pS, ptot2)
+
+
+def split_mat_affine(A, b, k, reverse, L=None):
+    """The matrix-affine kernels on rows [0, k) and [k, M) as two shards,
+    the first in walk order handing its total map's q on as the second's
+    x0: ``(total of the first, F of the second)``, and the plain versions'
+    same."""
+    lo = tuple(x[:, :k].contiguous() for x in (A, b))
+    hi = tuple(x[:, k:].contiguous() for x in (A, b))
+    first, second = (hi, lo) if reverse else (lo, hi)
+    tot = _build.mat_affine_total_cuda(*first, reverse, L)
+    F = _build.mat_affine_prefix_cuda(*second, reverse, L, x0=tot[1].contiguous())
+    ptot = pe.mat_affine_total_plain(*first, reverse=reverse)
+    pF = pe.mat_affine_prefix_plain(*second, reverse=reverse, x0=ptot[1])
+    return (tot, F), (ptot, pF)
+
+
+def hold_carry(name, got, plain, whole, worst, tol=CARRY_RTOL):
+    """The carry modes of one split: each output against the zero-start
+    kernels on the whole sequence (``whole``: same structure, None where
+    there is none) to ``tol``, and against the plain version to ``tol`` or
+    1.5 times the plain version's own distance from the whole, whichever is
+    larger (the doubling composes maps of up to N / 2 rows; a total's A and
+    R, which the whole does not give, take the tolerance of its Q)."""
+    e_self = max((scaled_err(p, w) for p, w in zip(plain, whole) if w is not None),
+                 default=0.0)
+    for g, p, w in zip(got, plain, whole):
+        assert g.shape == p.shape, (name, tuple(g.shape), tuple(p.shape))
+        e_plain = scaled_err(g, p)
+        e_whole = scaled_err(g, w) if w is not None else 0.0
+        assert math.isfinite(e_plain) and e_plain < max(tol, 1.5 * e_self), (
+            name, tuple(g.shape), e_plain, e_self)
+        assert math.isfinite(e_whole) and e_whole < tol, (name, tuple(g.shape), e_whole)
+        worst[name] = tuple(map(max, worst[name], (e_whole, e_plain, e_self)))
+
+
+def carry_flops(name, C, M, J, D=None, K=1):
+    """Operations of one call of a carry mode: per row the rank-one step of
+    the blocks' maps (the totals) and of the walk again (the prefixes,
+    ``kernel_flops``), and for the matrix-affine family the row's map
+    composed into the block's (2 D^3 + 2 D^2 K) and the walk from the value
+    entering the block (2 D^2 K); above D = 32 the totals walk the D + K
+    columns of [P | q] (2 D^2 (D + K))."""
+    D = J if D is None else D
+    if name == "riccati_prefix:carry":
+        return kernel_flops("riccati_prefix", C, M, J)
+    if name == "riccati_total":
+        return C * M * 16 * J * J
+    if name == "mat_affine_prefix:carry":
+        return C * M * (2 * D**3 + 4 * D * D * K if D <= 32 else 2 * D * D * K)
+    return C * M * (2 * D**3 + 2 * D * D * K if D <= 32 else 2 * D * D * (D + K))
+
+
+def phase_carry_kernels(dev):
+    """The K6 modes of the sharded paths on the card against their plain
+    versions and against the zero-start kernels on the whole sequence,
+    float64: a sequence split at row k into two shards (the head's total
+    map hands its state on, the tail's prefix starts from it), Riccati at
+    J = 1, 2, 4, 8, 16 and matrix-affine on the lower solve's J x J maps
+    (K = 1, 5; and the upper solve's in reverse) and on contracting maps of D = 9, 25,
+    64, 81, at N = 130, 1040 and 1e4 (also in blocks of 8 and 2 rows: many
+    groups, more groups than a scan thread's run), C = 3 and 1, to 1e-10;
+    at N = 1e5, C = 1, J = 4, 8 to 1e-9; float32 (J = 2, 4, 8, N = 1040,
+    blocks of 8) within max(1e-4, 2 x the float32 plain version's error)
+    of the float64 kernels.  Returns the largest absolute errors of the
+    four modes at the sharded loglik's J = 4 shapes."""
+    worst = {name: (0.0, 0.0, 0.0) for name in CARRY_KERNELS}
+    rng = np.random.default_rng(11)
+
+    def contracting(D, M, C, scale):
+        A = torch.tensor(rng.normal(size=(C, M, D, D)) * scale / math.sqrt(D), device=dev)
+        return A, torch.tensor(rng.normal(size=(C, M, D, 1)), device=dev)
+
+    for J in (1, 2, 4, 8, 16):
+        for N, L in CARRY_GRID:
+            if J >= 8 and L is not None and L < 8:
+                continue
+            for C in (3, 1):
+                t, c, a, U, V, Y5 = wide_system(J, N, C, 5, dev, seed=J + N + C)
+                p = scan.transport(t, c)
+                fin = (p, a, U, V)
+                k = N // 3 + 1
+                S_all = _build.riccati_prefix_cuda(*fin, L)
+                (tot, S, tot2), (ptot, pS, ptot2) = split_riccati(fin, k, L)
+                hold_carry("riccati_prefix:carry", (S,), (pS,), (S_all[:, k:],), worst)
+                hold_carry("riccati_total", tot, ptot, (None, S_all[:, k - 1], None),
+                           worst)
+                # the tail's total through the composition of the two
+                whole = el.riccati_combine(tot, tot2)
+                err = scaled_err(whole[1], S_all[:, -1])
+                assert err < CARRY_RTOL, ("riccati_total composed", J, N, err)
+                W = _build.factor_fwd_cuda(*fin)[1]
+                for Y in (Y5[..., :1].contiguous(), Y5):
+                    for reverse in (False, True):
+                        A, b = (assoc.solve_elements(scan.transport_up(t, c), W, U, Y,
+                                                     True)
+                                if reverse else assoc.solve_elements(p, U, W, Y))
+                        F_all = _build.mat_affine_prefix_cuda(A, b, reverse, L)
+                        (tot, F), (ptot, pF) = split_mat_affine(A, b, k, reverse, L)
+                        hold_carry("mat_affine_prefix:carry", (F,), (pF,),
+                                   (F_all[:, :k] if reverse else F_all[:, k:],), worst)
+                        hold_carry("mat_affine_total", tot, ptot,
+                                   (None, F_all[:, k] if reverse else F_all[:, k - 1]),
+                                   worst)
+    for D, M in ((9, 1040), (25, 1040), (25, 10_000), (64, 130), (81, 1040)):
+        A, b = contracting(D, M, 2, 0.9)
+        for reverse in (False, True):
+            F_all = _build.mat_affine_prefix_cuda(A, b, reverse)
+            k = M // 3 + 1
+            (tot, F), (ptot, pF) = split_mat_affine(A, b, k, reverse)
+            hold_carry("mat_affine_prefix:carry", (F,), (pF,),
+                       (F_all[:, :k] if reverse else F_all[:, k:],), worst)
+            hold_carry("mat_affine_total", tot, ptot,
+                       (None, F_all[:, k] if reverse else F_all[:, k - 1]), worst)
+    for name, (e_whole, e_plain, e_self) in worst.items():
+        log("sharded", f"{name}: worst relative error {e_whole:.3e} against the "
+            f"zero-start kernels on the whole sequence, {e_plain:.3e} against the "
+            f"plain version (whose own distance from the whole reaches "
+            f"{e_self:.3e}); N = 130, 1040, 1e4, C = 3 and 1")
+
+    # N = 1e5, one chain, J = 4 and 8 (wide8's stiff term), 1e-9
+    for J in (4, 8):
+        t, c, a, U, V, Y = wide_system(J, N_MAIN, 1, 1, dev, seed=J)
+        p = scan.transport(t, c)
+        fin = (p, a, U, V)
+        k = N_MAIN // 4
+        main = {name: (0.0, 0.0, 0.0) for name in CARRY_KERNELS}
+        S_all = _build.riccati_prefix_cuda(*fin)
+        (tot, S, _), (ptot, pS, _) = split_riccati(fin, k)
+        hold_carry("riccati_prefix:carry", (S,), (pS,), (S_all[:, k:],), main, LONG_RTOL)
+        hold_carry("riccati_total", tot, ptot, (None, S_all[:, k - 1], None), main,
+                   LONG_RTOL)
+        W = _build.factor_fwd_cuda(*fin)[1]
+        for reverse in (False, True):
+            # the lower solve's elements forward, the upper solve's in reverse
+            # (the other order of either grows without bound over 1e5 rows)
+            A, b = (assoc.solve_elements(scan.transport_up(t, c), W, U, Y, True)
+                    if reverse else assoc.solve_elements(p, U, W, Y))
+            F_all = _build.mat_affine_prefix_cuda(A, b, reverse)
+            (tot, F), (ptot, pF) = split_mat_affine(A, b, k, reverse)
+            hold_carry("mat_affine_prefix:carry", (F,), (pF,),
+                       (F_all[:, :k] if reverse else F_all[:, k:],), main, LONG_RTOL)
+            hold_carry("mat_affine_total", tot, ptot,
+                       (None, F_all[:, k] if reverse else F_all[:, k - 1]), main,
+                       LONG_RTOL)
+        log("sharded", f"N = 1e5, J = {J}, C = 1, split at {k}: relative errors "
+            f"(against the whole, the plain version, the plain's own) {main}")
+        del t, c, p, a, U, V, Y, fin, S_all, A, b, W
+        torch.cuda.empty_cache()
+
+    wide8_pair_flow(dev)
+
+    # float32 against the float64 kernels
+    for J in (2, 4, 8):
+        p, a, U, V, Y = prefix_inputs(J, 1040, 3, 1, dev, seed=J)
+        fin, k = (p, a, U, V), 347
+        (tot, S, _), _ = split_riccati(fin, k, 8)
+        A, b = assoc.solve_elements(p, U, _build.factor_fwd_cuda(*fin)[1], Y)
+        (mt, F), _ = split_mat_affine(A, b, k, False, 8)
+        x32 = [x.float() for x in fin]
+        (tot32, S32, _), (ptot32, pS32, _) = split_riccati(x32, k, 8)
+        (mt32, F32), (pmt32, pF32) = split_mat_affine(A.float(), b.float(), k, False, 8)
+        errs = []
+        for g, pl, want in ((S32, pS32, S), (tot32[1], ptot32[1], tot[1]),
+                            (F32, pF32, F), (mt32[1], pmt32[1], mt[1])):
+            err, tol = scaled_err(g, want), max(1e-4, 2 * scaled_err(pl, want))
+            assert torch.isfinite(g).all() and err < tol, (J, err, tol)
+            errs.append(f"{err:.2e} (tol {tol:.2e})")
+        log("sharded", f"float32, J = {J}, N = 1040, L = 8, split at {k}: "
+            "riccati_prefix S from S0, riccati_total Q, mat_affine_prefix F from "
+            "x0, mat_affine_total q against the float64 kernels: " + ", ".join(errs))
+    return carry_times(dev)
+
+
+def _walk_host(L, c, x, dtype=np.longdouble):
+    """The matrix-affine flow ``x <- L_m x + c_m`` over the rows of one chain
+    in descending order, on the host in numpy's ``dtype`` from ``x (D,
+    K)``: the value after every row ``(M, D, K)``."""
+    L, c = L.cpu().numpy(), c.cpu().numpy()
+    x = x.cpu().numpy().astype(dtype)
+    out = np.empty(c.shape, dtype)
+    for m in range(c.shape[0] - 1, -1, -1):
+        x = L[m].astype(dtype) @ x + c[m]
+        out[m] = x
+    return out
+
+
+def wide8_pair_flow(dev):
+    """``ma_wide`` on the step maps the sharded log-likelihood's adjoint
+    really gives it (ROADMAP C9): wide8 (J = 8, D = 81) at N = 1e5 on
+    bench.py's data, the paired reverse flow of rows [5e4, 1e5) as two of
+    four ranks' shares.  The later share's total map (P, q), q handed on as
+    the earlier share's x0, and the earlier share's prefix from it, read
+    against a long double walk of the same rows (on the host; P through P v
+    + q, the walk from a random v), beside a float64 walk of the same rows
+    in the same order on the card (``prefix_engine.mat_affine_walk``) and
+    one on the host.  Each of the kernel's errors within ten times the card
+    walk's or 1e-10: the gate set from this check's reading (NVIDIA H100
+    80GB HBM3, 700.00 W), where the kernel read 1.9 to 6.5 times the card
+    walk's 7.5e-9 to 1.8e-8 (ROADMAP C9)."""
+    from celerite2_torch.parallel import sharded as sh
+
+    t, y = bench_data(N_MAIN, dev, torch.float64)
+    kernel = wide8(torch.tensor(THETA0, device=dev))
+    c, a, U, V = (x[None] for x in kernel.get_celerite_matrices(t, torch.full_like(t, 0.0625)))
+    _, saved = sh._loglik_forward(t, c, a, U, V, y[None], None)
+    B = N_MAIN // 4
+    rows = slice(N_MAIN - 2 * B, N_MAIN)
+    L, cv, _ = sh.pair_flow(tuple(x[:, rows] if x.dim() > 1 else x for x in saved),
+                            torch.ones(1, dtype=t.dtype, device=dev))
+    del saved
+    mid, late = (tuple(x[:, k * B:(k + 1) * B].contiguous() for x in (L, cv))
+                 for k in (0, 1))
+    v = torch.tensor(np.random.default_rng(81).normal(size=(1, L.shape[-1], 1)),
+                     device=dev)
+    P, q = _build.mat_affine_total_cuda(*late, True)
+    F = _build.mat_affine_prefix_cuda(*mid, True, x0=q.contiguous())
+    walk = pe.mat_affine_walk(L, cv, reverse=True)
+    ld = torch.tensor(_walk_host(L[0], cv[0], torch.zeros_like(v[0])).astype(np.float64))
+    ld_v = torch.tensor(_walk_host(late[0][0], late[1][0], v[0])[0].astype(np.float64))
+    host = torch.tensor(_walk_host(L[0], cv[0], torch.zeros_like(v[0]), np.float64))
+    # the float64 walk from v over the later share: x <- L_m x + c_m, rows
+    # descending
+    x = v
+    for m in range(B - 1, -1, -1):
+        x = late[0][:, m] @ x + late[1][:, m]
+    kern = {"F from x0": scaled_err(F[0], ld[:B]), "q": scaled_err(q[0], ld[B]),
+            "P v + q": scaled_err((P @ v + q)[0], ld_v)}
+    f64 = {"F from x0": scaled_err(walk[0, :B], ld[:B]), "q": scaled_err(walk[0, B], ld[B]),
+           "P v + q": scaled_err(x[0], ld_v)}
+    on_host = {"F": scaled_err(host[:B], ld[:B]), "q": scaled_err(host[B], ld[B])}
+    log("sharded", f"ma_wide on wide8's paired flow (D = {L.shape[-1]}, rows "
+        f"[{rows.start}, {rows.stop}) as two shares of {B}): relative errors against "
+        f"a long double walk {kern}, the card's float64 walk's {f64}, the host's "
+        f"float64 walk's {on_host}; the largest step map's Frobenius norm "
+        f"{torch.linalg.matrix_norm(L[0]).max().item():.3e}")
+    for name, err in kern.items():
+        assert math.isfinite(err) and err <= max(CARRY_RTOL, 10 * f64[name]), (
+            "wide8 pair flow", name, err, f64[name])
+    del L, cv, mid, late, walk
+    torch.cuda.empty_cache()
+
+
+def carry_times(dev):
+    """The modes' times at the shapes one of four ranks gives them in the
+    sharded phase's J = 4 log-likelihood (config5's mixture at N = 1e6:
+    B = 250,000 rows a rank, one chain), beside the zero-start calls of the
+    same kernels on the same inputs: the Riccati prefix with and without
+    the previous row and S0 and its total; the lower solve's matrix-affine
+    prefix (D = 4) with and without x0 and its total; and the adjoint's
+    reverse one on contracting maps of D = J^2 + 2J + 1 = 25.  Returns
+    ``(max_abs, times)`` for the kernels line (each against its plain
+    version; times (ms, plain_ms, bound_ms, bound_by))."""
+    B, J, D, H = SHARD_ROWS, 4, 25, 64
+    p, a, U, V, Y = prefix_inputs(J, H + B, 1, 1, dev, seed=7)
+    fin = tuple(x[:, H:].contiguous() for x in (p, a, U, V))
+    prev = tuple(x[:, H - 1].contiguous() for x in (a, U, V))
+    S0 = _build.riccati_prefix_cuda(*(x[:, :H].contiguous() for x in (p, a, U, V))
+                                    )[:, -1].contiguous()
+    W = _build.factor_fwd_cuda(p, a, U, V)[1]
+    A, b = (x[:, H:].contiguous() for x in assoc.solve_elements(p, U, W, Y))
+    x0 = torch.randn_like(b[:, 0])
+    rng = np.random.default_rng(3)
+    A25 = torch.tensor(rng.normal(size=(1, B, D, D)) * 0.9 / 5.0, device=dev)
+    b25 = torch.tensor(rng.normal(size=(1, B, D, 1)), device=dev)
+    x25 = torch.randn_like(b25[:, 0])
+    runs = {
+        "riccati_prefix:carry": (
+            lambda: (_build.riccati_prefix_cuda(*fin, prev=prev, S0=S0),),
+            lambda: (pe.riccati_prefix_plain(*fin, prev=prev, S0=S0),),
+            lambda: _build.riccati_prefix_cuda(*fin), (*fin, *prev, S0), J, None),
+        "riccati_total": (
+            lambda: _build.riccati_total_cuda(*fin, prev=prev),
+            lambda: pe.riccati_total_plain(*fin, prev=prev),
+            None, (*fin, *prev), J, None),
+        "mat_affine_prefix:carry": (
+            lambda: (_build.mat_affine_prefix_cuda(A, b, x0=x0),),
+            lambda: (pe.mat_affine_prefix_plain(A, b, x0=x0),),
+            lambda: _build.mat_affine_prefix_cuda(A, b), (A, b, x0), J, None),
+        "mat_affine_total": (
+            lambda: _build.mat_affine_total_cuda(A, b),
+            lambda: pe.mat_affine_total_plain(A, b), None, (A, b), J, None),
+        "mat_affine_prefix:carry D=25": (
+            lambda: (_build.mat_affine_prefix_cuda(A25, b25, True, x0=x25),),
+            lambda: (pe.mat_affine_prefix_plain(A25, b25, reverse=True, x0=x25),),
+            lambda: _build.mat_affine_prefix_cuda(A25, b25, True), (A25, b25, x25), J,
+            D),
+        "mat_affine_total D=25": (
+            lambda: _build.mat_affine_total_cuda(A25, b25, True),
+            lambda: pe.mat_affine_total_plain(A25, b25, reverse=True), None,
+            (A25, b25), J, D),
+    }
+    max_abs, times = {}, {}
+    for label, (kernel, plain, zero, inputs, J_, D_) in runs.items():
+        name = label.split(" ")[0]
+        before = _build.LAUNCHES[name]
+        got = kernel()
+        torch.cuda.synchronize()
+        per_call = _build.LAUNCHES[name] - before
+        ms = cuda_ms(kernel, reps=10, warmup=2)
+        zero_ms = cuda_ms(zero, reps=10, warmup=2) if zero is not None else None
+        want, plain_ms = timed_plain(plain)
+        err = max(scaled_err(g, w) for g, w in zip(got, want))
+        assert math.isfinite(err) and err < LONG_RTOL, (label, err)
+        bound, by = bound_ms((*inputs, *got), carry_flops(name, 1, B, J_, D_))
+        log("sharded", f"{label}: {ms:.4f} ms ({per_call} launches; the zero-start "
+            f"call {'none' if zero_ms is None else f'{zero_ms:.4f} ms'}; plain "
+            f"{plain_ms:.1f} ms, one run; bound {bound:.4f} ms by {by}) at "
+            f"B = {B}, one chain, float64; relative error against the plain "
+            f"version {err:.2e}")
+        if label == name:
+            max_abs[name] = max((g - w).abs().max().item() for g, w in zip(got, want))
+            times[name] = (ms, plain_ms, bound, by)
+        del got, want
+    return max_abs, times
+
+
+# The sharded phase's ranks: four processes on the one card, gloo between
+# them (NCCL refuses two ranks on one device); their times are one H100
+# time-shared by four ranks, not a speed-up.
+SHARD_WORLD = 4
+SHARD_N = 1_000_000  # config5's N: B = SHARD_ROWS rows a rank
+SHARD_DRAWS = 4  # the pathwise sampler's draws
+SHARD_TRAIN = dict(step_size=0.005, num_leapfrog=3)
+SHARD_HMC = dict(num_warmup=6, num_samples=4, max_leapfrog=8)
+SHARD_C = 64
+# gates against the single-rank calls on the card: the log-likelihood's value
+# and gradient, the pathwise draws, the train step and run_hmc at 1e-9;
+# tests/test_sharding.py's for the ops (:300-313), the mean at new points
+# (:556) and the variance (:510)
+SHARD_RTOL = 1e-9
+OPS_TOLS = {"d": (1e-9, 0.0), "predict_mean_at": (1e-7, 1e-9),
+            "variance": (1e-7, 1e-9)}
+# wide8's sharded theta-gradient at N = 1e5 against the single-rank card
+# route: set from sharded_readings.py (NVIDIA H100 80GB HBM3, 700.00 W; each
+# route against a long-double recursion of the value and its tangents): one
+# rank 2.15e-8, two 2.24e-8, four 9.47e-8, where the card's scan tier reads
+# 1.0e-11 and its assoc tier 4.1e-9 (J = 4: every route within 6.2e-13).
+# The digits go to the dense paired reverse flow's stiff step maps and to
+# the ranks' total maps composed over 2.5e4 such steps (ROADMAP C9); the
+# gate is three times the four-rank reading.
+J8_GRAD_RTOL = 3e-7
+
+
+def _timed_call(fn, dev):
+    """``(result, ms)`` of one call, synchronized on both ends."""
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda d: None)
+    sync(dev)
+    began = time.perf_counter()
+    out = fn()
+    sync(dev)
+    return out, 1e3 * (time.perf_counter() - began)
+
+
+def _sharded_loglik_call(mesh, model, theta, t, y, dev):
+    """One value and theta-gradient of the sharded log-likelihood after a
+    warm-up call: ``(ll, grad, ms, K6 launches, collectives)`` of the call."""
+    from celerite2_torch.parallel import comm, make_sharded_logdensity
+
+    logd = make_sharded_logdensity(model, t, y, 0.25, mesh, device=dev)
+
+    def vg():
+        th = torch.tensor(theta, device=dev, requires_grad=True)
+        ll = logd(th)
+        (g,) = torch.autograd.grad(ll, th)
+        return ll.detach(), g
+
+    vg()
+    torch.distributed.barrier()
+    reset_launches()
+    comm.COLLECTIVES.update(calls=0, bytes=0)
+    (ll, g), ms = _timed_call(vg, dev)
+    return (ll.item(), g.cpu().numpy(), ms, dict(_build.LAUNCHES),
+            dict(comm.COLLECTIVES))
+
+
+def sharded_rank(rank, world, init, payload_file, out_dir):
+    """One rank of the sharded phase (spawned; the parent built the
+    kernels): (a) the log-likelihood's value and gradient, (b) the ops,
+    (c) the pathwise sampler on a (1, world) mesh, (d) the train step on a
+    (2, world / 2) mesh and run_hmc with its chains over every rank, then
+    ``parallel.dryrun.dryrun_multichip``.  Saves what it computed, with its
+    times, launches and collectives."""
+    import datetime
+
+    import torch.distributed as dist
+    from celerite2_torch.parallel import (comm, initialize_distributed, make_mesh,
+                                          make_hmc_train_step, seq_sharding)
+    from celerite2_torch.parallel import sharded as sh
+
+    torch.set_num_threads(2)
+    p = torch.load(payload_file, weights_only=False)
+    dev = torch.device(p["device"])
+    initialize_distributed("gloo", init_method=init, world_size=world, rank=rank,
+                           timeout=datetime.timedelta(seconds=300))
+    out, ms = {}, {}
+    mesh = make_mesh(chains=1, seq=world)
+    group = mesh.seq_group
+
+    # (a) the log-likelihood: config5's mixture at N = 1e6, wide8 at 1e5
+    out["j4"] = _sharded_loglik_call(mesh, sho_mixture, THETA4, *p["j4"], dev)
+    out["j8"] = _sharded_loglik_call(mesh, wide8, THETA0, *p["j8"], dev)
+    # four ranks and the parent share the card's memory: each returns its
+    # cache between the parts
+    release = torch.cuda.empty_cache if dev.type == "cuda" else (lambda: None)
+    release()
+
+    # (b) the ops at J = 4, N = 1e5, and the predictions
+    t, y, t_new, t_var = p["ops"]
+    sl = seq_sharding(mesh, t.shape[0])
+    kernel = sho_mixture(torch.tensor(THETA4, device=dev))
+    tl = torch.tensor(t[sl], device=dev)
+    yl = torch.tensor(y[sl], device=dev)[None]
+    c, a, U, V = (x[None] for x in kernel.get_celerite_matrices(tl, torch.full_like(tl, 0.0625)))
+    (d, W, ok), ms["factor"] = _timed_call(
+        lambda: sh.sharded_factor(tl, c, a, U, V, group=group), dev)
+    ops = {"d": d, "W": W}
+    for name, fn in (
+            ("solve_lower", lambda: sh.sharded_solve_lower(tl, c, U, W, yl, group=group)),
+            ("solve_upper", lambda: sh.sharded_solve_upper(tl, c, U, W, yl, group=group)),
+            ("matmul_lower", lambda: sh.sharded_matmul_lower(tl, c, U, V, yl, group=group)),
+            ("matmul_upper", lambda: sh.sharded_matmul_upper(tl, c, U, V, yl, group=group)),
+            ("apply_inverse", lambda: sh.sharded_apply_inverse(tl, c, U, W, d, yl,
+                                                               group=group)),
+            ("dot_tril", lambda: sh.sharded_dot_tril(tl, c, U, W, d, yl, group=group))):
+        ops[name], ms[name] = _timed_call(fn, dev)
+    tn = torch.tensor(t_new, device=dev)
+    _, _, Un, Vn = (x[None] for x in kernel.get_celerite_matrices(tn, torch.zeros_like(tn)))
+    ops["predict_mean_at"], ms["predict_mean_at"] = _timed_call(
+        lambda: sh.sharded_predict_mean_at(tl, c, a, U, V, yl, tn, Un, Vn, group=group),
+        dev)
+    tv = torch.tensor(t_var, device=dev)
+    KxsT = kernel.get_value(tl[:, None] - tv[None, :])
+    k0 = kernel.get_value(torch.zeros(1, dtype=tv.dtype, device=dev))
+    ops["variance"], ms["variance"] = _timed_call(
+        lambda: sh.sharded_conditional_variance(tl, c, a, U, V, KxsT, k0, group=group), dev)
+    out["ops"] = {k: v.cpu().numpy() for k, v in ops.items()}
+    out["ok"] = bool(ok.all())
+    del ops, KxsT, d, W, c, a, U, V
+    release()
+
+    # (c) the pathwise sampler at N = 1e5, M = 1e4 with C8's jitter
+    sample = sh.make_sharded_conditional_sampler(
+        kernel, t, y, 0.25, t_new, mesh, mean=0.1, regularize=PATHWISE_JITTER["J=4"],
+        device=dev)
+    draws, ms["pathwise"] = _timed_call(
+        lambda: sample(torch.Generator().manual_seed(PATHWISE_SEED), shape=(SHARD_DRAWS,)),
+        dev)
+    out["pathwise"] = draws.cpu().numpy()
+    del sample
+    release()
+
+    # (d) the (chains, seq) train step on config3's posterior, two steps
+    mesh2 = make_mesh(chains=2, seq=world // 2)
+    t3, y3, q0 = p["train"]
+    step_fn, _ = make_hmc_train_step(sho_mixture, t3, y3, 0.2, mesh2, device=dev,
+                                     **SHARD_TRAIN)
+    C = q0.shape[0]
+    mine = slice(mesh2.chain_index * C // 2, (mesh2.chain_index + 1) * C // 2)
+    gen = torch.Generator().manual_seed(21)
+    qs = torch.tensor(q0[mine], device=dev)
+    steps = []
+    for _ in range(2):
+        (qs, acc), step_ms = _timed_call(lambda: step_fn(qs, gen), dev)
+        steps.append((qs.cpu().numpy(), acc.cpu().numpy(), step_ms))
+    out["train"] = (mine, steps)
+    del step_fn
+    release()
+
+    # run_hmc with its chains over every rank, each rank's log-density on
+    # the card alone
+    tt, yy = torch.tensor(t3, device=dev), torch.tensor(y3, device=dev)
+    res, ms["run_hmc"] = _timed_call(lambda: run_hmc(
+        config3_logpost(tt, yy), torch.tensor(q0, device=dev),
+        torch.Generator(dev).manual_seed(11), chain_group=dist.group.WORLD,
+        **SHARD_HMC), dev)
+    per = C // world
+    out["hmc"] = (slice(rank * per, (rank + 1) * per),
+                  {k: getattr(res, k).cpu().numpy() for k in res._fields})
+    # dryrun_multichip's counterpart on the same ranks: a (1, world) mesh
+    from celerite2_torch.parallel.dryrun import dryrun_multichip
+
+    out["dryrun"], ms["dryrun"] = _timed_call(lambda: dryrun_multichip(device=dev), dev)
+    out["ms"] = ms
+    torch.save(out, f"{out_dir}/rank{rank}.pt")
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def sharded_references(dev, payload):
+    """The single-rank calls on the card that the ranks are held against:
+    ``gp_loglik`` (a), the port's ops and predictions (b),
+    ``gp_sample_conditional`` on the same normals (c), the one-rank train
+    step and run_hmc on the same draws (d)."""
+    from celerite2_torch.parallel import make_hmc_train_step
+
+    refs = {}
+    for key, model, theta in (("j4", sho_mixture, THETA4), ("j8", wide8, THETA0)):
+        t, y = (torch.tensor(x, device=dev) for x in payload[key])
+        ll, g = value_and_grad(torch.tensor(theta, device=dev), t, y, model)
+        refs[key] = (ll.item(), g.cpu().numpy())
+        del t, y
+    t, y, t_new, t_var = (torch.tensor(x, device=dev) for x in payload["ops"])
+    kernel = sho_mixture(torch.tensor(THETA4, device=dev))
+    c, a, U, V = (x[None] for x in kernel.get_celerite_matrices(t, torch.full_like(t, 0.0625)))
+    tc, Y = t[None], y[None, :, None]
+    d, W = ct.ops.factor(tc, c, a, U, V)
+    lo = ct.ops.solve_lower(tc, c, U, W, Y)
+    z0 = torch.sqrt(d)[..., None] * Y
+    gp = ct.GaussianProcess(kernel, t, yerr=0.25)
+    ops = {"d": d, "W": W, "solve_lower": lo[..., 0],
+           "solve_upper": ct.ops.solve_upper(tc, c, U, W, Y)[..., 0],
+           "matmul_lower": ct.ops.matmul_lower(tc, c, U, V, Y)[..., 0],
+           "matmul_upper": ct.ops.matmul_upper(tc, c, U, V, Y)[..., 0],
+           "apply_inverse": ct.ops.solve_upper(tc, c, U, W, lo / d[..., None])[..., 0],
+           "dot_tril": (z0 + ct.ops.matmul_lower(tc, c, U, W, z0))[..., 0],
+           "predict_mean_at": gp.predict(y, t=t_new, include_mean=False)[None],
+           "variance": gp.condition(y, t=t_var).variance[None]}
+    refs["ops"] = {k: v.cpu().numpy() for k, v in ops.items()}
+    state = ct.gp_compute(kernel, t, yerr=0.25, mean=0.1)
+    refs["pathwise"] = ct.gp_sample_conditional(
+        state, kernel, y, t_new, torch.Generator().manual_seed(PATHWISE_SEED),
+        shape=(SHARD_DRAWS,), mean=0.1, regularize=PATHWISE_JITTER["J=4"]).cpu().numpy()
+    t3, y3, q0 = payload["train"]
+    step_fn, _ = make_hmc_train_step(sho_mixture, t3, y3, 0.2, None, device=dev,
+                                     **SHARD_TRAIN)
+    gen, qs, steps = torch.Generator().manual_seed(21), torch.tensor(q0, device=dev), []
+    for _ in range(2):
+        qs, acc = step_fn(qs, gen)
+        steps.append((qs.cpu().numpy(), acc.cpu().numpy()))
+    refs["train"] = steps
+    tt, yy = torch.tensor(t3, device=dev), torch.tensor(y3, device=dev)
+    res = run_hmc(config3_logpost(tt, yy), torch.tensor(q0, device=dev),
+                  torch.Generator(dev).manual_seed(11), **SHARD_HMC)
+    refs["hmc"] = {k: getattr(res, k).cpu().numpy() for k in res._fields}
+    return refs
+
+
+def _held(label, got, want, rtol, atol=0.0):
+    """``got`` against ``want`` within ``rtol`` of the latter's largest entry
+    plus ``atol``; returns the relative error."""
+    got, want = np.asarray(got, dtype=np.float64), np.asarray(want, dtype=np.float64)
+    assert got.shape == want.shape, (label, got.shape, want.shape)
+    scale = np.abs(want).max() + 1e-300
+    err = float(np.abs(got - want).max() / scale)
+    assert np.isfinite(got).all() and err <= rtol + atol / scale, (label, err, rtol)
+    return err
+
+
+def phase_sharded(dev, smi):
+    """The sharded paths (celerite2_torch.parallel) on ranks spawned by this
+    process, gloo between them, every rank on the one card: (e) first, the
+    K6 modes they run against their plain versions (``phase_carry_kernels``),
+    then (a)-(d) on SHARD_WORLD ranks (``sharded_rank``) against the
+    single-rank calls on the card (``sharded_references``).  Returns
+    ``(max_abs, times, launches)`` of the K6 modes for the kernels line, the
+    launches those of one sharded log-likelihood call (value and gradient)
+    on the last rank, where S0 and x0 enter the forward passes."""
+    began = time.perf_counter()
+    max_abs, times = phase_carry_kernels(dev)
+    log("time", f"phase_sharded (e), the K6 modes: {time.perf_counter() - began:.1f} s")
+    t4, y4 = bench_data(SHARD_N, "cpu", torch.float64)
+    t8, y8 = bench_data(N_MAIN, "cpu", torch.float64)
+    t3, y3 = config3_data(SAMPLER_N, dev)
+    q0 = THETA3 + 0.01 * np.random.default_rng(17).normal(size=(SHARD_C, 5))
+    payload = {"j4": (t4.numpy(), y4.numpy()), "j8": (t8.numpy(), y8.numpy()),
+               "ops": gp_data(N_MAIN), "train": (t3.cpu().numpy(), y3.cpu().numpy(), q0),
+               "device": str(dev)}
+    refs = sharded_references(dev, payload)
+    _timed_call(lambda: None, dev)
+    if dev.type == "cuda":  # the ranks share the card's memory
+        torch.cuda.empty_cache()
+    spawned = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        payload_file = f"{tmp}/payload.pt"
+        torch.save(payload, payload_file)
+        torch.multiprocessing.spawn(
+            sharded_rank, args=(SHARD_WORLD, f"file://{tmp}/rendezvous", payload_file, tmp),
+            nprocs=SHARD_WORLD, join=True)
+        ranks = [torch.load(f"{tmp}/rank{r}.pt", weights_only=False)
+                 for r in range(SHARD_WORLD)]
+    log("time", f"phase_sharded, {SHARD_WORLD} ranks spawned to joined: "
+        f"{time.perf_counter() - spawned:.1f} s")
+    shared = f"one {smi.split(',')[0]} time-shared by {SHARD_WORLD} ranks (gloo)"
+
+    # (a) the log-likelihood, replicated on every rank
+    k6 = ("riccati_prefix", "riccati_prefix:carry", "riccati_total",
+          "mat_affine_prefix", "mat_affine_prefix:carry", "mat_affine_total",
+          "affine_prefix")
+    for key, label, rows in (("j4", "config5's J = 4 mixture, N = 1e6", SHARD_N),
+                             ("j8", "wide8 (J = 8), N = 1e5", N_MAIN)):
+        v_ref, g_ref = refs[key]
+        for r, res in enumerate(ranks):
+            ll, g, ms, launches, coll = res[key]
+            ev = _held(f"{key} value", ll, v_ref, SHARD_RTOL)
+            eg = float(np.abs(g - g_ref).max() / np.abs(g_ref).max())
+            tol = SHARD_RTOL if key == "j4" else J8_GRAD_RTOL
+            log("sharded", f"(a) {label}, rank {r}: ll {ll:.12g} (single rank "
+                f"{v_ref:.12g}), value err {ev:.2e}, grad err {eg:.2e} (tol "
+                f"{tol}); {ms:.1f} ms a value and gradient per rank ({shared}); K6 "
+                f"launches a call {{{', '.join(f'{k}: {launches[k]}' for k in k6)}}}; "
+                f"{coll['calls']} collectives, {coll['bytes']} bytes from this rank")
+            assert eg <= tol, (key, r, eg)
+    # the last rank's: its forward passes start from S0 and x0 (rank 0's
+    # from zero, and its reverse flow from x0)
+    launches = ranks[-1]["j4"][3]
+    for name in CARRY_KERNELS:
+        # (the CPU's plain route, which a rehearsal runs, launches nothing)
+        assert launches[name] >= 1 or dev.type == "cpu", (
+            f"{name} was not launched on the sharded path")
+
+    # (b) the ops, each rank's rows put back together
+    assert all(r["ok"] for r in ranks)
+    for name, want in refs["ops"].items():
+        rtol, atol = OPS_TOLS.get(name, (1e-8, 1e-10))
+        if name in ("predict_mean_at", "variance"):
+            errs = [_held(name, r["ops"][name], want, rtol, atol) for r in ranks]
+        else:
+            errs = [_held(name, np.concatenate([r["ops"][name] for r in ranks], 1),
+                          want, rtol, atol)]
+        log("sharded", f"(b) {name} at J = 4, N = 1e5: relative error {max(errs):.2e} "
+            f"(rtol {rtol:g}, atol {atol:g}); "
+            + ", ".join(f"rank {r}: {res['ms'].get(name, res['ms']['factor']):.1f} ms"
+                        for r, res in enumerate(ranks)) + f" ({shared})")
+
+    # (c) the pathwise draws on the same normals
+    for r, res in enumerate(ranks):
+        err = _held("pathwise", res["pathwise"], refs["pathwise"], SHARD_RTOL)
+        log("sharded", f"(c) pathwise draws ({SHARD_DRAWS}), N = 1e5, M = 1e4, J = 4, "
+            f"regularize {PATHWISE_JITTER['J=4']:g}, rank {r}: relative error "
+            f"{err:.2e} against gp_sample_conditional; {res['ms']['pathwise']:.1f} ms "
+            f"({shared})")
+
+    # (d) the train step and run_hmc, each rank's chains
+    for r, res in enumerate(ranks):
+        mine, steps = res["train"]
+        for k, ((q, acc, ms), (q_ref, acc_ref)) in enumerate(zip(steps, refs["train"])):
+            err = _held("train step", q, q_ref[mine], SHARD_RTOL)
+            assert np.array_equal(acc, acc_ref[mine]), ("train accept", r, k)
+            log("sharded", f"(d) train step {k + 1} on (2, {SHARD_WORLD // 2}), config3, "
+                f"C = {SHARD_C}, rank {r} (chains {mine.start}..{mine.stop - 1}): "
+                f"relative error {err:.2e}, accepts equal; {ms:.1f} ms ({shared})")
+        mine, hmc = res["hmc"]
+        errs = []
+        for field, want in refs["hmc"].items():
+            if field in ("samples", "log_prob", "accept_prob", "diverging"):
+                want = want[mine]
+            errs.append(_held(f"run_hmc {field}", hmc[field], want, SHARD_RTOL, 1e-12))
+        log("sharded", f"(d) run_hmc over {SHARD_WORLD} ranks, C = {SHARD_C}, rank {r}: "
+            f"worst relative error {max(errs):.2e} against the single-rank run; "
+            f"{res['ms']['run_hmc']:.0f} ms ({shared})")
+    for r, res in enumerate(ranks):
+        log("sharded", f"dryrun_multichip's counterpart, rank {r}: {res['dryrun']} "
+            f"in {res['ms']['dryrun']:.0f} ms")
+    log("time", f"phase_sharded: {time.perf_counter() - began:.1f} s")
+    return max_abs, times, launches
+
+
 def phase_pathwise(dev, smi, refs, fleet_theta):
     """Posterior-predictive draws under backend="auto", float64: (a) the
     quick start at N = 1e5, M = 1e4 (J = 4 and 8) against the CPU route,
@@ -4196,14 +4897,23 @@ def main(argv=None):
         timed(phase_build)
         main_abs, times = timed(phase_kernels, dev)
         timed(phase_frev, dev)
-        # the assoc tier's kernels first: they need no CPU reference, and
-        # the general kernels' workers run meanwhile
-        for phase, phase_args in (
-                (phase_assoc_kernels, (dev,)),
-                (phase_general_kernels, (dev, grid_refs, main_refs)),
-                (phase_prefix_kernel, (dev,)),
-                (phase_adjoint_kernels, (dev, grid_refs, main_refs))):
+        # the phases that need no CPU reference first, the general kernels'
+        # workers running meanwhile: the assoc tier's kernels, then the
+        # card's paths that check themselves
+        for phase, phase_args in ((phase_assoc_kernels, (dev,)),
+                                  (phase_prefix_kernel, (dev,))):
             phase_abs, phase_times = timed(phase, *phase_args)
+            main_abs.update(phase_abs)
+            times.update(phase_times)
+        timed(phase_chains, dev)
+        timed(phase_quiet_failure, dev)
+        timed(phase_steps, dev)
+        timed(phase_profile, dev, "J = 2", sho, THETA0, 2)
+        timed(phase_profile, dev, "J = 4", sho_mixture, THETA4, 4)
+        timed(phase_profile, dev, "J = 8", wide8, THETA0, 8)
+        hmc_rate, fleet_theta = timed(phase_sampler, dev, smi)
+        for phase in (phase_general_kernels, phase_adjoint_kernels):
+            phase_abs, phase_times = timed(phase, dev, grid_refs, main_refs)
             main_abs.update(phase_abs)
             times.update(phase_times)
         for w in (*grid_refs, main_refs):
@@ -4220,16 +4930,10 @@ def main(argv=None):
         refs.stop()
         timed(phase_auto_path, dev, smi)
         timed(phase_crossover, dev, ok32)
-        timed(phase_chains, dev)
-        timed(phase_quiet_failure, dev)
-        timed(phase_steps, dev)
-        timed(phase_profile, dev, "J = 2", sho, THETA0, 2)
-        timed(phase_profile, dev, "J = 4", sho_mixture, THETA4, 4)
-        timed(phase_profile, dev, "J = 8", wide8, THETA0, 8)
-        hmc_rate, fleet_theta = timed(phase_sampler, dev, smi)
         timed(phase_nuts, dev, smi, nuts_refs, hmc_rate)
         timed(phase_terms, dev, smi, terms_refs)
         timed(phase_pathwise, dev, smi, pathwise_refs, fleet_theta)
+        carry_abs, carry_times, launches_sharded = timed(phase_sharded, dev, smi)
     finally:
         for w in workers:
             w.stop()
@@ -4260,6 +4964,16 @@ def main(argv=None):
          "bound_ms": times[name][2],
          "bound_by": times[name][3], "library_ms": None}
         for name in on_path
+    ]
+    # the K6 modes of the sharded paths: launches of one sharded
+    # log-likelihood value and gradient on the last rank of four
+    kernels += [
+        {"name": name, "route": "cuda", "source": SOURCE[key], "replaces": tpu,
+         "launches": launches_sharded[name], "max_abs_err": carry_abs[name],
+         "ms": carry_times[name][0], "plain_ms": carry_times[name][1],
+         "plain_device": "cuda", "bound_ms": carry_times[name][2],
+         "bound_by": carry_times[name][3], "library_ms": None}
+        for name, (key, tpu) in CARRY_KERNELS.items()
     ]
     for k in kernels:
         assert k["launches"] >= 1, f"{k['name']} was not launched on its path"

@@ -14,7 +14,12 @@ J = 2, 4, 8 at N = 1e5 with C = 1 and 64 chains, and J = 16, 32 at
 (``chip_smoke.solve_maps``, K = 1) at J = 4 and 8, N = 1e5, C = 1 and 64,
 and on phase B's shape (98 maps of 64 x 64, one chain), and
 ``_build.affine_prefix_cuda`` on the rectangular product's (phi, G) at
-J = 8, K = 1, N = 1e5, C = 1 and 64.
+J = 8, K = 1, N = 1e5, C = 1 and 64.  Under ``torch.profiler`` (device
+only, 10 calls) it reads the device time of each kernel that the
+matrix-affine prefix at J = 4, N = 1e5, C = 1 launches, and, where the
+checkout has them (``mat_affine_total_cuda``), of the total map and of the
+prefix from ``x0`` on contracting D = 25 maps at one rank's B = 2.5e5 rows
+in reverse (``chip_smoke.carry_times``' shapes).
 
     python3 prefix_turns.py _checkout/parent
 
@@ -71,6 +76,21 @@ def turn(root):
     bb = torch.tensor(rng.normal(size=(1, 98, 64, 1)), device=dev)
     res["mat_affine_D64_M98_C1"] = cs.cuda_ms(lambda: b.mat_affine_prefix_cuda(A, bb),
                                               reps=20)
+    A, bb = cs.solve_maps(4, 100_000, 1, dev, seed=4)
+    res["parts_mat_affine_J4_N100000_C1"] = device_parts(
+        cs, lambda: b.mat_affine_prefix_cuda(A, bb))
+    del A, bb
+    if hasattr(b, "mat_affine_total_cuda"):
+        B, D = cs.SHARD_ROWS, 25
+        A = torch.tensor(rng.normal(size=(1, B, D, D)) * 0.9 / 5.0, device=dev)
+        bb = torch.tensor(rng.normal(size=(1, B, D, 1)), device=dev)
+        x0 = torch.randn_like(bb[:, 0])
+        res["parts_mat_affine_total_D25"] = device_parts(
+            cs, lambda: b.mat_affine_total_cuda(A, bb, True))
+        res["parts_mat_affine_x0_D25"] = device_parts(
+            cs, lambda: b.mat_affine_prefix_cuda(A, bb, True, x0=x0))
+        del A, bb
+        torch.cuda.empty_cache()
     for C in (1, 64):
         t, c, _, _, V, Y = cs.wide_system(8, 100_000, C, 1, dev, seed=8)
         G = (V[..., None] * Y[..., None, :]).contiguous()
@@ -78,6 +98,19 @@ def turn(root):
         res[f"affine_J8_K1_N100000_C{C}"] = cs.cuda_ms(
             lambda: b.affine_prefix_cuda(phi, G), reps=20)
     return res
+
+
+def device_parts(cs, fn, n=10):
+    """Device ms per call of each kernel that ``fn`` launches, by the
+    kernel's function name (None where the trace holds no device time)."""
+    prof = cs.profile_calls(fn, 4, n=n, host_ops=False)
+    if prof is None:
+        return None
+    parts = {}
+    for name, (_, ms) in prof["by_name"].items():
+        key = cs.part_name(name)
+        parts[key] = parts.get(key, 0.0) + ms
+    return parts
 
 
 def main(argv=None):
