@@ -122,6 +122,17 @@ def _fleet_sum(x, group):
     return y.to(s.device)
 
 
+def _rows_of_rank(n, group, what):
+    """This rank's slice of ``n`` rows split evenly over the ranks of
+    ``group``; ``what`` names the rows in the error when they do not
+    divide."""
+    ranks, rank = dist.get_world_size(group), dist.get_rank(group)
+    if n % ranks:
+        raise ValueError(f"{what} do not divide over {ranks} ranks")
+    per = n // ranks
+    return slice(rank * per, (rank + 1) * per)
+
+
 def _fleet_mean(x, group, C):
     """The mean over the fleet's ``C`` chains (dim 0)."""
     return x.mean(dim=0) if group is None else _fleet_sum(x, group) / C
@@ -370,11 +381,7 @@ def run_hmc(
     if chain_group is not None:
         if on_retry is not None:
             raise ValueError("run_hmc: a chain group's chunks are not retried")
-        ranks, rank = dist.get_world_size(chain_group), dist.get_rank(chain_group)
-        if C_all % ranks:
-            raise ValueError(f"run_hmc: {C_all} chains do not divide over {ranks} ranks")
-        per = C_all // ranks
-        mine = slice(rank * per, (rank + 1) * per)
+        mine = _rows_of_rank(C_all, chain_group, f"run_hmc: {C_all} chains")
         q0 = q0[mine]
         if checkpoint is not None:
             checkpoint = GroupCheckpoint(checkpoint, chain_group,

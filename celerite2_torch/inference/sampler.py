@@ -15,6 +15,17 @@ a time: at ``max_depth`` 10 a chain's leaf uniforms are 1023 numbers, so a
 chunk's worth for a large fleet would not fit.  Chunks, checkpoints and
 the monitor go through :func:`celerite2_torch.inference.chunked.drive_chunks`;
 the carry holds the generator, so a resume after any chunk is bitwise.
+
+**Chains over ranks.**  ``run_nuts(..., chain_group=group)`` splits the
+fleet over the ranks of a ``torch.distributed`` group (the JAX package's
+``chain_axis``), with ``run_hmc``'s contract: every rank draws the whole
+fleet's tensors (the initial step size's normals, each transition's
+:class:`~celerite2_torch.inference.nuts.NUTSDraws`) and keeps its chains'
+rows, runs its slice and returns its chains' results.  The adaptation is
+per chain, so no statistic crosses the ranks: each rank's tree doubling
+stops when its own chains are done, with no collective inside a
+transition.  Checkpoints go through ``checkpoint.GroupCheckpoint``, and a
+chunk that raises is not retried.
 """
 
 from __future__ import annotations
@@ -25,8 +36,9 @@ import numpy as np
 import torch
 
 from celerite2_torch.inference import adapt as _adapt
+from celerite2_torch.inference.checkpoint import GroupCheckpoint
 from celerite2_torch.inference.chunked import drive_chunks
-from celerite2_torch.inference.hmc import _potential_and_grad
+from celerite2_torch.inference.hmc import _potential_and_grad, _rows_of_rank
 from celerite2_torch.inference.nuts import NUTSDraws, draw_nuts, nuts_kernel
 from celerite2_torch.utils.misc import as_tensor
 
@@ -185,17 +197,31 @@ def _run_chains(
     monitor: Optional[Callable] = None,
     dense_mass: bool = False,
     on_retry: Optional[Callable] = None,
+    chain_group=None,
 ):
-    """All chains, warmup and sampling, in segments of transitions."""
+    """All chains, warmup and sampling, in segments of transitions.  With
+    ``chain_group``, ``q0`` is the whole fleet and this rank runs its slice
+    of it (see :func:`run_nuts`)."""
     C, dim = q0.shape
     dtype = q0.dtype
+    mine = slice(None)
+    if chain_group is not None:
+        if on_retry is not None:
+            raise ValueError("run_nuts: a chain group's chunks are not retried")
+        mine = _rows_of_rank(C, chain_group, f"run_nuts: {C} chains")
+        if checkpoint is not None:
+            checkpoint = GroupCheckpoint(checkpoint, chain_group,
+                                         (mine.start, mine.stop, C))
     sched = _schedule(num_warmup, num_samples, thin)
     total = len(sched[0])
     z_eps = torch.randn((C, dim), generator=generator, dtype=dtype, device=q0.device)
-    carry = _init_carry(logdensity_fn, q0, z_eps, generator, dense_mass=dense_mass)
+    carry = _init_carry(logdensity_fn, q0[mine], z_eps[mine], generator,
+                        dense_mass=dense_mass)
 
     def segment(c, s):
-        draws = (draw_nuts(c.rng, C, dim, max_depth, dtype) for _ in s[0])
+        # the fleet's draws, this rank's rows
+        draws = (NUTSDraws(*(x[mine] for x in draw_nuts(c.rng, C, dim, max_depth, dtype)))
+                 for _ in s[0])
         return _nuts_segment(logdensity_fn, c, s, draws, max_depth=max_depth,
                              target_accept=target_accept)
 
@@ -210,7 +236,8 @@ def _run_chains(
 
     carry, outs = drive_chunks(
         segment, carry, sched, chunk_size=chunk_size, checkpoint=checkpoint,
-        monitor=monitor, stat_fn=seg_stats, on_retry=on_retry,
+        monitor=monitor, stat_fn=seg_stats,
+        max_retries=2 if chain_group is None else 0, on_retry=on_retry,
     )
     qs, logps, accs, steps, divs = (x.to(q0.device) for x in outs)
     # keep every thin-th post-warmup draw, chain-major
@@ -264,6 +291,7 @@ def run_nuts(
     monitor: Optional[Callable] = None,
     dense_mass: bool = False,
     on_retry: Optional[Callable] = None,
+    chain_group=None,
 ) -> NUTSResult:
     """Run NUTS over one chain or a fleet.
 
@@ -278,6 +306,15 @@ def run_nuts(
     chain during the slow windows; the default is the diagonal metric.
     ``chunk_size``, ``checkpoint``, ``monitor`` and ``on_retry``: see
     :func:`celerite2_torch.inference.chunked.drive_chunks`.
+    ``chain_group``: a ``torch.distributed`` group over whose ranks the C
+    chains are split evenly (the JAX package's ``chain_axis``), as in
+    :func:`~celerite2_torch.inference.hmc.run_hmc`: every rank passes the
+    whole fleet's ``init_params`` and a generator seeded alike, runs its
+    slice of the chains and gets their results (the monitor's statistics
+    are its own chains').  ``checkpoint`` is then the run's manager, the
+    same on every rank (each rank saves its chains under it, and the ranks
+    resume together); a chunk that raises is not retried, and ``on_retry``
+    is refused.
     """
     init_params = as_tensor(init_params)
     dtype, device = init_params.dtype, init_params.device
@@ -294,5 +331,5 @@ def run_nuts(
         num_samples=num_samples, max_depth=max_depth,
         target_accept=target_accept, thin=thin, chunk_size=chunk_size,
         checkpoint=checkpoint, monitor=monitor, dense_mass=dense_mass,
-        on_retry=on_retry,
+        on_retry=on_retry, chain_group=chain_group,
     )

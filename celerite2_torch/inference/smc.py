@@ -7,6 +7,18 @@ adaptively so the effective sample size stays near a target fraction.
 The stages run in a Python loop (``lax.while_loop`` in the JAX package);
 each stage draws, from the run's ``torch.Generator``, its resampling
 uniform, then the momenta, then the accept tests' uniforms.
+
+**Particles over ranks.**  ``run_smc(..., particle_group=group)`` splits the
+cloud over the ranks of a ``torch.distributed`` group (the JAX package's
+``particle_axis``).  Each rank evaluates the log-likelihood and the
+mutations' log-densities and gradients for its slice only.  In each stage
+the slices' log-likelihoods are gathered, so every rank chooses the next
+temperature and the evidence increment from the whole vector, as one
+process would, and the ranks step together; resampling gathers the cloud,
+resamples it whole with the shared uniform and keeps this rank's rows
+(the JAX package's "all_gather + local take"); the accept rate is a sum
+over the group.  Every rank draws the whole cloud's normals and uniforms
+and keeps its rows, so the run does not depend on the layout.
 """
 
 from __future__ import annotations
@@ -15,8 +27,9 @@ import math
 from typing import Callable, NamedTuple
 
 import torch
+import torch.distributed as dist
 
-from celerite2_torch.inference.hmc import _potential_and_grad
+from celerite2_torch.inference.hmc import _fleet_sum, _potential_and_grad, _rows_of_rank
 
 __all__ = ["SMCResult", "run_smc"]
 
@@ -62,6 +75,18 @@ def _find_next_beta(log_like, beta, *, target_frac=0.5, n_bisect=32):
     return torch.clamp(beta + delta, max=1.0)
 
 
+def _gather(x, group):
+    """The ranks' ``x`` joined along dim 0, in rank order (gloo takes host
+    tensors: the gather goes through the host); ``x`` itself without a
+    group."""
+    if group is None:
+        return x
+    y = x.contiguous().cpu() if dist.get_backend(group) == "gloo" else x.contiguous()
+    parts = [torch.empty_like(y) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, y, group=group)
+    return torch.cat(parts).to(x.device)
+
+
 def _hmc_mutation(particles, logdensity, eps, scales, z, u, n_steps=10):
     """One fixed-length HMC pass over all particles.
 
@@ -96,6 +121,7 @@ def run_smc(
     mutation_steps: int = 10,
     mutation_eps: float = 0.1,
     mutation_target_accept: float = 0.65,
+    particle_group=None,
 ) -> SMCResult:
     """Likelihood-tempered SMC: pi_beta ~ prior * likelihood^beta.
 
@@ -104,40 +130,54 @@ def run_smc(
     the mutation step size: each stage preconditions momenta with the
     particle cloud's per-dimension spread and nudges the step size toward
     ``mutation_target_accept`` acceptance (Robbins-Monro on log eps).
+
+    ``particle_group``: a ``torch.distributed`` group over whose ranks the
+    ``num_particles`` are split evenly (the JAX package's
+    ``particle_axis``); every rank passes a generator seeded alike and gets
+    its rows of the final cloud, and ``log_evidence``, ``n_stages``,
+    ``final_beta`` and ``mutation_eps`` equal on every rank.
     """
+    group = particle_group
+    mine = slice(None)
+    if group is not None:
+        mine = _rows_of_rank(num_particles, group,
+                             f"run_smc: {num_particles} particles")
     particles = sample_prior(generator, num_particles)
     dtype, device = particles.dtype, particles.device
     P = particles.shape[0]
+    particles = particles[mine]
     beta = torch.zeros((), dtype=dtype, device=device)
     log_Z = torch.zeros((), dtype=dtype, device=device)
     eps = torch.tensor(mutation_eps, dtype=dtype, device=device)
     stage = 0
+    # beta comes from the gathered log-likelihoods: equal on every rank
     while stage < max_stages and bool(beta < 1.0):
-        ll = log_likelihood(particles)
+        ll = _gather(log_likelihood(particles), group)
         beta_new = _find_next_beta(ll, beta, target_frac=target_ess_frac)
         lw = (beta_new - beta) * ll
         # evidence increment: log mean of incremental weights
         log_Z = log_Z + torch.logsumexp(lw, dim=0) - math.log(P)
         u_res = torch.rand((), generator=generator, dtype=dtype, device=device)
-        particles = _systematic_resample(u_res, lw, particles)
+        cloud = _systematic_resample(u_res, lw, _gather(particles, group))
         # population-preconditioned momenta: the resampled cloud's
         # per-dimension spread is a free mass-matrix estimate
-        scales = particles.std(dim=0, correction=0) + 1e-12
-        z = torch.randn(particles.shape, generator=generator, dtype=dtype, device=device)
+        scales = cloud.std(dim=0, correction=0) + 1e-12
+        particles = cloud[mine]
+        z = torch.randn(cloud.shape, generator=generator, dtype=dtype, device=device)
         u = torch.rand((P,), generator=generator, dtype=dtype, device=device)
         particles, acc = _hmc_mutation(
             particles,
             lambda q, b=beta_new: log_prior(q) + b * log_likelihood(q),
             eps,
             scales,
-            z,
-            u,
+            z[mine],
+            u[mine],
             n_steps=mutation_steps,
         )
         # per-stage step-size adaptation towards ~65% acceptance
         # (Robbins-Monro on log eps; clipped so one stage cannot jump
         # more than ~2.3x)
-        rate = acc.to(dtype).mean()
+        rate = _fleet_sum(acc.to(dtype), group) / P
         eps = eps * torch.exp(torch.clamp(rate - mutation_target_accept, -0.3, 0.3))
         beta = beta_new
         stage += 1

@@ -54,7 +54,15 @@ the K6 modes a shard runs (the prefixes from an incoming state, the total
 maps) against their plain versions, and four gloo ranks spawned on the one
 card (time-sharing it) running the sequence-sharded log-likelihood, ops,
 predictions and pathwise sampler, the (chains, seq) train step and
-``run_hmc`` over a chain group, each against the single-rank call.  The plain
+``run_hmc`` over a chain group, each against the single-rank call.  Then the
+samplers over groups on benchmarks/configs.py config4's posterior (J = 4,
+N = 400): ``run_smc`` at its 2048 particles and ``run_advi`` on the card
+(one SMC stage and the first ADVI steps against the CPU's plain route on
+numpy draws), and two gloo ranks on the card running ``run_nuts`` over a
+chain group (against the one-process config4 run of the NUTS phase) and
+``run_smc`` over a particle group (against the one-process card run).
+Last, the native CPU driver (``celerite2_torch.cpu``), built with g++ on
+the host, against the card's ``GaussianProcess`` at N = 100,000.  The plain
 references of the CPU run in worker processes started at launch.  K1 to
 K5 are also held at the edges of their blocks and tiles and
 in float32, K1 on rows that are not positive definite; K4 and K5 are timed
@@ -98,8 +106,8 @@ from celerite2_torch.ops import prefix_engine as pe
 from celerite2_torch.ops import scan
 from celerite2_torch.inference import (CheckpointManager, fit_map, run_hmc, run_nuts,
                                        summary)
-from celerite2_torch.inference import adapt, chunked
-from celerite2_torch.inference import hmc, nuts, sampler
+from celerite2_torch.inference import adapt, chunked, run_advi, run_smc
+from celerite2_torch.inference import hmc, nuts, sampler, smc
 from celerite2_torch.inference.checkpoint import to_host
 from celerite2_torch.utils.observe import sampling_monitor
 
@@ -3495,8 +3503,13 @@ def phase_sampler(dev, smi):
 # chunks from 100 to 60 (two chunks: the resume after the first reruns 20
 # transitions).
 NUTS_C, NUTS_DEPTH = 4, 8
-CONFIG2_RUN = dict(num_warmup=50, num_samples=30, chunk_size=60)
-CONFIG4_RUN = dict(num_warmup=40, num_samples=20)
+# cut from 50 + 30 in chunks of 60 to keep the script inside its 1200 s
+# once the groups phase joined it: two chunks still, so the resume after
+# the first is tested
+CONFIG2_RUN = dict(num_warmup=30, num_samples=20, chunk_size=30)
+# cut from 40 + 20 to keep the script inside its 1200 s once the groups
+# phase repeated it over a chain group
+CONFIG4_RUN = dict(num_warmup=30, num_samples=10)
 THETA2 = np.array([0.0, np.log(3.0), np.log(1.5), 0.0, 0.0])
 PRIOR4 = np.log([1.0, 1.0, 1.0, 6.0, 8.0])
 # the transitions held against the CPU: from near config2's true kernel,
@@ -3507,8 +3520,10 @@ NUTS_EPS = np.array([0.03, 0.05, 0.08, 0.12])
 # config3's posterior (phase_sampler's) as a NUTS fleet; 40 warmup
 # transitions, since with 16 the last fast window of the schedule is one
 # transition and freezes each step size near ten times the adapted one
-# (mean accept in chip runs: 0.002 with 16, 0.60 with 32, 0.82 with 40)
-NUTS_FLEET_C, NUTS_FLEET_DEPTH = 64, 6
+# (mean accept in chip runs: 0.002 with 16, 0.60 with 32, 0.82 with 40);
+# max_depth cut from 6 to 5 for the script's time: the fleet took
+# 53.65 evaluations a transition for its chains' mean 16.52 leapfrog steps
+NUTS_FLEET_C, NUTS_FLEET_DEPTH = 64, 5
 NUTS_FLEET_RUN = dict(num_warmup=40, num_samples=6)
 
 
@@ -3549,16 +3564,22 @@ def config4_data():
     return t, y
 
 
+def config4_kernel(theta):
+    """config4's model of theta (C, 5) = log[sigma, rho] of the Matern-3/2
+    term and log[sigma, rho, tau] of the SHOTerm (J = 4)."""
+    e = theta.exp()
+    return ct.Matern32Term(sigma=e[:, 0], rho=e[:, 1]) + ct.SHOTerm(
+        sigma=e[:, 2], rho=e[:, 3], tau=e[:, 4])
+
+
 def config4_logpost(t, y):
-    """config4's batched log-posterior: theta (C, 5) = log[sigma, rho] of
-    the Matern-3/2 term and log[sigma, rho, tau] of the SHOTerm -> (C,)."""
+    """config4's batched log-posterior: theta (C, 5) -> (C,), the prior
+    N(PRIOR4, I)."""
     mu = torch.tensor(PRIOR4, device=t.device)
 
     def logpost(theta):
-        e = theta.exp()
-        k = ct.Matern32Term(sigma=e[:, 0], rho=e[:, 1]) + ct.SHOTerm(
-            sigma=e[:, 2], rho=e[:, 3], tau=e[:, 4])
-        return ct.gp_loglik(k, t, y, yerr=0.15) - 0.5 * ((theta - mu) ** 2).sum(-1)
+        return (ct.gp_loglik(config4_kernel(theta), t, y, yerr=0.15)
+                - 0.5 * ((theta - mu) ** 2).sum(-1))
 
     return logpost
 
@@ -3605,17 +3626,19 @@ def fleet_evaluations(num_steps, D):
 
 
 class TransitionLog:
-    """In place of ``sampler.nuts_kernel``: each transition's counts and
-    its chains' leapfrog steps (left on the device until the run ends)."""
+    """In place of ``sampler.nuts_kernel``: each transition's counts, its
+    chains' leapfrog steps and positions (left on the device until the run
+    ends)."""
 
     def __init__(self):
-        self.counts, self.steps = [], []
+        self.counts, self.steps, self.q = [], [], []
 
     def __call__(self, *args, **kwargs):
         kwargs["counts"] = counts = {}
         out = nuts.nuts_kernel(*args, **kwargs)
         self.counts.append(counts)
         self.steps.append(out[2].num_steps)
+        self.q.append(out[0])
         return out
 
 
@@ -3701,7 +3724,9 @@ def phase_nuts(dev, smi, nuts_refs, hmc_rate):
     then run_nuts in chunks with a checkpoint and its bitwise resume;
     config4 likewise, shorter; config3's posterior as a fleet of 64 chains
     beside ``hmc_rate``, run_hmc's evals/s on the same posterior and chains
-    in :func:`phase_sampler`; a profile of two of the fleet's transitions."""
+    in :func:`phase_sampler`; a profile of two of the fleet's transitions.
+    Returns config4's run (its start, result, and each transition's leapfrog
+    steps and positions) for :func:`phase_groups`."""
     began = time.perf_counter()
 
     def lap(step):
@@ -3779,6 +3804,11 @@ def phase_nuts(dev, smi, nuts_refs, hmc_rate):
     report_nuts_run(f"config4, N = 400, C = {NUTS_C}, max_depth {NUTS_DEPTH}, "
                     f"{CONFIG4_RUN}", res4, evals4, transitions4, wall4, NUTS_DEPTH,
                     dict(_build.LAUNCHES), smi)
+    # what phase_groups holds the chain group's run against
+    config4_run = {"init": fit4.params.cpu().numpy(), "wall": wall4,
+                   "evals": evals4.calls, "result": as_numpy(res4._asdict()),
+                   "steps": torch.stack(transitions4.steps).cpu().numpy(),
+                   "q": torch.stack(transitions4.q).cpu().numpy()}
     lap("config4")
 
     # step 4: config3's posterior as a fleet, beside run_hmc
@@ -3845,7 +3875,7 @@ def phase_nuts(dev, smi, nuts_refs, hmc_rate):
         f"{host_ms:.3f} ms on the host outside gp_loglik's value and gradient ({smi})")
     if prof is None or one is None:
         log("nuts", f"profile: no device events in the trace: not measured ({smi})")
-        return
+        return config4_run
     per_step = prof["kernels_per_eval"] / steps
     gp_per_step = one["kernels_per_eval"]
     own_ms = (prof["busy_ms"] - steps * one["busy_ms"]) / steps
@@ -3856,6 +3886,7 @@ def phase_nuts(dev, smi, nuts_refs, hmc_rate):
         f"{prof['idle_share']:.3f}, under the profiler; NUTS's own {own_ms:.4f} ms "
         f"a step); one value and gradient alone: busy {one['busy_ms']:.3f} ms, idle "
         f"share {one['idle_share']:.3f} ({smi})")
+    return config4_run
 
 
 # ------------------------------------------------------------ the terms
@@ -4854,6 +4885,459 @@ def phase_sharded(dev, smi):
     return max_abs, times, launches
 
 
+# ------------------------------------------------------------ the groups
+
+# run_nuts over a chain group and run_smc over a particle group on
+# GROUPS_WORLD gloo ranks spawned as phase_sharded spawns them, every rank on
+# the one card; SMC and ADVI on config4's posterior in one process
+# (benchmarks/configs.py config4: run_smc with 2048 particles and 10
+# mutation steps, :335-341; run_advi with 8 draws a step, of which 300 of
+# its 2000 steps run here, :319)
+GROUPS_WORLD = 2
+GROUPS_RTOL = 1e-9
+SMC_P, SMC_MUTATION, SMC_SEED = 2048, 10, 4
+# the particles of the stage's mutation held against the CPU route, whose
+# value and gradient take 2.6 s at 256 particles and 24 s at 2048 (one
+# CPU thread, N = 400)
+SMC_HELD = 256
+# the particle group against the one-process run: tests/test_sharding.py's
+# tolerances (:199-207)
+SMC_EVIDENCE_RTOL, SMC_PARTICLES = 1e-8, dict(rtol=1e-6, atol=1e-9)
+ADVI_STEPS, ADVI_HELD, ADVI_MC = 300, 20, 8
+# a third float64 route (the card's) may lie further from the CPU's plain
+# route than the CPU's general route does: its mutated particles read 2.16
+# times that distance in a chip run; ten times it, as the sharded phase
+# holds ma_wide against a walk in another order (C9)
+SPREAD_FACTOR = 10
+
+
+def config4_smc(t, y):
+    """config4's posterior split as run_smc takes it: the log-prior
+    N(PRIOR4, I) and its draws, and the log-likelihood (config4_logpost's
+    gp_loglik), each batched."""
+    mu = torch.tensor(PRIOR4, device=t.device)
+
+    def log_prior(q):
+        return -0.5 * ((q - mu) ** 2).sum(-1)
+
+    def log_like(q):
+        return ct.gp_loglik(config4_kernel(q), t, y, yerr=0.15)
+
+    def sample_prior(gen, n):
+        return mu + torch.randn((n, 5), generator=gen, dtype=torch.float64,
+                                device=gen.device)
+
+    return log_prior, log_like, sample_prior
+
+
+def config4_general_loglik(t, y):
+    """config4's log-likelihood through ``ops.factor_solve`` and its adjoint
+    (the general route) in place of gp_loglik's fused one: a second float64
+    route on the CPU, whose distance from the first says how many digits
+    config4's model keeps at given parameters."""
+    diag = torch.full_like(t, 0.15**2)
+
+    def log_like(q):
+        c, a, U, V = config4_kernel(q).get_celerite_matrices(t, diag)
+        C, N = c.shape[0], t.shape[-1]
+        d, _, z = ct.ops.factor_solve(t.expand(C, N), c, a, U, V, y.expand(C, N)[..., None])
+        return -0.5 * (torch.log(d).sum(-1) + (z[..., 0] ** 2 / d).sum(-1)
+                       + N * math.log(2 * math.pi))
+
+    return log_like
+
+
+def smc_stage(t, y, ll=None, log_like=None):
+    """One SMC stage of config4 on t's device, on draws from numpy (seed
+    5): SMC_P particles of the prior and their log-likelihoods (by
+    ``log_like``, config4_smc's by default); the next temperature from 0 and
+    the systematic resampling with a given uniform, both from ``ll`` (numpy)
+    where given, else from the log-likelihoods just computed; one mutation
+    of SMC_MUTATION leapfrog steps on given momenta and uniforms of the
+    first SMC_HELD resampled particles (the whole cloud's spread as the
+    scales).  As numpy."""
+    dev = t.device
+    log_prior, own, _ = config4_smc(t, y)
+    log_like = own if log_like is None else log_like
+    rng = np.random.default_rng(5)
+    q = torch.tensor(PRIOR4 + rng.normal(size=(SMC_P, 5)), device=dev)
+    u_res = torch.tensor(rng.uniform(), device=dev)
+    z = torch.tensor(rng.normal(size=(SMC_HELD, 5)), device=dev)
+    u = torch.tensor(rng.uniform(size=SMC_HELD), device=dev)
+    with torch.no_grad():
+        values = log_like(q)
+    ll = values if ll is None else torch.tensor(ll, device=dev)
+    beta = smc._find_next_beta(ll, torch.zeros((), dtype=torch.float64, device=dev))
+    q = smc._systematic_resample(u_res, beta * ll, q)
+    scales = q.std(dim=0, correction=0) + 1e-12
+    q1, acc = smc._hmc_mutation(q[:SMC_HELD], lambda x: log_prior(x) + beta * log_like(x),
+                                0.1, scales, z, u, n_steps=SMC_MUTATION)
+    return as_numpy({"ll": values, "beta": beta, "resampled": q, "mutated": q1,
+                     "accept": acc})
+
+
+def advi_draws():
+    """The ADVI run's standard normals, (ADVI_STEPS, ADVI_MC, 5), seed 6."""
+    return np.random.default_rng(6).normal(size=(ADVI_STEPS, ADVI_MC, 5))
+
+
+def advi_run(t, y, init, steps, log_like=None):
+    """run_advi on config4's posterior (its log-likelihood by ``log_like``,
+    gp_loglik's by default) from ``init`` for ``steps`` steps of
+    :func:`advi_draws`, on t's device: (result as numpy, seconds)."""
+    if log_like is None:
+        logpost = config4_logpost(t, y)
+    else:
+        mu = torch.tensor(PRIOR4, device=t.device)
+
+        def logpost(theta):
+            return log_like(theta) - 0.5 * ((theta - mu) ** 2).sum(-1)
+    draws = torch.tensor(advi_draws()[:steps], device=t.device)
+    init = torch.tensor(init, device=t.device)
+    res, ms = _timed_call(lambda: run_advi(logpost, init, draws, num_steps=steps,
+                                           num_mc_samples=ADVI_MC), t.device)
+    return as_numpy(res._asdict()), ms / 1e3
+
+
+def groups_references(init):
+    """What phase_groups holds the card's SMC stage and ADVI run against,
+    on the CPU's plain route: :func:`smc_stage`, and run_advi from ``init``
+    (the card's MAP of config4) for ADVI_HELD steps; and the same through
+    the general route on the same inputs, whose distance from the first is
+    the float64 spread of config4's model there."""
+    torch.set_num_threads(4)
+    t, y = config4_data()
+    stage = smc_stage(t, y)
+    general = config4_general_loglik(t, y)
+    return {"smc_stage": stage,
+            "smc_stage general": smc_stage(t, y, ll=stage["ll"], log_like=general),
+            "advi": advi_run(t, y, init, ADVI_HELD)[0],
+            "advi general": advi_run(t, y, init, ADVI_HELD, log_like=general)[0]}
+
+
+def launched(launches, where, dev):
+    """Every kernel of the sampler's path launched at least once (the CPU's
+    plain route, which a rehearsal runs, launches nothing)."""
+    for k in SAMPLER_KERNELS:
+        assert launches[k] >= 1 or dev.type == "cpu", (where, k, launches)
+
+
+def in_batches(fn, parts):
+    """``fn`` of a batch (B, dim) -> (B,) evaluated on ``parts`` equal
+    slices of its input in turn, joined: the batches that the ranks of a
+    group of ``parts`` evaluate."""
+
+    def batched(q):
+        return torch.cat([fn(x) for x in q.chunk(parts)])
+
+    return batched
+
+
+def smc_run(t, y, batches=1, **kw):
+    """run_smc on config4's posterior at SMC_P particles (generator seeded
+    SMC_SEED on t's device), the log-likelihood evaluated in ``batches``
+    slices of the cloud, its calls counted and the launches from 0:
+    (result as numpy, counted calls, launches, seconds)."""
+    log_prior, log_like, sample_prior = config4_smc(t, y)
+    counted = CountedCalls(log_like if batches == 1 else in_batches(log_like, batches))
+    reset_launches()
+    res, ms = _timed_call(lambda: run_smc(
+        log_prior, counted, sample_prior, torch.Generator(t.device).manual_seed(SMC_SEED),
+        num_particles=SMC_P, mutation_steps=SMC_MUTATION, **kw), t.device)
+    return as_numpy(res._asdict()), counted.calls, dict(_build.LAUNCHES), ms / 1e3
+
+
+def groups_rank(rank, world, init, payload_file, out_dir):
+    """One rank of the groups phase (spawned; the parent built the
+    kernels): (a) config4's run_nuts with its chains over every rank, each
+    transition logged, (b) config4's run_smc with its particles over every
+    rank; each with its launches from 0 and its seconds."""
+    import datetime
+
+    import torch.distributed as dist
+    from celerite2_torch.parallel import initialize_distributed
+
+    torch.set_num_threads(2)
+    p = torch.load(payload_file, weights_only=False)
+    dev = torch.device(p["device"])
+    initialize_distributed("gloo", init_method=init, world_size=world, rank=rank,
+                           timeout=datetime.timedelta(seconds=300))
+    group = dist.group.WORLD
+    t, y = (torch.tensor(x, device=dev) for x in p["data"])
+    out = {}
+    reset_launches()
+    res, counted, transitions, wall = nuts_run(
+        config4_logpost(t, y), p["init"], dev, NUTS_C, NUTS_DEPTH, CONFIG4_RUN,
+        chain_group=group)
+    out["nuts"] = {"result": as_numpy(res._asdict()), "evals": counted.calls,
+                   "wall": wall, "launches": dict(_build.LAUNCHES),
+                   "steps": torch.stack(transitions.steps).cpu().numpy(),
+                   "q": torch.stack(transitions.q).cpu().numpy()}
+    dist.barrier()
+    out["smc"] = smc_run(t, y, particle_group=group)
+    torch.save(out, f"{out_dir}/rank{rank}.pt")
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def hold_chain_group(rank, got, want, chains):
+    """A rank's config4 run over the chain group against a one-process run's
+    chains ``chains``.  Per chain, its departure: the first transition where
+    its tree size differs or its draw is more than GROUPS_RTOL from the
+    one-process run's (every draw before it is within GROUPS_RTOL by that
+    definition).  Without a departure, the whole result is held at
+    GROUPS_RTOL too.  Returns (worst error before the departures, {chain:
+    (departure, first transition whose tree size differs or None)}, {chain:
+    each transition's error})."""
+    steps, q = want["steps"][:, chains], want["q"][:, chains]
+    T = steps.shape[0]
+    worst, departed, curves = 0.0, {}, {}
+    for c in range(steps.shape[1]):
+        chain = chains.start + c
+        errs = np.abs(got["q"][:, c] - q[:, c]).max(-1) / np.abs(q[:, c]).max()
+        other = np.flatnonzero(got["steps"][:, c] != steps[:, c])
+        off = np.flatnonzero(errs > GROUPS_RTOL)
+        d = min(int(off[0]) if off.size else T, int(other[0]) if other.size else T)
+        if d:
+            worst = max(worst, float(errs[:d].max()))
+        curves[chain] = errs
+        if d < T:
+            departed[chain] = (d, int(other[0]) if other.size else None)
+    if not departed:
+        for field, value in want["result"].items():
+            value = value[chains]
+            if field in ("num_steps", "diverging"):
+                assert np.array_equal(got["result"][field], value), (rank, field)
+            else:
+                worst = max(worst, _held(f"run_nuts {field}", got["result"][field],
+                                         value, GROUPS_RTOL))
+    return worst, departed, curves
+
+
+def phase_groups(dev, smi, config4_run, refs):
+    """The samplers over groups, on config4's posterior (J = 4: K1, K2, K4,
+    K5 through gp_loglik): SMC in one process on the card; ADVI on the
+    card; GROUPS_WORLD gloo ranks on the card (``groups_rank``) running
+    run_nuts over a chain group and run_smc over a particle group, each held
+    against the one-process card run that evaluates the same batches (run
+    beside the ranks), and set beside phase_nuts's run and the plain SMC
+    run; last, one SMC stage's pieces and the first ADVI_HELD ADVI steps
+    against the CPU's plain route (``refs``, a worker's, read last so that
+    it runs beside the rest)."""
+    began = time.perf_counter()
+    t, y = (x.to(dev) for x in config4_data())
+    one, calls, launches, wall = smc_run(t, y)
+    n_stages = int(one["n_stages"])
+    assert float(one["final_beta"]) == 1.0 and np.isfinite(one["particles"]).all()
+    launched(launches, "run_smc", dev)
+    log("groups", f"(b) run_smc, config4, P = {SMC_P}, one process: {n_stages} stages, "
+        f"log_evidence {float(one['log_evidence']):.10g}, mutation eps "
+        f"{float(one['mutation_eps']):.4g}, posterior mean "
+        f"{np.round(one['particles'].mean(0), 4).tolist()}; {wall:.2f} s, "
+        f"{1e3 * wall / n_stages:.1f} ms a stage, {calls} log-likelihood calls "
+        f"({n_stages} values, {calls - n_stages} values and gradients) of {SMC_P} "
+        f"particles, {calls / wall:.2f} calls/s; launches a call "
+        + ", ".join(f"{k} {launches[k] / calls:.2f}" for k in SAMPLER_KERNELS)
+        + f" ({smi})")
+
+    reset_launches()
+    advi, advi_s = advi_run(t, y, config4_run["init"], ADVI_STEPS)
+    launches = dict(_build.LAUNCHES)
+    launched(launches, "run_advi", dev)
+    assert np.isfinite(advi["elbo_trace"]).all()
+    log("groups", f"(c) run_advi, config4, {ADVI_MC} draws a step from the MAP, "
+        f"{ADVI_STEPS} of 2000 steps: {1e3 * advi_s / ADVI_STEPS:.2f} ms a step; ELBO "
+        f"{advi['elbo_trace'][0]:.4f} -> {advi['elbo_trace'][-1]:.4f}, mean "
+        f"{np.round(advi['mean'], 4).tolist()}, sd "
+        f"{np.round(np.exp(advi['log_sigma']), 4).tolist()}; launches a step "
+        + ", ".join(f"{k} {launches[k] / ADVI_STEPS:.2f}" for k in SAMPLER_KERNELS)
+        + f" ({smi})")
+    held, _ = advi_run(t, y, config4_run["init"], ADVI_HELD)
+
+    # the ranks run beside this process, which runs the same runs evaluating
+    # the log-density in the batches the ranks evaluate (GROUPS_WORLD slices
+    # of the fleet or the cloud): the card sums a batch of 2 chains in
+    # another order than a batch of 4, and config4's float64 gradient keeps
+    # about 1e-9 (its fused and general routes on the CPU differ by 2.7e-9),
+    # which the trajectories grow; so each group run is held against the
+    # one-process run of the same batches, and against phase_nuts's run and
+    # the plain one-process SMC run above, whose departures are reported
+    payload = {"device": str(dev), "data": as_numpy(config4_data()),
+               "init": config4_run["init"]}
+    if dev.type == "cuda":  # the ranks share the card's memory
+        torch.cuda.empty_cache()
+    spawned = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        payload_file = f"{tmp}/payload.pt"
+        torch.save(payload, payload_file)
+        context = torch.multiprocessing.spawn(
+            groups_rank, args=(GROUPS_WORLD, f"file://{tmp}/rendezvous", payload_file, tmp),
+            nprocs=GROUPS_WORLD, join=False)
+        res, _, transitions, _ = nuts_run(
+            in_batches(config4_logpost(t, y), GROUPS_WORLD), config4_run["init"], dev,
+            NUTS_C, NUTS_DEPTH, CONFIG4_RUN, on_retry=refuse_retry)
+        batched = {"result": as_numpy(res._asdict()),
+                   "steps": torch.stack(transitions.steps).cpu().numpy(),
+                   "q": torch.stack(transitions.q).cpu().numpy()}
+        one_batched = smc_run(t, y, batches=GROUPS_WORLD)[0]
+        while not context.join():
+            pass
+        ranks = [torch.load(f"{tmp}/rank{r}.pt", weights_only=False)
+                 for r in range(GROUPS_WORLD)]
+    log("time", f"phase_groups, {GROUPS_WORLD} ranks spawned to joined (the batched "
+        f"one-process runs beside them): {time.perf_counter() - spawned:.1f} s")
+    shared = f"one {smi.split(',')[0]} time-shared by {GROUPS_WORLD} ranks (gloo)"
+
+    # (a) run_nuts over the chain group
+    per = NUTS_C // GROUPS_WORLD
+    for r, res in enumerate(ranks):
+        got = res["nuts"]
+        chains = slice(r * per, (r + 1) * per)
+        launched(got["launches"], ("chain group", r), dev)
+        worst, departed, _ = hold_chain_group(r, got, batched, chains)
+        assert not departed, (r, departed)
+        _, parted, curves = hold_chain_group(r, got, config4_run, chains)
+        marks = [m for m in (0, 4, 9, 14, 19, 29, 39, 49, 59) if m < len(curves[chains.start])]
+        log("groups", f"(a) run_nuts, config4, C = {NUTS_C} over {GROUPS_WORLD} ranks, "
+            f"rank {r} (chains {chains.start}..{chains.stop - 1}), max_depth "
+            f"{NUTS_DEPTH}, {CONFIG4_RUN}: against the one-process run of the same "
+            f"batches, every transition's tree size equal and the whole result within "
+            f"tol, worst error {worst:.2e} (tol {GROUPS_RTOL:g}); against phase_nuts's "
+            f"run (batches of {NUTS_C}): " + ("; ".join(
+                f"chain {c} past tol at transition {d + 1}, tree sizes first differ at "
+                f"{'none' if o is None else o + 1}" for c, (d, o) in parted.items())
+                or "no chain departs")
+            + f"; its draw errors at transitions {[m + 1 for m in marks]}: " + "; ".join(
+                f"chain {c} " + ", ".join(f"{curves[c][m]:.1e}" for m in marks)
+                for c in curves) + f"; {got['evals']} evals in {got['wall']:.2f} s, "
+            f"{got['evals'] / got['wall']:.2f} evals/s a rank (one process, 4 chains: "
+            f"{config4_run['evals'] / config4_run['wall']:.2f}); launches a call "
+            + ", ".join(f"{k} {got['launches'][k] / got['evals']:.2f}"
+                        for k in SAMPLER_KERNELS) + f" ({shared})")
+
+    # (b) run_smc over the particle group
+    for r, res in enumerate(ranks):
+        got, calls, launches, wall = res["smc"]
+        launched(launches, ("particle group", r), dev)
+        mine = slice(r * SMC_P // GROUPS_WORLD, (r + 1) * SMC_P // GROUPS_WORLD)
+        errs = {}
+        for label, want in (("the same batches", one_batched), (f"batches of {SMC_P}", one)):
+            stages = int(want["n_stages"]) == int(got["n_stages"])
+            ev, eps = (abs(float(got[k]) - float(want[k])) / abs(float(want[k]))
+                       for k in ("log_evidence", "mutation_eps"))
+            ep = float(np.abs(got["particles"] - want["particles"][mine]).max())
+            errs[label] = (stages, ev, eps, ep)
+        assert int(got["n_stages"]) == int(one_batched["n_stages"]), r
+        for field in ("final_beta", "mutation_eps", "log_evidence"):
+            np.testing.assert_allclose(got[field], one_batched[field],
+                                       rtol=SMC_EVIDENCE_RTOL, err_msg=field)
+        np.testing.assert_allclose(got["particles"], one_batched["particles"][mine],
+                                   **SMC_PARTICLES)
+        log("groups", f"(b) run_smc, config4, P = {SMC_P} over {GROUPS_WORLD} ranks, "
+            f"rank {r} ({SMC_P // GROUPS_WORLD} particles), {int(got['n_stages'])} "
+            f"stages: against the one-process run of " + "; of ".join(
+                f"{label}: stages {'equal' if st else 'differ'}, log_evidence "
+                f"{ev:.2e}, mutation_eps {ee:.2e} (relative), particles {ep:.2e} "
+                f"(absolute)" for label, (st, ev, ee, ep) in errs.items())
+            + f" (gates on the first: evidence rtol {SMC_EVIDENCE_RTOL:g}, particles "
+            f"rtol {SMC_PARTICLES['rtol']:g}, atol {SMC_PARTICLES['atol']:g}); "
+            f"{wall:.2f} s, {1e3 * wall / n_stages:.1f} ms a stage, "
+            f"{calls / wall:.2f} log-likelihood calls/s a rank; launches a call "
+            + ", ".join(f"{k} {launches[k] / calls:.2f}" for k in SAMPLER_KERNELS)
+            + f" ({shared})")
+
+    # the card against the CPU route on the same draws, each within 1e-9 or
+    # SPREAD_FACTOR times the distance of the CPU's two float64 routes on
+    # the same inputs, where config4's model keeps fewer digits (far prior
+    # draws: the routes' log-likelihoods 7.9e-8 apart, relative to the
+    # largest, on the CPU)
+    waited = time.perf_counter()
+    want = refs.get()
+    waited = time.perf_counter() - waited
+    stage = smc_stage(t, y, ll=want["smc_stage"]["ll"])
+
+    def held_within_spread(label, got, cpu, general):
+        spread = float(np.abs(general - cpu).max() / np.abs(cpu).max())
+        tol = max(GROUPS_RTOL, SPREAD_FACTOR * spread)
+        return _held(label, got, cpu, tol), spread, tol
+
+    errs = {k: held_within_spread(f"smc stage {k}", stage[k], want["smc_stage"][k],
+                                  want["smc_stage general"][k])
+            for k in ("ll", "mutated")}
+    errs.update({k: (_held(f"smc stage {k}", stage[k], want["smc_stage"][k], GROUPS_RTOL),
+                     None, GROUPS_RTOL) for k in ("beta", "resampled")})
+    assert np.array_equal(stage["accept"], want["smc_stage"]["accept"])
+    log("groups", f"(b) one SMC stage of config4 on numpy draws, P = {SMC_P} (the "
+        f"mutation's {SMC_MUTATION} leapfrog steps on {SMC_HELD} of them; the "
+        f"temperature, resampling and mutation from the CPU's log-likelihoods): card "
+        f"against the CPU route " + ", ".join(
+            f"{k} {e:.2e} (" + ("" if sp is None else f"the CPU routes' spread {sp:.2e}, ")
+            + f"tol {tol:.2e})" for k, (e, sp, tol) in errs.items())
+        + f"; accepts equal ({int(stage['accept'].sum())} of {SMC_HELD}); beta "
+        f"{float(stage['beta']):.6g} ({smi})")
+    errs = {k: held_within_spread(f"advi {k}", held[k], want["advi"][k],
+                                  want["advi general"][k])
+            for k in ("mean", "log_sigma", "elbo_trace")}
+    errs["elbo_trace of the long run"] = held_within_spread(
+        "advi elbo_trace", advi["elbo_trace"][:ADVI_HELD], want["advi"]["elbo_trace"],
+        want["advi general"]["elbo_trace"])
+    log("groups", f"(c) run_advi, card against the CPU route on the same draws, first "
+        f"{ADVI_HELD} steps: " + ", ".join(
+            f"{k} {e:.2e} (spread {sp:.2e}, tol {tol:.2e})"
+            for k, (e, sp, tol) in errs.items())
+        + f"; the CPU worker waited for {waited:.1f} s ({smi})")
+    log("time", f"phase_groups: {time.perf_counter() - began:.1f} s")
+
+
+def phase_cpu_driver(dev, smi):
+    """The native CPU driver (``celerite2_torch.cpu``), built with g++ on
+    the card machine's host: ``NumpyGaussianProcess`` on bench.py's data at
+    N = 1e5 for config5's J = 4 mixture and wide8 (J = 8), its
+    log-likelihood and predictive mean at M = 1e4 held against the card's
+    GaussianProcess at 1e-9 relative in float64, and its ms a call on the
+    host beside the card's."""
+    from celerite2_torch.cpu import NumpyGaussianProcess, bindings
+
+    began = time.perf_counter()
+    lib = bindings.build()
+    log("cpu_driver", f"g++ {' '.join(bindings.GXX_FLAGS)}: {lib.name} in "
+        f"{time.perf_counter() - began:.2f} s")
+    cpu = "not read"
+    with open("/proc/cpuinfo") as f:
+        for line in f:
+            if line.startswith("model name"):
+                cpu = line.split(":", 1)[1].strip()
+                break
+    host = f"host CPU {cpu}, one thread; card {smi}"
+    t, y, t_new, _ = gp_data(N_MAIN)
+    for label, model, theta in (("config5's J = 4 mixture", sho_mixture, THETA4),
+                                ("wide8 (J = 8)", wide8, THETA0)):
+        card_ms, host_ms = {}, {}
+        gp, card_ms["compute"] = _timed_call(
+            lambda: ct.GaussianProcess(model(torch.tensor(theta, device=dev)), t,
+                                       yerr=0.25, mean=0.1), dev)
+        ll, card_ms["log_likelihood"] = _timed_call(lambda: gp.log_likelihood(y), dev)
+        mu, card_ms["predict M=1e4"] = _timed_call(lambda: gp.predict(y, t=t_new), dev)
+        kernel = model(torch.tensor(theta))
+        began = time.perf_counter()
+        npgp = NumpyGaussianProcess(kernel, t, yerr=0.25, mean=0.1)
+        host_ms["compute"] = 1e3 * (time.perf_counter() - began)
+        began = time.perf_counter()
+        ll_host = npgp.log_likelihood(y)
+        host_ms["log_likelihood"] = 1e3 * (time.perf_counter() - began)
+        began = time.perf_counter()
+        mu_host = npgp.predict(y, t=t_new)
+        host_ms["predict M=1e4"] = 1e3 * (time.perf_counter() - began)
+        e_ll = _held("cpu driver log_likelihood", ll_host, ll.item(), GROUPS_RTOL)
+        e_mu = _held("cpu driver predict", mu_host, mu.cpu().numpy(), GROUPS_RTOL)
+        log("cpu_driver", f"{label}, N = {N_MAIN}: NumpyGaussianProcess against the card's "
+            f"GaussianProcess, log_likelihood {e_ll:.2e}, predictive mean at M = 1e4 "
+            f"{e_mu:.2e} (tol {GROUPS_RTOL:g}); ms a call on the host "
+            + ", ".join(f"{k} {v:.1f}" for k, v in host_ms.items())
+            + "; on the card " + ", ".join(f"{k} {v:.1f}" for k, v in card_ms.items())
+            + f" ({host})")
+
+
 def phase_pathwise(dev, smi, refs, fleet_theta):
     """Posterior-predictive draws under backend="auto", float64: (a) the
     quick start at N = 1e5, M = 1e4 (J = 4 and 8) against the CPU route,
@@ -4912,16 +5396,21 @@ def main(argv=None):
         timed(phase_profile, dev, "J = 4", sho_mixture, THETA4, 4)
         timed(phase_profile, dev, "J = 8", wide8, THETA0, 8)
         hmc_rate, fleet_theta = timed(phase_sampler, dev, smi)
-        for phase in (phase_general_kernels, phase_adjoint_kernels):
-            phase_abs, phase_times = timed(phase, dev, grid_refs, main_refs)
-            main_abs.update(phase_abs)
-            times.update(phase_times)
-        for w in (*grid_refs, main_refs):
-            w.stop()
+        carry_abs, carry_times, launches_sharded = timed(phase_sharded, dev, smi)
+        phase_abs, phase_times = timed(phase_general_kernels, dev, grid_refs, main_refs)
+        main_abs.update(phase_abs)
+        times.update(phase_times)
+        # the general kernels' references are in: the later phases' workers
+        # start beside the adjoint kernels' phase
         nuts_refs = CpuReferences(nuts_references)
         terms_refs = CpuReferences(terms_references, TERMS_N)
         pathwise_refs = CpuReferences(pathwise_references)
         workers += [nuts_refs, terms_refs, pathwise_refs]
+        phase_abs, phase_times = timed(phase_adjoint_kernels, dev, grid_refs, main_refs)
+        main_abs.update(phase_abs)
+        times.update(phase_times)
+        for w in (*grid_refs, main_refs):
+            w.stop()
         launches = timed(phase_main_path, dev)
         launches4 = timed(phase_main_path_j4, dev)
         launches8 = timed(phase_gp_path, dev, smi, refs)
@@ -4930,10 +5419,15 @@ def main(argv=None):
         refs.stop()
         timed(phase_auto_path, dev, smi)
         timed(phase_crossover, dev, ok32)
-        timed(phase_nuts, dev, smi, nuts_refs, hmc_rate)
+        config4_run = timed(phase_nuts, dev, smi, nuts_refs, hmc_rate)
+        # the CPU route of the groups phase's SMC stage and ADVI runs, from
+        # the MAP that phase_nuts found
+        groups_refs = CpuReferences(groups_references, config4_run["init"])
+        workers.append(groups_refs)
         timed(phase_terms, dev, smi, terms_refs)
         timed(phase_pathwise, dev, smi, pathwise_refs, fleet_theta)
-        carry_abs, carry_times, launches_sharded = timed(phase_sharded, dev, smi)
+        timed(phase_groups, dev, smi, config4_run, groups_refs)
+        timed(phase_cpu_driver, dev, smi)
     finally:
         for w in workers:
             w.stop()
