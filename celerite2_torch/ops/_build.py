@@ -7,10 +7,11 @@ library's name carries a hash of the sources and flags, so an edited
 source is rebuilt, and a process that builds at the same time as another
 never loads a half-written file.
 
-Each wrapper checks its tensors (CUDA, one device, float32 or float64,
-contiguous, the expected shapes), allocates the outputs with
-``torch.empty``, launches on the current stream without synchronising,
-raises if the launch failed, and counts the launch in :data:`LAUNCHES`.
+Each wrapper checks its tensors (CUDA, one device, float32 or float64
+(the layout kernels float32 only), contiguous, the expected shapes),
+allocates the outputs with ``torch.empty``, launches on the current
+stream without synchronising, raises if the launch failed, and counts the
+launch in :data:`LAUNCHES`.
 """
 
 from __future__ import annotations
@@ -50,6 +51,8 @@ __all__ = [
     "mat_affine_block_len",
     "mat_affine_prefix_cuda",
     "mat_affine_total_cuda",
+    "slab_transpose_cuda",
+    "slab_inverse_cuda",
 ]
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -86,6 +89,8 @@ LAUNCHES = {
     "mat_affine_prefix": 0,
     "mat_affine_prefix:carry": 0,
     "mat_affine_total": 0,
+    "slab_transpose": 0,
+    "slab_inverse": 0,
 }
 
 # The celerite widths J each kernel is built for (csrc/fused_loglik.cu;
@@ -243,6 +248,11 @@ def _library():
         lib.c2t_mat_affine_work.restype = ctypes.c_longlong
         lib.c2t_mat_affine_group.argtypes = [I]
         lib.c2t_mat_affine_group.restype = I
+        # (x, y, E, rows, columns, stream): csrc/slab_layout.cu
+        for name in ("c2t_slab_transpose", "c2t_slab_inverse"):
+            fn = getattr(lib, name)
+            fn.argtypes = [P, P, I, I, I, P]
+            fn.restype = I
         _lib = lib
     return _lib
 
@@ -799,3 +809,53 @@ def mat_affine_total_cuda(A, b, reverse=False, block_len=None):
     _launch_general("mat_affine_total", None, (A, b), (P, q, work),
                     (C, M, D, K, L, int(reverse)), launched=ctypes.c_int(0))
     return P, q
+
+
+def _slab_planes(name, t, ndim):
+    """Check a float32 batch of planes for the layout kernels."""
+    _check(name, (t,), (tuple(t.shape),))
+    if t.dtype != torch.float32:
+        raise TypeError(f"{name}: float32 only, got {t.dtype}")
+    if t.dim() != ndim or t.numel() == 0:
+        raise ValueError(f"{name}: expected a non-empty {ndim}-d tensor, got "
+                         f"shape {tuple(t.shape)}")
+
+
+def _launch_layout(name, src, dst, E, R, C):
+    """Launch ``c2t_<name>`` (csrc/slab_layout.cu): each of the E planes
+    ``(R, C)`` of ``src`` transposed into ``dst``, a thread block a 32 x 32
+    tile of a plane; count it."""
+    if -(-R // 32) * -(-C // 32) >= 2**31 or max(E, R, C) >= 2**31:
+        raise ValueError(f"{name}: planes ({E}, {R}, {C}) are too large")
+    lib = _library()
+    with torch.cuda.device(src.device):
+        stream = torch.cuda.current_stream(src.device).cuda_stream
+        rc = getattr(lib, f"c2t_{name}")(src.data_ptr(), dst.data_ptr(), E, R, C,
+                                         stream)
+    LAUNCHES[name] += 1
+    if rc != 0:
+        raise RuntimeError(f"{name}: kernel launch failed (CUDA error {rc})")
+
+
+def slab_transpose_cuda(x, s):
+    """K15 on the card: the float32 planes ``x (E, TOT, LP)`` transposed,
+    ``y (E, LP, s, TOT // s)`` with ``y[e, l, i, j] = x[e, i * (TOT // s) +
+    j, l]`` (the fused slab's layout at TOT = s * 128).  One launch."""
+    _slab_planes("slab_transpose", x, 3)
+    E, TOT, LP = x.shape
+    if s < 1 or TOT % s:
+        raise ValueError(f"slab_transpose: {TOT} rows do not split into s = {s}")
+    y = torch.empty(E, LP, s, TOT // s, dtype=x.dtype, device=x.device)
+    _launch_layout("slab_transpose", x, y, E, TOT, LP)
+    return y
+
+
+def slab_inverse_cuda(y):
+    """K16 on the card: the float32 planes ``y (E, LP, s, W)`` back in rows,
+    ``x (E, s * W, LP)``, the inverse of :func:`slab_transpose_cuda`.  One
+    launch."""
+    _slab_planes("slab_inverse", y, 4)
+    E, LP, s, W = y.shape
+    x = torch.empty(E, s * W, LP, dtype=y.dtype, device=y.device)
+    _launch_layout("slab_inverse", y, x, E, LP, s * W)
+    return x

@@ -62,7 +62,10 @@ numpy draws), and two gloo ranks on the card running ``run_nuts`` over a
 chain group (against the one-process config4 run of the NUTS phase) and
 ``run_smc`` over a particle group (against the one-process card run).
 Last, the native CPU driver (``celerite2_torch.cpu``), built with g++ on
-the host, against the card's ``GaussianProcess`` at N = 100,000.  The plain
+the host, against the card's ``GaussianProcess`` at N = 100,000, and the
+layout probe (``celerite2_torch.probes.transpose``): its kernels K15 and K16,
+float32, exactly against their plain versions, timed beside PyTorch's
+transpose and a copy, and the probe's path at N = 100,000.  The plain
 references of the CPU run in worker processes started at launch.  K1 to
 K5 are also held at the edges of their blocks and tiles and
 in float32, K1 on rows that are not positive definite; K4 and K5 are timed
@@ -80,6 +83,7 @@ exits with status 1 and prints no result.
 """
 
 import argparse
+import itertools
 import json
 import math
 import multiprocessing
@@ -102,6 +106,7 @@ from celerite2_torch.ops import assoc
 from celerite2_torch.ops import dispatch
 from celerite2_torch.ops import elements as el
 from celerite2_torch.ops import fused_loglik as fl
+from celerite2_torch.ops import layout
 from celerite2_torch.ops import prefix_engine as pe
 from celerite2_torch.ops import scan
 from celerite2_torch.inference import (CheckpointManager, fit_map, run_hmc, run_nuts,
@@ -109,6 +114,7 @@ from celerite2_torch.inference import (CheckpointManager, fit_map, run_hmc, run_
 from celerite2_torch.inference import adapt, chunked, run_advi, run_smc
 from celerite2_torch.inference import hmc, nuts, sampler, smc
 from celerite2_torch.inference.checkpoint import to_host
+from celerite2_torch.probes import transpose as layout_probe
 from celerite2_torch.utils.observe import sampling_monitor
 
 # the kernels of the fused log-likelihood: (plain version, wrapper)
@@ -386,7 +392,7 @@ def phase_build():
     lib = _build.build()
     seconds = time.perf_counter() - start
     log("build", f"{lib.name} ready in {seconds:.1f} s")
-    name, spills, fused, ric = "?", "?", [], []
+    name, spills, fused, ric, slab = "?", "?", [], [], {}
     for line in lib.with_suffix(".log").read_text().splitlines():
         if line.startswith("build_seconds"):
             log("build", f"nvcc took {line.split()[1]} s")
@@ -396,12 +402,16 @@ def phase_build():
             name = (f"{m[1]}<{'double' if m[2] == 'd' else 'float'}"
                     + (f", {family[1]}" if family else "")
                     + (f", J={width[1]}>" if width else ">"))
+        elif m := re.search(r"(slab_[a-z]+)_kernelE", line):
+            name = f"{m[1]}<float>"
         elif "spill stores" in line:
             spills = line.split(",")[1].strip()
             if name.split("<")[0] in FUSED_KERNELS:
                 fused.append((name, spills))
             elif name.startswith("ric_"):
                 ric.append((name, spills))
+            elif name.startswith("slab_"):
+                slab[name] = spills
         elif m := re.search(r"Used (\d+) registers", line):
             log("build", f"{name}: {m[1]} registers, {spills}")
     assert len(fused) == FUSED_KERNEL_COUNT, (
@@ -416,6 +426,9 @@ def phase_build():
     log("build", f"the Riccati and Kalman prefixes: {len(ric)} kernels (three "
         "phases at J = 1, 2, 4, five at J = 8, 16, 32; both families, float "
         "and double), 0 bytes spilled")
+    assert sorted(slab) == ["slab_inverse<float>", "slab_transpose<float>"], (
+        f"layout kernels in the build log: {sorted(slab)}")
+    assert all(sp.startswith("0 bytes") for sp in slab.values()), slab
 
 
 # kernels of each system kind: J = 1 RealTerm, 2 SHOTerm, 3 RealTerm +
@@ -5338,6 +5351,150 @@ def phase_cpu_driver(dev, smi):
             + f" ({host})")
 
 
+# The layout probe's kernels (csrc/slab_layout.cu): the TPU kernel each
+# replaces.  Held exactly against their plain versions at the probe's
+# planes for these N and at general planes (E, TOT, LP, s): whole 32 x 32
+# tiles, and tiles cut at both edges.
+LAYOUT_TPU = {"slab_transpose": "benchmarks/probe_transpose_tpu.py:119",
+              "slab_inverse": "benchmarks/probe_transpose_tpu.py:144"}
+LAYOUT_N = (1, 8, 5000, 8192, 8193, 100_000, 1_000_000)
+LAYOUT_GENERAL = ((3, 160, 96, 5), (3, 150, 70, 3))
+LAYOUT_TIMED = (100_000, 1_000_000)
+# evaluations a call of the probe's path (its default)
+LAYOUT_CHAIN = 400
+# the probe's arms that sum all twelve planes, in float32 in another order
+# each: they agree within float32 rounding of 60 000 terms of the sum
+LAYOUT_VAL_RTOL = 2e-4
+
+
+def queued_ms(fn, reps, sleep_cycles=20_000_000):
+    """Device milliseconds a call of ``fn`` takes when calls run back to
+    back: ``reps`` calls queued behind a sleeping kernel, CUDA events around
+    them, so that the host's launch time stays out of a kernel of a few
+    microseconds.  The sleep is lengthened until the host has queued every
+    call before the card reaches the first event."""
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(6):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(sleep_cycles)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        ahead = not start.query()
+        torch.cuda.synchronize()
+        if ahead:
+            return start.elapsed_time(end) / reps
+        sleep_cycles *= 4
+    raise RuntimeError("queued_ms: the host could not queue the calls ahead of the card")
+
+
+def phase_layout(dev, smi):
+    """The layout probe's kernels K15 (``slab_transpose``) and K16
+    (``slab_inverse``), float32: (a) each against its plain version on the
+    card, exactly (a transpose moves bits), and the round trip against its
+    input, at the probe's planes for :data:`LAYOUT_N` and at
+    :data:`LAYOUT_GENERAL`; (b) at N = 1e5 and 1e6, each kernel's device
+    ms beside its bound (bytes), its plain version, the PyTorch call that
+    computes the same (``transpose(1, 2).contiguous()``) and a device copy
+    of the same bytes, each timed by :func:`queued_ms` with its inputs
+    rotated past the L2 (cold reads); (c) the probe's path,
+    ``probes.transpose.main(1e5, 400)``, whose K15 and K16 layouts must equal
+    PyTorch's transpose and its input bit for bit.  Returns each kernel's
+    largest error, its times at N = 1e5 and its launches on the path."""
+    gen = torch.Generator(device=dev).manual_seed(0)
+    worst = dict.fromkeys(LAYOUT_TPU, 0.0)
+    shapes = [(layout_probe.E, g.TOT, g.LP, g.s)
+              for g in map(layout_probe.SlabGeometry, LAYOUT_N)]
+    for E, TOT, LP, s in shapes + list(LAYOUT_GENERAL):
+        x = torch.randn(E, TOT, LP, device=dev, generator=gen)
+        y = _build.slab_transpose_cuda(x, s)
+        z = _build.slab_inverse_cuda(y)
+        checks = (("slab_transpose", y, layout.slab_transpose_plain(x, s)),
+                  ("slab_inverse", z, layout.slab_inverse_plain(y)),
+                  ("round trip", z, x))
+        for name, got, want in checks:
+            assert got.shape == want.shape, (name, tuple(got.shape), tuple(want.shape))
+            err = (got - want).abs().max().item()
+            assert torch.equal(got, want), (name, (E, TOT, LP, s), err)
+            if name in worst:
+                worst[name] = max(worst[name], err)
+    log("layout", f"K15 and K16 equal to their plain versions bit for bit, and "
+        f"the round trip to its input, at (E, TOT, LP, s) = "
+        + ", ".join(map(str, shapes + list(LAYOUT_GENERAL))))
+
+    times = {}
+    l2 = torch.cuda.get_device_properties(dev).L2_cache_size
+    for N in LAYOUT_TIMED:
+        g = layout_probe.SlabGeometry(N)
+        E = layout_probe.E
+        nbytes = 2 * E * g.TOT * g.LP * 4
+        bound, by = bytes_or_ops(nbytes, 0, torch.float32)
+        # inputs (x, y = K15(x), a copy's target) in as many sets as keep
+        # each call's reads out of the L2: between two calls on one set the
+        # calls on the others move twice the L2's bytes
+        sets = []
+        for _ in range(-(-2 * l2 // nbytes) + 1):
+            x = torch.randn(E, g.TOT, g.LP, device=dev, generator=gen)
+            sets.append((x, _build.slab_transpose_cuda(x, g.s), torch.empty_like(x)))
+
+        def cold(fn, reps):
+            turn = itertools.cycle(sets)
+            return queued_ms(lambda: fn(*next(turn)), reps)
+
+        copy = cold(lambda x, y, into: into.copy_(x), 100)
+        calls = {
+            "slab_transpose": (lambda x, y, into: _build.slab_transpose_cuda(x, g.s),
+                               lambda x, y, into: layout.slab_transpose_plain(x, g.s),
+                               lambda x, y, into: x.transpose(1, 2).contiguous()),
+            "slab_inverse": (lambda x, y, into: _build.slab_inverse_cuda(y),
+                             lambda x, y, into: layout.slab_inverse_plain(y),
+                             lambda x, y, into: y.view(E, g.LP, g.TOT).transpose(1, 2)
+                             .contiguous()),
+        }
+        for name, (kernel, plain, library) in calls.items():
+            t = {"ms": cold(kernel, 100), "plain_ms": cold(plain, 10),
+                 "library_ms": cold(library, 100), "copy_ms": copy,
+                 "bound_ms": bound, "bound_by": by}
+            times[name, N] = t
+            log("layout", f"{name} at N = {N} ({E}, {g.TOT}, {g.LP}) float32: "
+                f"{t['ms']:.4f} ms, bound {bound:.4f} ({by}), transpose(1, 2)."
+                f"contiguous() {t['library_ms']:.4f}, copy_ {copy:.4f}, plain "
+                f"{t['plain_ms']:.4f} (device ms a call, queued back to back, "
+                f"inputs rotated over {len(sets)} sets past the {l2 / 2**20:.0f} "
+                f"MiB L2; {smi})")
+        del sets
+
+    reset_launches()
+    began = time.perf_counter()
+    run = layout_probe.main(N_MAIN, LAYOUT_CHAIN, device=dev)
+    torch.cuda.synchronize()
+    launches = {name: _build.LAUNCHES[name] for name in LAYOUT_TPU}
+    seconds = time.perf_counter() - began
+    lay, arms = run["layouts"], run["arms"]
+    assert torch.equal(lay["cuda-T"], lay["torch-T2d (batched 2d)"]), "cuda-T layout"
+    assert torch.equal(lay["cuda round trip"], lay["natural"]), "cuda round trip layout"
+    assert arms["cuda-T"]["launches"] == {"slab_transpose": 1.0, "slab_inverse": 0.0}, arms
+    assert arms["cuda round trip"]["launches"] == {"slab_transpose": 1.0,
+                                                   "slab_inverse": 1.0}, arms
+    want = arms["stack only"]["val"]
+    for label, reading in arms.items():
+        assert math.isfinite(reading["val"]), (label, reading)
+        if label != "noop (2-plane sum)":
+            rel = abs(reading["val"] - want) / abs(want)
+            assert rel < LAYOUT_VAL_RTOL, (label, reading["val"], want)
+    log("layout", f"probes.transpose.main({N_MAIN}, {LAYOUT_CHAIN}) in {seconds:.1f} s "
+        f"(layouts of cuda-T and the round trip bit for bit; values within "
+        f"{LAYOUT_VAL_RTOL:g} of the stack's; ms an eval from a CUDA graph's "
+        f"replay): " + "; ".join(
+            f"{label} {r['ms']:.4f} ms/eval (K15 {r['launches']['slab_transpose']:g}, "
+            f"K16 {r['launches']['slab_inverse']:g} an eval)" for label, r in arms.items())
+        + f"; launches on the path {launches} ({smi})")
+    return worst, {name: times[name, N_MAIN] for name in LAYOUT_TPU}, launches
+
+
 def phase_pathwise(dev, smi, refs, fleet_theta):
     """Posterior-predictive draws under backend="auto", float64: (a) the
     quick start at N = 1e5, M = 1e4 (J = 4 and 8) against the CPU route,
@@ -5428,6 +5585,7 @@ def main(argv=None):
         timed(phase_pathwise, dev, smi, pathwise_refs, fleet_theta)
         timed(phase_groups, dev, smi, config4_run, groups_refs)
         timed(phase_cpu_driver, dev, smi)
+        layout_abs, layout_times, launches_layout = timed(phase_layout, dev, smi)
     finally:
         for w in workers:
             w.stop()
@@ -5468,6 +5626,18 @@ def main(argv=None):
          "plain_device": "cuda", "bound_ms": carry_times[name][2],
          "bound_by": carry_times[name][3], "library_ms": None}
         for name, (key, tpu) in CARRY_KERNELS.items()
+    ]
+    # the layout probe's kernels: launches on its path, main(1e5, 400)
+    kernels += [
+        {"name": name, "route": "cuda", "source": "celerite2_torch/csrc/slab_layout.cu",
+         "replaces": tpu, "launches": launches_layout[name],
+         "max_abs_err": layout_abs[name], "ms": layout_times[name]["ms"],
+         "plain_ms": layout_times[name]["plain_ms"], "plain_device": "cuda",
+         "bound_ms": layout_times[name]["bound_ms"],
+         "bound_by": layout_times[name]["bound_by"],
+         "library_ms": layout_times[name]["library_ms"],
+         "copy_ms": layout_times[name]["copy_ms"]}
+        for name, tpu in LAYOUT_TPU.items()
     ]
     for k in kernels:
         assert k["launches"] >= 1, f"{k['name']} was not launched on its path"

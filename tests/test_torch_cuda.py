@@ -14,6 +14,8 @@ import celerite2_torch as ct
 from celerite2_torch.ops import _build
 from celerite2_torch.ops import fused_loglik as fl
 from celerite2_torch.ops import scan
+from celerite2_torch.ops import layout
+from celerite2_torch.probes import transpose as layout_probe
 
 pytestmark = pytest.mark.cuda
 
@@ -1152,3 +1154,37 @@ def test_auto_routes_by_the_measured_rule(cuda):
         before = _build.LAUNCHES[kernel]
         ops.factor(t, c, a, U, V)
         assert _build.LAUNCHES[kernel] > before, (J, N, kernel)
+
+
+# K15 and K16 at the probe's planes for these N (chip_smoke.py phase
+# "layout"), and at general planes (E, TOT, LP, s): whole 32 x 32 tiles,
+# and tiles cut at both edges
+LAYOUT_SHAPES = [(layout_probe.E, g.TOT, g.LP, g.s) for g in map(
+    layout_probe.SlabGeometry, (1, 8, 5000, 8192, 8193, 100_000, 1_000_000))] + [
+    (3, 160, 96, 5), (3, 150, 70, 3)]
+
+
+@pytest.mark.parametrize("E, TOT, LP, s", LAYOUT_SHAPES)
+def test_layout_kernels_match_plain(cuda, E, TOT, LP, s):
+    """K15 and K16 against their plain versions, exactly (a transpose moves
+    bits), and the round trip against its input; one launch each."""
+    x = torch.randn(E, TOT, LP, device=cuda, generator=torch.Generator(cuda).manual_seed(E + TOT))
+    before = {k: _build.LAUNCHES[k] for k in ("slab_transpose", "slab_inverse")}
+    y = _build.slab_transpose_cuda(x, s)
+    z = _build.slab_inverse_cuda(y)
+    torch.cuda.synchronize()
+    assert torch.equal(y, layout.slab_transpose_plain(x, s))
+    assert torch.equal(z, layout.slab_inverse_plain(y))
+    assert torch.equal(z, x)
+    assert {k: _build.LAUNCHES[k] - n for k, n in before.items()} == {
+        "slab_transpose": 1, "slab_inverse": 1}
+
+
+def test_layout_kernels_refuse_what_they_do_not_take(cuda):
+    with pytest.raises(TypeError, match="float32"):
+        _build.slab_transpose_cuda(torch.zeros(4, 128, 128, dtype=torch.float64,
+                                               device=cuda), 1)
+    with pytest.raises(ValueError, match="contiguous"):
+        _build.slab_transpose_cuda(torch.zeros(4, 128, 128, device=cuda).transpose(1, 2), 1)
+    with pytest.raises(ValueError, match="split"):
+        _build.slab_transpose_cuda(torch.zeros(4, 130, 128, device=cuda), 4)
